@@ -1,0 +1,64 @@
+#!/usr/bin/env python
+"""CLI driver with the flags of ``iaf_tpu/cli.py``:
+
+    python -m iaf_torch.cli --logdir /tmp/iaf --mode eval_test
+
+``--mode eval_test|eval_train`` runs the importance-weighted eval on the
+EMA weights of the newest checkpoint in ``--logdir``. The other modes are
+not ported yet and raise, naming the ROADMAP item that brings them.
+``--num_gpus`` is accepted for command-line parity and ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from iaf_torch import train_lib
+from iaf_torch.core.config import resolve_config
+
+_NOT_YET = {
+    "train": "ROADMAP queue 1, items 5-6 (optimizer, train step and loop)",
+    "eval_loop": "ROADMAP queue 1, item 7 (eval_loop)",
+    "sample": "ROADMAP queue 1, item 9 (sampling)",
+    "recon": "ROADMAP queue 1, item 9 (reconstruction)",
+    "invert_check": "ROADMAP queue 1, item 9 (inversion)",
+    "export": "ROADMAP queue 1, item 11 (export)",
+}
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--logdir", type=str, default="/tmp/iaf_tpu")
+    p.add_argument("--hpconfig", type=str, default="",
+                   help="comma-separated k=v hyperparameter overrides")
+    p.add_argument("--mode", type=str, default="train",
+                   choices=["train", "eval_train", "eval_test", "eval_loop",
+                            "sample", "recon", "invert_check", "export"])
+    p.add_argument("--export_platforms", type=str, default="")
+    p.add_argument("--num_gpus", type=int, default=None,
+                   help="reference-CLI parity; ignored")
+    p.add_argument("--num_samples", type=int, default=16)
+    p.add_argument("--max_batches", type=int, default=None,
+                   help="cap eval batches (eval_* modes)")
+    p.add_argument("--temperature", type=str, default="1.0")
+    p.add_argument("--profile_dir", type=str, default="")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu (the plain twins)")
+    args = p.parse_args(argv)
+
+    cfg = resolve_config(args.logdir, args.hpconfig, mode=args.mode)
+    if args.mode in _NOT_YET:
+        raise NotImplementedError(
+            f"--mode {args.mode} is not ported to iaf_torch yet: "
+            f"{_NOT_YET[args.mode]}")
+    if cfg.dataset == "cifar10":
+        from iaf_torch.data.datasets import real_data_available
+        found = real_data_available(cfg.dataset, cfg.data_dir)
+        print(f"[data] real cifar10 found at {found}" if found else
+              "[data] no real cifar10 on disk -> synthetic fallback")
+    train_lib.evaluate(cfg, mode=args.mode, max_batches=args.max_batches,
+                       device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,315 @@
+"""ResNet VAE with deep IAF posteriors, the CIFAR-10 model
+(``iaf_tpu/models/cvae.py``).
+
+x/256 - 0.5 -> stride-2 weight-norm stem -> ``num_blocks * depth`` IAF
+layers bottom-up (posterior stats + context), then top-down from the
+learned ``h_top`` (prior, posterior sample, IAF step, free-bits KL,
+residual decode) -> stride-2 deconv -> discretized-logistic likelihood
+with the scalar ``dec_log_stdv``. Activations are NHWC; layer i of the
+flat stack is JAX's ``block_{i // depth}/layer_{i % depth}``.
+
+On CUDA the eval/train forward runs the AR net of every IAF step through
+K1, the division-form update through K3 and the likelihood through K4
+(``iaf_torch.ops``); on CPU tensors the same calls run the twins. The
+data-dependent init runs plain convs, as JAX's init never reaches Pallas.
+
+Noise: every layer's posterior draw comes from the site
+``block_i/layer_j/z_post`` under the step key (``core.rng``), or from the
+``noise`` dict when it holds that site.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from iaf_torch import ops
+from iaf_torch.bridge import to_torch_layout
+from iaf_torch.core.config import Config
+from iaf_torch.core.rng import fold_name, generator, site_normal
+from iaf_torch.distributions import DiagonalGaussian, compute_lowerbound
+from iaf_torch.nn.layers import (ARMultiConv2d, WNConv2d, WNDeconv2d,
+                                 compute_dtype)
+
+LOG2 = math.log(2.0)
+
+
+class LayerStats(NamedTuple):
+    qz_mean: torch.Tensor
+    qz_logsd: torch.Tensor
+    up_context: torch.Tensor
+
+
+class ModelOut(NamedTuple):
+    loss: torch.Tensor          # scalar training objective (mean nats/ex)
+    elbo_nats: torch.Tensor     # [B] negative k-sample IW bound
+    bits_per_dim: torch.Tensor  # scalar
+    kl_obj: torch.Tensor        # scalar mean free-bits KL
+    kl_cost: torch.Tensor       # scalar mean raw KL
+    log_pxz: torch.Tensor       # scalar mean reconstruction term
+    log_w: torch.Tensor         # [B*k] log importance weights
+    x_out: torch.Tensor         # decoded means, NHWC
+    kl_per_layer: torch.Tensor  # [L] mean raw KL per layer, bottom-up
+
+
+def _split(x: torch.Tensor, sizes) -> list[torch.Tensor]:
+    out, start = [], 0
+    for s in sizes:
+        out.append(x[..., start:start + s])
+        start += s
+    return out
+
+
+def layer_names(cfg: Config) -> list[str]:
+    return [f"block_{i}/layer_{j}"
+            for i in range(cfg.num_blocks) for j in range(cfg.depth)]
+
+
+class IAFLayer(nn.Module):
+    """Parameters of one stochastic layer (``IAFLayer``)."""
+
+    def __init__(self, cfg: Config, device=None):
+        super().__init__()
+        zs, hs = cfg.z_size, cfg.h_size
+        ks = (cfg.kernel_size, cfg.kernel_size)
+        self.up_conv1 = WNConv2d(hs, 2 * zs + 2 * hs, ks,
+                                 init_scale=cfg.stat_init_scale, device=device)
+        self.up_conv3 = WNConv2d(hs, hs, ks, device=device)
+        self.down_conv1 = WNConv2d(hs, 4 * zs + 2 * hs, ks,
+                                   init_scale=cfg.stat_init_scale,
+                                   device=device)
+        if cfg.flow == "iaf":
+            if cfg.ar_kind != "conv":
+                raise NotImplementedError(
+                    "ar_kind=dense (the MNIST MADE flow) is not ported yet")
+            self.ar1 = ARMultiConv2d(
+                zs, [cfg.ar_hidden] * cfg.depth_ar, [zs, zs], ks,
+                trim_rows=cfg.ar_row_trim, merge_heads=cfg.merge_ar_heads,
+                device=device)
+        self.down_conv2 = WNConv2d(zs + hs, hs, ks, device=device)
+
+
+class CVAE(nn.Module):
+    """All parameters of the CIFAR model, named after the JAX scopes."""
+
+    def __init__(self, cfg: Config, device=None):
+        super().__init__()
+        if cfg.likelihood != "dlogistic":
+            raise NotImplementedError("the MNIST family is not ported yet")
+        sks = (cfg.stem_kernel_size, cfg.stem_kernel_size)
+        self.x_enc = WNConv2d(cfg.channels, cfg.h_size, sks, stride=(2, 2),
+                              device=device)
+        self.blocks = nn.ModuleList(
+            [IAFLayer(cfg, device) for _ in range(cfg.num_blocks * cfg.depth)])
+        self.h_top = nn.Parameter(torch.zeros(cfg.h_size, device=device))
+        self.x_dec = WNDeconv2d(cfg.h_size, cfg.channels, sks, stride=(2, 2),
+                                device=device)
+        self.dec_log_stdv = nn.Parameter(torch.zeros((), device=device))
+
+
+def _conv(conv, x, dtype, init):
+    return conv.init_forward(x) if init else conv(x, dtype)
+
+
+def iaf_layer_up(cfg: Config, layer: IAFLayer, h: torch.Tensor, dtype=None,
+                 init: bool = False):
+    """Bottom-up pass of one stochastic layer (``IAFLayer.up``)."""
+    zs, hs = cfg.z_size, cfg.h_size
+    x = _conv(layer.up_conv1, F.elu(h), dtype, init)
+    qz_mean, qz_logsd, up_context, hidden = _split(x, [zs, zs, hs, hs])
+    hidden = _conv(layer.up_conv3, F.elu(hidden), dtype, init)
+    return h + 0.1 * hidden, LayerStats(qz_mean, qz_logsd, up_context)
+
+
+def iaf_flow(cfg: Config, layer: IAFLayer, z, context, logqs, dtype=None,
+             init: bool = False):
+    """One IAF step: masked AR net -> (m, s) heads scaled by 0.1 ->
+    invertible update, the log-det-Jacobian folded into ``logqs``."""
+    if init:
+        m, s = layer.ar1.init_forward(z, context)
+    else:
+        m, s = layer.ar1(z, context, dtype)
+    m = m * 0.1
+    s = s * 0.1
+    if cfg.flow_update == "division":
+        if init:
+            return (z - m) * torch.exp(-s), logqs + s
+        return ops.iaf_update(z.contiguous(), m.contiguous(), s.contiguous(),
+                              logqs.contiguous())
+    if cfg.flow_update == "gate":
+        gate = torch.sigmoid(s + cfg.gate_forget_bias)
+        z = gate * z + (1.0 - gate) * m
+        return z, logqs - F.logsigmoid(s + cfg.gate_forget_bias)
+    raise ValueError(f"unknown flow_update {cfg.flow_update!r}")
+
+
+def iaf_layer_down(cfg: Config, layer: IAFLayer, h, stats: LayerStats,
+                   eps: torch.Tensor, dtype=None, init: bool = False):
+    """Top-down pass of one stochastic layer (``IAFLayer.down``) with the
+    posterior drawn from standard-normal ``eps``. Returns (new h, kl_obj
+    per example, kl_cost per example)."""
+    zs, hs = cfg.z_size, cfg.h_size
+    x = _conv(layer.down_conv1, F.elu(h), dtype, init)
+    pz_mean, pz_logsd, rz_mean, rz_logsd, down_context, h_det = _split(
+        x, [zs, zs, zs, zs, hs, hs])
+    prior = DiagonalGaussian(pz_mean, 2.0 * pz_logsd)
+    posterior = DiagonalGaussian(stats.qz_mean + rz_mean,
+                                 2.0 * (stats.qz_logsd + rz_logsd))
+    z = posterior.sample(eps)
+    logqs = posterior.logps(z)
+    if cfg.flow == "iaf":
+        context = stats.up_context + down_context
+        z, logqs = iaf_flow(cfg, layer, z, context, logqs, dtype, init)
+    kl_cost = logqs - prior.logps(z)           # [B, H, W, zs]
+    batch = h.shape[0]
+    if cfg.kl_min > 0:
+        # free bits: per-channel KL summed over space, averaged over the
+        # batch, clamped at kl_min (enters the training objective only)
+        kl_ave = torch.mean(torch.sum(kl_cost, dim=(1, 2)), dim=0,
+                            keepdim=True)
+        kl_ave = torch.clamp(kl_ave, min=cfg.kl_min)
+        kl_obj = torch.sum(kl_ave.expand(batch, zs), dim=1)
+    else:
+        kl_obj = torch.sum(kl_cost, dim=(1, 2, 3))
+    kl_cost = torch.sum(kl_cost, dim=(1, 2, 3))
+    hidden = F.elu(torch.cat([z, h_det], dim=-1))
+    hidden = _conv(layer.down_conv2, hidden, dtype, init)
+    return h + 0.1 * hidden, kl_obj, kl_cost
+
+
+def _images(x, device) -> torch.Tensor:
+    x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+    return x.to(device=device, dtype=torch.float32) / 256.0 - 0.5
+
+
+def _eps(cfg, rng, i, shape, device, noise):
+    site = f"{layer_names(cfg)[i]}/z_post"
+    key = fold_name(fold_name(rng, layer_names(cfg)[i]), "z_post")
+    return site_normal(key, site, shape, device, noise)
+
+
+def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
+                 k: int | None = None,
+                 noise: Mapping[str, torch.Tensor] | None = None) -> ModelOut:
+    """Full forward pass. ``x`` holds images in [0, 256), NHWC; ``k``
+    importance samples repeat each image k times, interleaved."""
+    if mode not in ("train", "eval"):
+        raise ValueError(f"mode {mode!r} not in ('train', 'eval')")
+    k = cfg.k if k is None else k
+    dtype = compute_dtype(cfg.compute_dtype)
+    device = model.h_top.device
+    x = _images(x, device)
+    if k > 1:
+        x = torch.repeat_interleave(x, k, dim=0)
+    batch = x.shape[0]
+
+    h = model.x_enc(x, dtype)
+    stats = []
+    for layer in model.blocks:
+        h, st = iaf_layer_up(cfg, layer, h, dtype)
+        stats.append(st)
+
+    dec_hw = cfg.image_size // 2
+    h = model.h_top.expand(batch, dec_hw, dec_hw, cfg.h_size)
+    n = len(model.blocks)
+    objs, costs = [None] * n, [None] * n
+    zshape = (batch, dec_hw, dec_hw, cfg.z_size)
+    for i in reversed(range(n)):
+        eps = _eps(cfg, rng, i, zshape, device, noise)
+        h, objs[i], costs[i] = iaf_layer_down(cfg, model.blocks[i], h,
+                                              stats[i], eps, dtype)
+    kl_objs, kl_costs = torch.stack(objs), torch.stack(costs)
+    kl_obj_total = kl_objs.sum(0)
+    kl_cost_total = kl_costs.sum(0)
+
+    x_out = model.x_dec(F.elu(h), dtype)
+    log_pxz = ops.disc_logistic_logp(x_out.contiguous(), model.dec_log_stdv,
+                                     x.contiguous())
+    loss = torch.mean(kl_obj_total - log_pxz)
+    elbo_nats = compute_lowerbound(log_pxz, kl_cost_total, k)
+    return ModelOut(
+        loss=loss,
+        elbo_nats=elbo_nats,
+        bits_per_dim=torch.mean(elbo_nats) / (LOG2 * cfg.num_pixels),
+        kl_obj=torch.mean(kl_obj_total),
+        kl_cost=torch.mean(kl_cost_total),
+        log_pxz=torch.mean(log_pxz),
+        log_w=log_pxz - kl_cost_total,
+        x_out=x_out,
+        kl_per_layer=torch.mean(kl_costs, dim=1),
+    )
+
+
+def apply_fn(cfg: Config, model: CVAE, rng: int, x, mode: str = "train",
+             k: int | None = None,
+             noise: Mapping[str, torch.Tensor] | None = None) -> ModelOut:
+    return cvae_forward(cfg, model, x, rng, mode=mode, k=k, noise=noise)
+
+
+def _jax_path(name: str, cfg: Config) -> tuple[str, str]:
+    """(key scope, site) of a state_dict entry under JAX's naming: a layer
+    parameter draws from its layer's key, the rest from the root key."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return layer_names(cfg)[int(parts[1])], "/".join(parts[2:])
+    return "", "/".join(parts)
+
+
+def _draw_params(cfg: Config, model: CVAE, rng: int) -> None:
+    """Draw every ``V`` and ``h_top`` as N(0, 0.05^2) from its site key
+    (JAX's ``normal_init(0.05)`` sites), in the JAX layout then moved to
+    the port's."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not (name.endswith(".V") or name == "h_top"):
+                continue
+            scope, site = _jax_path(name, cfg)
+            key = fold_name(fold_name(rng, scope), site) if scope else \
+                fold_name(rng, site)
+            path = tuple(site.split("/"))
+            jax_shape = _jax_shape(path, tuple(p.shape))
+            draw = 0.05 * torch.randn(jax_shape, generator=generator(key, "cpu"))
+            p.copy_(torch.from_numpy(np.ascontiguousarray(
+                to_torch_layout(path, draw.numpy()))))
+
+
+def _jax_shape(path: tuple[str, ...], torch_shape: tuple[int, ...]):
+    if path[-1] != "V" or len(torch_shape) != 4:
+        return torch_shape
+    a, b, kh, kw = torch_shape
+    return (kh, kw, a, b) if path[0] == "x_dec" else (kh, kw, b, a)
+
+
+def init_params(cfg: Config, batch, rng: int = 0, model: CVAE | None = None,
+                device="cuda",
+                noise: Mapping[str, torch.Tensor] | None = None) -> CVAE:
+    """Weight-norm data-dependent init on a real batch (``init_params``):
+    the forward sequencing in init mode, where each layer's g and b are
+    set from the moments of its activations. A fresh model draws its
+    ``V`` and ``h_top`` from ``rng``; a given ``model`` keeps them."""
+    if model is None:
+        model = CVAE(cfg, device=device)
+        _draw_params(cfg, model, rng)
+    device = model.h_top.device
+    with torch.no_grad():
+        x = _images(batch, device)
+        h = model.x_enc.init_forward(x)
+        stats = []
+        for layer in model.blocks:
+            h, st = iaf_layer_up(cfg, layer, h, init=True)
+            stats.append(st)
+        dec_hw = cfg.image_size // 2
+        h = model.h_top.expand(x.shape[0], dec_hw, dec_hw, cfg.h_size)
+        zshape = (x.shape[0], dec_hw, dec_hw, cfg.z_size)
+        for i in reversed(range(len(model.blocks))):
+            eps = _eps(cfg, rng, i, zshape, device, noise)
+            h, _, _ = iaf_layer_down(cfg, model.blocks[i], h, stats[i], eps,
+                                     init=True)
+        model.x_dec.init_forward(F.elu(h))
+        model.dec_log_stdv.zero_()
+    return model
