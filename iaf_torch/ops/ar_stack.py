@@ -23,6 +23,7 @@ _MAX_CONVS = 4
 _PX = 8                     # output pixels per thread item (ar_stack.cu PX)
 _SMEM_LIMIT = 232_448       # dynamic shared memory a Hopper block may use
 MMA_IMAGES = 2              # images per block on the tensor-core path
+_MMA_WARPS = 10             # its block size cap (ar_stack.cu launch bounds)
 
 launches = {"ar_stack": 0}  # kernel launches since the last reset
 
@@ -163,8 +164,8 @@ def ar_stack(z: torch.Tensor, context: torch.Tensor,
     if smem > _SMEM_LIMIT:
         raise ValueError(f"ar_stack: {smem} B of shared memory per block "
                          f"exceeds {_SMEM_LIMIT}")
-    if mma:   # one warp per pair of 8-wide output tiles
-        threads = 32 * -(-max(ch, cout) // 16)
+    if mma:   # a warp per pair of 8-wide output tiles, at most 10 warps
+        threads = 32 * min(_MMA_WARPS, -(-max(ch, cout) // 16))
     else:     # one thread per output channel and PX-pixel group
         threads = 32 * -(-(max(ch, cout) * -(-w_ // _PX)) // 32)
     threads = min(1024, threads)

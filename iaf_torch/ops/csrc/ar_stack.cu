@@ -35,12 +35,12 @@
 // ch=160, cout=64): 107.4 GFLOP over the live taps against ~252 MB of
 // compulsory traffic in bf16 (~270 MB in f32), i.e. ~109 us at the bf16
 // tensor-core peak vs ~75 us of HBM time: bound by operations. The mma.sync
-// path reaches about a twelfth of that bound. Neither the weight traffic
-// through L2 (tried at up to 8 images per block) nor the width of the
-// weight loads moved its time; each mma costs about its latency, as if
-// nothing overlapped. wgmma with TMA-staged weights and one barrier per row
-// are the next things to try. The FMA path's floor is 107.4 GFLOP at
-// 67 TFLOP/s, ~1.6 ms.
+// path reaches about an eleventh of that bound. Cutting the weight traffic
+// through L2 (tried at up to 8 images per block) or widening the weight
+// loads did not move its time; what did was keeping more warps resident
+// (two blocks per SM). Staging each tap's weights in shared memory, wgmma
+// with asynchronous accumulators, and one barrier per row are the next
+// things to try. The FMA path's floor is 107.4 GFLOP at 67 TFLOP/s, ~1.6 ms.
 //
 // Types: T = float or __nv_bfloat16 for z, weights and the on-chip
 // activations; ctx, biases, accumulation and the output are f32.
@@ -76,6 +76,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 }
 
 __host__ __device__ static inline int ring_width(int W) { return W + 2 + PX; }
+
+// ELU as the Pallas kernel computes it, exp(min(v, 0)) - 1 on the negative
+// side (within 1e-7 of expm1 near 0), with the fast exponential.
+__device__ __forceinline__ float elu(float v) {
+  return v > 0.f ? v : __expf(fminf(v, 0.f)) - 1.f;
+}
 
 // Shared memory: for conv i, two padded rows [2][W+2+PX][cin_i] of T.
 static size_t smem_bytes(int n_convs, int W, int cz, int ch, size_t elem) {
@@ -155,7 +161,7 @@ __global__ void ar_stack_kernel(StackArgs a) {
           if (last) {
             out[((size_t)y * W + x) * a.cout + co] = v;
           } else {
-            v = v > 0.f ? v : expm1f(v);
+            v = elu(v);
             ring[c + 1][((size_t)s * RW + x + 1) * co_n + co] = from_f<T>(v);
           }
         }
@@ -206,8 +212,12 @@ static size_t mma_smem_bytes(int n_convs, int W, int cz, int ch, int R) {
   return per_image * R;
 }
 
+// Two blocks per SM: at 320 threads the registers are capped so that R=4
+// (108 KB of rings) still fits twice; what bounds this kernel is how many
+// warps are resident, not how many bytes it moves.
 template <int R>
-__global__ void ar_stack_mma_kernel(StackArgs a, int n_images) {
+__global__ void __launch_bounds__(320, 2)
+    ar_stack_mma_kernel(StackArgs a, int n_images) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = a.H, W = a.W, RW = mma_ring_width(W);
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -325,8 +335,8 @@ __global__ void ar_stack_mma_kernel(StackArgs a, int n_images) {
                     *reinterpret_cast<float2*>(a.out + pix * a.cout + co) =
                         make_float2(v0, v1);
                 } else {
-                  v0 = v0 > 0.f ? v0 : expm1f(v0);
-                  v1 = v1 > 0.f ? v1 : expm1f(v1);
+                  v0 = elu(v0);
+                  v1 = elu(v1);
                   *reinterpret_cast<__nv_bfloat162*>(
                       ring[r][c + 1] + ((size_t)s * RW + x + 1) * cs[c + 1] +
                       co) = __floats2bfloat162_rn(v0, v1);
