@@ -28,10 +28,12 @@ Triton is imported inside the launching functions: the package imports
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
 from iaf_torch.distributions import discretized_logistic
+from iaf_torch.ops import _build
 
 launches = {"iaf_update": 0, "disc_logistic_logp": 0}
 
@@ -49,6 +51,10 @@ def disc_logistic_ref(mean, logscale, sample, binsize: float = 1.0 / 256.0):
 
 @functools.cache
 def _kernels():
+    # Triton's compile cache goes under the checkout's build directory,
+    # beside the CUDA library, not under $HOME
+    os.environ.setdefault("TRITON_CACHE_DIR",
+                          str(_build.BUILD_DIR / "triton"))
     import triton
     import triton.language as tl
     try:
