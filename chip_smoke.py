@@ -150,14 +150,6 @@ def kernel_phase(ops, cap, device) -> list[dict]:
         check(rel_bf16 <= 2e-2, f"K1 bf16 rel err {rel_bf16} > 2e-2")
         check(err_f32 <= 1e-4 * scale32, f"K1 f32 err {err_f32} > 1e-4")
         ms = cuda_ms(lambda: ops.ar_stack(z, ctx, ws, bs, masks))
-        by_images = {}
-        for r in (1, 2, 4):  # images per block, tensor-core path
-            out_r = ops.ar_stack(z, ctx, ws, bs, masks, mma_images=r)
-            rel_r = float((out_r - ref).abs().max()) / float(ref.abs().max())
-            check(rel_r <= 2e-2, f"K1 bf16 ({r} images/block) rel err {rel_r}")
-            by_images[r] = cuda_ms(
-                lambda: ops.ar_stack(z, ctx, ws, bs, masks, mma_images=r))
-        print(f"[K1] bf16 ms by images per block: {by_images}")
         plain = cuda_ms(lambda: ops.ar_stack_ref(z, ctx, ws, bs))
         lib = cuda_ms(lambda: k1_yardstick(z, ctx, ws, bs))
         ms32 = cuda_ms(lambda: ops.ar_stack(z32, ctx, ws32, bs, masks))
@@ -169,8 +161,7 @@ def kernel_phase(ops, cap, device) -> list[dict]:
     rows.append(dict(
         name="ar_stack", route="cuda", source="iaf_torch/ops/csrc/ar_stack.cu",
         replaces="iaf_tpu/ops/ar_stack.py:115", max_abs_err=err_bf16,
-        max_abs_err_f32=err_f32, ms=ms, ms_f32=ms32,
-        ms_by_images_per_block=by_images, plain_ms=plain,
+        max_abs_err_f32=err_f32, ms=ms, ms_f32=ms32, plain_ms=plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         gflop=flops / 1e9, mbytes=moved / 1e6))
 
@@ -273,7 +264,7 @@ def reference_phase(device) -> None:
     print(f"[reference] f32 eval forward, card vs CPU twins: log_w "
           f"{lw_b.tolist()}, max rel err {rel:.3e}")
     check(bool(torch.isfinite(lw_a).all()), "non-finite log_w on the card")
-    check(rel <= 1e-3, f"card vs CPU log_w rel err {rel} > 1e-3")
+    check(rel <= 1e-5, f"card vs CPU log_w rel err {rel} > 1e-5")
 
 
 def run() -> dict:
@@ -310,7 +301,7 @@ def run() -> dict:
 
     # phase 1: build
     t0 = time.perf_counter()
-    _build.build_all(["ar_stack"])
+    _build.load("ar_stack")
     print(f"[build] nvcc ar_stack.cu {_build.build_seconds.get('ar_stack', 0):.1f} s")
     for line in _build.build_log.get("ar_stack", "").splitlines():
         if "registers" in line or "spill" in line:

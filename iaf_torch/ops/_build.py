@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared
 library loaded through ``ctypes``; nothing is built at import, so the
 package imports on a machine without ``nvcc``. A library is rebuilt when
-its source is newer. ``build_all`` starts one ``nvcc`` per source at once.
+its source is newer.
 """
 
 from __future__ import annotations
@@ -48,30 +48,18 @@ def _stale(name: str) -> bool:
     return not lib.is_file() or lib.stat().st_mtime < src.stat().st_mtime
 
 
-def _start(name: str) -> tuple[subprocess.Popen, Path, float]:
+def _compile(name: str) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, time.perf_counter()
-
-
-def _finish(name: str, proc: subprocess.Popen, tmp: Path, t0: float) -> None:
-    out, _ = proc.communicate()
-    build_log[name] = out
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    build_log[name] = proc.stdout
     build_seconds[name] = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
     os.replace(tmp, _lib_path(name))
-
-
-def build_all(names: list[str]) -> None:
-    """Compile every stale source, one ``nvcc`` process each, in parallel."""
-    with _lock:
-        started = [(n, *_start(n)) for n in names if _stale(n)]
-        for n, proc, tmp, t0 in started:
-            _finish(n, proc, tmp, t0)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -81,7 +69,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         if _stale(name):
-            _finish(name, *_start(name))
+            _compile(name)
         lib = ctypes.CDLL(str(_lib_path(name)))
         _libs[name] = lib
         return lib

@@ -22,8 +22,7 @@ LIVE_TAPS = ((0, 0), (0, 1), (0, 2), (1, 0), (1, 1))
 _MAX_CONVS = 4
 _PX = 8                     # output pixels per thread item (ar_stack.cu PX)
 _SMEM_LIMIT = 232_448       # dynamic shared memory a Hopper block may use
-MMA_IMAGES = 2              # images per block on the tensor-core path
-_MMA_WARPS = 10             # its block size cap (ar_stack.cu launch bounds)
+_MMA_WARPS = 10             # tensor-core path's block size cap (launch bounds)
 
 launches = {"ar_stack": 0}  # kernel launches since the last reset
 
@@ -129,14 +128,11 @@ def _lib():
 
 def ar_stack(z: torch.Tensor, context: torch.Tensor,
              weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
-             masks: Sequence[np.ndarray],
-             mma_images: int = MMA_IMAGES) -> torch.Tensor:
+             masks: Sequence[np.ndarray]) -> torch.Tensor:
     """Run the masked AR chain: ``weights`` are the folded, pre-masked
     [3, 3, cin, cout] convs (hidden ones first, the merged head last) in
     z's dtype, ``biases`` f32, ``masks`` the static numpy masks (only their
-    tap structure is read). Returns the heads, [N, H, W, cout] f32.
-    ``mma_images`` (1, 2 or 4) is the images per block of the tensor-core
-    path, where that path applies."""
+    tap structure is read). Returns the heads, [N, H, W, cout] f32."""
     _check(z, context, weights, biases, masks)
     if z.device.type == "cpu":
         return ar_stack_ref(z, context, weights, biases)
@@ -148,19 +144,17 @@ def ar_stack(z: torch.Tensor, context: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError("ar_stack: forward-only kernel; run under "
                            "torch.inference_mode()")
-    if mma_images not in (1, 2, 4):
-        raise ValueError(f"mma_images={mma_images} not in (1, 2, 4)")
-    z, context = z.contiguous(), context.contiguous()
+    if not all(t.is_contiguous() for t in (z, context, *biases)):
+        raise ValueError("ar_stack: z, context and biases must be "
+                         "contiguous")
     n, h, w_, cz = z.shape
     ch, cout = weights[0].shape[-1], weights[-1].shape[-1]
     mma = mma_path(z.dtype, w_, cz, ch, cout)
     packed = [pack_fragments(w) if mma else pack_weights(w) for w in weights]
-    bs = [b.contiguous() for b in biases]
     n_convs = len(weights)
     bf16 = int(z.dtype == torch.bfloat16)
-    mma_images = mma_images if mma else 0
     lib = _lib()
-    smem = lib.ar_stack_smem_bytes(n_convs, w_, cz, ch, bf16, mma_images)
+    smem = lib.ar_stack_smem_bytes(n_convs, w_, cz, ch, bf16, int(mma))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"ar_stack: {smem} B of shared memory per block "
                          f"exceeds {_SMEM_LIMIT}")
@@ -171,12 +165,12 @@ def ar_stack(z: torch.Tensor, context: torch.Tensor,
     threads = min(1024, threads)
     out = torch.empty((n, h, w_, cout), device=z.device, dtype=torch.float32)
     wptr = [t.data_ptr() for t in packed] + [None] * (_MAX_CONVS - n_convs)
-    bptr = [t.data_ptr() for t in bs] + [None] * (_MAX_CONVS - n_convs)
+    bptr = [t.data_ptr() for t in biases] + [None] * (_MAX_CONVS - n_convs)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = lib.ar_stack_fwd(z.data_ptr(), context.data_ptr(), *wptr,
                                *bptr, out.data_ptr(), n_convs, n, h, w_, cz,
-                               ch, cout, bf16, mma_images, threads, stream)
+                               ch, cout, bf16, int(mma), threads, stream)
     if err != 0:
         raise RuntimeError(f"ar_stack kernel launch failed: CUDA error {err}")
     launches["ar_stack"] += 1

@@ -24,8 +24,8 @@
 //
 // * bf16 with whole 16-pixel rows and 16-deep channel steps (the paper
 //   config): ar_stack_mma_kernel, tensor cores through mma.sync m16n8k16
-//   (bf16 in, f32 accumulate). R images per block share every weight
-//   fragment, which divides the weight traffic through L2 by R.
+//   (bf16 in, f32 accumulate). MMA_IMAGES = 2 images per block share every
+//   weight fragment, which halves the weight traffic through L2.
 // * anything else, and f32 (whose tolerance TF32 would break):
 //   ar_stack_kernel, FP32 FMA on the CUDA cores, one thread per output
 //   channel of PX neighbouring pixels, activations broadcast from shared
@@ -180,13 +180,16 @@ __global__ void ar_stack_kernel(StackArgs a) {
 // channels x 8 outputs) come from weights the wrapper packs in fragment
 // order, [tap][n-tile][k-step][lane][2 x bf16x2], so a warp reads one
 // 256-byte run per fragment with one 8-byte load per lane. One block holds
-// R images and every B fragment feeds all R of them. Each warp owns pairs
+// R = MMA_IMAGES images and every B fragment feeds all R of them (1 and 4
+// images per block were measured too: 1 is slower, 4 no faster and it
+// spills registers under the two-blocks-per-SM cap). Each warp owns pairs
 // of 8-wide output tiles; KU k-steps of B fragments are loaded before the
 // first is used.
 // ---------------------------------------------------------------------------
 
 #define CPAD 8
 #define KU 4
+#define MMA_IMAGES 2
 
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
                                           uint32_t b0, uint32_t b1) {
@@ -204,20 +207,20 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
 // Padded ring row of the tensor-core path: pixel x at column x+1.
 __host__ __device__ static inline int mma_ring_width(int W) { return W + 2; }
 
-static size_t mma_smem_bytes(int n_convs, int W, int cz, int ch, int R) {
+static size_t mma_smem_bytes(int n_convs, int W, int cz, int ch) {
   size_t per_image = 0;
   for (int i = 0; i < n_convs; ++i)
     per_image +=
         (size_t)2 * mma_ring_width(W) * ((i == 0 ? cz : ch) + CPAD) * 2;
-  return per_image * R;
+  return per_image * MMA_IMAGES;
 }
 
-// Two blocks per SM: at 320 threads the registers are capped so that R=4
-// (108 KB of rings) still fits twice; what bounds this kernel is how many
-// warps are resident, not how many bytes it moves.
-template <int R>
+// Two blocks per SM: at 320 threads the registers are capped so that two
+// blocks fit on an SM; what bounds this kernel is how many warps are
+// resident, not how many bytes it moves.
 __global__ void __launch_bounds__(320, 2)
     ar_stack_mma_kernel(StackArgs a, int n_images) {
+  constexpr int R = MMA_IMAGES;
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = a.H, W = a.W, RW = mma_ring_width(W);
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -364,27 +367,26 @@ static int launch(const StackArgs& a, int n_images, int threads,
   return (int)cudaGetLastError();
 }
 
-template <int R>
 static int launch_mma(const StackArgs& a, int n_images, int threads,
                       cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(a.n_convs, a.W, a.cz, a.ch, R);
+  const size_t smem = mma_smem_bytes(a.n_convs, a.W, a.cz, a.ch);
   cudaError_t e = cudaFuncSetAttribute(
-      ar_stack_mma_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ar_stack_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  ar_stack_mma_kernel<R><<<(n_images + R - 1) / R, threads, smem, stream>>>(
-      a, n_images);
+  const int blocks = (n_images + MMA_IMAGES - 1) / MMA_IMAGES;
+  ar_stack_mma_kernel<<<blocks, threads, smem, stream>>>(a, n_images);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 // Bytes of dynamic shared memory one block asks for (the wrapper checks it
-// against the 227 KB a Hopper block may use). mma_images = 0 selects the
-// FMA path, else the tensor-core path with that many images per block.
+// against the 227 KB a Hopper block may use). mma = 0 selects the FMA
+// path, 1 the tensor-core path.
 size_t ar_stack_smem_bytes(int n_convs, int W, int cz, int ch, int bf16,
-                           int mma_images) {
-  if (mma_images > 0) return mma_smem_bytes(n_convs, W, cz, ch, mma_images);
+                           int mma) {
+  if (mma) return mma_smem_bytes(n_convs, W, cz, ch);
   return smem_bytes(n_convs, W, cz, ch, bf16 ? 2 : 4);
 }
 
@@ -393,7 +395,7 @@ int ar_stack_fwd(const void* z, const void* ctx, const void* w0,
                  const void* w1, const void* w2, const void* w3,
                  const void* b0, const void* b1, const void* b2,
                  const void* b3, void* out, int n_convs, int n_images, int H,
-                 int W, int cz, int ch, int cout, int bf16, int mma_images,
+                 int W, int cz, int ch, int cout, int bf16, int mma,
                  int threads, void* stream) {
   if (n_convs < 2 || n_convs > MAX_CONVS) return (int)cudaErrorInvalidValue;
   StackArgs a;
@@ -413,15 +415,10 @@ int ar_stack_fwd(const void* z, const void* ctx, const void* w0,
   a.ch = ch;
   a.cout = cout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mma_images > 0) {
+  if (mma) {
     if (!bf16 || W % 16 || cz % 16 || ch % 16 || cout % 8)
       return (int)cudaErrorInvalidValue;
-    switch (mma_images) {
-      case 1: return launch_mma<1>(a, n_images, threads, s);
-      case 2: return launch_mma<2>(a, n_images, threads, s);
-      case 4: return launch_mma<4>(a, n_images, threads, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    return launch_mma(a, n_images, threads, s);
   }
   return bf16 ? launch<__nv_bfloat16>(a, n_images, threads, s)
               : launch<float>(a, n_images, threads, s);

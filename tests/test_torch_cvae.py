@@ -103,7 +103,7 @@ def test_eval_forward_matches_jax_tiny():
 
 
 def test_eval_forward_matches_jax_paper_width():
-    _compare_forward(PAPER_WIDTH, 1, 2, rtol=1e-4, atol=1e-3)
+    _compare_forward(PAPER_WIDTH, 1, 2, rtol=1e-4, atol=1e-4)
 
 
 def test_eval_step_matches_jax_one_device_mesh():
