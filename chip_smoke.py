@@ -5,9 +5,11 @@
 
 Phases, any failure exits non-zero:
 
-1. Device and build: the card's name and power limit, then the CUDA kernel
-   (K1, nvcc for sm_90a) and the Triton kernels (K3, K4) are built from the
-   sources beside this script, with their build seconds.
+1. Device and build: the card's name and power limit, then the CUDA
+   kernels (K1 forward ``ar_stack.cu`` and backward ``ar_stack_bwd.cu``,
+   one nvcc each for sm_90a, started together) and the Triton kernels (K3
+   and K4 forward and backward, K5) are built from the sources beside this
+   script, with their build seconds and ptxas register and spill lines.
 2. The main path's config: the CIFAR paper config (``--hpconfig
    depth=1,num_blocks=20,kl_min=0.25,learning_rate=0.002,batch_size=32``:
    z=32, h=160, 20 IAF layers, depth_ar=2, bf16 convs) with random weights
@@ -20,10 +22,29 @@ Phases, any failure exits non-zero:
    One chunk is then profiled (device time by kernel name).
 4. Port vs plain on a small input: one f32 eval forward on the card
    (kernels) against the same forward on the CPU (twins), same noise.
-5. Main path: ``iaf_torch.train_lib.evaluate`` over 2 test batches of 16
-   at k=256 (4 chunks of 64); the launch counters are zeroed just before
-   and read just after, and must be K1 = K3 = 160, K4 = 8. One more batch
-   through the eval step alone gives the steady seconds per batch.
+5. Eval main path: ``iaf_torch.train_lib.evaluate`` over 2 test batches
+   of 16 at k=256 (4 chunks of 64); the launch counters are zeroed just
+   before and read just after, and must be K1 = K3 = 160, K4 = 8. One more
+   batch through the eval step alone gives the steady seconds per batch.
+6. Backward kernels against their twins on the card: the inputs and
+   upstream gradients of K1's, K3's and K4's backward are captured from the
+   first launches of one real training step (paper config, bf16, batch
+   32); each backward is held to autograd of its twin (K1 bf16 at 2e-2 of
+   each output's max and f32 with TF32 off at 1e-4, K3 at 1e-6 (1 + |ref|),
+   K4 at 1e-5) and K5 to its twin bitwise on that step's parameters and
+   gradients; each is timed beside its twin and its bound, K1's backward
+   also beside autograd through three full cuDNN convs.
+7. One f32 training step of the paper config at batch 4, card (kernels)
+   against CPU (twins), same params, batch and noise: the loss, every
+   gradient leaf and every updated parameter and EMA leaf are compared.
+8. Training main path: ``iaf_torch.train_lib.train`` at the paper config
+   (bf16, batch 32, synthetic data) for 10 steps with a checkpoint at step
+   10, then a resume for 2 more steps that must restore at step 10. The
+   counters are zeroed before each run and read after it, and must be,
+   per step, K1 = K1-backward = K3 = K3-backward = 20, K4 = K4-backward =
+   K5 = 1. Every step's loss must be finite; the steady seconds per step
+   (median of steps 3-10) and examples/s are printed, and one more step is
+   profiled (device time by kernel name, device-busy share).
 
 The second-last line of standard output is the ``kernels`` JSON, the last
 ``{"ok": true, "device": {...}}``.
@@ -31,11 +52,17 @@ The second-last line of standard output is the ``kernels`` JSON, the last
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import io
 import json
 import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -43,6 +70,11 @@ PAPER = "depth=1,num_blocks=20,kl_min=0.25,learning_rate=0.002,batch_size=32"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 EVAL_BATCH, EVAL_K, EVAL_CHUNK, EVAL_BATCHES = 16, 256, 64, 2
+TRAIN_STEPS, RESUME_STEPS = 10, 2
+# f32 step, card vs CPU: small-gradient elements whose Adamax sign may
+# flip. 129-133 of 41.6 M flipped on an H100; a wrong gradient in one
+# leaf flips thousands.
+MAX_FLIPS = 1000
 
 
 class SmokeFailure(Exception):
@@ -203,25 +235,21 @@ def kernel_phase(ops, cap, device) -> list[dict]:
         source="iaf_torch/ops/fused.py", replaces="iaf_tpu/ops/fused.py:103",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, mbytes=moved / 1e6))
-    for r in rows:
-        print(f"[time] {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
 
 
-def profile_phase(one_chunk) -> None:
-    """Where one eval chunk's device time goes: torch.profiler's self
-    device time per kernel name, top 12, and the device-busy share of the
-    chunk's wall time."""
+def profile_phase(label: str, fn) -> dict:
+    """Where one call of ``fn`` spends its device time: torch.profiler's
+    self device time per kernel name, top 14, and the device-busy share
+    of the call's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    one_chunk()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        one_chunk()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernel_events = [e for e in prof.key_averages()
@@ -231,12 +259,12 @@ def profile_phase(one_chunk) -> None:
            for e in kernel_events]
     dev = [d for d in dev if d[1] > 0]
     busy = sum(t for _, t, _ in dev) / 1e6
-    print(f"[profile] one chunk (16 images x {EVAL_CHUNK} samples): wall "
-          f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
-          f"({100 * busy / wall:.1f} %)")
-    for key, t, count in sorted(dev, key=lambda d: -d[1])[:12]:
+    print(f"[profile] {label}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f} %)")
+    for key, t, count in sorted(dev, key=lambda d: -d[1])[:14]:
         print(f"[profile] {t / 1e3:9.2f} ms {100 * t / 1e6 / busy:5.1f} % "
               f"x{count:<5d} {key[:90]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3}
 
 
 def reference_phase(device) -> None:
@@ -267,6 +295,442 @@ def reference_phase(device) -> None:
     check(rel <= 1e-5, f"card vs CPU log_w rel err {rel} > 1e-5")
 
 
+def _detach(a):
+    import torch
+    if torch.is_tensor(a):
+        return a.detach().clone()
+    if isinstance(a, (list, tuple)):
+        return type(a)(_detach(x) for x in a)
+    return a
+
+
+def build_phase(ops, device) -> None:
+    """Build both CUDA sources at once (one nvcc each, in two threads) and
+    launch every Triton kernel once on tiny inputs (its compile)."""
+    import torch
+    from iaf_torch.ops import _build
+    t0 = time.perf_counter()
+    names = ("ar_stack", "ar_stack_bwd")
+    errors: dict[str, str] = {}
+
+    def build(name):
+        try:
+            _build.load(name)
+        except (RuntimeError, OSError) as e:   # reported below
+            errors[name] = str(e)
+
+    threads = [threading.Thread(target=build, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"build failed: {errors}")
+    for name in names:
+        print(f"[build] nvcc {name}.cu {_build.build_seconds.get(name, 0):.1f}"
+              " s")
+        for line in _build.build_log.get(name, "").splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
+                print(f"[build] {line.strip()}")
+    t1 = time.perf_counter()
+    a = torch.randn(4, 8, device=device)
+    one = torch.zeros((1,), device=device)
+    with torch.inference_mode():
+        ops.iaf_update(a, a, a, a)
+        ops.disc_logistic_logp(a, one, a)
+        ops.iaf_update_bwd(a, a, a, a)
+        ops.disc_logistic_bwd(a, one, a, a[:, 0].contiguous())
+        ops.adamax_polyak([a.clone()], [a], [a.clone()], [a.abs()],
+                          [a.clone()], one[0] + 1e-3, beta1=0.9, beta2=0.999,
+                          eps=1e-8, polyak_decay=0.999)
+    torch.cuda.synchronize()
+    print(f"[build] triton K3, K4 (forward and backward) and K5 first "
+          f"launches {time.perf_counter() - t1:.1f} s; all builds "
+          f"{time.perf_counter() - t0:.1f} s")
+    _triton_registers()
+
+
+def _triton_registers() -> None:
+    """Registers and spills of each compiled Triton kernel, where the
+    installed Triton exposes them."""
+    from iaf_torch.ops import fused, fused_adamax
+    fns = list(fused._kernels()) + [fused_adamax._kernel()]
+    for fn in fns:
+        caches = getattr(fn, "device_caches", None)
+        kernels = []
+        if isinstance(caches, dict):
+            for entry in caches.values():
+                cache = entry[0] if isinstance(entry, tuple) else entry
+                if isinstance(cache, dict):
+                    kernels += list(cache.values())
+        name = getattr(fn, "__name__", getattr(getattr(fn, "fn", None),
+                                               "__name__", "?"))
+        for k in kernels:
+            print(f"[build] triton {name}: {getattr(k, 'n_regs', '?')} "
+                  f"registers, {getattr(k, 'n_spills', '?')} spills")
+        if not kernels:
+            print(f"[build] triton {name}: registers not reported")
+
+
+def capture_train_step(ops, fn):
+    """Run ``fn`` (one training step) with spies on the K1 and K3 forward
+    wrappers (every call, keyed by the tensor their backward saves) and on
+    the three backward wrappers (the first call); return, per backward,
+    (its forward's arguments, its own arguments), all detached copies."""
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    fused_mod = importlib.import_module("iaf_torch.ops.fused")
+    fwd_key = {"ar_stack": 0, "iaf_update": 2}     # z, s
+    bwd_key = {"ar_stack_bwd": (ar_mod, 0), "iaf_update_bwd": (fused_mod, 1),
+               "disc_logistic_bwd": (fused_mod, None)}
+    fwd = {n: {} for n in fwd_key}
+    bwd: dict[str, tuple] = {}
+    originals = {n: getattr(ops, n) for n in fwd_key}
+    originals.update({n: getattr(mod, n) for n, (mod, _) in bwd_key.items()})
+
+    def spy_fwd(name):
+        def wrapped(*args):
+            fwd[name][args[fwd_key[name]].data_ptr()] = _detach(args)
+            return originals[name](*args)
+        return wrapped
+
+    def spy_bwd(name):
+        def wrapped(*args):
+            if name not in bwd:
+                ki = bwd_key[name][1]
+                bwd[name] = (_detach(args),
+                             None if ki is None else args[ki].data_ptr())
+            return originals[name](*args)
+        return wrapped
+
+    for n in fwd_key:
+        setattr(ops, n, spy_fwd(n))
+    for n, (mod, _) in bwd_key.items():
+        setattr(mod, n, spy_bwd(n))
+    try:
+        fn()
+    finally:
+        for n in fwd_key:
+            setattr(ops, n, originals[n])
+        for n, (mod, _) in bwd_key.items():
+            setattr(mod, n, originals[n])
+    check(set(bwd) == set(bwd_key), f"captured only {sorted(bwd)}")
+    k1_args, k1_ptr = bwd["ar_stack_bwd"]
+    k3_args, k3_ptr = bwd["iaf_update_bwd"]
+    check(k1_ptr in fwd["ar_stack"] and k3_ptr in fwd["iaf_update"],
+          "a backward's saved tensor matches no captured forward")
+    return {"ar_stack": (fwd["ar_stack"][k1_ptr], k1_args),
+            "iaf_update": (fwd["iaf_update"][k3_ptr], k3_args),
+            "disc_logistic_logp": bwd["disc_logistic_bwd"][0]}
+
+
+def _rel_err(got, want) -> tuple[float, float]:
+    """(max abs error, that over the reference's max magnitude)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def _backward_ms(fn, leaves, g) -> float:
+    """Device time of the backward alone of ``fn(*leaves)`` for cotangent
+    ``g``: the graph is built once and differentiated repeatedly."""
+    import torch
+    with torch.enable_grad():
+        out = fn(*leaves)
+        return cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                   retain_graph=True))
+
+
+def _k1_grads_close(ops, got, want, tol, label) -> float:
+    """Each of dz, dcontext, dW (at the live taps; the kernel's dead taps
+    must be zero) and db within ``tol`` of its reference's max. Returns
+    the largest absolute error."""
+    import torch
+    dz, dctx, dws, dbs = got
+    rz, rctx, rws, rbs = want
+    live = torch.zeros(3, 3, 1, 1, device=dz.device)
+    live[0], live[1, :2] = 1.0, 1.0
+    worst_abs, worst_rel = 0.0, 0.0
+    pairs = [("dz", dz, rz), ("dcontext", dctx, rctx)]
+    for i, (a, b) in enumerate(zip(dws, rws)):
+        check(not bool((a.float() * (1 - live)).any()),
+              f"K1 bwd {label}: dW{i} nonzero at a dead tap")
+        pairs.append((f"dW{i}", a.float() * live, b.float() * live))
+    pairs += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, rbs))]
+    for name, a, b in pairs:
+        err, rel = _rel_err(a, b)
+        check(rel <= tol, f"K1 bwd {label} {name}: {rel:.3e} of max > {tol}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    print(f"[K1 bwd] {label}: max abs err {worst_abs:.3e}, worst "
+          f"{worst_rel:.3e} of an output's max (limit {tol})")
+    return worst_abs
+
+
+def backward_kernel_phase(ops, cap) -> list[dict]:
+    """K1's, K3's and K4's backward kernels against autograd of their
+    twins on the captured inputs, timed beside the twin's backward."""
+    import torch
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    rows = []
+
+    # K1 backward, the first AR net the step differentiates (bf16)
+    (z, ctx, ws, bs, masks), (bz, bws, pre, g) = cap["ar_stack"]
+    got = ops.ar_stack_bwd(bz, bws, pre, g)
+    err = _k1_grads_close(ops, got, ops.ar_stack_bwd_ref(z, ctx, ws, bs, g),
+                          2e-2, "bf16")
+    z32 = z.float()
+    ws32 = [w.float() for w in ws]
+    with torch.no_grad():
+        pre32 = ar_mod._fwd(z32, ctx, ws32, bs, save_pre=True)[1]
+    got32 = ops.ar_stack_bwd(z32, ws32, pre32, g)
+    err32 = _k1_grads_close(ops, got32,
+                            ops.ar_stack_bwd_ref(z32, ctx, ws32, bs, g),
+                            1e-4, "f32")
+    ms = cuda_ms(lambda: ops.ar_stack_bwd(bz, bws, pre, g))
+    ms32 = cuda_ms(lambda: ops.ar_stack_bwd(z32, ws32, pre32, g))
+    leaves = [t.detach().clone().requires_grad_() for t in (z, ctx, *ws, *bs)]
+    nw = len(ws)
+
+    def twin(z_, c_, *wb):
+        return ops.ar_stack_ref(z_, c_, list(wb[:nw]), list(wb[nw:]))
+
+    def yard(z_, c_, *wb):
+        return k1_yardstick(z_, c_, list(wb[:nw]), list(wb[nw:]))
+
+    plain = _backward_ms(twin, leaves, g)
+    lib = _backward_ms(yard, leaves, g.permute(0, 3, 1, 2))
+    n, hh, ww, _ = z.shape
+    flops = 2 * 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
+    live_w = sum(5 * w.shape[2] * w.shape[3] * w.element_size() for w in ws)
+    moved = (nbytes(bz, g, *pre, got[0], got[1], *got[3]) + 2 * live_w)
+    b_ms, b_by = bound_ms(flops, "bfloat16", moved)
+    rows.append(dict(
+        name="ar_stack_bwd", route="cuda",
+        source="iaf_torch/ops/csrc/ar_stack_bwd.cu",
+        replaces="iaf_tpu/ops/ar_stack.py:251", max_abs_err=err,
+        max_abs_err_f32=err32, ms=ms, ms_f32=ms32, plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib, gflop=flops / 1e9,
+        mbytes=moved / 1e6))
+
+    # K3 backward, the same IAF step's update
+    (zz, m, s, lq), (z_new, s_b, gz, glq) = cap["iaf_update"]
+    got = ops.iaf_update_bwd(z_new, s_b, gz, glq)
+    ref = ops.iaf_update_bwd_ref(zz, m, s, lq, gz, glq)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    ok = all(bool(((a - b).abs() <= 1e-6 * (1 + b.abs())).all())
+             for a, b in zip(got, ref))
+    print(f"[K3 bwd] iaf_update_bwd {tuple(gz.shape)}: max abs err {err:.3e}")
+    check(ok, f"K3 bwd err {err} beyond 1e-6 * (1 + |ref|)")
+    ms = cuda_ms(lambda: ops.iaf_update_bwd(z_new, s_b, gz, glq))
+    leaves = [t.detach().clone().requires_grad_() for t in (zz, m, s, lq)]
+    plain = _backward_ms(ops.iaf_update_ref, leaves, (gz, glq))
+    moved = nbytes(gz, glq, z_new, s_b, *got[:3])
+    b_ms, b_by = bound_ms(4 * gz.numel(), "float32", moved)
+    rows.append(dict(
+        name="iaf_update_bwd", route="triton", source="iaf_torch/ops/fused.py",
+        replaces="iaf_tpu/ops/fused.py:79", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        mbytes=moved / 1e6))
+
+    # K4 backward, the step's likelihood
+    mean, ls, sample, g = cap["disc_logistic_logp"][:4]
+    dmean, dls = ops.disc_logistic_bwd(mean, ls, sample, g)
+    rmean, rls = ops.disc_logistic_bwd_ref(mean, ls, sample, g)
+    err, rel = _rel_err(dmean, rmean)
+    rel_ls = float((dls - rls).abs().max() / rls.abs().max())
+    print(f"[K4 bwd] disc_logistic_bwd {tuple(mean.shape)}: dmean max abs "
+          f"err {err:.3e} ({rel:.3e} of max), dlogscale {float(dls):.6e} vs "
+          f"{float(rls):.6e} (rel {rel_ls:.3e})")
+    check(rel <= 1e-5, f"K4 bwd dmean {rel} of max > 1e-5")
+    check(rel_ls <= 1e-5, f"K4 bwd dlogscale rel err {rel_ls} > 1e-5")
+    ms = cuda_ms(lambda: ops.disc_logistic_bwd(mean, ls, sample, g))
+    leaves = [t.detach().clone().requires_grad_() for t in (mean, ls)]
+    plain = _backward_ms(lambda m_, l_: ops.disc_logistic_ref(m_, l_, sample),
+                         leaves, g)
+    moved = nbytes(mean, sample, g, ls, dmean, dls)
+    b_ms, b_by = bound_ms(40 * mean.numel(), "float32", moved)
+    rows.append(dict(
+        name="disc_logistic_logp_bwd", route="triton",
+        source="iaf_torch/ops/fused.py", replaces="iaf_tpu/ops/fused.py:148",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, mbytes=moved / 1e6))
+    return rows
+
+
+def adamax_phase(ops, cfg, state) -> dict:
+    """K5 against its twin, bitwise, on the parameters, gradients and
+    optimizer state of the step just taken; both timed over all leaves."""
+    import torch
+    names = [k for k, _ in state.params.named_parameters()]
+    params = dict(state.params.named_parameters())
+    grads = [torch.zeros_like(params[k]) if params[k].grad is None
+             else params[k].grad for k in names]
+    base = [[params[k].detach() for k in names],
+            [state.opt.m[k] for k in names], [state.opt.u[k] for k in names],
+            [state.opt.ema[k] for k in names]]
+    dev = grads[0].device
+    lr_t = torch.full((), cfg.learning_rate, dtype=torch.float32, device=dev)
+    hyper = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.adamax_eps,
+                 polyak_decay=cfg.polyak_decay)
+    p, m, u, e = ([t.clone() for t in group] for group in base)
+    ops.adamax_polyak(p, grads, m, u, e, lr_t, **hyper)
+    same = True
+    for i, leaf in enumerate(zip(*[[t.clone() for t in grp] for grp in base])):
+        ref = ops.adamax_polyak_ref(leaf[0], grads[i], *leaf[1:], lr_t,
+                                    **hyper)
+        same &= all(torch.equal(a[i], b)
+                    for a, b in zip((p, m, u, e), ref))
+    n = sum(t.numel() for t in grads)
+    print(f"[K5] adamax_polyak over {len(names)} leaves, {n} elements: "
+          f"bitwise equal to the twin: {same}")
+    check(same, "K5 differs from its twin")
+    ms = cuda_ms(lambda: ops.adamax_polyak(p, grads, m, u, e, lr_t, **hyper))
+
+    def twin_all():
+        for i in range(len(grads)):
+            ops.adamax_polyak_ref(p[i], grads[i], m[i], u[i], e[i], lr_t,
+                                  **hyper)
+
+    plain = cuda_ms(twin_all)
+    moved = 9 * 4 * n
+    b_ms, b_by = bound_ms(10 * n, "float32", moved)
+    return dict(name="adamax_polyak", route="triton",
+                source="iaf_torch/ops/fused_adamax.py",
+                replaces="iaf_tpu/ops/fused_adamax.py:33", max_abs_err=0.0,
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, mbytes=moved / 1e6, leaves=len(names))
+
+
+def train_reference_phase(device) -> None:
+    """One f32 training step of the paper config at batch 4 on the card
+    (kernels) against the same step on the CPU (twins): same params,
+    batch and noise, TF32 off. The loss at 1e-5 relative; every gradient
+    leaf at 1e-4 of its max; every EMA leaf at 1e-5 of its max; every
+    parameter leaf at 1e-5 of its max where the CPU gradient is at least
+    1e-3 of the leaf's largest (elsewhere Adamax's first step is
+    +-lr (1 - b1) by the gradient's sign alone, so a sign that float
+    rounding flips moves the element by 2 lr (1 - b1); those are
+    counted, and at most ``MAX_FLIPS`` may move apart)."""
+    import torch
+    from iaf_torch import optim
+    from iaf_torch.core.config import Config
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.models import cvae
+    from iaf_torch.parallel import train_step as ts
+    cfg = Config().parse(PAPER + ",compute_dtype=float32,batch_size=4")
+    x = synthetic_dataset(cfg.image_size, 3, n_train=8, n_test=2,
+                          seed=5).train_x[:4]
+    gpu = ts.init_train_state(cfg, 17, x, device)
+    cpu_model = cvae.CVAE(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.params.state_dict().items()})
+    cpu = ts.TrainState(cpu_model, optim.init_state(
+        dict(cpu_model.named_parameters())))
+    g = torch.Generator().manual_seed(4)
+    hw = cfg.image_size // 2
+    noise = {f"{n}/z_post": torch.randn((4, hw, hw, cfg.z_size), generator=g)
+             for n in cvae.layer_names(cfg)}
+    gpu, gm = ts.train_step(cfg, gpu, 0, x,
+                            noise={k: v.to(device) for k, v in noise.items()})
+    t0 = time.perf_counter()
+    cpu, cm = ts.train_step(cfg, cpu, 0, x, noise=noise)
+    cpu_s = time.perf_counter() - t0
+    rel = abs(float(gm["loss"]) - float(cm["loss"])) / abs(float(cm["loss"]))
+    check(math.isfinite(float(gm["loss"])), "non-finite loss on the card")
+    check(rel <= 1e-5, f"f32 step loss rel err {rel} > 1e-5")
+    worst = {"grad": 0.0, "param": 0.0, "ema": 0.0}
+    flips = 0
+    gparams = dict(gpu.params.named_parameters())
+    for k, cp in cpu.params.named_parameters():
+        gp = gparams[k]
+        cg = torch.zeros_like(cp) if cp.grad is None else cp.grad
+        gg = torch.zeros_like(cp) if gp.grad is None else gp.grad.cpu()
+        gmax = float(cg.abs().max())
+        if gmax > 0:
+            worst["grad"] = max(worst["grad"], _rel_err(gg, cg)[1])
+        big = cg.abs() >= 1e-3 * gmax
+        pmax = max(float(cp.detach().abs().max()), 1e-30)
+        diff = (gp.detach().cpu() - cp.detach()).abs()
+        worst["param"] = max(worst["param"],
+                             float((diff * big).max()) / pmax)
+        flips += int(((diff > 1e-5 * pmax) & ~big).sum())
+        worst["ema"] = max(worst["ema"], _rel_err(gpu.opt.ema[k].cpu(),
+                                                  cpu.opt.ema[k])[1])
+    print(f"[reference] f32 train step, batch 4, card vs CPU twins: loss "
+          f"{float(cm['loss']):.4f} (rel err {rel:.3e}); worst leaf error "
+          f"over its max: grads {worst['grad']:.3e}, params {worst['param']:.3e}"
+          f" (where |g| >= 1e-3 max), ema {worst['ema']:.3e}; {flips} small-"
+          f"gradient elements moved apart by a flipped sign (limit "
+          f"{MAX_FLIPS}); CPU step "
+          f"{cpu_s:.1f} s")
+    check(worst["grad"] <= 1e-4, f"grad leaf err {worst['grad']} > 1e-4")
+    check(worst["param"] <= 1e-5, f"param leaf err {worst['param']} > 1e-5")
+    check(worst["ema"] <= 1e-5, f"ema leaf err {worst['ema']} > 1e-5")
+    check(flips <= MAX_FLIPS, f"{flips} small-gradient elements moved "
+          f"apart > {MAX_FLIPS}")
+
+
+PER_STEP = {"ar_stack": 20, "ar_stack_bwd": 20, "iaf_update": 20,
+            "iaf_update_bwd": 20, "disc_logistic_logp": 1,
+            "disc_logistic_logp_bwd": 1, "adamax_polyak": 1}
+
+
+def train_phase(ops, device):
+    """The training main path through ``train_lib.train``: 10 steps with a
+    checkpoint at step 10, then 2 more from it. Returns (the final state,
+    the first run's launch counts, its summary)."""
+    import torch
+    from iaf_torch import train_lib
+    from iaf_torch.core.config import Config
+    logdir = os.path.join(HERE, "build", "chip_smoke_train")
+    shutil.rmtree(logdir, ignore_errors=True)
+    cfg = Config().parse(PAPER + f",dataset=synthetic,log_every=1,"
+                         f"ckpt_every={TRAIN_STEPS},eval_every=0"
+                         ).replace(logdir=logdir)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = train_lib.train(cfg, max_steps=TRAIN_STEPS, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
+    print(f"[train] {TRAIN_STEPS} steps with init and set-up {secs:.3f} s, "
+          f"launches {counts}")
+    check(counts == want, f"launch counts {counts} != {want}")
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    step_s = [1.0 / r["steps_per_sec"] for r in rows[2:]]
+    steady = statistics.median(step_s)
+    print(f"[train] losses {[round(v, 2) for v in losses]}")
+    print(f"[train] steady step (median of steps 3-{TRAIN_STEPS}): "
+          f"{steady:.4f} s, {1 / steady:.3f} steps/s, "
+          f"{cfg.batch_size / steady:.1f} examples/s at batch "
+          f"{cfg.batch_size}")
+    check(os.path.isfile(os.path.join(logdir, f"ckpt-{TRAIN_STEPS:09d}.npz")),
+          "no checkpoint at the last step")
+
+    ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        state = train_lib.train(cfg, max_steps=TRAIN_STEPS + RESUME_STEPS,
+                                device=device)
+    torch.cuda.synchronize()
+    log = out.getvalue()
+    print("\n".join(f"[resume] {line}" for line in log.splitlines()))
+    resumed = ops.launch_counts()
+    check(f"at step {TRAIN_STEPS}" in log, "the resume did not restore")
+    check(resumed == {k: v * RESUME_STEPS for k, v in PER_STEP.items()},
+          f"resume launch counts {resumed}")
+    summary = {"steps": TRAIN_STEPS, "batch_size": cfg.batch_size,
+               "seconds_with_setup": secs, "steady_seconds_per_step": steady,
+               "steps_per_s": 1 / steady,
+               "examples_per_s": cfg.batch_size / steady,
+               "first_loss": losses[0], "last_loss": losses[-1]}
+    return cfg, state, counts, summary
+
+
 def run() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -284,7 +748,6 @@ def run() -> dict:
     from iaf_torch.core.config import Config
     from iaf_torch.data.datasets import synthetic_dataset
     from iaf_torch.models import cvae
-    from iaf_torch.ops import _build
     from iaf_torch.parallel.eval_step import make_eval_step
 
     torch.backends.cudnn.allow_tf32 = False
@@ -300,20 +763,7 @@ def run() -> dict:
           f"python {sys.version.split()[0]}")
 
     # phase 1: build
-    t0 = time.perf_counter()
-    _build.load("ar_stack")
-    print(f"[build] nvcc ar_stack.cu {_build.build_seconds.get('ar_stack', 0):.1f} s")
-    for line in _build.build_log.get("ar_stack", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
-    with torch.inference_mode():
-        t1 = time.perf_counter()
-        a = torch.randn(4, 8, device=device)
-        ops.iaf_update(a, a, a, a)
-        ops.disc_logistic_logp(a, torch.zeros((), device=device), a)
-        torch.cuda.synchronize()
-    print(f"[build] triton K3+K4 first launch {time.perf_counter() - t1:.1f} s;"
-          f" all builds {time.perf_counter() - t0:.1f} s")
+    build_phase(ops, device)
 
     # phase 2: the paper config, data-dependent init (plain convs)
     cfg = Config().parse(PAPER + f",dataset=synthetic,eval_batch_size="
@@ -335,7 +785,8 @@ def run() -> dict:
             cvae.apply_fn(cfg, model, 1, ds.test_x[:EVAL_BATCH], mode="eval",
                           k=EVAL_CHUNK)
     rows = kernel_phase(ops, capture_inputs(ops, one_chunk), device)
-    profile_phase(one_chunk)
+    profile_phase(f"one eval chunk (16 images x {EVAL_CHUNK} samples)",
+                  one_chunk)
 
     # phase 4: the port against the plain twins on a small input
     reference_phase(device)
@@ -350,9 +801,10 @@ def run() -> dict:
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
     n_chunks = EVAL_K // EVAL_CHUNK * EVAL_BATCHES
-    want = {"ar_stack": len(model.blocks) * n_chunks,
-            "iaf_update": len(model.blocks) * n_chunks,
-            "disc_logistic_logp": n_chunks}
+    want = dict.fromkeys(counts, 0)
+    want.update({"ar_stack": len(model.blocks) * n_chunks,
+                 "iaf_update": len(model.blocks) * n_chunks,
+                 "disc_logistic_logp": n_chunks})
     print(f"[main] evaluate k={EVAL_K}: bits/dim {bpd!r}, "
           f"{secs:.4f} s with the data set-up, launches {counts}")
     check(math.isfinite(bpd), f"bits/dim {bpd} is not finite")
@@ -369,14 +821,46 @@ def run() -> dict:
     per_batch = time.perf_counter() - t0
     print(f"[main] steady eval step: {per_batch:.4f} s/batch, "
           f"{EVAL_BATCH * EVAL_K / per_batch:.1f} importance samples/s")
+    eval_counts = counts
+    del model, step
+    torch.cuda.empty_cache()
+
+    # phase 6: backward kernels and K5 against their twins on one real
+    # training step's inputs (paper config, bf16, batch 32)
+    from iaf_torch.parallel import train_step as ts
+    tcfg = Config().parse(PAPER + ",dataset=synthetic")
+    tbatch = ds.train_x[:tcfg.batch_size]
+    tstate = ts.init_train_state(tcfg, 11, tbatch, device)
+    cap = capture_train_step(
+        ops, lambda: ts.train_step(tcfg, tstate, 3, tbatch))
+    rows += backward_kernel_phase(ops, cap)
+    rows.append(adamax_phase(ops, tcfg, tstate))
+    del cap, tstate
+    torch.cuda.empty_cache()
+
+    # phase 7: one f32 training step, card against the CPU twins
+    train_reference_phase(device)
+
+    # phase 8: the training main path, counted, resumed, profiled
+    tcfg, tstate, counts, summary = train_phase(ops, device)
+    summary["profile"] = profile_phase(
+        f"one training step (batch {tcfg.batch_size})",
+        lambda: ts.train_step(tcfg, tstate, 99, tbatch))
     for r in rows:
         r["launches"] = counts[r["name"]]
+        if eval_counts[r["name"]]:     # the forward kernels
+            r["launches_eval"] = eval_counts[r["name"]]
+    for r in rows:
+        print(f"[time] {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
+              f"{r['launches']}")
     print(json.dumps({"main": {
         "bits_per_dim": bpd, "evaluate_seconds": secs,
         "seconds_per_batch": per_batch,
         "importance_samples_per_s": EVAL_BATCH * EVAL_K / per_batch,
         "k": EVAL_K, "eval_batch_size": EVAL_BATCH,
-        "batches": EVAL_BATCHES}}))
+        "batches": EVAL_BATCHES}, "train": summary}))
     print(json.dumps({"kernels": rows}))
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

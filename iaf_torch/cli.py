@@ -3,9 +3,12 @@
 
     python -m iaf_torch.cli --logdir /tmp/iaf --mode eval_test
 
-``--mode eval_test|eval_train`` runs the importance-weighted eval on the
-EMA weights of the newest checkpoint in ``--logdir``. The other modes are
-not ported yet and raise, naming the ROADMAP item that brings them.
+``--mode train`` trains (resuming from the newest checkpoint in
+``--logdir``, the port's or the JAX package's); ``--mode
+eval_test|eval_train`` runs the importance-weighted eval on the EMA
+weights of the newest checkpoint. Both run on the card unless ``--device
+cpu`` asks for the plain twins. The other modes are not ported yet and
+raise, naming the ROADMAP item that brings them.
 ``--num_gpus`` is accepted for command-line parity and ignored.
 """
 
@@ -17,7 +20,6 @@ from iaf_torch import train_lib
 from iaf_torch.core.config import resolve_config
 
 _NOT_YET = {
-    "train": "ROADMAP queue 1, items 5-6 (optimizer, train step and loop)",
     "eval_loop": "ROADMAP queue 1, item 7 (eval_loop)",
     "sample": "ROADMAP queue 1, item 9 (sampling)",
     "recon": "ROADMAP queue 1, item 9 (reconstruction)",
@@ -56,6 +58,9 @@ def main(argv=None) -> None:
         found = real_data_available(cfg.dataset, cfg.data_dir)
         print(f"[data] real cifar10 found at {found}" if found else
               "[data] no real cifar10 on disk -> synthetic fallback")
+    if args.mode == "train":
+        train_lib.train(cfg, device=args.device)
+        return
     train_lib.evaluate(cfg, mode=args.mode, max_batches=args.max_batches,
                        device=args.device)
 

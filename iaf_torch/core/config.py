@@ -190,6 +190,19 @@ def get_default_hparams() -> Config:
 HPS_FILENAME = "hps.json"
 
 
+def save_hparams(cfg: Config, logdir: str) -> str:
+    """Write the resolved config to ``logdir/hps.json`` (atomically), so
+    that later eval runs rebuild the training architecture without
+    ``--hpconfig``."""
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, HPS_FILENAME)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1, sort_keys=True)
+    os.replace(tmp, path)
+    return path
+
+
 def load_hparams(logdir: str) -> Config | None:
     """Config from ``logdir/hps.json``, or None if absent. Unknown keys are
     skipped with a warning; list values become tuples."""

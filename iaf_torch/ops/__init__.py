@@ -1,30 +1,55 @@
-"""Hand-written Hopper kernels of the eval path, each with its plain twin.
+"""Hand-written Hopper kernels, each with its plain twin.
 
 On CUDA tensors the kernels always run; a twin serves CPU tensors (and the
-tests) only. There is no switch between the two.
+tests) only. There is no switch between the two. Under autograd the
+forward kernels are ``torch.autograd.Function``s whose backward is a
+kernel too.
 
-- K1 ``ar_stack`` (CUDA C++, ``csrc/ar_stack.cu``), twin ``ar_stack_ref``
-- K3 ``iaf_update`` (Triton), twin ``iaf_update_ref``
-- K4 ``disc_logistic_logp`` (Triton), twin ``disc_logistic_ref``
+- K1 ``ar_stack`` (CUDA C++, ``csrc/ar_stack.cu``), twin ``ar_stack_ref``;
+  backward ``ar_stack_bwd`` (``csrc/ar_stack_bwd.cu``), twin
+  ``ar_stack_bwd_ref``
+- K3 ``iaf_update`` (Triton), twin ``iaf_update_ref``; backward
+  ``iaf_update_bwd``, twin ``iaf_update_bwd_ref``
+- K4 ``disc_logistic_logp`` (Triton), twin ``disc_logistic_ref``; backward
+  ``disc_logistic_bwd``, twin ``disc_logistic_bwd_ref``
+- K5 ``adamax_polyak`` (Triton, one launch over all leaves), twin
+  ``adamax_polyak_ref``
 """
 
 from iaf_torch.ops import ar_stack as _ar_stack_mod
 from iaf_torch.ops import fused as _fused_mod
-from iaf_torch.ops.ar_stack import ar_stack, ar_stack_ref  # noqa: F401
+from iaf_torch.ops import fused_adamax as _adamax_mod
+from iaf_torch.ops.ar_stack import (  # noqa: F401
+    ar_stack,
+    ar_stack_bwd,
+    ar_stack_bwd_ref,
+    ar_stack_ref,
+)
 from iaf_torch.ops.fused import (  # noqa: F401
+    disc_logistic_bwd,
+    disc_logistic_bwd_ref,
     disc_logistic_logp,
     disc_logistic_ref,
     iaf_update,
+    iaf_update_bwd,
+    iaf_update_bwd_ref,
     iaf_update_ref,
 )
+from iaf_torch.ops.fused_adamax import (  # noqa: F401
+    adamax_polyak,
+    adamax_polyak_ref,
+)
+
+_COUNTERS = (_ar_stack_mod.launches, _fused_mod.launches,
+             _adamax_mod.launches)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {**_ar_stack_mod.launches, **_fused_mod.launches}
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_ar_stack_mod.launches, _fused_mod.launches):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0

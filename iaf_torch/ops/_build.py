@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared
 library loaded through ``ctypes``; nothing is built at import, so the
 package imports on a machine without ``nvcc``. A library is rebuilt when
-its source is newer.
+its source is newer. Each source has its own lock, so two sources can
+build at once from two threads.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 build_log: dict[str, str] = {}   # nvcc's output (ptxas register report)
 build_seconds: dict[str, float] = {}
 
@@ -64,7 +66,9 @@ def _compile(name: str) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

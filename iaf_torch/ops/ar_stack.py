@@ -1,9 +1,15 @@
-"""K1: the fused masked AR conv net of one IAF step (``csrc/ar_stack.cu``).
+"""K1: the fused masked AR conv net of one IAF step (``csrc/ar_stack.cu``)
+and its backward (``csrc/ar_stack_bwd.cu``).
 
-Replaces ``iaf_tpu/ops/ar_stack.py:_stack_kernel``. ``ar_stack`` launches
-the CUDA kernel for CUDA tensors and runs ``ar_stack_ref``, its plain
-PyTorch twin (the counterpart of ``ar_stack_xla``), for CPU tensors only.
-Layouts are the JAX ones: activations NHWC, weights HWIO.
+Replaces ``iaf_tpu/ops/ar_stack.py:_stack_kernel`` and its ``_bwd``.
+``ar_stack`` launches the CUDA kernel for CUDA tensors and runs
+``ar_stack_ref``, its plain PyTorch twin (the counterpart of
+``ar_stack_xla``), for CPU tensors only. Under autograd on CUDA it is a
+``torch.autograd.Function``: the forward kernel also writes the hidden
+convs' pre-activations, and ``ar_stack_bwd`` runs the dgrad and wgrad
+kernels over them; on the CPU autograd differentiates the twin
+(``ar_stack_bwd_ref``). Layouts are the JAX ones: activations NHWC,
+weights HWIO.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ _PX = 8                     # output pixels per thread item (ar_stack.cu PX)
 _SMEM_LIMIT = 232_448       # dynamic shared memory a Hopper block may use
 _MMA_WARPS = 10             # tensor-core path's block size cap (launch bounds)
 
-launches = {"ar_stack": 0}  # kernel launches since the last reset
+_WGRAD_CHUNKS = 64          # wgrad partials: pixel-row chunks per conv
+
+launches = {"ar_stack": 0, "ar_stack_bwd": 0}  # launches since the reset
 
 
 def conv_nhwc(x: torch.Tensor, w_hwio: torch.Tensor, padding) -> torch.Tensor:
@@ -54,20 +62,40 @@ def ar_stack_ref(z: torch.Tensor, context: torch.Tensor,
     return h
 
 
+def ar_stack_bwd_ref(z, context, weights, biases, g):
+    """The plain backward: autograd of the twin. Returns (dz, dcontext,
+    [dW per conv, 3x3 HWIO], [db per conv])."""
+    with torch.enable_grad():
+        z_, c_ = (t.detach().requires_grad_() for t in (z, context))
+        ws = [w.detach().requires_grad_() for w in weights]
+        bs = [b.detach().requires_grad_() for b in biases]
+        out = ar_stack_ref(z_, c_, ws, bs)
+        grads = torch.autograd.grad(out, [z_, c_, *ws, *bs], g)
+    n = len(weights)
+    return grads[0], grads[1], list(grads[2:2 + n]), list(grads[2 + n:])
+
+
+def _live_taps(w: torch.Tensor) -> torch.Tensor:
+    """[3, 3, cin, cout] -> [5, cin, cout]: the live taps are the first
+    five of the nine in raster order (``LIVE_TAPS``), so this is a view of
+    a contiguous ``w``."""
+    return w.reshape(9, w.shape[2], w.shape[3])[:5]
+
+
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
     """[3, 3, cin, cout] -> [5, cin, cout], the live taps in kernel order
     (FMA path)."""
-    return torch.stack([w[dy, dx] for dy, dx in LIVE_TAPS]).contiguous()
+    return _live_taps(w).contiguous()
 
 
 def pack_fragments(w: torch.Tensor) -> torch.Tensor:
     """[3, 3, cin, cout] -> the live taps in mma.sync B-fragment order,
     [5, cout/8, cin/16, 8 (g), 4 (tig), 2 (k half), 2]: lane g*4+tig of
     the warp holds output n-tile*8+g and inputs k-step*16 + half*8 +
-    tig*2 + {0, 1} (tensor-core path)."""
+    tig*2 + {0, 1} (tensor-core path). One copy."""
     cin, cout = w.shape[2], w.shape[3]
-    t = torch.stack([w[dy, dx].t() for dy, dx in LIVE_TAPS])  # [5,cout,cin]
-    t = t.reshape(5, cout // 8, 8, cin // 16, 2, 4, 2)
+    t = _live_taps(w).transpose(1, 2)                      # [5, cout, cin]
+    t = t.reshape(5, cout // 8, 8, cin // 16, 2, 4, 2)     # a view
     return t.permute(0, 1, 3, 2, 5, 4, 6).contiguous()
 
 
@@ -114,11 +142,18 @@ def _check(z, context, weights, biases, masks):
         raise TypeError("context must be float32")
 
 
+def pack_weights_t(w: torch.Tensor) -> torch.Tensor:
+    """[3, 3, cin, cout] -> [5, cout, cin], the live taps transposed
+    (dgrad), in one copy: dgrad's threads run over input channels, and
+    this layout makes their weight loads coalesced."""
+    return _live_taps(w).transpose(1, 2).contiguous()
+
+
 def _lib():
     lib = _build.load("ar_stack")
     if not getattr(lib, "_iaf_typed", False):
         lib.ar_stack_fwd.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         lib.ar_stack_fwd.restype = ctypes.c_int
         lib.ar_stack_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.ar_stack_smem_bytes.restype = ctypes.c_size_t
@@ -126,24 +161,33 @@ def _lib():
     return lib
 
 
-def ar_stack(z: torch.Tensor, context: torch.Tensor,
-             weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
-             masks: Sequence[np.ndarray]) -> torch.Tensor:
-    """Run the masked AR chain: ``weights`` are the folded, pre-masked
-    [3, 3, cin, cout] convs (hidden ones first, the merged head last) in
-    z's dtype, ``biases`` f32, ``masks`` the static numpy masks (only their
-    tap structure is read). Returns the heads, [N, H, W, cout] f32."""
-    _check(z, context, weights, biases, masks)
-    if z.device.type == "cpu":
-        return ar_stack_ref(z, context, weights, biases)
-    if z.device.type != "cuda":
-        raise RuntimeError(f"ar_stack: no kernel for device {z.device}")
+def _bwd_lib():
+    lib = _build.load("ar_stack_bwd")
+    if not getattr(lib, "_iaf_typed", False):
+        lib.ar_stack_dgrad.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.ar_stack_wgrad.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.ar_stack_wreduce.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        for fn in (lib.ar_stack_dgrad, lib.ar_stack_wgrad,
+                   lib.ar_stack_wreduce):
+            fn.restype = ctypes.c_int
+        lib._iaf_typed = True
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _fwd(z, context, weights, biases, save_pre: bool):
+    """Launch the forward kernel; with ``save_pre`` also return the hidden
+    convs' f32 pre-activations for the backward."""
     tensors = [z, context, *weights, *biases]
     if any(t.device != z.device for t in tensors):
         raise RuntimeError("ar_stack: inputs on different devices")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("ar_stack: forward-only kernel; run under "
-                           "torch.inference_mode()")
     if not all(t.is_contiguous() for t in (z, context, *biases)):
         raise ValueError("ar_stack: z, context and biases must be "
                          "contiguous")
@@ -164,14 +208,118 @@ def ar_stack(z: torch.Tensor, context: torch.Tensor,
         threads = 32 * -(-(max(ch, cout) * -(-w_ // _PX)) // 32)
     threads = min(1024, threads)
     out = torch.empty((n, h, w_, cout), device=z.device, dtype=torch.float32)
+    pre = [torch.empty((n, h, w_, ch), device=z.device, dtype=torch.float32)
+           for _ in range(n_convs - 1)] if save_pre else []
     wptr = [t.data_ptr() for t in packed] + [None] * (_MAX_CONVS - n_convs)
     bptr = [t.data_ptr() for t in biases] + [None] * (_MAX_CONVS - n_convs)
+    pptr = [t.data_ptr() for t in pre] + [None] * (_MAX_CONVS - 1 - len(pre))
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = lib.ar_stack_fwd(z.data_ptr(), context.data_ptr(), *wptr,
-                               *bptr, out.data_ptr(), n_convs, n, h, w_, cz,
-                               ch, cout, bf16, int(mma), threads, stream)
-    if err != 0:
-        raise RuntimeError(f"ar_stack kernel launch failed: CUDA error {err}")
+                               *bptr, out.data_ptr(), *pptr, n_convs, n, h,
+                               w_, cz, ch, cout, bf16, int(mma), threads,
+                               stream)
+    _raise_on(err, "ar_stack")
     launches["ar_stack"] += 1
-    return out
+    return out, pre
+
+
+def ar_stack_bwd(z, weights, pre, g):
+    """K1's backward kernels: from the forward's input ``z``, weights and
+    saved pre-activations ``pre`` and the output gradient ``g`` [N,H,W,cout]
+    f32, return (dz in z's dtype, dcontext f32, [dW per conv, 3x3 HWIO in
+    the weights' dtype, zero at the dead taps], [db per conv, f32]). Per
+    conv, head first: the wgrad kernel's chunk partials, their in-order
+    sum, then the dgrad kernel (times ELU' of the conv's input)."""
+    if z.device.type != "cuda":
+        raise RuntimeError(f"ar_stack_bwd: no kernel for device {z.device}")
+    n, h, w_, _ = z.shape
+    ch, cout = weights[0].shape[-1], weights[-1].shape[-1]
+    if len(pre) != len(weights) - 1:
+        raise ValueError("ar_stack_bwd: one pre-activation per hidden conv")
+    for t, shape in [(g, (n, h, w_, cout))] + [(p, (n, h, w_, ch))
+                                               for p in pre]:
+        if t.device != z.device:
+            raise RuntimeError("ar_stack_bwd: inputs on different devices")
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"ar_stack_bwd: g and pre must be contiguous "
+                             f"float32 {shape}")
+    if not z.is_contiguous() or any(w.dtype != z.dtype for w in weights):
+        raise ValueError("ar_stack_bwd: z must be contiguous and the "
+                         "weights in its dtype")
+    bf16 = int(z.dtype == torch.bfloat16)
+    lib = _bwd_lib()
+    dev = z.device
+    rows = n * h
+    rows_per_chunk = -(-rows // _WGRAD_CHUNKS)
+    chunks = -(-rows // rows_per_chunk)
+    n_convs = len(weights)
+    dws, dbs = [None] * n_convs, [None] * n_convs
+    dctx = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for c in reversed(range(n_convs)):
+            w = weights[c]
+            cin, cout = w.shape[2], w.shape[3]
+            src = pre[c - 1] if c > 0 else None
+            part = torch.empty((chunks, 5 * cin * cout + cout), device=dev,
+                               dtype=torch.float32)
+            _raise_on(lib.ar_stack_wgrad(
+                None if src is not None else z.data_ptr(),
+                src.data_ptr() if src is not None else None, g.data_ptr(),
+                part.data_ptr(), n, h, w_, cin, cout, rows_per_chunk, bf16,
+                stream), "ar_stack wgrad")
+            dws[c] = torch.empty(w.shape, device=dev, dtype=w.dtype)
+            dbs[c] = torch.empty((cout,), device=dev, dtype=torch.float32)
+            _raise_on(lib.ar_stack_wreduce(
+                part.data_ptr(), dws[c].data_ptr(), dbs[c].data_ptr(),
+                chunks, cin, cout, bf16, stream), "ar_stack wreduce")
+            wt = pack_weights_t(w)
+            dx = torch.empty((n, h, w_, cin), device=dev,
+                             dtype=torch.float32 if c > 0 else z.dtype)
+            _raise_on(lib.ar_stack_dgrad(
+                g.data_ptr(), wt.data_ptr(),
+                src.data_ptr() if src is not None else None, dx.data_ptr(),
+                n, h, w_, cin, cout, bf16, stream), "ar_stack dgrad")
+            if c == 1:
+                dctx = dx      # conv 0's output gradient is the context's
+            g = dx
+    launches["ar_stack_bwd"] += 1
+    return g, dctx, dws, dbs
+
+
+class _ARStack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, context, n_convs, *wb):
+        weights, biases = list(wb[:n_convs]), list(wb[n_convs:])
+        out, pre = _fwd(z, context, weights, biases, save_pre=True)
+        ctx.n_convs = n_convs
+        ctx.save_for_backward(z, *weights, *pre)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.n_convs
+        saved = ctx.saved_tensors
+        z, weights, pre = saved[0], list(saved[1:1 + n]), list(saved[1 + n:])
+        dz, dctx, dws, dbs = ar_stack_bwd(z, weights, pre, g.contiguous())
+        return (dz, dctx, None, *dws, *dbs)
+
+
+def ar_stack(z: torch.Tensor, context: torch.Tensor,
+             weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+             masks: Sequence[np.ndarray]) -> torch.Tensor:
+    """Run the masked AR chain: ``weights`` are the folded, pre-masked
+    [3, 3, cin, cout] convs (hidden ones first, the merged head last) in
+    z's dtype, ``biases`` f32, ``masks`` the static numpy masks (only their
+    tap structure is read). Returns the heads, [N, H, W, cout] f32."""
+    _check(z, context, weights, biases, masks)
+    if z.device.type == "cpu":
+        return ar_stack_ref(z, context, weights, biases)
+    if z.device.type != "cuda":
+        raise RuntimeError(f"ar_stack: no kernel for device {z.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (z, context, *weights, *biases)):
+        return _ARStack.apply(z, context, len(weights), *weights, *biases)
+    return _fwd(z, context, weights, biases, save_pre=False)[0]

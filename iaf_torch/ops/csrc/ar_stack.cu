@@ -59,6 +59,9 @@ struct StackArgs {
   const void* w[MAX_CONVS];   // [NTAPS, cin_i, cout_i] T
   const float* b[MAX_CONVS];  // [cout_i] f32
   float* out;                 // [N,H,W,cout] f32
+  // [N,H,W,ch] f32 pre-activation of hidden conv i (before its ELU), or
+  // null: written only when the caller will run the backward
+  float* pre[MAX_CONVS - 1];
   int n_convs, H, W, cz, ch, cout;
 };
 
@@ -161,6 +164,8 @@ __global__ void ar_stack_kernel(StackArgs a) {
           if (last) {
             out[((size_t)y * W + x) * a.cout + co] = v;
           } else {
+            if (a.pre[c] != nullptr)
+              a.pre[c][(((size_t)n * H + y) * W + x) * a.ch + co] = v;
             v = elu(v);
             ring[c + 1][((size_t)s * RW + x + 1) * co_n + co] = from_f<T>(v);
           }
@@ -338,6 +343,9 @@ __global__ void __launch_bounds__(320, 2)
                     *reinterpret_cast<float2*>(a.out + pix * a.cout + co) =
                         make_float2(v0, v1);
                 } else {
+                  if (a.pre[c] != nullptr && img < n_images)
+                    *reinterpret_cast<float2*>(a.pre[c] + pix * a.ch + co) =
+                        make_float2(v0, v1);
                   v0 = elu(v0);
                   v1 = elu(v1);
                   *reinterpret_cast<__nv_bfloat162*>(
@@ -390,11 +398,13 @@ size_t ar_stack_smem_bytes(int n_convs, int W, int cz, int ch, int bf16,
   return smem_bytes(n_convs, W, cz, ch, bf16 ? 2 : 4);
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success). pre0..pre2,
+// where not null, receive the hidden convs' f32 pre-activations.
 int ar_stack_fwd(const void* z, const void* ctx, const void* w0,
                  const void* w1, const void* w2, const void* w3,
                  const void* b0, const void* b1, const void* b2,
-                 const void* b3, void* out, int n_convs, int n_images, int H,
+                 const void* b3, void* out, void* pre0, void* pre1,
+                 void* pre2, int n_convs, int n_images, int H,
                  int W, int cz, int ch, int cout, int bf16, int mma,
                  int threads, void* stream) {
   if (n_convs < 2 || n_convs > MAX_CONVS) return (int)cudaErrorInvalidValue;
@@ -408,6 +418,9 @@ int ar_stack_fwd(const void* z, const void* ctx, const void* w0,
     a.b[i] = static_cast<const float*>(bs[i]);
   }
   a.out = static_cast<float*>(out);
+  a.pre[0] = static_cast<float*>(pre0);
+  a.pre[1] = static_cast<float*>(pre1);
+  a.pre[2] = static_cast<float*>(pre2);
   a.n_convs = n_convs;
   a.H = H;
   a.W = W;
