@@ -7,7 +7,8 @@ Phases, any failure exits non-zero:
 
 1. Device and build: the card's name and power limit, then the CUDA
    kernels (K1 forward ``ar_stack.cu`` and backward ``ar_stack_bwd.cu``,
-   one nvcc each for sm_90a, started together) and the Triton kernels (K3
+   K2 forward ``masked_conv.cu`` and backward ``masked_conv_bwd.cu``, one
+   nvcc each for sm_90a, all started together) and the Triton kernels (K3
    and K4 forward and backward, K5) are built from the sources beside this
    script, with their build seconds and ptxas register and spill lines.
 2. The main path's config: the CIFAR paper config (``--hpconfig
@@ -45,6 +46,23 @@ Phases, any failure exits non-zero:
    K5 = 1. Every step's loss must be finite; the steady seconds per step
    (median of steps 3-10) and examples/s are printed, and one more step is
    profiled (device time by kernel name, device-busy share).
+9. K1 at five convs (depth_ar=4, paper widths, 64 images) against its
+   twin, bf16 at 2e-2 and f32 (TF32 off) at 1e-4 of the output's max.
+10. The 5x5 config (the paper config with ``kernel_size=5``: every AR net
+   runs conv by conv through K2, three masked 5x5 convs per IAF step) at
+   full width and depth: init; K2's inputs captured from one real eval
+   chunk for all three conv shapes, held to the twin in bf16 at 2e-2 and
+   in f32 at 1e-5 of the output's max, timed beside the twin, one cuDNN
+   conv and the bound, and one chunk profiled; one f32 eval forward, card
+   against CPU twins; ``evaluate`` at k=256 with launches exactly K2 = 60,
+   K3 = 20, K4 = 1 per chunk and K1 = 0; K2's backward held to autograd of
+   its twin on inputs captured from a real bf16 step at batch 32 (2e-2 of
+   each output's max; f32 at 1e-4 of the twin in f64), timed beside the
+   twin's and cuDNN's backward; one f32 training step at batch 4, card against CPU; and
+   ``train_lib.train`` for 10 steps plus a 2-step resume with launches
+   exactly K2 = K2-backward = 60, K3 = K3-backward = 20, K4 =
+   K4-backward = K5 = 1, K1 = K1-backward = 0 per step, and one step
+   profiled.
 
 The second-last line of standard output is the ``kernels`` JSON, the last
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +85,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PAPER = "depth=1,num_blocks=20,kl_min=0.25,learning_rate=0.002,batch_size=32"
+PAPER5 = PAPER + ",kernel_size=5"
+K2_NAMES = ("masked_conv2d", "masked_conv2d_bwd")
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 EVAL_BATCH, EVAL_K, EVAL_CHUNK, EVAL_BATCHES = 16, 256, 64, 2
@@ -267,14 +287,14 @@ def profile_phase(label: str, fn) -> dict:
     return {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3}
 
 
-def reference_phase(device) -> None:
-    """One f32 eval forward of the paper config on the card (kernels)
+def reference_phase(device, hp: str = PAPER) -> None:
+    """One f32 eval forward of the config ``hp`` on the card (kernels)
     against the same forward on the CPU (plain twins), same noise."""
     import torch
     from iaf_torch.core.config import Config
     from iaf_torch.data.datasets import synthetic_dataset
     from iaf_torch.models import cvae
-    cfg = Config().parse(PAPER + ",compute_dtype=float32")
+    cfg = Config().parse(hp + ",compute_dtype=float32")
     x = synthetic_dataset(32, 3, n_train=8, n_test=2, seed=5).test_x
     gpu = cvae.init_params(cfg, x, rng=17, device=device)
     cpu = cvae.CVAE(cfg, device="cpu")
@@ -289,7 +309,8 @@ def reference_phase(device) -> None:
         b = cvae.apply_fn(cfg, cpu, 0, x, mode="eval", k=k, noise=noise)
     lw_a, lw_b = a.log_w.cpu(), b.log_w
     rel = float(((lw_a - lw_b).abs() / lw_b.abs()).max())
-    print(f"[reference] f32 eval forward, card vs CPU twins: log_w "
+    print(f"[reference] {_label(cfg)} f32 eval forward, card vs CPU twins: "
+          f"log_w "
           f"{lw_b.tolist()}, max rel err {rel:.3e}")
     check(bool(torch.isfinite(lw_a).all()), "non-finite log_w on the card")
     check(rel <= 1e-5, f"card vs CPU log_w rel err {rel} > 1e-5")
@@ -305,12 +326,12 @@ def _detach(a):
 
 
 def build_phase(ops, device) -> None:
-    """Build both CUDA sources at once (one nvcc each, in two threads) and
-    launch every Triton kernel once on tiny inputs (its compile)."""
+    """Build every CUDA source at once (one nvcc each, in one thread each)
+    and launch every Triton kernel once on tiny inputs (its compile)."""
     import torch
     from iaf_torch.ops import _build
     t0 = time.perf_counter()
-    names = ("ar_stack", "ar_stack_bwd")
+    names = ("ar_stack", "ar_stack_bwd", "masked_conv", "masked_conv_bwd")
     errors: dict[str, str] = {}
 
     def build(name):
@@ -599,8 +620,8 @@ def adamax_phase(ops, cfg, state) -> dict:
                 library_ms=None, mbytes=moved / 1e6, leaves=len(names))
 
 
-def train_reference_phase(device) -> None:
-    """One f32 training step of the paper config at batch 4 on the card
+def train_reference_phase(device, hp: str = PAPER) -> None:
+    """One f32 training step of the config ``hp`` at batch 4 on the card
     (kernels) against the same step on the CPU (twins): same params,
     batch and noise, TF32 off. The loss at 1e-5 relative; every gradient
     leaf at 1e-4 of its max; every EMA leaf at 1e-5 of its max; every
@@ -615,7 +636,7 @@ def train_reference_phase(device) -> None:
     from iaf_torch.data.datasets import synthetic_dataset
     from iaf_torch.models import cvae
     from iaf_torch.parallel import train_step as ts
-    cfg = Config().parse(PAPER + ",compute_dtype=float32,batch_size=4")
+    cfg = Config().parse(hp + ",compute_dtype=float32,batch_size=4")
     x = synthetic_dataset(cfg.image_size, 3, n_train=8, n_test=2,
                           seed=5).train_x[:4]
     gpu = ts.init_train_state(cfg, 17, x, device)
@@ -654,7 +675,8 @@ def train_reference_phase(device) -> None:
         flips += int(((diff > 1e-5 * pmax) & ~big).sum())
         worst["ema"] = max(worst["ema"], _rel_err(gpu.opt.ema[k].cpu(),
                                                   cpu.opt.ema[k])[1])
-    print(f"[reference] f32 train step, batch 4, card vs CPU twins: loss "
+    print(f"[reference] {_label(cfg)} f32 train step, batch 4, card vs CPU "
+          f"twins: loss "
           f"{float(cm['loss']):.4f} (rel err {rel:.3e}); worst leaf error "
           f"over its max: grads {worst['grad']:.3e}, params {worst['param']:.3e}"
           f" (where |g| >= 1e-3 max), ema {worst['ema']:.3e}; {flips} small-"
@@ -668,23 +690,41 @@ def train_reference_phase(device) -> None:
           f"apart > {MAX_FLIPS}")
 
 
+# launches per training step: the paper config's AR nets through K1, the
+# 5x5 config's through K2 (3 convs x 20 layers)
 PER_STEP = {"ar_stack": 20, "ar_stack_bwd": 20, "iaf_update": 20,
             "iaf_update_bwd": 20, "disc_logistic_logp": 1,
             "disc_logistic_logp_bwd": 1, "adamax_polyak": 1}
+PER_STEP_5X5 = {"masked_conv2d": 60, "masked_conv2d_bwd": 60,
+                "iaf_update": 20, "iaf_update_bwd": 20,
+                "disc_logistic_logp": 1, "disc_logistic_logp_bwd": 1,
+                "adamax_polyak": 1}
 
 
-def train_phase(ops, device):
+def _label(cfg) -> str:
+    return "5x5" if cfg.kernel_size == 5 else "paper"
+
+
+def _expect(counts: dict, per: dict, times: int) -> dict:
+    """Every counter zero but those of ``per``, which are ``times`` x."""
+    want = dict.fromkeys(counts, 0)
+    want.update({k: v * times for k, v in per.items()})
+    return want
+
+
+def train_phase(ops, device, hp: str = PAPER, per_step: dict = PER_STEP):
     """The training main path through ``train_lib.train``: 10 steps with a
     checkpoint at step 10, then 2 more from it. Returns (the final state,
     the first run's launch counts, its summary)."""
     import torch
     from iaf_torch import train_lib
     from iaf_torch.core.config import Config
-    logdir = os.path.join(HERE, "build", "chip_smoke_train")
+    cfg = Config().parse(hp + f",dataset=synthetic,log_every=1,"
+                         f"ckpt_every={TRAIN_STEPS},eval_every=0")
+    tag = _label(cfg)
+    logdir = os.path.join(HERE, "build", f"chip_smoke_train_{tag}")
     shutil.rmtree(logdir, ignore_errors=True)
-    cfg = Config().parse(PAPER + f",dataset=synthetic,log_every=1,"
-                         f"ckpt_every={TRAIN_STEPS},eval_every=0"
-                         ).replace(logdir=logdir)
+    cfg = cfg.replace(logdir=logdir)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -692,9 +732,9 @@ def train_phase(ops, device):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
-    want = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
-    print(f"[train] {TRAIN_STEPS} steps with init and set-up {secs:.3f} s, "
-          f"launches {counts}")
+    want = _expect(counts, per_step, TRAIN_STEPS)
+    print(f"[train] {tag}: {TRAIN_STEPS} steps with init and set-up "
+          f"{secs:.3f} s, launches {counts}")
     check(counts == want, f"launch counts {counts} != {want}")
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -703,8 +743,8 @@ def train_phase(ops, device):
           f"losses {losses}")
     step_s = [1.0 / r["steps_per_sec"] for r in rows[2:]]
     steady = statistics.median(step_s)
-    print(f"[train] losses {[round(v, 2) for v in losses]}")
-    print(f"[train] steady step (median of steps 3-{TRAIN_STEPS}): "
+    print(f"[train] {tag}: losses {[round(v, 2) for v in losses]}")
+    print(f"[train] {tag}: steady step (median of steps 3-{TRAIN_STEPS}): "
           f"{steady:.4f} s, {1 / steady:.3f} steps/s, "
           f"{cfg.batch_size / steady:.1f} examples/s at batch "
           f"{cfg.batch_size}")
@@ -718,10 +758,10 @@ def train_phase(ops, device):
                                 device=device)
     torch.cuda.synchronize()
     log = out.getvalue()
-    print("\n".join(f"[resume] {line}" for line in log.splitlines()))
+    print("\n".join(f"[resume] {tag}: {line}" for line in log.splitlines()))
     resumed = ops.launch_counts()
     check(f"at step {TRAIN_STEPS}" in log, "the resume did not restore")
-    check(resumed == {k: v * RESUME_STEPS for k, v in PER_STEP.items()},
+    check(resumed == _expect(resumed, per_step, RESUME_STEPS),
           f"resume launch counts {resumed}")
     summary = {"steps": TRAIN_STEPS, "batch_size": cfg.batch_size,
                "seconds_with_setup": secs, "steady_seconds_per_step": steady,
@@ -729,6 +769,294 @@ def train_phase(ops, device):
                "examples_per_s": cfg.batch_size / steady,
                "first_loss": losses[0], "last_loss": losses[-1]}
     return cfg, state, counts, summary
+
+
+def eval_phase(ops, device, cfg, model, ds, per_chunk: dict):
+    """The eval main path, counted: ``train_lib.evaluate`` over 2 test
+    batches at k=256 with the counters zeroed just before and read just
+    after (exactly ``per_chunk`` per chunk); then one more batch through
+    the eval step alone for the steady seconds per batch. Returns (the
+    counts, a summary)."""
+    import torch
+    from iaf_torch import train_lib
+    from iaf_torch.parallel.eval_step import make_eval_step
+    tag = _label(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    bpd = train_lib.evaluate(cfg, "eval_test", params=model, k=EVAL_K,
+                             max_batches=EVAL_BATCHES, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = _expect(counts, per_chunk, EVAL_K // EVAL_CHUNK * EVAL_BATCHES)
+    print(f"[main] {tag}: evaluate k={EVAL_K}: bits/dim {bpd!r}, "
+          f"{secs:.4f} s with the data set-up, launches {counts}")
+    check(math.isfinite(bpd), f"bits/dim {bpd} is not finite")
+    check(counts == want, f"launch counts {counts} != {want}")
+    # steady state: the eval step alone on one batch, timed after the
+    # counted run (set-up excluded)
+    step = make_eval_step(cfg, device, k=EVAL_K)
+    batch = ds.test_x[:EVAL_BATCH]
+    step(model, 7, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(model, 7, batch)
+    torch.cuda.synchronize()
+    per_batch = time.perf_counter() - t0
+    print(f"[main] {tag}: steady eval step: {per_batch:.4f} s/batch, "
+          f"{EVAL_BATCH * EVAL_K / per_batch:.1f} importance samples/s")
+    return counts, {
+        "bits_per_dim": bpd, "evaluate_seconds": secs,
+        "seconds_per_batch": per_batch,
+        "importance_samples_per_s": EVAL_BATCH * EVAL_K / per_batch,
+        "k": EVAL_K, "eval_batch_size": EVAL_BATCH, "batches": EVAL_BATCHES}
+
+
+def k1_depth_phase(ops, device, depth_ar: int = 4, n: int = 64) -> None:
+    """K1 with depth_ar + 1 convs at the paper widths on random inputs
+    from a seed, against its twin: bf16 at 2e-2 and f32 (TF32 off) at
+    1e-4 of the output's max."""
+    import numpy as np
+    import torch
+    from iaf_torch.nn.masks import get_conv_ar_mask
+    gen = torch.Generator().manual_seed(9)
+    zs, hs = 32, 160
+    ws, bs, masks, prev = [], [], [], zs
+    for i in range(depth_ar + 1):
+        if i < depth_ar:
+            m, cout = get_conv_ar_mask(3, 3, prev, hs, i == 0), hs
+        else:
+            m = np.concatenate([get_conv_ar_mask(3, 3, hs, zs, False)] * 2,
+                               -1)
+            cout = 2 * zs
+        ws.append(torch.randn(3, 3, prev, cout, generator=gen)
+                  / math.sqrt(5 * prev) * torch.from_numpy(m))
+        bs.append(0.1 * torch.randn(cout, generator=gen))
+        masks.append(m)
+        prev = hs
+    z = torch.randn(n, 16, 16, zs, generator=gen)
+    ctx = torch.randn(n, 16, 16, hs, generator=gen)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        args = (z.to(device, dtype), ctx.to(device),
+                [w.to(device, dtype) for w in ws], [b.to(device) for b in bs])
+        with torch.inference_mode():
+            got = ops.ar_stack(*args, masks)
+            ref = ops.ar_stack_ref(*args)
+        err, rel = _rel_err(got, ref)
+        print(f"[K1 depth] ar_stack with {len(ws)} convs (depth_ar="
+              f"{depth_ar}), {str(dtype)[6:]}, z{tuple(z.shape)}: max abs err "
+              f"{err:.3e} ({rel:.3e} of max, limit {tol})")
+        check(rel <= tol, f"K1 at {len(ws)} convs {dtype}: {rel} > {tol}")
+
+
+def capture_k2(target, name: str, fn) -> dict:
+    """Run ``fn`` with a spy on K2's wrapper ``target.name``; return, per
+    conv shape (cin, cout), its first call's arguments (detached copies)."""
+    original = getattr(target, name)
+    seen: dict[tuple, tuple] = {}
+
+    def spy(*args):
+        key = tuple(args[1].shape[2:])
+        if key not in seen:
+            seen[key] = _detach(args)
+        return original(*args)
+
+    setattr(target, name, spy)
+    try:
+        fn()
+    finally:
+        setattr(target, name, original)
+    check(len(seen) == 3, f"{name}: captured shapes {sorted(seen)}, want 3")
+    return seen
+
+
+def _k2_row(name, source, replaces, shapes) -> dict:
+    """One kernels-line row for K2 over the AR net's three conv shapes:
+    each time is the mean per launch on the path (the three convs run
+    equally often), the bound the mean of the three bounds, set by what
+    bounds the larger share of them."""
+    mean = lambda k: statistics.fmean(sh[k] for sh in shapes)  # noqa: E731
+    by_ops = sum(sh["bound_ms"] for sh in shapes
+                 if sh["bound_by"] == "operations")
+    by_bytes = sum(sh["bound_ms"] for sh in shapes) - by_ops
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        max_abs_err=max(sh["max_abs_err"] for sh in shapes),
+        max_abs_err_f32=max(sh["max_abs_err_f32"] for sh in shapes),
+        ms=mean("ms"), ms_f32=mean("ms_f32"), plain_ms=mean("plain_ms"),
+        bound_ms=mean("bound_ms"),
+        bound_by="operations" if by_ops >= by_bytes else "bytes",
+        library_ms=mean("library_ms"),
+        gflop=sum(sh["gflop"] for sh in shapes) / len(shapes),
+        mbytes=sum(sh["mbytes"] for sh in shapes) / len(shapes),
+        per_shape=shapes)
+
+
+def _k2_conv_lib(x, w):
+    """cuDNN's conv on the same masked weights, channels-last, all taps:
+    (the call, its inputs) for timing (never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+    kh, kw = w.shape[:2]
+    xl = x.permute(0, 3, 1, 2)
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    pad = ((kh - 1) // 2, (kw - 1) // 2)
+    return (lambda a, b: F.conv2d(a, b, padding=pad)), xl, wl
+
+
+def k2_forward_phase(ops, cap: dict) -> dict:
+    """K2 on each captured conv: bf16 against its twin at 2e-2 and f32
+    (TF32 off) at 1e-5 of the output's max; timed beside the twin, one
+    cuDNN conv and the bound."""
+    import torch
+    shapes = []
+    for (cin, cout), (x, w, taps) in sorted(cap.items()):
+        with torch.inference_mode():
+            got = ops.masked_conv2d(x, w, taps)
+            err, rel = _rel_err(got, ops.masked_conv2d_ref(x, w, taps))
+            x32, w32 = x.float(), w.float()
+            err32, rel32 = _rel_err(ops.masked_conv2d(x32, w32, taps),
+                                    ops.masked_conv2d_ref(x32, w32, taps))
+            print(f"[K2] masked_conv2d x{tuple(x.shape)} {cin}->{cout}, "
+                  f"{len(taps)} live taps: bf16 max abs err {err:.3e} "
+                  f"({rel:.3e} of max), f32 {err32:.3e} ({rel32:.3e})")
+            check(rel <= 2e-2, f"K2 {cin}->{cout} bf16 {rel} > 2e-2")
+            check(rel32 <= 1e-5, f"K2 {cin}->{cout} f32 {rel32} > 1e-5")
+            ms = cuda_ms(lambda: ops.masked_conv2d(x, w, taps))
+            ms32 = cuda_ms(lambda: ops.masked_conv2d(x32, w32, taps), 5, 1)
+            plain = cuda_ms(lambda: ops.masked_conv2d_ref(x, w, taps))
+            conv, xl, wl = _k2_conv_lib(x, w)
+            lib = cuda_ms(lambda: conv(xl, wl))
+        n, hh, ww, _ = x.shape
+        flops = 2 * n * hh * ww * len(taps) * cin * cout
+        moved = nbytes(x, got) + len(taps) * cin * cout * w.element_size()
+        b_ms, b_by = bound_ms(flops, "bfloat16", moved)
+        shapes.append(dict(cin=cin, cout=cout, max_abs_err=err,
+                           max_abs_err_f32=err32, ms=ms, ms_f32=ms32,
+                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                           bound_by=b_by, gflop=flops / 1e9,
+                           mbytes=moved / 1e6))
+    return _k2_row("masked_conv2d", "iaf_torch/ops/csrc/masked_conv.cu",
+                   "iaf_tpu/ops/masked_conv.py:40", shapes)
+
+
+def k2_backward_phase(ops, cap: dict) -> dict:
+    """K2's backward on each captured conv of a real bf16 step against
+    autograd of the twin: dx and dW (live taps; the dead ones must be
+    zero) at 2e-2 of each output's max, and in f32 at 1e-4 against the
+    twin in f64 (on these inputs cuDNN's own f32 weight gradient, TF32
+    off, is ~1e-3 of max away from f64: printed beside); timed beside the
+    twin's backward and autograd of one cuDNN conv."""
+    import torch
+    shapes = []
+    for (cin, cout), (x, w, g, taps) in sorted(cap.items()):
+        kh, kw = w.shape[:2]
+        live = torch.zeros(kh, kw, 1, 1, device=x.device)
+        for dy, dx in taps:
+            live[dy, dx] = 1.0
+        errs, outs = {}, {}
+        for label, xx, ww, tol in (("bf16", x, w, 2e-2),
+                                   ("f32", x.float(), w.float(), 1e-4)):
+            dx_, dw_ = outs[label] = ops.masked_conv2d_bwd(xx, ww, g, taps)
+            if label == "bf16":
+                rdx, rdw = ops.masked_conv2d_bwd_ref(xx, ww, g, taps)
+            else:
+                rdx, rdw = ops.masked_conv2d_bwd_ref(
+                    x.double(), w.double(), g.double(), taps)
+                twin_dw = ops.masked_conv2d_bwd_ref(xx, ww, g, taps)[1]
+                print(f"[K2 bwd] {cin}->{cout}: the f32 twin's own dW is "
+                      f"{_rel_err(twin_dw * live, rdw * live)[1]:.3e} of "
+                      f"max from f64")
+            check(not bool((dw_.float() * (1 - live)).any()),
+                  f"K2 bwd {cin}->{cout} {label}: dW nonzero at a dead tap")
+            worst = 0.0
+            for nm, a, b in (("dx", dx_, rdx), ("dW", dw_.float() * live,
+                                                 rdw.float() * live)):
+                err, rel = _rel_err(a, b)
+                check(rel <= tol, f"K2 bwd {cin}->{cout} {label} {nm}: "
+                      f"{rel:.3e} of max > {tol}")
+                worst = max(worst, rel)
+                errs[label] = max(errs.get(label, 0.0), err)
+            print(f"[K2 bwd] {cin}->{cout} {label}: max abs err "
+                  f"{errs[label]:.3e}, worst {worst:.3e} of an output's max "
+                  f"(limit {tol})")
+        ms = cuda_ms(lambda: ops.masked_conv2d_bwd(x, w, g, taps))
+        x32, w32 = x.float(), w.float()
+        ms32 = cuda_ms(lambda: ops.masked_conv2d_bwd(x32, w32, g, taps), 5, 1)
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w)]
+        plain = _backward_ms(
+            lambda a, b: ops.masked_conv2d_ref(a, b, taps), leaves, g)
+        conv, _, _ = _k2_conv_lib(x, w)
+        lib = _backward_ms(
+            lambda a, b: conv(a.permute(0, 3, 1, 2), b.permute(3, 2, 0, 1)),
+            leaves, g.permute(0, 3, 1, 2).to(x.dtype))
+        n, hh, ww, _ = x.shape
+        flops = 2 * 2 * n * hh * ww * len(taps) * cin * cout
+        moved = (nbytes(x, g, *outs["bf16"]) + len(taps) * cin * cout
+                 * w.element_size())
+        b_ms, b_by = bound_ms(flops, "bfloat16", moved)
+        shapes.append(dict(cin=cin, cout=cout, max_abs_err=errs["bf16"],
+                           max_abs_err_f32=errs["f32"], ms=ms, ms_f32=ms32,
+                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                           bound_by=b_by, gflop=flops / 1e9,
+                           mbytes=moved / 1e6))
+    return _k2_row("masked_conv2d_bwd",
+                   "iaf_torch/ops/csrc/masked_conv_bwd.cu",
+                   "iaf_tpu/ops/masked_conv.py:98", shapes)
+
+
+def five_by_five_phases(ops, device, ds) -> tuple[list, dict, dict, dict]:
+    """The 5x5 config's phases (phase 10 of the module docstring). Returns
+    (K2's two rows, the eval and training launch counts, a summary)."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.models import cvae
+    from iaf_torch.ops import masked_conv
+    from iaf_torch.parallel import train_step as ts
+    cfg = Config().parse(PAPER5 + f",dataset=synthetic,eval_batch_size="
+                         f"{EVAL_BATCH},eval_k_chunk={EVAL_CHUNK}")
+    t0 = time.perf_counter()
+    model = cvae.init_params(cfg, ds.train_x[:32], rng=cfg.seed,
+                             device=device)
+    torch.cuda.synchronize()
+    print(f"[init] 5x5 config: {len(model.blocks)} IAF layers, h="
+          f"{cfg.h_size}, z={cfg.z_size}, kernel_size={cfg.kernel_size}, "
+          f"{sum(p.numel() for p in model.parameters())} params, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def one_chunk():
+        with torch.inference_mode():
+            cvae.apply_fn(cfg, model, 1, ds.test_x[:EVAL_BATCH], mode="eval",
+                          k=EVAL_CHUNK)
+    rows = [k2_forward_phase(ops, capture_k2(ops, "masked_conv2d",
+                                             one_chunk))]
+    profile_phase(f"5x5: one eval chunk (16 images x {EVAL_CHUNK} samples)",
+                  one_chunk)
+    reference_phase(device, PAPER5)
+    convs = len(model.blocks) * (cfg.depth_ar + 1)
+    eval_counts, main = eval_phase(
+        ops, device, cfg, model, ds,
+        {"masked_conv2d": convs, "iaf_update": len(model.blocks),
+         "disc_logistic_logp": 1})
+    del model
+    torch.cuda.empty_cache()
+
+    tcfg = Config().parse(PAPER5 + ",dataset=synthetic")
+    tbatch = ds.train_x[:tcfg.batch_size]
+    tstate = ts.init_train_state(tcfg, 11, tbatch, device)
+    cap = capture_k2(masked_conv, "masked_conv2d_bwd",
+                     lambda: ts.train_step(tcfg, tstate, 3, tbatch))
+    rows.append(k2_backward_phase(ops, cap))
+    del cap, tstate
+    torch.cuda.empty_cache()
+    train_reference_phase(device, PAPER5)
+    tcfg, tstate, counts, summary = train_phase(ops, device, PAPER5,
+                                                PER_STEP_5X5)
+    summary["profile"] = profile_phase(
+        f"5x5: one training step (batch {tcfg.batch_size})",
+        lambda: ts.train_step(tcfg, tstate, 99, tbatch))
+    return rows, eval_counts, counts, {"main": main, "train": summary}
 
 
 def run() -> dict:
@@ -744,11 +1072,10 @@ def run() -> dict:
             != HERE:
         raise SmokeFailure(f"iaf_torch imported from {iaf_torch.__file__}, "
                            f"not from {HERE}")
-    from iaf_torch import ops, train_lib
+    from iaf_torch import ops
     from iaf_torch.core.config import Config
     from iaf_torch.data.datasets import synthetic_dataset
     from iaf_torch.models import cvae
-    from iaf_torch.parallel.eval_step import make_eval_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -792,37 +1119,11 @@ def run() -> dict:
     reference_phase(device)
 
     # phase 5: the main path, counted
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    bpd = train_lib.evaluate(cfg, "eval_test", params=model, k=EVAL_K,
-                             max_batches=EVAL_BATCHES, device=device)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    n_chunks = EVAL_K // EVAL_CHUNK * EVAL_BATCHES
-    want = dict.fromkeys(counts, 0)
-    want.update({"ar_stack": len(model.blocks) * n_chunks,
-                 "iaf_update": len(model.blocks) * n_chunks,
-                 "disc_logistic_logp": n_chunks})
-    print(f"[main] evaluate k={EVAL_K}: bits/dim {bpd!r}, "
-          f"{secs:.4f} s with the data set-up, launches {counts}")
-    check(math.isfinite(bpd), f"bits/dim {bpd} is not finite")
-    check(counts == want, f"launch counts {counts} != {want}")
-    # steady state: the eval step alone on one batch, timed after the
-    # counted run (set-up excluded)
-    step = make_eval_step(cfg, device, k=EVAL_K)
-    batch = ds.test_x[:EVAL_BATCH]
-    step(model, 7, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(model, 7, batch)
-    torch.cuda.synchronize()
-    per_batch = time.perf_counter() - t0
-    print(f"[main] steady eval step: {per_batch:.4f} s/batch, "
-          f"{EVAL_BATCH * EVAL_K / per_batch:.1f} importance samples/s")
-    eval_counts = counts
-    del model, step
+    eval_counts, main = eval_phase(
+        ops, device, cfg, model, ds,
+        {"ar_stack": len(model.blocks), "iaf_update": len(model.blocks),
+         "disc_logistic_logp": 1})
+    del model
     torch.cuda.empty_cache()
 
     # phase 6: backward kernels and K5 against their twins on one real
@@ -846,21 +1147,29 @@ def run() -> dict:
     summary["profile"] = profile_phase(
         f"one training step (batch {tcfg.batch_size})",
         lambda: ts.train_step(tcfg, tstate, 99, tbatch))
-    for r in rows:
-        r["launches"] = counts[r["name"]]
-        if eval_counts[r["name"]]:     # the forward kernels
-            r["launches_eval"] = eval_counts[r["name"]]
+    del tstate
+    torch.cuda.empty_cache()
+
+    # phase 9: K1 past four convs
+    k1_depth_phase(ops, device)
+
+    # phase 10: the 5x5 config through K2
+    k2_rows, eval5, counts5, summary5 = five_by_five_phases(ops, device, ds)
+    rows += k2_rows
+    for r in rows:     # each kernel's launches on the main path it is on
+        ev, tr = ((eval5, counts5) if r["name"] in K2_NAMES
+                  else (eval_counts, counts))
+        r["launches"] = tr[r["name"]]
+        if ev[r["name"]]:     # the forward kernels
+            r["launches_eval"] = ev[r["name"]]
     for r in rows:
         print(f"[time] {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
               f"{r['launches']}")
-    print(json.dumps({"main": {
-        "bits_per_dim": bpd, "evaluate_seconds": secs,
-        "seconds_per_batch": per_batch,
-        "importance_samples_per_s": EVAL_BATCH * EVAL_K / per_batch,
-        "k": EVAL_K, "eval_batch_size": EVAL_BATCH,
-        "batches": EVAL_BATCHES}, "train": summary}))
+    print(json.dumps({"main": main, "train": summary,
+                      "main_5x5": summary5["main"],
+                      "train_5x5": summary5["train"]}))
     print(json.dumps({"kernels": rows}))
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

@@ -9,7 +9,8 @@ with the scalar ``dec_log_stdv``. Activations are NHWC; layer i of the
 flat stack is JAX's ``block_{i // depth}/layer_{i % depth}``.
 
 On CUDA the eval/train forward runs the AR net of every IAF step through
-K1, the division-form update through K3 and the likelihood through K4
+K1 (3x3 convs) or conv by conv through K2 (any other kernel size), the
+division-form update through K3 and the likelihood through K4
 (``iaf_torch.ops``); on CPU tensors the same calls run the twins. The
 data-dependent init runs plain convs, as JAX's init never reaches Pallas.
 

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from iaf_torch import ops
-from iaf_torch.nn.masks import get_conv_ar_mask
+from iaf_torch.nn.masks import get_conv_ar_mask, nonzero_taps
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
@@ -272,6 +272,7 @@ class ARMultiConv2d(nn.Module):
                     prev, size, filter_size, mask=m, trim_rows=trim_rows,
                     device=device))
         self.masks.append(np.concatenate(head_masks, axis=-1))
+        self.taps = [nonzero_taps(m) for m in self.masks]
         self.fusable = (tuple(filter_size) == (3, 3) and len(n_h) >= 1
                         and len(set(n_h)) == 1)
 
@@ -306,24 +307,38 @@ class ARMultiConv2d(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 dtype: torch.dtype | None = None) -> list[torch.Tensor]:
         """The whole chain through K1 (``ops.ar_stack``: the CUDA kernel on
-        CUDA tensors, its twin on CPU tensors)."""
+        CUDA tensors, its twin on CPU tensors) where it applies (3x3,
+        uniform hidden widths), else conv by conv through K2."""
         if not self.fusable:
             return self.forward_unfused(x, context, dtype)
         ws, bs = self.folded(dtype)
         z = x if dtype is None else x.to(dtype)
         return self._split(ops.ar_stack(z, context, ws, bs, self.masks))
 
+    def _ar_conv(self, conv: WNConv2d, h: torch.Tensor, dtype,
+                 taps) -> torch.Tensor:
+        """One masked conv through K2 (``ops.masked_conv2d``) over the
+        mask's live taps, then + b (JAX ``conv2d``'s ``pallas`` branch)."""
+        w = conv.weight_hwio()
+        if dtype is not None:
+            h, w = h.to(dtype), w.to(dtype)
+        return ops.masked_conv2d(h.contiguous(), w, taps) + conv.b
+
     def forward_unfused(self, x, context, dtype=None):
-        """Conv by conv with the row trim (the JAX default XLA path)."""
+        """Conv by conv through K2 (the CUDA kernel on CUDA tensors, its
+        twin on CPU tensors), as JAX's ``pallas_conv`` route; bias,
+        context add and ELU in PyTorch."""
         h = x
         for i, conv in enumerate(self.hidden()):
-            h = conv(h, dtype)
+            h = self._ar_conv(conv, h, dtype, self.taps[i])
             if i == 0:
                 h = h + context
             h = F.elu(h)
         if self.merge_heads:
-            return self._split(self.layer_out(h, dtype))
-        return [c(h, dtype) for c in self.heads()]
+            return self._split(self._ar_conv(self.layer_out, h, dtype,
+                                             self.taps[-1]))
+        return [self._ar_conv(c, h, dtype, self.taps[-1])
+                for c in self.heads()]
 
     def init_forward(self, x, context):
         h = x

@@ -8,6 +8,9 @@ kernel too.
 - K1 ``ar_stack`` (CUDA C++, ``csrc/ar_stack.cu``), twin ``ar_stack_ref``;
   backward ``ar_stack_bwd`` (``csrc/ar_stack_bwd.cu``), twin
   ``ar_stack_bwd_ref``
+- K2 ``masked_conv2d`` (CUDA C++, ``csrc/masked_conv.cu``), twin
+  ``masked_conv2d_ref``; backward ``masked_conv2d_bwd``
+  (``csrc/masked_conv_bwd.cu``), twin ``masked_conv2d_bwd_ref``
 - K3 ``iaf_update`` (Triton), twin ``iaf_update_ref``; backward
   ``iaf_update_bwd``, twin ``iaf_update_bwd_ref``
 - K4 ``disc_logistic_logp`` (Triton), twin ``disc_logistic_ref``; backward
@@ -19,6 +22,7 @@ kernel too.
 from iaf_torch.ops import ar_stack as _ar_stack_mod
 from iaf_torch.ops import fused as _fused_mod
 from iaf_torch.ops import fused_adamax as _adamax_mod
+from iaf_torch.ops import masked_conv as _masked_conv_mod
 from iaf_torch.ops.ar_stack import (  # noqa: F401
     ar_stack,
     ar_stack_bwd,
@@ -39,9 +43,15 @@ from iaf_torch.ops.fused_adamax import (  # noqa: F401
     adamax_polyak,
     adamax_polyak_ref,
 )
+from iaf_torch.ops.masked_conv import (  # noqa: F401
+    masked_conv2d,
+    masked_conv2d_bwd,
+    masked_conv2d_bwd_ref,
+    masked_conv2d_ref,
+)
 
-_COUNTERS = (_ar_stack_mod.launches, _fused_mod.launches,
-             _adamax_mod.launches)
+_COUNTERS = (_ar_stack_mod.launches, _masked_conv_mod.launches,
+             _fused_mod.launches, _adamax_mod.launches)
 
 
 def launch_counts() -> dict[str, int]:

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared
 library loaded through ``ctypes``; nothing is built at import, so the
 package imports on a machine without ``nvcc``. A library is rebuilt when
-its source is newer. Each source has its own lock, so two sources can
-build at once from two threads.
+its source, or a header ``csrc/*.cuh`` it may include, is newer. Each
+source has its own lock, so several sources can build at once from
+several threads.
 """
 
 from __future__ import annotations
@@ -46,8 +47,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    lib, src = _lib_path(name), CSRC / f"{name}.cu"
-    return not lib.is_file() or lib.stat().st_mtime < src.stat().st_mtime
+    """The library is missing or older than its source or a shared
+    header (every source may include ``csrc/*.cuh``)."""
+    lib = _lib_path(name)
+    if not lib.is_file():
+        return True
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
 def _compile(name: str) -> None:

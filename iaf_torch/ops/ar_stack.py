@@ -25,7 +25,7 @@ from iaf_torch.nn.masks import nonzero_taps
 from iaf_torch.ops import _build
 
 LIVE_TAPS = ((0, 0), (0, 1), (0, 2), (1, 0), (1, 1))
-_MAX_CONVS = 4
+_MAX_CONVS = 32             # the kernel arguments' pointer arrays (MAX_CONVS)
 _PX = 8                     # output pixels per thread item (ar_stack.cu PX)
 _SMEM_LIMIT = 232_448       # dynamic shared memory a Hopper block may use
 _MMA_WARPS = 10             # tensor-core path's block size cap (launch bounds)
@@ -88,15 +88,20 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
     return _live_taps(w).contiguous()
 
 
-def pack_fragments(w: torch.Tensor) -> torch.Tensor:
-    """[3, 3, cin, cout] -> the live taps in mma.sync B-fragment order,
-    [5, cout/8, cin/16, 8 (g), 4 (tig), 2 (k half), 2]: lane g*4+tig of
-    the warp holds output n-tile*8+g and inputs k-step*16 + half*8 +
-    tig*2 + {0, 1} (tensor-core path). One copy."""
-    cin, cout = w.shape[2], w.shape[3]
-    t = _live_taps(w).transpose(1, 2)                      # [5, cout, cin]
-    t = t.reshape(5, cout // 8, 8, cin // 16, 2, 4, 2)     # a view
+def tap_fragments(t: torch.Tensor) -> torch.Tensor:
+    """[taps, cin, cout] -> mma.sync B-fragment order, [taps, cout/8,
+    cin/16, 8 (g), 4 (tig), 2 (k half), 2]: lane g*4+tig of the warp holds
+    output n-tile*8+g and inputs k-step*16 + half*8 + tig*2 + {0, 1}
+    (the tensor-core paths of K1 and K2). One copy."""
+    taps, cin, cout = t.shape
+    t = t.transpose(1, 2).reshape(taps, cout // 8, 8, cin // 16, 2, 4, 2)
     return t.permute(0, 1, 3, 2, 5, 4, 6).contiguous()
+
+
+def pack_fragments(w: torch.Tensor) -> torch.Tensor:
+    """[3, 3, cin, cout] -> the live taps in B-fragment order (K1's
+    tensor-core path)."""
+    return tap_fragments(_live_taps(w))
 
 
 def mma_path(dtype: torch.dtype, w: int, cz: int, ch: int, cout: int) -> bool:
@@ -153,7 +158,7 @@ def _lib():
     lib = _build.load("ar_stack")
     if not getattr(lib, "_iaf_typed", False):
         lib.ar_stack_fwd.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         lib.ar_stack_fwd.restype = ctypes.c_int
         lib.ar_stack_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.ar_stack_smem_bytes.restype = ctypes.c_size_t
@@ -182,6 +187,28 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def _ptrs(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers, for a C entry."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _check_smem(lib, n_convs, w_, cz, ch, bf16, mma) -> None:
+    """Raise when the chain's rings do not fit one block's shared memory,
+    naming the most convs that fit at these widths."""
+    smem = lib.ar_stack_smem_bytes(n_convs, w_, cz, ch, bf16, mma)
+    if smem <= _SMEM_LIMIT:
+        return
+    fit = max([k for k in range(2, n_convs)
+               if lib.ar_stack_smem_bytes(k, w_, cz, ch, bf16, mma)
+               <= _SMEM_LIMIT], default=0)
+    path = "tensor-core" if mma else ("bf16" if bf16 else "f32") + " FMA"
+    raise ValueError(
+        f"ar_stack: {n_convs} convs (depth_ar={n_convs - 1}) need {smem} B "
+        f"of shared memory per block; a Hopper block has {_SMEM_LIMIT}. At "
+        f"W={w_}, cz={cz}, ch={ch} the {path} path holds at most {fit} "
+        f"convs (depth_ar <= {fit - 1})")
+
+
 def _fwd(z, context, weights, biases, save_pre: bool):
     """Launch the forward kernel; with ``save_pre`` also return the hidden
     convs' f32 pre-activations for the backward."""
@@ -198,10 +225,7 @@ def _fwd(z, context, weights, biases, save_pre: bool):
     n_convs = len(weights)
     bf16 = int(z.dtype == torch.bfloat16)
     lib = _lib()
-    smem = lib.ar_stack_smem_bytes(n_convs, w_, cz, ch, bf16, int(mma))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"ar_stack: {smem} B of shared memory per block "
-                         f"exceeds {_SMEM_LIMIT}")
+    _check_smem(lib, n_convs, w_, cz, ch, bf16, int(mma))
     if mma:   # a warp per pair of 8-wide output tiles, at most 10 warps
         threads = 32 * min(_MMA_WARPS, -(-max(ch, cout) // 16))
     else:     # one thread per output channel and PX-pixel group
@@ -210,13 +234,11 @@ def _fwd(z, context, weights, biases, save_pre: bool):
     out = torch.empty((n, h, w_, cout), device=z.device, dtype=torch.float32)
     pre = [torch.empty((n, h, w_, ch), device=z.device, dtype=torch.float32)
            for _ in range(n_convs - 1)] if save_pre else []
-    wptr = [t.data_ptr() for t in packed] + [None] * (_MAX_CONVS - n_convs)
-    bptr = [t.data_ptr() for t in biases] + [None] * (_MAX_CONVS - n_convs)
-    pptr = [t.data_ptr() for t in pre] + [None] * (_MAX_CONVS - 1 - len(pre))
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.ar_stack_fwd(z.data_ptr(), context.data_ptr(), *wptr,
-                               *bptr, out.data_ptr(), *pptr, n_convs, n, h,
+        err = lib.ar_stack_fwd(z.data_ptr(), context.data_ptr(),
+                               _ptrs(packed), _ptrs(biases), out.data_ptr(),
+                               _ptrs(pre) if pre else None, n_convs, n, h,
                                w_, cz, ch, cout, bf16, int(mma), threads,
                                stream)
     _raise_on(err, "ar_stack")

@@ -45,11 +45,13 @@
 // Types: T = float or __nv_bfloat16 for z, weights and the on-chip
 // activations; ctx, biases, accumulation and the output are f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
-#define MAX_CONVS 4
+// Convs in one chain: the kernel arguments carry one weight, bias and
+// pre-activation pointer per conv. Shared memory binds first: at the paper
+// widths (W=16, cz=32, ch=160) a block holds 7 convs on the f32 FMA path,
+// 14 on the bf16 one and 10 on the tensor-core path (ar_stack_smem_bytes).
+#define MAX_CONVS 32
 #define NTAPS 5
 #define PX 8  // output pixels per thread item
 
@@ -65,33 +67,26 @@ struct StackArgs {
   int n_convs, H, W, cz, ch, cout;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Channels in and out of conv i: z's for the first, ch between, the heads'
+// for the last.
+__device__ __forceinline__ int conv_cin(const StackArgs& a, int i) {
+  return i == 0 ? a.cz : a.ch;
 }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
+__device__ __forceinline__ int conv_cout(const StackArgs& a, int i) {
+  return i == a.n_convs - 1 ? a.cout : a.ch;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
+// Sum of the input widths of convs 0..i-1, each widened by pad: where conv
+// i's ring starts, in (padded) channels per ring column.
+__host__ __device__ static inline size_t chans_before(int i, int cz, int ch,
+                                                      int pad) {
+  return i == 0 ? 0 : (size_t)(cz + pad) + (size_t)(i - 1) * (ch + pad);
 }
 
 __host__ __device__ static inline int ring_width(int W) { return W + 2 + PX; }
 
-// ELU as the Pallas kernel computes it, exp(min(v, 0)) - 1 on the negative
-// side (within 1e-7 of expm1 near 0), with the fast exponential.
-__device__ __forceinline__ float elu(float v) {
-  return v > 0.f ? v : __expf(fminf(v, 0.f)) - 1.f;
-}
-
 // Shared memory: for conv i, two padded rows [2][W+2+PX][cin_i] of T.
 static size_t smem_bytes(int n_convs, int W, int cz, int ch, size_t elem) {
-  size_t total = 0;
-  for (int i = 0; i < n_convs; ++i)
-    total += (size_t)2 * ring_width(W) * (i == 0 ? cz : ch) * elem;
-  return total;
+  return (size_t)2 * ring_width(W) * chans_before(n_convs, cz, ch, 0) * elem;
 }
 
 template <typename T>
@@ -99,16 +94,14 @@ __global__ void ar_stack_kernel(StackArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = blockIdx.x;
   const int H = a.H, W = a.W, RW = ring_width(W);
-  T* ring[MAX_CONVS];
-  int cin[MAX_CONVS], cout[MAX_CONVS];
-  size_t off = 0;
-  for (int i = 0; i < a.n_convs; ++i) {
-    cin[i] = (i == 0) ? a.cz : a.ch;
-    cout[i] = (i == a.n_convs - 1) ? a.cout : a.ch;
-    ring[i] = reinterpret_cast<T*>(smem + off);
-    off += (size_t)2 * RW * cin[i] * sizeof(T);
-  }
+  // conv i's ring: [2][RW][cin_i] of T, after the rings of convs 0..i-1
+  T* const rings = reinterpret_cast<T*>(smem);
+  auto ring = [&](int i) {
+    return rings + (size_t)2 * RW * chans_before(i, a.cz, a.ch, 0);
+  };
   // Zero once: the padding columns and the row above the image stay zero.
+  const size_t off = (size_t)2 * RW * chans_before(a.n_convs, a.cz, a.ch, 0) *
+                     sizeof(T);
   uint32_t* s32 = reinterpret_cast<uint32_t*>(smem);
   for (size_t i = threadIdx.x; i < off / 4; i += blockDim.x) s32[i] = 0u;
   __syncthreads();
@@ -121,14 +114,14 @@ __global__ void ar_stack_kernel(StackArgs a) {
 
   for (int y = 0; y < H; ++y) {
     const int s = y & 1, p = s ^ 1;  // ring slots of rows y and y-1
-    T* zrow = ring[0] + ((size_t)s * RW + 1) * a.cz;
+    T* zrow = ring(0) + ((size_t)s * RW + 1) * a.cz;
     const T* zsrc = z + (size_t)y * W * a.cz;
     for (int i = threadIdx.x; i < W * a.cz; i += blockDim.x) zrow[i] = zsrc[i];
     __syncthreads();
 
     for (int c = 0; c < a.n_convs; ++c) {
-      const int ci_n = cin[c], co_n = cout[c];
-      const T* src = ring[c];
+      const int ci_n = conv_cin(a, c), co_n = conv_cout(a, c);
+      const T* src = ring(c);
       const T* __restrict__ wt = static_cast<const T*>(a.w[c]);
       const float* __restrict__ bias = a.b[c];
       const bool last = (c == a.n_convs - 1);
@@ -167,7 +160,7 @@ __global__ void ar_stack_kernel(StackArgs a) {
             if (a.pre[c] != nullptr)
               a.pre[c][(((size_t)n * H + y) * W + x) * a.ch + co] = v;
             v = elu(v);
-            ring[c + 1][((size_t)s * RW + x + 1) * co_n + co] = from_f<T>(v);
+            ring(c + 1)[((size_t)s * RW + x + 1) * co_n + co] = from_f<T>(v);
           }
         }
       }
@@ -196,28 +189,17 @@ __global__ void ar_stack_kernel(StackArgs a) {
 #define KU 4
 #define MMA_IMAGES 2
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Padded ring row of the tensor-core path: pixel x at column x+1.
 __host__ __device__ static inline int mma_ring_width(int W) { return W + 2; }
 
+// bf16 elements of one image's rings: for conv i, [2][W+2][cin_i + CPAD].
+__host__ __device__ static inline size_t mma_image_elems(int n_convs, int W,
+                                                         int cz, int ch) {
+  return (size_t)2 * mma_ring_width(W) * chans_before(n_convs, cz, ch, CPAD);
+}
+
 static size_t mma_smem_bytes(int n_convs, int W, int cz, int ch) {
-  size_t per_image = 0;
-  for (int i = 0; i < n_convs; ++i)
-    per_image +=
-        (size_t)2 * mma_ring_width(W) * ((i == 0 ? cz : ch) + CPAD) * 2;
-  return per_image * MMA_IMAGES;
+  return mma_image_elems(n_convs, W, cz, ch) * 2 * MMA_IMAGES;
 }
 
 // Two blocks per SM: at 320 threads the registers are capped so that two
@@ -230,19 +212,15 @@ __global__ void __launch_bounds__(320, 2)
   const int H = a.H, W = a.W, RW = mma_ring_width(W);
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  __nv_bfloat16* ring[R][MAX_CONVS];
-  int cin[MAX_CONVS], cout[MAX_CONVS], cs[MAX_CONVS];
-  size_t off = 0;
-  for (int i = 0; i < a.n_convs; ++i) {
-    cin[i] = (i == 0) ? a.cz : a.ch;
-    cout[i] = (i == a.n_convs - 1) ? a.cout : a.ch;
-    cs[i] = cin[i] + CPAD;
-  }
-  for (int r = 0; r < R; ++r)
-    for (int i = 0; i < a.n_convs; ++i) {
-      ring[r][i] = reinterpret_cast<__nv_bfloat16*>(smem + off);
-      off += (size_t)2 * RW * cs[i] * 2;
-    }
+  // image r's rings follow those of images 0..r-1; within an image, conv
+  // i's ring [2][RW][cin_i + CPAD] follows those of convs 0..i-1
+  const size_t per_image = mma_image_elems(a.n_convs, W, a.cz, a.ch);
+  __nv_bfloat16* const rings = reinterpret_cast<__nv_bfloat16*>(smem);
+  auto ring = [&](int r, int i) {
+    return rings + r * per_image +
+           (size_t)2 * RW * chans_before(i, a.cz, a.ch, CPAD);
+  };
+  const size_t off = per_image * R * 2;
   uint32_t* s32 = reinterpret_cast<uint32_t*>(smem);
   for (size_t i = threadIdx.x; i < off / 4; i += blockDim.x) s32[i] = 0u;
   __syncthreads();
@@ -257,21 +235,21 @@ __global__ void __launch_bounds__(320, 2)
       const int r = idx / zrow, rem = idx - r * zrow;
       const int x = rem / a.cz, c = rem - x * a.cz;
       const int img = img0 + r;
-      ring[r][0][((size_t)s * RW + x + 1) * cs[0] + c] =
+      ring(r, 0)[((size_t)s * RW + x + 1) * (a.cz + CPAD) + c] =
           img < n_images ? z[((size_t)img * H + y) * zrow + rem]
                          : __float2bfloat16(0.f);
     }
     __syncthreads();
 
     for (int c = 0; c < a.n_convs; ++c) {
-      const int ci_n = cin[c], co_n = cout[c], ntiles = co_n / 8;
-      const int ksteps = ci_n / 16, csc = cs[c];
+      const int ci_n = conv_cin(a, c), co_n = conv_cout(a, c);
+      const int ntiles = co_n / 8, ksteps = ci_n / 16, csc = ci_n + CPAD;
       const uint2* __restrict__ wf = static_cast<const uint2*>(a.w[c]);
       const float* __restrict__ bias = a.b[c];
       const bool last = (c == a.n_convs - 1);
       const __nv_bfloat16* src[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) src[r] = ring[r][c];
+      for (int r = 0; r < R; ++r) src[r] = ring(r, c);
       for (int pair = warp; pair * 2 < ntiles; pair += nwarps) {
         const bool has1 = pair * 2 + 1 < ntiles;
         for (int x0 = 0; x0 < W; x0 += 16) {
@@ -349,8 +327,9 @@ __global__ void __launch_bounds__(320, 2)
                   v0 = elu(v0);
                   v1 = elu(v1);
                   *reinterpret_cast<__nv_bfloat162*>(
-                      ring[r][c + 1] + ((size_t)s * RW + x + 1) * cs[c + 1] +
-                      co) = __floats2bfloat162_rn(v0, v1);
+                      ring(r, c + 1) +
+                      ((size_t)s * RW + x + 1) * (a.ch + CPAD) + co) =
+                      __floats2bfloat162_rn(v0, v1);
                 }
               }
             }
@@ -398,29 +377,25 @@ size_t ar_stack_smem_bytes(int n_convs, int W, int cz, int ch, int bf16,
   return smem_bytes(n_convs, W, cz, ch, bf16 ? 2 : 4);
 }
 
-// Returns cudaGetLastError() after the launch (0 on success). pre0..pre2,
-// where not null, receive the hidden convs' f32 pre-activations.
-int ar_stack_fwd(const void* z, const void* ctx, const void* w0,
-                 const void* w1, const void* w2, const void* w3,
-                 const void* b0, const void* b1, const void* b2,
-                 const void* b3, void* out, void* pre0, void* pre1,
-                 void* pre2, int n_convs, int n_images, int H,
-                 int W, int cz, int ch, int cout, int bf16, int mma,
-                 int threads, void* stream) {
+// Returns cudaGetLastError() after the launch (0 on success). w and b are
+// host arrays of n_convs device pointers (packed weights, biases); pre is
+// null or a host array of n_convs - 1 device pointers, each null or where
+// that hidden conv's f32 pre-activation goes.
+int ar_stack_fwd(const void* z, const void* ctx, const void* const* w,
+                 const void* const* b, void* out, void* const* pre,
+                 int n_convs, int n_images, int H, int W, int cz, int ch,
+                 int cout, int bf16, int mma, int threads, void* stream) {
   if (n_convs < 2 || n_convs > MAX_CONVS) return (int)cudaErrorInvalidValue;
-  StackArgs a;
+  StackArgs a = {};
   a.z = z;
   a.ctx = static_cast<const float*>(ctx);
-  const void* ws[MAX_CONVS] = {w0, w1, w2, w3};
-  const void* bs[MAX_CONVS] = {b0, b1, b2, b3};
-  for (int i = 0; i < MAX_CONVS; ++i) {
-    a.w[i] = ws[i];
-    a.b[i] = static_cast<const float*>(bs[i]);
+  for (int i = 0; i < n_convs; ++i) {
+    a.w[i] = w[i];
+    a.b[i] = static_cast<const float*>(b[i]);
+    if (pre != nullptr && i < n_convs - 1)
+      a.pre[i] = static_cast<float*>(pre[i]);
   }
   a.out = static_cast<float*>(out);
-  a.pre[0] = static_cast<float*>(pre0);
-  a.pre[1] = static_cast<float*>(pre1);
-  a.pre[2] = static_cast<float*>(pre2);
   a.n_convs = n_convs;
   a.H = H;
   a.W = W;

@@ -41,34 +41,15 @@
 // Types: T = float or __nv_bfloat16 for z, the weights and dz/dW; the
 // gradients between convs, the pre-activations and db are f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// elu() is the forward's own (common.cuh), so the recomputed conv input is
+// bit for bit the one the forward fed to the next conv.
+#include "common.cuh"
 
 #define NTAPS 5
 #define PX 8        // dgrad: input pixels per thread item
 #define WG_CI 32    // wgrad: input channels per block (8 warps x 4)
 #define WG_CO 32    // wgrad: output channels per block (one per lane)
 #define WG_THREADS 256
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
-
-// The forward's ELU (ar_stack.cu), so that the recomputed conv input is
-// bit for bit the one the forward fed to the next conv.
-__device__ __forceinline__ float elu(float v) {
-  return v > 0.f ? v : __expf(fminf(v, 0.f)) - 1.f;
-}
 
 struct DgradArgs {
   const float* g;     // [N,H,W,cout] f32 gradient of the conv's output

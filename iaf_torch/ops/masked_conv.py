@@ -1,0 +1,274 @@
+"""K2: one masked stride-1 SAME conv over its live taps
+(``csrc/masked_conv.cu``) and its backward (``csrc/masked_conv_bwd.cu``).
+
+Replaces ``iaf_tpu/ops/masked_conv.py:_conv_kernel`` and its ``_bwd``: the
+conv-by-conv route of an IAF step's AR net, taken wherever K1's fused
+chain does not apply (a kernel size other than 3). ``masked_conv2d``
+launches the CUDA kernel for CUDA tensors and runs ``masked_conv2d_ref``,
+its plain PyTorch twin (the counterpart of ``xla_conv2d_same``), for CPU
+tensors only. Under autograd on CUDA it is a ``torch.autograd.Function``
+whose backward, ``masked_conv2d_bwd``, runs the dgrad and wgrad kernels;
+on the CPU autograd differentiates the twin (``masked_conv2d_bwd_ref``).
+Layouts are the JAX ones: activations NHWC, weights HWIO.
+
+``taps`` names the (dy, dx) kernel positions that may hold nonzero
+weights; the kernels compute only those (``nonzero_taps`` of the AR mask:
+13 of 25 for a 5x5 raster mask) and treat the rest as zero, and so does
+the twin.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Iterable
+
+import torch
+import torch.nn.functional as F
+
+from iaf_torch.ops import _build
+from iaf_torch.ops.ar_stack import _SMEM_LIMIT, _raise_on, tap_fragments
+
+Taps = tuple[tuple[int, int], ...]
+
+_MAX_TAPS = 64          # masked_conv.cuh MAX_TAPS: taps per conv
+_MT = 8                 # masked_conv.cuh MT: 16-pixel M tiles per block
+_FMA_ROWS = 8           # FMA path: output rows per block, at most
+_MMA_WARPS = 10         # masked_conv.cuh MMA_THREADS / 32
+_FMA_THREADS = 256      # masked_conv.cuh FMA_THREADS
+_WGRAD_CHUNKS = 32      # wgrad partials: pixel-row chunks per conv
+
+launches = {"masked_conv2d": 0, "masked_conv2d_bwd": 0}  # since the reset
+
+
+def _taps(w: torch.Tensor, taps: Iterable | None) -> Taps:
+    """``taps`` as a tuple of (dy, dx) int pairs, all kh*kw taps for
+    None; raises on a tap outside the kernel or a repeated one."""
+    kh, kw = w.shape[:2]
+    if taps is None:
+        return tuple((dy, dx) for dy in range(kh) for dx in range(kw))
+    out = tuple((int(dy), int(dx)) for dy, dx in taps)
+    if not out or len(set(out)) != len(out) or any(
+            not (0 <= dy < kh and 0 <= dx < kw) for dy, dx in out):
+        raise ValueError(f"taps {out} must be distinct positions of a "
+                         f"{kh}x{kw} kernel")
+    return out
+
+
+def masked_conv2d_ref(x: torch.Tensor, w: torch.Tensor,
+                      taps: Iterable | None = None) -> torch.Tensor:
+    """The twin: the stride-1 SAME conv of ``x`` [N,H,W,cin] with ``w``
+    [kh,kw,cin,cout] (odd kh, kw) in the weights' dtype, widened to f32
+    (``xla_conv2d_same(x, w).astype(f32)``), with the weights outside
+    ``taps`` taken as zero."""
+    kh, kw = w.shape[:2]
+    taps = _taps(w, taps)
+    if len(taps) < kh * kw:
+        keep = torch.zeros((kh, kw, 1, 1), dtype=w.dtype, device=w.device)
+        for dy, dx in taps:
+            keep[dy, dx] = 1
+        w = w * keep
+    out = F.conv2d(x.to(w.dtype).permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                   padding=((kh - 1) // 2, (kw - 1) // 2))
+    return out.float().permute(0, 2, 3, 1)
+
+
+def masked_conv2d_bwd_ref(x, w, g, taps=None):
+    """The plain backward: autograd of the twin. Returns (dx in x's dtype,
+    dW in w's dtype, zero outside ``taps``)."""
+    with torch.enable_grad():
+        x_, w_ = (t.detach().requires_grad_() for t in (x, w))
+        out = masked_conv2d_ref(x_, w_, taps)
+        return torch.autograd.grad(out, (x_, w_), g)
+
+
+def mma_path(dtype: torch.dtype, w: int, cin: int, cout: int) -> bool:
+    """Whether the conv runs on the tensor cores: bf16, rows of whole
+    16-pixel tiles (at most MT of them), channels in whole 16-deep steps
+    in and 8-wide tiles out."""
+    return (dtype == torch.bfloat16 and w % 16 == 0 and w <= 16 * _MT
+            and cin % 16 == 0 and cout % 8 == 0)
+
+
+def _lib():
+    lib = _build.load("masked_conv")
+    if not getattr(lib, "_iaf_typed", False):
+        lib.masked_conv_fwd.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+        lib.masked_conv_fwd.restype = ctypes.c_int
+        lib.masked_conv_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.masked_conv_smem_bytes.restype = ctypes.c_size_t
+        lib._iaf_typed = True
+    return lib
+
+
+def _bwd_lib():
+    lib = _build.load("masked_conv_bwd")
+    if not getattr(lib, "_iaf_typed", False):
+        lib.masked_conv_dgrad.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+        lib.masked_conv_wgrad.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        lib.masked_conv_wreduce.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        for fn in (lib.masked_conv_dgrad, lib.masked_conv_wgrad,
+                   lib.masked_conv_wreduce):
+            fn.restype = ctypes.c_int
+        lib._iaf_typed = True
+    return lib
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError("x must be NHWC and w HWIO")
+    kh, kw, cin, _ = w.shape
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"kernel {kh}x{kw}: SAME stride-1 needs odd sizes")
+    if kh * kw > _MAX_TAPS:
+        raise ValueError(f"kernel {kh}x{kw} has more than {_MAX_TAPS} taps")
+    if x.shape[-1] != cin:
+        raise ValueError(f"x has {x.shape[-1]} channels, w takes {cin}")
+    if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x {x.dtype} and w {w.dtype} must share a dtype "
+                        "in (float32, bfloat16)")
+
+
+def _c_taps(taps: Taps) -> ctypes.Array:
+    return (ctypes.c_int * (2 * len(taps)))(*[v for t in taps for v in t])
+
+
+def _launch_conv(fn, what: str, inp, packed, out, taps: Taps, kh: int,
+                 kw: int, mma: bool) -> None:
+    """Launch the implicit-GEMM core (``fn``: the forward or dgrad entry)
+    on ``inp`` [N,H,W,c_in] into ``out`` [N,H,W,c_out], choosing the
+    output rows per block so the staged rows fit shared memory."""
+    n, h, w_, c_in = inp.shape
+    c_out = out.shape[-1]
+    dys = [dy for dy, _ in taps]
+    span = max(dys) - min(dys)
+    lib = _lib()
+    top = min(h, _MT // (w_ // 16) if mma else _FMA_ROWS)
+    tr = next((r for r in range(top, 0, -1)
+               if lib.masked_conv_smem_bytes(r, w_, c_in, kw, span, int(mma))
+               <= _SMEM_LIMIT), 0)
+    if tr == 0:
+        need = lib.masked_conv_smem_bytes(1, w_, c_in, kw, span, int(mma))
+        raise ValueError(f"{what}: one output row stages {need} B of shared "
+                         f"memory at W={w_}, cin={c_in}, kw={kw}; a Hopper "
+                         f"block has {_SMEM_LIMIT}")
+    threads = (32 * min(_MMA_WARPS, -(-c_out // 16)) if mma
+               else _FMA_THREADS)
+    bf16 = int(packed.dtype == torch.bfloat16)
+    with torch.cuda.device(inp.device):
+        stream = torch.cuda.current_stream(inp.device).cuda_stream
+        err = fn(inp.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                 _c_taps(taps), len(taps), n, h, w_, c_in, c_out, kh, kw, tr,
+                 bf16, int(mma), threads, stream)
+    _raise_on(err, what)
+
+
+def _live(w: torch.Tensor, taps: Taps) -> torch.Tensor:
+    """[kh, kw, cin, cout] -> [taps, cin, cout], the taps in order."""
+    return torch.stack([w[dy, dx] for dy, dx in taps])
+
+
+def _fwd(x: torch.Tensor, w: torch.Tensor, taps: Taps) -> torch.Tensor:
+    if w.device != x.device:
+        raise RuntimeError("masked_conv2d: x and w on different devices")
+    if not x.is_contiguous():
+        raise ValueError("masked_conv2d: x must be contiguous")
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    mma = mma_path(x.dtype, w_, cin, cout)
+    live = _live(w, taps)
+    packed = tap_fragments(live) if mma else live
+    out = torch.empty((n, h, w_, cout), device=x.device, dtype=torch.float32)
+    _launch_conv(_lib().masked_conv_fwd, "masked_conv2d", x, packed, out,
+                 taps, kh, kw, mma)
+    launches["masked_conv2d"] += 1
+    return out
+
+
+def masked_conv2d_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                      taps: Iterable | None = None):
+    """K2's backward kernels: from the forward's input ``x`` and weights
+    ``w`` and the output gradient ``g`` [N,H,W,cout] f32, return (dx in
+    x's dtype, dW [kh,kw,cin,cout] in w's dtype, zero outside ``taps``).
+    The dgrad kernel, then the wgrad kernel's chunk partials and their
+    in-order sum: one launch in the count."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"masked_conv2d_bwd: no kernel for device "
+                           f"{x.device}")
+    _check(x, w)
+    taps = _taps(w, taps)
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    if any(t.device != x.device for t in (w, g)):
+        raise RuntimeError("masked_conv2d_bwd: inputs on different devices")
+    if (g.dtype != torch.float32 or not g.is_contiguous()
+            or tuple(g.shape) != (n, h, w_, cout)):
+        raise ValueError(f"masked_conv2d_bwd: g must be contiguous float32 "
+                         f"{(n, h, w_, cout)}")
+    if not x.is_contiguous():
+        raise ValueError("masked_conv2d_bwd: x must be contiguous")
+    lib = _bwd_lib()
+    bf16 = int(x.dtype == torch.bfloat16)
+    dev = x.device
+
+    # dgrad: the conv of g with the taps mirrored, weights [taps, cout, cin]
+    mirrored = tuple((kh - 1 - dy, kw - 1 - dx) for dy, dx in taps)
+    live_t = _live(w, taps).transpose(1, 2)
+    mma = mma_path(x.dtype, w_, cout, cin)
+    packed = tap_fragments(live_t) if mma else live_t.contiguous()
+    dx = torch.empty(x.shape, device=dev, dtype=x.dtype)
+    _launch_conv(lib.masked_conv_dgrad, "masked_conv2d dgrad", g, packed, dx,
+                 mirrored, kh, kw, mma)
+
+    # wgrad: per-chunk partials, then their sum in chunk order
+    rows = n * h
+    rows_per_chunk = -(-rows // _WGRAD_CHUNKS)
+    chunks = -(-rows // rows_per_chunk)
+    part = torch.empty((chunks, len(taps), cin, cout), device=dev,
+                       dtype=torch.float32)
+    dw = torch.empty((kh, kw, cin, cout), device=dev, dtype=w.dtype)
+    c_taps = _c_taps(taps)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(lib.masked_conv_wgrad(
+            x.data_ptr(), g.data_ptr(), part.data_ptr(), c_taps, len(taps),
+            n, h, w_, cin, cout, kh, kw, rows_per_chunk, bf16, stream),
+            "masked_conv2d wgrad")
+        _raise_on(lib.masked_conv_wreduce(
+            part.data_ptr(), dw.data_ptr(), c_taps, len(taps), chunks, cin,
+            cout, kh, kw, bf16, stream), "masked_conv2d wreduce")
+    launches["masked_conv2d_bwd"] += 1
+    return dx, dw
+
+
+class _MaskedConv2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, taps):
+        ctx.taps = taps
+        ctx.save_for_backward(x, w)
+        return _fwd(x, w, taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = masked_conv2d_bwd(x, w, g.contiguous(), ctx.taps)
+        return dx, dw, None
+
+
+def masked_conv2d(x: torch.Tensor, w: torch.Tensor,
+                  taps: Iterable | None = None) -> torch.Tensor:
+    """The stride-1 SAME conv of ``x`` [N,H,W,cin] with the folded, masked
+    weights ``w`` [kh,kw,cin,cout] (odd kh, kw; x's dtype) over ``taps``
+    (default: every tap), as unrounded f32 [N,H,W,cout]."""
+    _check(x, w)
+    taps = _taps(w, taps)
+    if x.device.type == "cpu":
+        return masked_conv2d_ref(x, w, taps)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"masked_conv2d: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MaskedConv2d.apply(x, w, taps)
+    return _fwd(x, w, taps)

@@ -26,6 +26,10 @@ TINY = ("image_size=8,z_size=4,h_size=8,depth=1,num_blocks=2,depth_ar=2,"
         "compute_dtype=float32")
 PAPER_WIDTH = ("image_size=32,z_size=32,h_size=160,depth=1,num_blocks=2,"
                "depth_ar=2,compute_dtype=float32")
+# 5x5 convs: the AR nets go conv by conv through K2 (JAX: kernels=pallas
+# runs K2 in interpret mode); depth_ar=4: five convs in K1's chain
+K5 = ",kernel_size=5,kernels=pallas"
+DEPTH4 = ",depth_ar=4"
 
 
 def _setup(hp, n, seed=0):
@@ -46,8 +50,9 @@ def _jax_noise(cfg, key, rows):
         for n in cvae.layer_names(cfg)}
 
 
-def test_bridge_round_trip_exact(tmp_path):
-    _, tcfg, _, params, model = _setup(TINY, 2)
+@pytest.mark.parametrize("extra", ["", K5])
+def test_bridge_round_trip_exact(tmp_path, extra):
+    _, tcfg, _, params, model = _setup(TINY + extra, 2)
     back = to_jax_params(model.state_dict())
     flat_a = jax.tree_util.tree_leaves_with_path(params)
     flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
@@ -98,12 +103,14 @@ def _compare_forward(hp, n, k, rtol, atol):
                                    rtol=rtol, atol=atol, err_msg=field)
 
 
-def test_eval_forward_matches_jax_tiny():
-    _compare_forward(TINY, 2, 2, rtol=1e-5, atol=1e-4)
+@pytest.mark.parametrize("extra", ["", DEPTH4, K5])
+def test_eval_forward_matches_jax_tiny(extra):
+    _compare_forward(TINY + extra, 2, 2, rtol=1e-5, atol=1e-4)
 
 
-def test_eval_forward_matches_jax_paper_width():
-    _compare_forward(PAPER_WIDTH, 1, 2, rtol=1e-4, atol=1e-4)
+@pytest.mark.parametrize("extra", ["", ",kernel_size=5"])
+def test_eval_forward_matches_jax_paper_width(extra):
+    _compare_forward(PAPER_WIDTH + extra, 1, 2, rtol=1e-4, atol=1e-4)
 
 
 def test_eval_step_matches_jax_one_device_mesh():

@@ -158,9 +158,17 @@ def _model_grads(hp, n, rel, seed=0):
                                 jax.tree_util.DictKey("V"))])[top].any()
 
 
-def test_model_grads_match_jax_tiny():
-    _model_grads(TINY, 2, rel=2e-4)
+# kernel_size=5: every AR conv through K2's twin (autograd of the SAME
+# conv); JAX differentiates its K2 route (kernels=pallas: the Pallas
+# forward in interpret mode, the VJP of the SAME conv)
+K5 = ",kernel_size=5,kernels=pallas"
 
 
-def test_model_grads_match_jax_paper_width():
-    _model_grads(PAPER_WIDTH, 2, rel=1e-4)
+@pytest.mark.parametrize("extra", ["", K5])
+def test_model_grads_match_jax_tiny(extra):
+    _model_grads(TINY + extra, 2, rel=2e-4)
+
+
+@pytest.mark.parametrize("extra", ["", K5])
+def test_model_grads_match_jax_paper_width(extra):
+    _model_grads(PAPER_WIDTH + extra, 2, rel=1e-4)

@@ -1,7 +1,8 @@
 """K1/K3/K4: each plain twin against the JAX Pallas kernel (interpret mode)
 and its XLA twin on the same numpy inputs (f32, 1e-5); the CPU wrappers
-route to the twins; a non-CPU tensor never does. The card tests at the end
-hold each kernel to its twin on CUDA and skip where there is no card."""
+(K2's too) route to the twins; a non-CPU tensor never does. The card tests
+at the end hold each kernel to its twin on CUDA and skip where there is no
+card. K2's own tests are in test_torch_masked_conv.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +15,7 @@ from iaf_tpu.ops.fused import (disc_logistic_logp as j_dl_pallas,
                                iaf_update_xla)
 from iaf_torch import ops
 from iaf_torch.core.device import resolve_device
-from iaf_torch.nn.masks import get_conv_ar_mask
+from iaf_torch.nn.masks import get_conv_ar_mask, nonzero_taps
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -48,8 +49,10 @@ def _k1_inputs(zs, hs, n, hw, depth_ar=2, seed=0):
 
 
 @pytest.mark.parametrize("zs,hs,n,hw,depth_ar", [
-    (4, 8, 3, 6, 2), (4, 8, 2, 5, 3), (32, 160, 1, 16, 2)])
+    (4, 8, 3, 6, 2), (4, 8, 2, 5, 3), (4, 8, 2, 5, 4), (32, 160, 1, 16, 2)])
 def test_ar_stack_ref_matches_pallas_and_xla(zs, hs, n, hw, depth_ar):
+    """Through the ``ops.ar_stack`` wrapper (its twin on the CPU), at any
+    AR depth JAX takes."""
     z, c, ws, bs, masks = _k1_inputs(zs, hs, n, hw, depth_ar)
     want_pl = np.asarray(ar_stack_fused(jnp.asarray(z), jnp.asarray(c),
                                         [jnp.asarray(w) for w in ws],
@@ -57,8 +60,8 @@ def test_ar_stack_ref_matches_pallas_and_xla(zs, hs, n, hw, depth_ar):
                                         batch_block=1))
     wb = [jnp.asarray(t) for pair in zip(ws, bs) for t in pair]
     want_xla = np.asarray(ar_stack_xla(jnp.asarray(z), jnp.asarray(c), *wb))
-    got = ops.ar_stack_ref(_t(z), _t(c), [_t(w) for w in ws],
-                           [_t(b) for b in bs]).numpy()
+    got = ops.ar_stack(_t(z), _t(c), [_t(w) for w in ws],
+                       [_t(b) for b in bs], masks).numpy()
     np.testing.assert_allclose(got, want_pl, **TOL)
     np.testing.assert_allclose(got, want_xla, **TOL)
 
@@ -119,19 +122,48 @@ def test_cpu_wrappers_route_to_twins():
     assert torch.equal(
         ops.disc_logistic_logp(_t(mean), torch.tensor(ls), _t(sample)),
         ops.disc_logistic_ref(_t(mean), torch.tensor(ls), _t(sample)))
+    taps = nonzero_taps(masks[0])
+    assert torch.equal(ops.masked_conv2d(tz, tws[0], taps),
+                       ops.masked_conv2d_ref(tz, tws[0], taps))
     counts = ops.launch_counts()
-    assert {"ar_stack", "iaf_update", "disc_logistic_logp"} <= set(counts)
+    assert {"ar_stack", "masked_conv2d", "iaf_update",
+            "disc_logistic_logp"} <= set(counts)
     assert not any(counts.values()), counts
 
 
-def test_non_cpu_tensors_never_reach_twins():
+def test_non_cpu_tensors_never_reach_twins(monkeypatch):
     """A tensor off the CPU launches its kernel or raises; there is no
-    fallback (meta tensors stand in for a device without a kernel)."""
+    fallback (meta tensors stand in for a device without a kernel). An AR
+    net that K1 does not take (5x5) sends every conv to K2 and none to a
+    library conv."""
     z, c, ws, bs, masks = _k1_inputs(4, 8, 2, 6)
     meta = lambda a: torch.empty(a.shape, device="meta")  # noqa: E731
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.ar_stack(meta(z), meta(c), [meta(w) for w in ws],
                      [meta(b) for b in bs], masks)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.masked_conv2d(meta(z), meta(ws[0]), nonzero_taps(masks[0]))
+    from iaf_torch.nn import layers as tl
+    net = tl.ARMultiConv2d(4, [8, 8], [4, 4], (5, 5), device="meta")
+    assert not net.fusable
+    with pytest.raises(RuntimeError, match="no kernel"):
+        net(meta(z), meta(c))
+    calls = []
+
+    def k2(x, w, taps):
+        calls.append((tuple(w.shape), taps))
+        return torch.empty((*x.shape[:3], w.shape[-1]), device=x.device)
+
+    def no_library_conv(*args, **kwargs):
+        raise AssertionError("an AR conv reached F.conv2d")
+
+    monkeypatch.setattr(ops, "masked_conv2d", k2)
+    monkeypatch.setattr(tl.F, "conv2d", no_library_conv)
+    m, s = net(meta(z), meta(c))
+    assert m.shape == s.shape == (2, 6, 6, 4)
+    assert [shape for shape, _ in calls] == [(5, 5, 4, 8), (5, 5, 8, 8),
+                                             (5, 5, 8, 8)]
+    assert all(len(taps) == 13 for _, taps in calls)
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.iaf_update(*[meta(x) for x in _k3_inputs()])
     mean, _, sample = _k4_inputs()
@@ -147,6 +179,9 @@ def test_non_cpu_backward_and_optimizer_never_reach_twins():
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.ar_stack_bwd(meta(z), [meta(w) for w in ws],
                          [meta(c)], meta(z[..., :1].repeat(8, -1)))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.masked_conv2d_bwd(meta(z), meta(ws[0]), meta(c),
+                              nonzero_taps(masks[0]))
     a = [meta(x) for x in _k3_inputs()]
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.iaf_update_bwd(*a)
@@ -232,9 +267,11 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("zs,hs,n,hw", [(32, 160, 8, 16), (4, 8, 3, 6)])
-def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw):
-    z, c, ws, bs, masks = _k1_inputs(zs, hs, n, hw)
+@pytest.mark.parametrize("zs,hs,n,hw,depth_ar", [
+    (32, 160, 8, 16, 2), (4, 8, 3, 6, 2), (32, 160, 8, 16, 4)])
+def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
+                                              depth_ar):
+    z, c, ws, bs, masks = _k1_inputs(zs, hs, n, hw, depth_ar)
     args = (_t(z).to(cuda, dtype), _t(c).to(cuda),
             [_t(w).to(cuda, dtype) for w in ws], [_t(b).to(cuda) for b in bs])
     with torch.inference_mode():
@@ -242,6 +279,25 @@ def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw):
         want = ops.ar_stack_ref(*args)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,most", [(torch.float32, 7),
+                                        (torch.bfloat16, 10)])
+def test_ar_stack_deeper_than_shared_memory_raises(cuda, dtype, most):
+    """At the paper widths a block holds 7 convs on the f32 path and 10 on
+    the tensor-core one; one more raises, naming that limit."""
+    for n_convs in (most, most + 1):
+        z, c, ws, bs, masks = _k1_inputs(32, 160, 2, 16, n_convs - 1)
+        args = (_t(z).to(cuda, dtype), _t(c).to(cuda),
+                [_t(w).to(cuda, dtype) for w in ws],
+                [_t(b).to(cuda) for b in bs], masks)
+        with torch.inference_mode():
+            if n_convs == most:
+                assert torch.isfinite(ops.ar_stack(*args)).all()
+                continue
+            with pytest.raises(ValueError, match=f"at most {most} convs"):
+                ops.ar_stack(*args)
 
 
 @pytest.mark.cuda

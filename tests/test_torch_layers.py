@@ -97,16 +97,16 @@ def test_ar_row_trim_conv_matches_jax(zd):
     np.testing.assert_allclose(got, untrimmed, **TOL)
 
 
-def _ar_params(rs, zs, hs, depth_ar, merge):
+def _ar_params(rs, zs, hs, depth_ar, merge, k=3):
     p, prev = {}, zs
     for i in range(depth_ar):
-        p[f"layer_{i}"] = _wn_params(rs, (3, 3, prev, hs), hs)
+        p[f"layer_{i}"] = _wn_params(rs, (k, k, prev, hs), hs)
         prev = hs
     if merge:
-        p["layer_out"] = _wn_params(rs, (3, 3, hs, 2 * zs), 2 * zs)
+        p["layer_out"] = _wn_params(rs, (k, k, hs, 2 * zs), 2 * zs)
     else:
         for i in range(2):
-            p[f"layer_out_{i}"] = _wn_params(rs, (3, 3, hs, zs), zs)
+            p[f"layer_out_{i}"] = _wn_params(rs, (k, k, hs, zs), zs)
     return p
 
 
@@ -116,19 +116,25 @@ def _load_ar(mod, p):
     return mod
 
 
+@pytest.mark.parametrize("k", [3, 5])
 @pytest.mark.parametrize("merge", [True, False])
-def test_ar_multiconv2d_heads_match_jax(merge):
+def test_ar_multiconv2d_heads_match_jax(merge, k):
+    """3x3: K1's chain (its twin here) and the conv-by-conv route against
+    JAX's default path; 5x5: the conv-by-conv route through K2 (its twin
+    here) against JAX's ``pallas_conv`` route (K2 in interpret mode)."""
     rs = np.random.RandomState(3)
     zs, hs = 4, 8
     z = rs.randn(2, 6, 6, zs).astype(np.float32)
     c = rs.randn(2, 6, 6, hs).astype(np.float32)
-    p = _ar_params(rs, zs, hs, 2, merge)
+    p = _ar_params(rs, zs, hs, 2, merge, k)
     ctx = jl.Ctx(params={"ar1": p})
     want = jl.ar_multiconv2d(ctx, "ar1", jnp.asarray(z), jnp.asarray(c),
-                             [hs, hs], [zs, zs], trim_rows=True,
-                             merge_heads=merge)
-    mod = _load_ar(tl.ARMultiConv2d(zs, [hs, hs], [zs, zs],
+                             [hs, hs], [zs, zs], filter_size=(k, k),
+                             trim_rows=True, merge_heads=merge,
+                             pallas_conv=(k != 3))
+    mod = _load_ar(tl.ARMultiConv2d(zs, [hs, hs], [zs, zs], (k, k),
                                     merge_heads=merge), p)
+    assert mod.fusable == (k == 3)
     with torch.no_grad():
         fused = mod(torch.from_numpy(z), torch.from_numpy(c))
         unfused = mod.forward_unfused(torch.from_numpy(z), torch.from_numpy(c))
@@ -168,14 +174,15 @@ def test_data_dependent_init_matches_jax():
                                    np.asarray(ctx.root[name]["b"]), **TOL)
 
 
-def test_torch_ar_multiconv2d_is_autoregressive():
-    """The AR-Jacobian check of tests/test_masks.py on the port's chain:
-    head element i depends only on z elements strictly before it in
-    raster-then-channel order."""
+@pytest.mark.parametrize("k", [3, 5])
+def test_torch_ar_multiconv2d_is_autoregressive(k):
+    """The AR-Jacobian check of tests/test_masks.py on the port's chain
+    (K1's at 3x3, K2's conv by conv at 5x5): head element i depends only
+    on z elements strictly before it in raster-then-channel order."""
     rs = np.random.RandomState(5)
     zs, hs, H = 2, 4, 3
-    p = _ar_params(rs, zs, hs, 2, True)
-    mod = _load_ar(tl.ARMultiConv2d(zs, [hs, hs], [zs, zs]), p)
+    p = _ar_params(rs, zs, hs, 2, True, k)
+    mod = _load_ar(tl.ARMultiConv2d(zs, [hs, hs], [zs, zs], (k, k)), p)
     c = torch.from_numpy(rs.randn(1, H, H, hs).astype(np.float32))
 
     def f(zflat):

@@ -1,0 +1,256 @@
+"""K2 (``iaf_torch.ops.masked_conv``): the plain twin and its backward
+against the JAX Pallas kernel (interpret mode), its XLA twin and
+``jax.vjp`` on the same numpy inputs (f32, 1e-5); the live-tap arithmetic
+the CUDA kernels implement (implicit GEMM over the taps, dgrad as the
+conv with mirrored taps, wgrad as shifted-input products) against the
+twin, in plain torch on the CPU. The card tests at the end hold each
+kernel to its twin on CUDA and skip where there is no card."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from iaf_tpu.ops.masked_conv import masked_conv2d as j_masked_conv2d
+from iaf_tpu.ops.masked_conv import xla_conv2d_same
+from iaf_torch import ops
+from iaf_torch.nn.masks import get_conv_ar_mask, nonzero_taps
+from iaf_torch.ops.masked_conv import _live
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _mask(k, cin, cout, zerodiagonal):
+    """The AR mask of a conv, or for widths the MADE mask cannot pair
+    (160 -> 64), two heads' masks side by side, as the merged heads."""
+    if cin % cout == 0 or cout % cin == 0:
+        return get_conv_ar_mask(k, k, cin, cout, zerodiagonal)
+    return np.concatenate([get_conv_ar_mask(k, k, cin, cout // 2,
+                                            zerodiagonal)] * 2, -1)
+
+
+def _inputs(k, shape, cout, zerodiagonal=True, seed=0):
+    rs = np.random.RandomState(seed + k)
+    x = rs.randn(*shape).astype(np.float32)
+    m = _mask(k, shape[-1], cout, zerodiagonal)
+    w = (rs.randn(k, k, shape[-1], cout) / np.sqrt(k * shape[-1]) * m
+         ).astype(np.float32)
+    return x, w, m
+
+
+def _close(got, want, rel, name=""):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    err = float(np.abs(got - want).max())
+    scale = max(float(np.abs(want).max()), 1e-30)
+    assert err <= rel * scale, f"{name}: max err {err} > {rel} x {scale}"
+
+
+# non-square maps, odd channel counts
+SHAPES = [((2, 5, 7, 3), 9), ((1, 6, 4, 9), 3)]
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("shape,cout", SHAPES)
+def test_masked_conv_ref_matches_pallas_and_xla(k, shape, cout):
+    x, w, m = _inputs(k, shape, cout)
+    want_pl = np.asarray(j_masked_conv2d(jnp.asarray(x), jnp.asarray(w)))
+    want_xla = np.asarray(xla_conv2d_same(jnp.asarray(x), jnp.asarray(w)))
+    got = ops.masked_conv2d_ref(_t(x), _t(w), nonzero_taps(m)).numpy()
+    np.testing.assert_allclose(got, want_pl, **TOL)
+    np.testing.assert_allclose(got, want_xla, **TOL)
+    # the CPU wrapper is the twin
+    assert np.array_equal(
+        ops.masked_conv2d(_t(x), _t(w), nonzero_taps(m)).numpy(), got)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_masked_conv_ref_bf16_tracks_jax_bf16_twin(k):
+    """Both twins cast x and w to bf16 and round the conv's output to
+    bf16 once: they agree within one bf16 rounding (2^-7 relative; the
+    f32 sums underneath differ by a few f32 ulps of their terms)."""
+    x, w, m = _inputs(k, (2, 6, 6, 8), 16)
+    want = np.asarray(xla_conv2d_same(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    ).astype(jnp.float32))
+    got = ops.masked_conv2d_ref(_t(x).bfloat16(), _t(w).bfloat16(),
+                                nonzero_taps(m)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2.0**-7,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+def _tap_sum(x, live, taps, kh, kw):
+    """out[y, x] = sum_t x[y + dy_t - ph, x + dx_t - pw] @ live[t], zeros
+    outside the image: the implicit GEMM of masked_conv.cuh."""
+    n, h, w_, _ = x.shape
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    xp = F.pad(x, (0, 0, pw, pw, ph, ph))
+    return sum(xp[:, dy:dy + h, dx:dx + w_] @ live[i]
+               for i, (dy, dx) in enumerate(taps))
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_live_taps_route_equals_all_taps(k):
+    """Over the mask's live taps the twin gives exactly the all-taps conv,
+    and so does the live-tap sum the kernels compute; weights outside the
+    given taps count as zero."""
+    x, w, m = _inputs(k, (2, 6, 5, 4), 8)
+    taps = nonzero_taps(m)
+    assert len(taps) == k * k // 2 + 1   # rows above, then up to the centre
+    tx, tw = _t(x), _t(w)
+    full = ops.masked_conv2d_ref(tx, tw)
+    assert torch.equal(ops.masked_conv2d_ref(tx, tw, taps), full)
+    torch.testing.assert_close(_tap_sum(tx, _live(tw, taps), taps, k, k),
+                               full, **TOL)
+    dead = torch.ones(k, k, 1, 1)
+    for dy, dx in taps:
+        dead[dy, dx] = 0.0
+    assert torch.equal(ops.masked_conv2d_ref(tx, tw + dead, taps), full)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("shape,cout", SHAPES)
+def test_masked_conv_bwd_ref_matches_jax_vjp(k, shape, cout):
+    """dx at 1e-5 of its max; dW at the live taps at 1e-5 of its max and
+    zero at the dead ones (JAX's VJP of the XLA twin is nonzero there; the
+    fold's mask multiply zeroes it before it reaches V)."""
+    x, w, m = _inputs(k, shape, cout, seed=3)
+    g = np.random.RandomState(4).randn(*shape[:3], cout).astype(np.float32)
+    _, vjp = jax.vjp(j_masked_conv2d, jnp.asarray(x), jnp.asarray(w))
+    dx_j, dw_j = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    dx, dw = ops.masked_conv2d_bwd_ref(_t(x), _t(w), _t(g), nonzero_taps(m))
+    _close(dx.numpy(), dx_j, 1e-5, "dx")
+    live = np.zeros((k, k, 1, 1), np.float32)
+    for dy, dx_ in nonzero_taps(m):
+        live[dy, dx_] = 1.0
+    _close(dw.numpy(), dw_j * live, 1e-5, "dW")
+    assert not (dw.numpy() * (1 - live)).any()
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_backward_is_the_mirrored_conv_and_shifted_products(k):
+    """The backward kernels' arithmetic: dx is the live-tap sum of g over
+    the mirrored taps (kh-1-dy, kw-1-dx) with the weights transposed per
+    tap; dW[t] = sum over pixels of the input shifted by tap t times g."""
+    x, w, m = _inputs(k, (2, 6, 5, 8), 16, seed=5)
+    taps = nonzero_taps(m)
+    g = _t(np.random.RandomState(6).randn(2, 6, 5, 16).astype(np.float32))
+    tx, tw = _t(x), _t(w)
+    dx, dw = ops.masked_conv2d_bwd_ref(tx, tw, g, taps)
+    mirrored = [(k - 1 - dy, k - 1 - dx_) for dy, dx_ in taps]
+    got_dx = _tap_sum(g, _live(tw, taps).transpose(1, 2), mirrored, k, k)
+    torch.testing.assert_close(got_dx, dx, **TOL)
+    ph = (k - 1) // 2
+    xp = F.pad(tx, (0, 0, ph, ph, ph, ph))
+    for dy, dx_ in taps:
+        shifted = xp[:, dy:dy + 6, dx_:dx_ + 5]
+        want = torch.einsum("nhwc,nhwo->co", shifted, g)
+        torch.testing.assert_close(dw[dy, dx_], want, **TOL)
+
+
+def test_masked_conv_rejects_bad_inputs():
+    x, w, m = _inputs(3, (1, 4, 4, 4), 8)
+    tx, tw = _t(x), _t(w)
+    with pytest.raises(ValueError, match="odd"):
+        ops.masked_conv2d(tx, tw[:2])
+    with pytest.raises(ValueError, match="channels"):
+        ops.masked_conv2d(tx[..., :2], tw)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.masked_conv2d(tx.bfloat16(), tw)
+    with pytest.raises(ValueError, match="distinct"):
+        ops.masked_conv2d(tx, tw, [(0, 0), (0, 0)])
+    with pytest.raises(ValueError, match="distinct"):
+        ops.masked_conv2d(tx, tw, [(3, 0)])
+
+
+def test_cpu_autograd_differentiates_the_twin():
+    """Under autograd a CPU tensor takes the twin, whose autograd is the
+    plain backward; no kernel is counted."""
+    ops.reset_launch_counts()
+    x, w, m = _inputs(5, (2, 6, 6, 4), 8)
+    tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
+    out = ops.masked_conv2d(tx, tw, nonzero_taps(m))
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    out.backward(g)
+    dx, dw = ops.masked_conv2d_bwd_ref(tx.detach(), tw.detach(), g,
+                                       nonzero_taps(m))
+    assert torch.equal(tx.grad, dx) and torch.equal(tw.grad, dw)
+    assert not any(ops.launch_counts().values())
+
+
+# --- on the card ------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# the three 5x5 AR convs of the paper config (tensor cores in bf16), odd
+# tiny shapes (FMA path), and a 3x3 and a 7x7 kernel
+CARD_CASES = [(5, (8, 16, 16, 32), 160), (5, (8, 16, 16, 160), 160),
+              (5, (8, 16, 16, 160), 64), (5, (3, 6, 5, 3), 9),
+              (3, (4, 16, 32, 16), 8), (7, (2, 9, 16, 16), 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,shape,cout", CARD_CASES)
+def test_masked_conv_kernel_matches_twin_on_card(cuda, dtype, k, shape,
+                                                 cout):
+    """f32 (TF32 off) at 1e-5 of the output's max; bf16 at 2e-2 (the
+    twin rounds its output to bf16, the kernel does not)."""
+    x, w, m = _inputs(k, shape, cout)
+    tx, tw = _t(x).to(cuda, dtype), _t(w).to(cuda, dtype)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = ops.masked_conv2d(tx, tw, nonzero_taps(m))
+        want = ops.masked_conv2d_ref(tx, tw, nonzero_taps(m))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["masked_conv2d"] == 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    _close(got.cpu().numpy(), want.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,shape,cout", CARD_CASES)
+def test_masked_conv_bwd_kernel_matches_twin_on_card(cuda, dtype, k, shape,
+                                                     cout):
+    """dx and dW (dead taps zero) against autograd of the twin, at 1e-4
+    (f32, the twin in f64: cuDNN's own f32 weight gradient strays ~1e-3 of
+    max on real gradients) / 2e-2 (bf16) of each output's max; through
+    autograd, one backward launch."""
+    x, w, m = _inputs(k, shape, cout, seed=1)
+    taps = nonzero_taps(m)
+    tx = _t(x).to(cuda, dtype).requires_grad_()
+    tw = _t(w).to(cuda, dtype).requires_grad_()
+    g = torch.randn(*shape[:3], cout, generator=torch.Generator()
+                    .manual_seed(2)).to(cuda)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.masked_conv2d(tx, tw, taps), [tx, tw], g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["masked_conv2d_bwd"] == 1
+    if dtype == torch.float32:
+        want = ops.masked_conv2d_bwd_ref(tx.double(), tw.double(), g.double(),
+                                         taps)
+    else:
+        want = ops.masked_conv2d_bwd_ref(tx, tw, g, taps)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _close(a.float().cpu().numpy(), b.float().cpu().numpy(), tol)
+    live = torch.zeros(k, k, 1, 1, device=cuda)
+    for dy, dx in taps:
+        live[dy, dx] = 1.0
+    assert not (got[1].float() * (1 - live)).any()

@@ -68,12 +68,13 @@ def _jax_noise(cfg, key, rows):
         for n in cvae.layer_names(cfg)}
 
 
-@pytest.fixture(scope="module")
-def trajectory():
-    jcfg, tcfg = JConfig().parse(TINY), Config().parse(TINY)
+def _run_trajectory(hp, steps):
+    """``steps`` steps of the port's ``train_step`` and JAX's
+    ``make_train_step`` side by side from the same bridged state."""
+    jcfg, tcfg = JConfig().parse(hp), Config().parse(hp)
     ds = synthetic_dataset(8, 3, n_train=64, n_test=8, seed=1)
     batches = feed.batch_iterator(ds.train_x, tcfg.batch_size, tcfg.seed)
-    batches = [next(batches) for _ in range(STEPS)]
+    batches = [next(batches) for _ in range(steps)]
     base_key = jax.random.PRNGKey(tcfg.seed)
     mesh = make_mesh(jcfg, jax.devices()[:1])
     jstate = jts.init_train_state(jcfg, jax.random.fold_in(base_key, 1),
@@ -97,14 +98,30 @@ def trajectory():
                 step_fn=step_fn, mesh=mesh)
 
 
-def test_ten_step_trajectory_matches_jax(trajectory):
-    for i, (got, want) in enumerate(trajectory["losses"]):
+@pytest.fixture(scope="module")
+def trajectory():
+    return _run_trajectory(TINY, STEPS)
+
+
+def _check_trajectory(run, steps):
+    for i, (got, want) in enumerate(run["losses"]):
         assert abs(got - want) <= 1e-4 * abs(want), (i, got, want)
-    jstate, tstate = trajectory["jstate"], trajectory["tstate"]
-    assert int(tstate.opt.step) == int(jstate.opt.step) == STEPS
+    jstate, tstate = run["jstate"], run["tstate"]
+    assert int(tstate.opt.step) == int(jstate.opt.step) == steps
     _close_trees(to_jax_params(tstate.params.state_dict()), jstate.params,
                  1e-4)
     _close_trees(to_jax_params(tstate.opt.ema), jstate.opt.ema, 1e-4)
+
+
+def test_ten_step_trajectory_matches_jax(trajectory):
+    _check_trajectory(trajectory, STEPS)
+
+
+def test_5x5_trajectory_matches_jax():
+    """kernel_size=5 for 3 steps: the port's AR nets through K2's twin,
+    JAX's through its K2 route (kernels=pallas, interpret mode)."""
+    _check_trajectory(_run_trajectory(TINY + ",kernel_size=5,kernels=pallas",
+                                      3), 3)
 
 
 def test_port_checkpoint_loads_and_trains_in_jax(trajectory, tmp_path):
