@@ -51,10 +51,11 @@ Phases, any failure exits non-zero:
 10. The 5x5 config (the paper config with ``kernel_size=5``: every AR net
    runs conv by conv through K2, three masked 5x5 convs per IAF step) at
    full width and depth: init; K2's inputs captured from one real eval
-   chunk for all three conv shapes, held to the twin in bf16 at 2e-2 and
-   in f32 at 1e-5 of the output's max, timed beside the twin, one cuDNN
-   conv and the bound, and one chunk profiled; one f32 eval forward, card
-   against CPU twins; ``evaluate`` at k=256 with launches exactly K2 = 60,
+   chunk for all three conv shapes, each of which must take the
+   tensor-core forward kernel, held to the twin in bf16 at 2e-2 and in
+   f32 at 1e-5 of the output's max, timed beside the twin, one cuDNN conv
+   (with the ratio) and the bound, and one chunk profiled; one f32 eval
+   forward, card against CPU twins; ``evaluate`` at k=256 with launches exactly K2 = 60,
    K3 = 20, K4 = 1 per chunk and K1 = 0; K2's backward held to autograd of
    its twin on inputs captured from a real bf16 step at batch 32 (2e-2 of
    each output's max; f32 at 1e-4 of the twin in f64), timed beside the
@@ -63,6 +64,11 @@ Phases, any failure exits non-zero:
    exactly K2 = K2-backward = 60, K3 = K3-backward = 20, K4 =
    K4-backward = K5 = 1, K1 = K1-backward = 0 per step, and one step
    profiled.
+11. A 3x3 AR net with depth_ar=10 (11 convs) at the paper widths, deeper
+   than K1's shared memory holds in bf16 and f32, through
+   ``ARMultiConv2d`` on 64 images: launches exactly K1 = 0 and K2 = 11
+   per forward, and the heads match K1's twin at 2e-2 (bf16) and 1e-5
+   (f32, TF32 off) of the output's max.
 
 The second-last line of standard output is the ``kernels`` JSON, the last
 ``{"ok": true, "device": {...}}``.
@@ -850,6 +856,52 @@ def k1_depth_phase(ops, device, depth_ar: int = 4, n: int = 64) -> None:
         check(rel <= tol, f"K1 at {len(ws)} convs {dtype}: {rel} > {tol}")
 
 
+def deep_chain_phase(ops, device, depth_ar: int = 10, n: int = 64) -> dict:
+    """A kernel_size=3 AR net with depth_ar + 1 convs at the paper widths,
+    deeper than K1's shared memory holds, through ``ARMultiConv2d`` on
+    random weights from a seed: it must run conv by conv through K2
+    (exactly K1 = 0, K2 = depth_ar + 1 launches per forward) and match
+    K1's twin on the same folded weights, bf16 at 2e-2 and f32 (TF32 off)
+    at 1e-5 of the output's max. Returns the launches of one forward."""
+    import torch
+    from iaf_torch.nn.layers import ARMultiConv2d
+    gen = torch.Generator().manual_seed(12)
+    zs, hs = 32, 160
+    mod = ARMultiConv2d(zs, [hs] * depth_ar, [zs, zs], (3, 3), device=device)
+    with torch.no_grad():
+        for name, p in mod.named_parameters():
+            v = torch.randn(p.shape, generator=gen)
+            p.copy_(1.0 + 0.1 * v if name.endswith(".g") else
+                    0.1 * v if name.endswith(".b") else v)
+    z = torch.randn(n, 16, 16, zs, generator=gen).to(device)
+    ctx = torch.randn(n, 16, 16, hs, generator=gen).to(device)
+    counts = {}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        with torch.inference_mode():
+            ws, bs = mod.folded(dtype)
+            fits = ops.ar_stack_fits(len(ws), 16, zs, hs, 2 * zs, dtype)
+            check(not fits, f"{len(ws)} convs in {dtype} fit K1; the phase "
+                  "needs a chain that does not")
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            got = torch.cat(mod(z, ctx, dtype), dim=-1)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            ref = ops.ar_stack_ref(z.to(dtype), ctx, ws, bs)
+            ms = cuda_ms(lambda: mod(z, ctx, dtype), 5, 1)
+        want = _expect(counts, {"masked_conv2d": depth_ar + 1}, 1)
+        err, rel = _rel_err(got, ref)
+        print(f"[deep] 3x3 AR net, depth_ar={depth_ar} ({len(ws)} convs), "
+              f"{str(dtype)[6:]}, z{tuple(z.shape)}: through K2, launches "
+              f"{ {k: v for k, v in counts.items() if v} }; against K1's "
+              f"twin max abs err {err:.3e} ({rel:.3e} of max, limit {tol}); "
+              f"{ms:.3f} ms a forward")
+        check(counts == want, f"deep chain launches {counts} != {want}")
+        check(bool(torch.isfinite(got).all()), "non-finite deep-chain output")
+        check(rel <= tol, f"deep chain {dtype}: {rel} of max > {tol}")
+    return counts
+
+
 def capture_k2(target, name: str, fn) -> dict:
     """Run ``fn`` with a spy on K2's wrapper ``target.name``; return, per
     conv shape (cin, cout), its first call's arguments (detached copies)."""
@@ -906,12 +958,17 @@ def _k2_conv_lib(x, w):
 
 
 def k2_forward_phase(ops, cap: dict) -> dict:
-    """K2 on each captured conv: bf16 against its twin at 2e-2 and f32
-    (TF32 off) at 1e-5 of the output's max; timed beside the twin, one
-    cuDNN conv and the bound."""
+    """K2 on each captured conv: the bf16 input must take the tensor-core
+    kernel (``fwd_route``); bf16 against its twin at 2e-2 and f32 (TF32
+    off) at 1e-5 of the output's max; timed beside the twin, one cuDNN
+    conv (with the ratio) and the bound."""
     import torch
+    from iaf_torch.ops.masked_conv import fwd_route
     shapes = []
     for (cin, cout), (x, w, taps) in sorted(cap.items()):
+        route = fwd_route(x, w, taps)
+        check(route == "wgmma", f"K2 {cin}->{cout} bf16 takes the {route} "
+              "kernel, not the tensor-core one")
         with torch.inference_mode():
             got = ops.masked_conv2d(x, w, taps)
             err, rel = _rel_err(got, ops.masked_conv2d_ref(x, w, taps))
@@ -928,6 +985,8 @@ def k2_forward_phase(ops, cap: dict) -> dict:
             plain = cuda_ms(lambda: ops.masked_conv2d_ref(x, w, taps))
             conv, xl, wl = _k2_conv_lib(x, w)
             lib = cuda_ms(lambda: conv(xl, wl))
+        print(f"[K2] {cin}->{cout} ({route}): kernel {ms:.4f} ms, cuDNN "
+              f"{lib:.4f} ms, ratio {ms / lib:.3f}")
         n, hh, ww, _ = x.shape
         flops = 2 * n * hh * ww * len(taps) * cin * cout
         moved = nbytes(x, got) + len(taps) * cin * cout * w.element_size()
@@ -1156,6 +1215,9 @@ def run() -> dict:
     # phase 10: the 5x5 config through K2
     k2_rows, eval5, counts5, summary5 = five_by_five_phases(ops, device, ds)
     rows += k2_rows
+
+    # phase 11: a 3x3 chain deeper than K1 holds, through K2
+    deep_chain_phase(ops, device)
     for r in rows:     # each kernel's launches on the main path it is on
         ev, tr = ((eval5, counts5) if r["name"] in K2_NAMES
                   else (eval_counts, counts))

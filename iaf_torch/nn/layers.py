@@ -308,12 +308,26 @@ class ARMultiConv2d(nn.Module):
                 dtype: torch.dtype | None = None) -> list[torch.Tensor]:
         """The whole chain through K1 (``ops.ar_stack``: the CUDA kernel on
         CUDA tensors, its twin on CPU tensors) where it applies (3x3,
-        uniform hidden widths), else conv by conv through K2."""
+        uniform hidden widths, and on CUDA rings that fit one block:
+        ``k1_fits``), else conv by conv through K2."""
         if not self.fusable:
             return self.forward_unfused(x, context, dtype)
         ws, bs = self.folded(dtype)
         z = x if dtype is None else x.to(dtype)
+        if not self.k1_fits(z, ws):
+            return self.forward_unfused(x, context, dtype)
         return self._split(ops.ar_stack(z, context, ws, bs, self.masks))
+
+    @staticmethod
+    def k1_fits(z: torch.Tensor, ws) -> bool:
+        """Whether K1 takes this chain: always on CPU tensors (its twin
+        runs any depth); on CUDA where its rings fit one block's shared
+        memory (``ops.ar_stack_fits``, decided before any launch)."""
+        if z.device.type != "cuda":
+            return True
+        _, _, w, cz = z.shape
+        return ops.ar_stack_fits(len(ws), w, cz, ws[0].shape[-1],
+                                 ws[-1].shape[-1], z.dtype)
 
     def _ar_conv(self, conv: WNConv2d, h: torch.Tensor, dtype,
                  taps) -> torch.Tensor:

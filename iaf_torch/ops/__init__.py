@@ -27,6 +27,7 @@ from iaf_torch.ops.ar_stack import (  # noqa: F401
     ar_stack,
     ar_stack_bwd,
     ar_stack_bwd_ref,
+    ar_stack_fits,
     ar_stack_ref,
 )
 from iaf_torch.ops.fused import (  # noqa: F401

@@ -192,12 +192,31 @@ def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _check_smem(lib, n_convs, w_, cz, ch, bf16, mma) -> None:
+def ar_stack_fits(n_convs: int, w: int, cz: int, ch: int, cout: int,
+                  dtype: torch.dtype, smem_bytes=None) -> bool:
+    """Whether K1's kernel takes a chain of ``n_convs`` convs at width
+    ``w``, input channels ``cz``, hidden ``ch`` and head ``cout`` in
+    ``dtype``: its rings fit one Hopper block's shared memory. The byte
+    count is the kernel's own (``ar_stack_smem_bytes``, or ``smem_bytes``
+    with the same arguments); nothing is launched. ``ar_stack`` raises on
+    a chain that does not fit, and ``ARMultiConv2d`` sends it conv by conv
+    through K2 instead."""
+    if smem_bytes is None:
+        smem_bytes = _lib().ar_stack_smem_bytes
+    mma = mma_path(dtype, w, cz, ch, cout)
+    return smem_bytes(n_convs, w, cz, ch, int(dtype == torch.bfloat16),
+                      int(mma)) <= _SMEM_LIMIT
+
+
+def _check_smem(lib, n_convs, w_, cz, ch, cout, dtype) -> None:
     """Raise when the chain's rings do not fit one block's shared memory,
     naming the most convs that fit at these widths."""
-    smem = lib.ar_stack_smem_bytes(n_convs, w_, cz, ch, bf16, mma)
-    if smem <= _SMEM_LIMIT:
+    if ar_stack_fits(n_convs, w_, cz, ch, cout, dtype,
+                     lib.ar_stack_smem_bytes):
         return
+    bf16 = int(dtype == torch.bfloat16)
+    mma = int(mma_path(dtype, w_, cz, ch, cout))
+    smem = lib.ar_stack_smem_bytes(n_convs, w_, cz, ch, bf16, mma)
     fit = max([k for k in range(2, n_convs)
                if lib.ar_stack_smem_bytes(k, w_, cz, ch, bf16, mma)
                <= _SMEM_LIMIT], default=0)
@@ -225,7 +244,7 @@ def _fwd(z, context, weights, biases, save_pre: bool):
     n_convs = len(weights)
     bf16 = int(z.dtype == torch.bfloat16)
     lib = _lib()
-    _check_smem(lib, n_convs, w_, cz, ch, bf16, int(mma))
+    _check_smem(lib, n_convs, w_, cz, ch, cout, z.dtype)
     if mma:   # a warp per pair of 8-wide output tiles, at most 10 warps
         threads = 32 * min(_MMA_WARPS, -(-max(ch, cout) // 16))
     else:     # one thread per output channel and PX-pixel group

@@ -1,7 +1,9 @@
 // K2's implicit-GEMM core: one stride-1 SAME conv over a given list of live
-// taps, NHWC in and out. masked_conv.cu instantiates it for the forward
-// conv, masked_conv_bwd.cu for dgrad (the conv of the output gradient with
-// the taps mirrored and the weights transposed per tap).
+// taps, NHWC in and out. masked_conv.cu instantiates the FMA kernel for the
+// forward conv in f32 and on shapes its tensor-core kernel does not tile
+// (that kernel, conv_wgmma_kernel, lives in masked_conv.cu);
+// masked_conv_bwd.cu instantiates both for dgrad (the conv of the output
+// gradient with the taps mirrored and the weights transposed per tap).
 //
 // out[n, y, x, co] = sum over taps t, ci of
 //     in[n, y + dy_t - ph, x + dx_t - pw, ci] * W[t][ci][co]
@@ -14,8 +16,9 @@
 // padding, so no padded copy exists in device memory. Then it accumulates
 // over (tap, channel step) with the weights read from L2:
 //
-// * conv_mma_kernel, bf16 operands on the tensor cores (mma.sync m16n8k16,
-//   f32 accumulate): the input is rounded to bf16 as it is staged, with the
+// * conv_mma_kernel, dgrad only (the forward runs conv_wgmma_kernel; this
+//   one goes when dgrad and wgrad move to wgmma), bf16 operands on the
+//   tensor cores (mma.sync m16n8k16, f32 accumulate): the input is rounded to bf16 as it is staged, with the
 //   channel stride padded by CPAD so a fragment's 8 pixel rows fall in
 //   distinct banks. The block's tr * W/16 16-pixel M tiles (at most MT)
 //   are each warp's whole share of M: a warp owns a pair of 8-wide output

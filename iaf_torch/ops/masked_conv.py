@@ -3,8 +3,10 @@
 
 Replaces ``iaf_tpu/ops/masked_conv.py:_conv_kernel`` and its ``_bwd``: the
 conv-by-conv route of an IAF step's AR net, taken wherever K1's fused
-chain does not apply (a kernel size other than 3). ``masked_conv2d``
-launches the CUDA kernel for CUDA tensors and runs ``masked_conv2d_ref``,
+chain does not apply (a kernel size other than 3, or on the card a 3x3
+chain deeper than K1's shared memory holds). ``masked_conv2d`` launches
+a CUDA kernel for CUDA tensors (the tensor-core kernel or the FMA one,
+as ``fwd_route`` decides from the shapes) and runs ``masked_conv2d_ref``,
 its plain PyTorch twin (the counterpart of ``xla_conv2d_same``), for CPU
 tensors only. Under autograd on CUDA it is a ``torch.autograd.Function``
 whose backward, ``masked_conv2d_bwd``, runs the dgrad and wgrad kernels;
@@ -20,6 +22,7 @@ the twin.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Iterable
 
 import torch
@@ -32,6 +35,7 @@ Taps = tuple[tuple[int, int], ...]
 
 _MAX_TAPS = 64          # masked_conv.cuh MAX_TAPS: taps per conv
 _MT = 8                 # masked_conv.cuh MT: 16-pixel M tiles per block
+WGMMA_WIDTHS = (32, 64, 128, 160, 256)   # conv_wgmma_kernel's N
 _FMA_ROWS = 8           # FMA path: output rows per block, at most
 _MMA_WARPS = 10         # masked_conv.cuh MMA_THREADS / 32
 _FMA_THREADS = 256      # masked_conv.cuh FMA_THREADS
@@ -82,11 +86,42 @@ def masked_conv2d_bwd_ref(x, w, g, taps=None):
 
 
 def mma_path(dtype: torch.dtype, w: int, cin: int, cout: int) -> bool:
-    """Whether the conv runs on the tensor cores: bf16, rows of whole
-    16-pixel tiles (at most MT of them), channels in whole 16-deep steps
-    in and 8-wide tiles out."""
+    """Whether dgrad runs on the tensor cores (mma.sync): bf16, rows of
+    whole 16-pixel tiles (at most MT of them), channels in whole 16-deep
+    steps in and 8-wide tiles out."""
     return (dtype == torch.bfloat16 and w % 16 == 0 and w <= 16 * _MT
             and cin % 16 == 0 and cout % 8 == 0)
+
+
+def wgmma_path(dtype: torch.dtype, w: int, cin: int, cout: int) -> bool:
+    """Whether the forward's shape is one the tensor-core kernel tiles:
+    bf16, a 128-pixel tile of whole rows (W of 16, 32, 64 or 128), whole
+    16-deep channel steps in, and at most 256 outputs in whole 8-wide
+    groups. The launch also needs two weight stages beside the staged
+    rows in shared memory (``_wgmma_fits``)."""
+    return (dtype == torch.bfloat16 and w in (16, 32, 64, 128)
+            and cin % 16 == 0 and cout % 8 == 0 and cout <= WGMMA_WIDTHS[-1])
+
+
+def wgmma_width(cout: int) -> int:
+    """The kernel's N for ``cout`` outputs: the narrowest instantiated
+    width that holds them (the packed weights' extra columns are zero)."""
+    return next(n for n in WGMMA_WIDTHS if n >= cout)
+
+
+def wgmma_pack(t: torch.Tensor, npad: int) -> torch.Tensor:
+    """[taps, cin, cout] -> the tensor-core forward's weight order,
+    [taps, cin/16, npad/8, 2, 8, 8]: element [t, s, j, h, n, k] is
+    ``t[t, 16 s + 8 h + k, 8 j + n]`` (zero for 8 j + n >= cout). Each
+    k-step is one wgmma B operand in the canonical K-major layout without
+    swizzle (8x8 core matrices of 128 bytes, the two k halves 128 bytes
+    apart, column groups 256 bytes apart) and each (tap, 32-deep chunk)
+    slice that the kernel streams is contiguous. One copy."""
+    taps, cin, cout = t.shape
+    if npad != cout:
+        t = F.pad(t, (0, npad - cout))
+    t = t.reshape(taps, cin // 16, 2, 8, npad // 8, 8)   # t s h k j n
+    return t.permute(0, 1, 4, 2, 5, 3).contiguous()
 
 
 def _lib():
@@ -97,6 +132,13 @@ def _lib():
         lib.masked_conv_fwd.restype = ctypes.c_int
         lib.masked_conv_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.masked_conv_smem_bytes.restype = ctypes.c_size_t
+        lib.masked_conv_wgmma_stages.argtypes = (
+            [ctypes.c_int] * 6 + [ctypes.c_size_t])
+        lib.masked_conv_wgmma_stages.restype = ctypes.c_int
+        lib.masked_conv_fwd_wgmma.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+            + [ctypes.c_size_t, ctypes.c_void_p])
+        lib.masked_conv_fwd_wgmma.restype = ctypes.c_int
         lib._iaf_typed = True
     return lib
 
@@ -143,8 +185,7 @@ def _launch_conv(fn, what: str, inp, packed, out, taps: Taps, kh: int,
     output rows per block so the staged rows fit shared memory."""
     n, h, w_, c_in = inp.shape
     c_out = out.shape[-1]
-    dys = [dy for dy, _ in taps]
-    span = max(dys) - min(dys)
+    span = _span(taps)
     lib = _lib()
     top = min(h, _MT // (w_ // 16) if mma else _FMA_ROWS)
     tr = next((r for r in range(top, 0, -1)
@@ -166,24 +207,80 @@ def _launch_conv(fn, what: str, inp, packed, out, taps: Taps, kh: int,
     _raise_on(err, what)
 
 
+@functools.lru_cache(maxsize=None)
+def _tap_index(taps: Taps, kw: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor([dy * kw + dx for dy, dx in taps], device=device)
+
+
 def _live(w: torch.Tensor, taps: Taps) -> torch.Tensor:
-    """[kh, kw, cin, cout] -> [taps, cin, cout], the taps in order."""
-    return torch.stack([w[dy, dx] for dy, dx in taps])
+    """[kh, kw, cin, cout] -> [taps, cin, cout], the taps in order (one
+    gather)."""
+    kh, kw, cin, cout = w.shape
+    return w.reshape(kh * kw, cin, cout).index_select(
+        0, _tap_index(taps, kw, w.device))
+
+
+def _span(taps: Taps) -> int:
+    dys = [dy for dy, _ in taps]
+    return max(dys) - min(dys)
+
+
+def _wgmma_fits(lib, w_: int, cin: int, cout: int, kw: int,
+                taps: Taps) -> bool:
+    """Whether the tensor-core kernel's staged rows and two weight stages
+    fit one block's shared memory at this shape (its own count)."""
+    return lib.masked_conv_wgmma_stages(w_, cin, kw, _span(taps),
+                                        wgmma_width(cout), len(taps),
+                                        _SMEM_LIMIT) >= 2
+
+
+def fwd_route(x: torch.Tensor, w: torch.Tensor, taps: Iterable | None
+              = None) -> str:
+    """The kernel the forward launches for CUDA inputs ``x``, ``w``:
+    ``"wgmma"`` (tensor cores) where ``wgmma_path`` holds and the staged
+    rows and two weight stages fit one block's shared memory, else
+    ``"fma"``. Decided from the shapes before any launch (builds the
+    library on first use)."""
+    return _route(x.dtype, x.shape[2], x.shape[3], w.shape[3], w.shape[1],
+                  _taps(w, taps))
+
+
+@functools.lru_cache(maxsize=None)
+def _route(dtype: torch.dtype, w_: int, cin: int, cout: int, kw: int,
+           taps: Taps) -> str:
+    if wgmma_path(dtype, w_, cin, cout) and _wgmma_fits(_lib(), w_, cin,
+                                                        cout, kw, taps):
+        return "wgmma"
+    return "fma"
 
 
 def _fwd(x: torch.Tensor, w: torch.Tensor, taps: Taps) -> torch.Tensor:
+    """Launch the forward on the kernel ``fwd_route`` names."""
     if w.device != x.device:
         raise RuntimeError("masked_conv2d: x and w on different devices")
     if not x.is_contiguous():
         raise ValueError("masked_conv2d: x must be contiguous")
     n, h, w_, cin = x.shape
     kh, kw, _, cout = w.shape
-    mma = mma_path(x.dtype, w_, cin, cout)
+    lib = _lib()
     live = _live(w, taps)
-    packed = tap_fragments(live) if mma else live
     out = torch.empty((n, h, w_, cout), device=x.device, dtype=torch.float32)
-    _launch_conv(_lib().masked_conv_fwd, "masked_conv2d", x, packed, out,
-                 taps, kh, kw, mma)
+    if _route(x.dtype, w_, cin, cout, kw, taps) == "wgmma":
+        if x.data_ptr() % 16:
+            raise ValueError("masked_conv2d: the tensor-core kernel needs x "
+                             "16-byte aligned")
+        npad = wgmma_width(cout)
+        packed = wgmma_pack(live, npad)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.masked_conv_fwd_wgmma(
+                x.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                _c_taps(taps), len(taps), n, h, w_, cin, cout, npad, kh, kw,
+                _SMEM_LIMIT, stream)
+        _raise_on(err, "masked_conv2d")
+    else:
+        _launch_conv(lib.masked_conv_fwd, "masked_conv2d", x, live, out,
+                     taps, kh, kw, False)
     launches["masked_conv2d"] += 1
     return out
 

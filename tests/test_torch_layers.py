@@ -197,3 +197,70 @@ def test_torch_ar_multiconv2d_is_autoregressive(k):
         for i in range(n):
             assert np.allclose(Jh[i, i:], 0.0, atol=1e-7), (head, i)
         assert np.abs(Jh).sum() > 0
+
+
+def test_deep_3x3_chain_through_k2_matches_k1_and_jax():
+    """A 3x3 chain deeper than K1's shared memory holds at paper widths
+    (depth_ar=10, tiny widths here): conv by conv through K2's twin
+    (``forward_unfused``, the route the card takes) equals K1's twin
+    (``forward``, the CPU route) and JAX's ``ar_multiconv2d``."""
+    rs = np.random.RandomState(6)
+    zs, hs, depth_ar = 4, 8, 10
+    z = rs.randn(2, 6, 6, zs).astype(np.float32)
+    c = rs.randn(2, 6, 6, hs).astype(np.float32)
+    p = _ar_params(rs, zs, hs, depth_ar, True)
+    ctx = jl.Ctx(params={"ar1": p})
+    want = jl.ar_multiconv2d(ctx, "ar1", jnp.asarray(z), jnp.asarray(c),
+                             [hs] * depth_ar, [zs, zs], trim_rows=True,
+                             merge_heads=True)
+    mod = _load_ar(tl.ARMultiConv2d(zs, [hs] * depth_ar, [zs, zs]), p)
+    assert mod.fusable
+    with torch.no_grad():
+        fused = mod(torch.from_numpy(z), torch.from_numpy(c))
+        unfused = mod.forward_unfused(torch.from_numpy(z), torch.from_numpy(c))
+    for a, b, w in zip(fused, unfused, want):
+        np.testing.assert_allclose(b.numpy(), np.asarray(w), **TOL)
+        np.testing.assert_allclose(b.numpy(), a.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("fits", [True, False])
+def test_deep_chain_route(monkeypatch, fits):
+    """``ARMultiConv2d.forward`` sends a fusable chain to K1 where
+    ``k1_fits`` holds and conv by conv to K2 where it does not, deciding
+    before any launch."""
+    from iaf_torch import ops
+    rs = np.random.RandomState(7)
+    mod = _load_ar(tl.ARMultiConv2d(2, [4] * 3, [2, 2]),
+                   _ar_params(rs, 2, 4, 3, True))
+    calls = {"ar_stack": 0, "masked_conv2d": 0}
+    for name in calls:
+        original = getattr(ops, name)
+
+        def spy(*args, _name=name, _orig=original):
+            calls[_name] += 1
+            return _orig(*args)
+        monkeypatch.setattr(ops, name, spy)
+    monkeypatch.setattr(tl.ARMultiConv2d, "k1_fits",
+                        staticmethod(lambda z, ws: fits))
+    with torch.no_grad():
+        mod(torch.from_numpy(rs.randn(1, 3, 3, 2).astype(np.float32)),
+            torch.from_numpy(rs.randn(1, 3, 3, 4).astype(np.float32)))
+    assert calls == ({"ar_stack": 1, "masked_conv2d": 0} if fits
+                     else {"ar_stack": 0, "masked_conv2d": 4})
+
+
+@pytest.mark.parametrize("n_convs,fits", [(10, True), (11, False)])
+def test_ar_stack_fits_reads_the_byte_count(n_convs, fits):
+    """The route predicate compares K1's byte count for (convs, W, cz, ch,
+    dtype, path) with one Hopper block's shared memory: a fake count that
+    passes the limit past 10 convs picks K2 for 11 and K1 for 10, and is
+    asked with the tensor-core path for bf16 at paper widths."""
+    from iaf_torch.ops.ar_stack import _SMEM_LIMIT, ar_stack_fits
+    seen = []
+
+    def fake_bytes(n, w, cz, ch, bf16, mma):
+        seen.append((n, w, cz, ch, bf16, mma))
+        return _SMEM_LIMIT if n <= 10 else _SMEM_LIMIT + 1
+    assert ar_stack_fits(n_convs, 16, 32, 160, 64, torch.bfloat16,
+                         fake_bytes) is fits
+    assert seen == [(n_convs, 16, 32, 160, 1, 1)]

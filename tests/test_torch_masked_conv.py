@@ -254,3 +254,56 @@ def test_masked_conv_bwd_kernel_matches_twin_on_card(cuda, dtype, k, shape,
     for dy, dx in taps:
         live[dy, dx] = 1.0
     assert not (got[1].float() * (1 - live)).any()
+
+
+# --- the tensor-core forward's weight packing and route ---------------------
+
+@pytest.mark.parametrize("taps,cin,cout,npad", [(13, 32, 160, 160),
+                                                (3, 48, 20, 32)])
+def test_wgmma_pack_layout(taps, cin, cout, npad):
+    """``wgmma_pack``: a round trip back to [taps, cin, cout] (zeros in
+    the padded columns), the element at each documented offset, and each
+    (tap, 32-deep chunk) slice contiguous where the kernel streams it."""
+    from iaf_torch.ops.masked_conv import wgmma_pack
+    t = torch.from_numpy(np.random.RandomState(taps).randn(
+        taps, cin, cout).astype(np.float32))
+    p = wgmma_pack(t, npad)
+    assert p.shape == (taps, cin // 16, npad // 8, 2, 8, 8)
+    assert p.is_contiguous()
+    back = p.permute(0, 1, 3, 5, 2, 4).reshape(taps, cin, npad)
+    assert torch.equal(back[..., :cout], t)
+    assert not back[..., cout:].any()
+    flat = p.reshape(-1)
+    rs = np.random.RandomState(0)
+    for _ in range(50):
+        ti, ci, co = (int(rs.randint(v)) for v in (taps, cin, cout))
+        s, h, k, j, n = ci // 16, ci % 16 // 8, ci % 8, co // 8, co % 8
+        off = ((((ti * (cin // 16) + s) * (npad // 8) + j) * 2 + h) * 8
+               + n) * 8 + k
+        assert flat[off] == t[ti, ci, co]
+    # slice (tap, chunk c) = elements [(tap cin + 32 c) npad, + kd npad)
+    for ti in range(taps):
+        for c in range(-(-cin // 32)):
+            kd = min(32, cin - 32 * c)
+            start = (ti * cin + 32 * c) * npad
+            got = flat[start:start + kd * npad].reshape(kd // 16, npad // 8,
+                                                        2, 8, 8)
+            want = back[ti, 32 * c:32 * c + kd]
+            assert torch.equal(got.permute(0, 2, 4, 1, 3).reshape(kd, npad),
+                               want)
+
+
+def test_wgmma_route_predicate():
+    """The forward's tensor-core route takes bf16 at the paper widths
+    (all three 5x5 AR convs) and leaves f32 and untiled shapes to the FMA
+    kernel; N is cout rounded up to an instantiated width."""
+    from iaf_torch.ops.masked_conv import wgmma_path, wgmma_width
+    bf16 = torch.bfloat16
+    for cin, cout in ((32, 160), (160, 160), (160, 64)):
+        assert wgmma_path(bf16, 16, cin, cout)
+        assert not wgmma_path(torch.float32, 16, cin, cout)
+    assert wgmma_path(bf16, 32, 16, 8) and wgmma_width(8) == 32
+    assert not wgmma_path(bf16, 48, 16, 8)      # 3 segments: no 128-px tile
+    assert not wgmma_path(bf16, 16, 24, 64)     # cin not whole k16 steps
+    assert not wgmma_path(bf16, 16, 32, 264)    # wider than 256
+    assert [wgmma_width(c) for c in (64, 72, 160, 168)] == [64, 128, 160, 256]
