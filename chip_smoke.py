@@ -56,9 +56,12 @@ Phases, any failure exits non-zero:
    f32 at 1e-5 of the output's max, timed beside the twin, one cuDNN conv
    (with the ratio) and the bound, and one chunk profiled; one f32 eval
    forward, card against CPU twins; ``evaluate`` at k=256 with launches exactly K2 = 60,
-   K3 = 20, K4 = 1 per chunk and K1 = 0; K2's backward held to autograd of
-   its twin on inputs captured from a real bf16 step at batch 32 (2e-2 of
-   each output's max; f32 at 1e-4 of the twin in f64), timed beside the
+   K3 = 20, K4 = 1 per chunk and K1 = 0; K2's backward on inputs captured
+   from a real bf16 step at batch 32, each shape's dgrad and wgrad on the
+   tensor cores, held to autograd of its twin (2e-2 of each output's
+   max; f32 at 1e-4 of the twin in f64), two calls bitwise equal, its
+   device time per call by kernel, timed whole and as dgrad and wgrad
+   apart beside the
    twin's and cuDNN's backward; one f32 training step at batch 4, card against CPU; and
    ``train_lib.train`` for 10 steps plus a 2-step resume with launches
    exactly K2 = K2-backward = 60, K3 = K3-backward = 20, K4 =
@@ -69,6 +72,12 @@ Phases, any failure exits non-zero:
    ``ARMultiConv2d`` on 64 images: launches exactly K1 = 0 and K2 = 11
    per forward, and the heads match K1's twin at 2e-2 (bf16) and 1e-5
    (f32, TF32 off) of the output's max.
+
+Times: ``ms`` is by CUDA events around 20 back-to-back calls (what a
+caller waits, host included); ``device_ms`` (K1, K2 and their backward,
+and their library calls) is the device time the profiler records for
+the same calls, host gaps left out, which ranks a kernel against its
+library call.
 
 The second-last line of standard output is the ``kernels`` JSON, the last
 ``{"ok": true, "device": {...}}``.
@@ -125,6 +134,59 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_events(prof) -> list[tuple[str, float, int]]:
+    """(name, self device time in us, count) of each kernel, copy and
+    memset that a profile recorded on the card."""
+    import torch
+    events = [(e.key, getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)), e.count)
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [d for d in events if d[1] > 0]
+
+
+def device_kernels(fn, iters: int = 20, warmup: int = 3,
+                   attempts: int = 3) -> list[tuple[str, float, int]]:
+    """Per call of ``fn``: (name, device ms, launches) of each kernel, copy
+    and memset it puts on the card, from torch.profiler over ``warmup`` +
+    ``iters`` calls after one untraced call. The profiler on the card can
+    start recording late: it has missed the first launches of a window,
+    and now and then a whole short one. So the window opens with a pause,
+    a window that recorded nothing is profiled again (``attempts`` in
+    all), and each name's time is its mean per launch times its launches
+    per call (its count over the calls, rounded). Host gaps between
+    launches do not count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    calls = warmup + iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events:
+            break
+    out = []
+    for key, us, count in events:
+        per_call = round(count / calls)
+        if per_call:
+            out.append((key, us / count * per_call / 1e3, per_call))
+    return out
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``fn`` (``device_kernels`` summed), so a
+    call that the host holds back reads what the card did."""
+    total = sum(ms for _, ms, _ in device_kernels(fn, iters, warmup))
+    check(total > 0, "the profiler recorded no device time")
+    return total
 
 
 def bound_ms(flops: float, dtype: str, nbytes: float):
@@ -208,8 +270,10 @@ def kernel_phase(ops, cap, device) -> list[dict]:
         check(rel_bf16 <= 2e-2, f"K1 bf16 rel err {rel_bf16} > 2e-2")
         check(err_f32 <= 1e-4 * scale32, f"K1 f32 err {err_f32} > 1e-4")
         ms = cuda_ms(lambda: ops.ar_stack(z, ctx, ws, bs, masks))
+        dev_ms = device_ms(lambda: ops.ar_stack(z, ctx, ws, bs, masks))
         plain = cuda_ms(lambda: ops.ar_stack_ref(z, ctx, ws, bs))
         lib = cuda_ms(lambda: k1_yardstick(z, ctx, ws, bs))
+        lib_dev = device_ms(lambda: k1_yardstick(z, ctx, ws, bs))
         ms32 = cuda_ms(lambda: ops.ar_stack(z32, ctx, ws32, bs, masks))
     n, hh, ww, _ = z.shape
     flops = 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
@@ -220,8 +284,8 @@ def kernel_phase(ops, cap, device) -> list[dict]:
         name="ar_stack", route="cuda", source="iaf_torch/ops/csrc/ar_stack.cu",
         replaces="iaf_tpu/ops/ar_stack.py:115", max_abs_err=err_bf16,
         max_abs_err_f32=err_f32, ms=ms, ms_f32=ms32, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-        gflop=flops / 1e9, mbytes=moved / 1e6))
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib, device_ms=dev_ms,
+        library_device_ms=lib_dev, gflop=flops / 1e9, mbytes=moved / 1e6))
 
     # K3: the division update of the same IAF step
     a = cap["iaf_update"]
@@ -274,21 +338,17 @@ def profile_phase(label: str, fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)   # see device_kernels: the recording starts late
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernel_events = [e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev = [(e.key, getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0)), e.count)
-           for e in kernel_events]
-    dev = [d for d in dev if d[1] > 0]
+    dev = _device_events(prof)
     busy = sum(t for _, t, _ in dev) / 1e6
     print(f"[profile] {label}: wall {wall * 1e3:.1f} ms, device busy "
-          f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f} %)")
+          f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f} %)")
     for key, t, count in sorted(dev, key=lambda d: -d[1])[:14]:
-        print(f"[profile] {t / 1e3:9.2f} ms {100 * t / 1e6 / busy:5.1f} % "
+        print(f"[profile] {t / 1e3:10.4f} ms {100 * t / 1e6 / busy:5.1f} % "
               f"x{count:<5d} {key[:90]}")
     return {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3}
 
@@ -456,14 +516,15 @@ def _rel_err(got, want) -> tuple[float, float]:
     return err, err / max(float(want.float().abs().max()), 1e-30)
 
 
-def _backward_ms(fn, leaves, g) -> float:
-    """Device time of the backward alone of ``fn(*leaves)`` for cotangent
-    ``g``: the graph is built once and differentiated repeatedly."""
+def _backward_ms(fn, leaves, g, timer=cuda_ms) -> float:
+    """Time (``timer``: by events or ``device_ms``) of the backward alone
+    of ``fn(*leaves)`` for cotangent ``g``: the graph is built once and
+    differentiated repeatedly."""
     import torch
     with torch.enable_grad():
         out = fn(*leaves)
-        return cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
-                                                   retain_graph=True))
+        return timer(lambda: torch.autograd.grad(out, leaves, g,
+                                                 retain_graph=True))
 
 
 def _k1_grads_close(ops, got, want, tol, label) -> float:
@@ -512,6 +573,7 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
                             ops.ar_stack_bwd_ref(z32, ctx, ws32, bs, g),
                             1e-4, "f32")
     ms = cuda_ms(lambda: ops.ar_stack_bwd(bz, bws, pre, g))
+    dev_ms = device_ms(lambda: ops.ar_stack_bwd(bz, bws, pre, g))
     ms32 = cuda_ms(lambda: ops.ar_stack_bwd(z32, ws32, pre32, g))
     leaves = [t.detach().clone().requires_grad_() for t in (z, ctx, *ws, *bs)]
     nw = len(ws)
@@ -524,6 +586,7 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
 
     plain = _backward_ms(twin, leaves, g)
     lib = _backward_ms(yard, leaves, g.permute(0, 3, 1, 2))
+    lib_dev = _backward_ms(yard, leaves, g.permute(0, 3, 1, 2), device_ms)
     n, hh, ww, _ = z.shape
     flops = 2 * 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
     live_w = sum(5 * w.shape[2] * w.shape[3] * w.element_size() for w in ws)
@@ -534,8 +597,8 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
         source="iaf_torch/ops/csrc/ar_stack_bwd.cu",
         replaces="iaf_tpu/ops/ar_stack.py:251", max_abs_err=err,
         max_abs_err_f32=err32, ms=ms, ms_f32=ms32, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib, gflop=flops / 1e9,
-        mbytes=moved / 1e6))
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib, device_ms=dev_ms,
+        library_device_ms=lib_dev, gflop=flops / 1e9, mbytes=moved / 1e6))
 
     # K3 backward, the same IAF step's update
     (zz, m, s, lq), (z_new, s_b, gz, glq) = cap["iaf_update"]
@@ -923,26 +986,27 @@ def capture_k2(target, name: str, fn) -> dict:
     return seen
 
 
-def _k2_row(name, source, replaces, shapes) -> dict:
+_K2_MEANS = ("ms", "ms_f32", "plain_ms", "bound_ms", "library_ms",
+             "device_ms", "library_device_ms", "gflop", "mbytes")
+
+
+def _k2_row(name, source, replaces, shapes, extra=()) -> dict:
     """One kernels-line row for K2 over the AR net's three conv shapes:
-    each time is the mean per launch on the path (the three convs run
-    equally often), the bound the mean of the three bounds, set by what
-    bounds the larger share of them."""
-    mean = lambda k: statistics.fmean(sh[k] for sh in shapes)  # noqa: E731
+    each time (and each of ``extra``) is the mean per launch on the path
+    (the three convs run equally often), the bound the mean of the three
+    bounds, set by what bounds the larger share of them."""
     by_ops = sum(sh["bound_ms"] for sh in shapes
                  if sh["bound_by"] == "operations")
     by_bytes = sum(sh["bound_ms"] for sh in shapes) - by_ops
-    return dict(
+    row = dict(
         name=name, route="cuda", source=source, replaces=replaces,
         max_abs_err=max(sh["max_abs_err"] for sh in shapes),
         max_abs_err_f32=max(sh["max_abs_err_f32"] for sh in shapes),
-        ms=mean("ms"), ms_f32=mean("ms_f32"), plain_ms=mean("plain_ms"),
-        bound_ms=mean("bound_ms"),
-        bound_by="operations" if by_ops >= by_bytes else "bytes",
-        library_ms=mean("library_ms"),
-        gflop=sum(sh["gflop"] for sh in shapes) / len(shapes),
-        mbytes=sum(sh["mbytes"] for sh in shapes) / len(shapes),
-        per_shape=shapes)
+        bound_by="operations" if by_ops >= by_bytes else "bytes")
+    row.update({k: statistics.fmean(sh[k] for sh in shapes)
+                for k in _K2_MEANS + tuple(extra)})
+    row["per_shape"] = shapes
+    return row
 
 
 def _k2_conv_lib(x, w):
@@ -981,12 +1045,16 @@ def k2_forward_phase(ops, cap: dict) -> dict:
             check(rel <= 2e-2, f"K2 {cin}->{cout} bf16 {rel} > 2e-2")
             check(rel32 <= 1e-5, f"K2 {cin}->{cout} f32 {rel32} > 1e-5")
             ms = cuda_ms(lambda: ops.masked_conv2d(x, w, taps))
+            dev = device_ms(lambda: ops.masked_conv2d(x, w, taps))
             ms32 = cuda_ms(lambda: ops.masked_conv2d(x32, w32, taps), 5, 1)
             plain = cuda_ms(lambda: ops.masked_conv2d_ref(x, w, taps))
             conv, xl, wl = _k2_conv_lib(x, w)
             lib = cuda_ms(lambda: conv(xl, wl))
+            lib_dev = device_ms(lambda: conv(xl, wl))
         print(f"[K2] {cin}->{cout} ({route}): kernel {ms:.4f} ms, cuDNN "
-              f"{lib:.4f} ms, ratio {ms / lib:.3f}")
+              f"{lib:.4f} ms, ratio {ms / lib:.3f}; by device time "
+              f"{dev:.4f} ms against {lib_dev:.4f} ms, ratio "
+              f"{dev / lib_dev:.3f}")
         n, hh, ww, _ = x.shape
         flops = 2 * n * hh * ww * len(taps) * cin * cout
         moved = nbytes(x, got) + len(taps) * cin * cout * w.element_size()
@@ -994,23 +1062,32 @@ def k2_forward_phase(ops, cap: dict) -> dict:
         shapes.append(dict(cin=cin, cout=cout, max_abs_err=err,
                            max_abs_err_f32=err32, ms=ms, ms_f32=ms32,
                            plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                           bound_by=b_by, gflop=flops / 1e9,
+                           bound_by=b_by, device_ms=dev,
+                           library_device_ms=lib_dev, gflop=flops / 1e9,
                            mbytes=moved / 1e6))
     return _k2_row("masked_conv2d", "iaf_torch/ops/csrc/masked_conv.cu",
                    "iaf_tpu/ops/masked_conv.py:40", shapes)
 
 
 def k2_backward_phase(ops, cap: dict) -> dict:
-    """K2's backward on each captured conv of a real bf16 step against
-    autograd of the twin: dx and dW (live taps; the dead ones must be
-    zero) at 2e-2 of each output's max, and in f32 at 1e-4 against the
-    twin in f64 (on these inputs cuDNN's own f32 weight gradient, TF32
-    off, is ~1e-3 of max away from f64: printed beside); timed beside the
-    twin's backward and autograd of one cuDNN conv."""
+    """K2's backward on each captured conv of a real bf16 step: both dgrad
+    and wgrad must take the tensor cores (``bwd_route``); against autograd
+    of the twin, dx and dW (live taps; the dead ones must be zero) at 2e-2
+    of each output's max, and in f32 at 1e-4 against the twin in f64 (on
+    these inputs cuDNN's own f32 weight gradient, TF32 off, is ~1e-3 of
+    max away from f64: printed beside); two bf16 calls bitwise equal.
+    Device time per call by kernel; timed by events and by device time,
+    whole and as dgrad and wgrad (with its reduce) apart, dgrad's kernel
+    also alone, beside the twin's backward and autograd of one cuDNN
+    conv."""
     import torch
+    from iaf_torch.ops import masked_conv as mc
     shapes = []
     for (cin, cout), (x, w, g, taps) in sorted(cap.items()):
         kh, kw = w.shape[:2]
+        routes = mc.bwd_route(x, w, taps)
+        check(routes == ("wgmma", "wgmma"), f"K2 bwd {cin}->{cout} bf16 "
+              f"takes dgrad, wgrad on {routes}, not the tensor cores")
         live = torch.zeros(kh, kw, 1, 1, device=x.device)
         for dy, dx in taps:
             live[dy, dx] = 1.0
@@ -1020,6 +1097,10 @@ def k2_backward_phase(ops, cap: dict) -> dict:
             dx_, dw_ = outs[label] = ops.masked_conv2d_bwd(xx, ww, g, taps)
             if label == "bf16":
                 rdx, rdw = ops.masked_conv2d_bwd_ref(xx, ww, g, taps)
+                again = ops.masked_conv2d_bwd(xx, ww, g, taps)
+                check(torch.equal(dx_, again[0]) and torch.equal(dw_,
+                                                                 again[1]),
+                      f"K2 bwd {cin}->{cout}: two calls differ")
             else:
                 rdx, rdw = ops.masked_conv2d_bwd_ref(
                     x.double(), w.double(), g.double(), taps)
@@ -1039,30 +1120,67 @@ def k2_backward_phase(ops, cap: dict) -> dict:
                 errs[label] = max(errs.get(label, 0.0), err)
             print(f"[K2 bwd] {cin}->{cout} {label}: max abs err "
                   f"{errs[label]:.3e}, worst {worst:.3e} of an output's max "
-                  f"(limit {tol})")
-        ms = cuda_ms(lambda: ops.masked_conv2d_bwd(x, w, g, taps))
+                  f"(limit {tol}); two bf16 calls bitwise equal")
+        for key, ms, k in sorted(device_kernels(
+                lambda: ops.masked_conv2d_bwd(x, w, g, taps), 10, 2),
+                key=lambda d: -d[1]):
+            print(f"[K2 bwd] {cin}->{cout} by kernel, per call: {ms:.4f} ms "
+                  f"x{k} {key[:80]}")
+        t = {}
+        for part, fn in (("", lambda: ops.masked_conv2d_bwd(x, w, g, taps)),
+                         ("dgrad_", lambda: mc._dgrad(x, w, g, taps)),
+                         ("wgrad_", lambda: mc._wgrad(x, w, g, taps))):
+            t[part + "ms"] = cuda_ms(fn)
+            t[part + "device_ms"] = device_ms(fn)
+        # dgrad's kernel alone, its inputs cast and packed
+        gb, pk = g.to(torch.bfloat16), mc.dgrad_pack(w, taps)
+        dx_t = torch.empty_like(x)
+        mirrored = mc._mirrored(taps, kh, kw)
+        t["dgrad_kernel_device_ms"] = device_ms(lambda: mc._launch_wgmma(
+            mc._bwd_lib().masked_conv_dgrad_wgmma, "dgrad", gb, pk, dx_t,
+            mirrored, kh, kw))
         x32, w32 = x.float(), w.float()
         ms32 = cuda_ms(lambda: ops.masked_conv2d_bwd(x32, w32, g, taps), 5, 1)
-        leaves = [t.detach().clone().requires_grad_() for t in (x, w)]
+        leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w)]
         plain = _backward_ms(
             lambda a, b: ops.masked_conv2d_ref(a, b, taps), leaves, g)
         conv, _, _ = _k2_conv_lib(x, w)
-        lib = _backward_ms(
-            lambda a, b: conv(a.permute(0, 3, 1, 2), b.permute(3, 2, 0, 1)),
-            leaves, g.permute(0, 3, 1, 2).to(x.dtype))
+        lib_args = (lambda a, b: conv(a.permute(0, 3, 1, 2),
+                                      b.permute(3, 2, 0, 1)),
+                    leaves, g.permute(0, 3, 1, 2).to(x.dtype))
+        lib = _backward_ms(*lib_args)
+        lib_dev = _backward_ms(*lib_args, timer=device_ms)
         n, hh, ww, _ = x.shape
         flops = 2 * 2 * n * hh * ww * len(taps) * cin * cout
         moved = (nbytes(x, g, *outs["bf16"]) + len(taps) * cin * cout
                  * w.element_size())
         b_ms, b_by = bound_ms(flops, "bfloat16", moved)
+        _, chunks = mc.wgrad_chunks(n * hh * ww // mc._GW_PIXELS,
+                                    mc.wgrad_m_blocks(len(taps), cin),
+                                    mc._sm_count(x.device))
+        partial_mb = 2 * chunks * len(taps) * cin * cout * 4 / 1e6
+        print(f"[K2 bwd] {cin}->{cout} (dgrad, wgrad: {routes}): by events "
+              f"{t['ms']:.4f} ms (dgrad {t['dgrad_ms']:.4f}, wgrad "
+              f"{t['wgrad_ms']:.4f}), cuDNN {lib:.4f}; by device time "
+              f"{t['device_ms']:.4f} ms (dgrad {t['dgrad_device_ms']:.4f}, "
+              f"wgrad + reduce {t['wgrad_device_ms']:.4f}), cuDNN "
+              f"{lib_dev:.4f}, ratio {t['device_ms'] / lib_dev:.3f}; dgrad "
+              f"kernel alone {t['dgrad_kernel_device_ms']:.4f} ms; wgrad "
+              f"{chunks} chunks, partials {partial_mb:.1f} MB written and "
+              f"read; bound {b_ms:.4f} ms ({b_by})")
         shapes.append(dict(cin=cin, cout=cout, max_abs_err=errs["bf16"],
-                           max_abs_err_f32=errs["f32"], ms=ms, ms_f32=ms32,
-                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                           max_abs_err_f32=errs["f32"], ms_f32=ms32,
+                           plain_ms=plain, library_ms=lib,
+                           library_device_ms=lib_dev, bound_ms=b_ms,
                            bound_by=b_by, gflop=flops / 1e9,
-                           mbytes=moved / 1e6))
+                           mbytes=moved / 1e6, wgrad_chunks=chunks,
+                           partial_mbytes=partial_mb, **t))
     return _k2_row("masked_conv2d_bwd",
                    "iaf_torch/ops/csrc/masked_conv_bwd.cu",
-                   "iaf_tpu/ops/masked_conv.py:98", shapes)
+                   "iaf_tpu/ops/masked_conv.py:98", shapes,
+                   ("dgrad_ms", "dgrad_device_ms", "wgrad_ms",
+                    "wgrad_device_ms", "dgrad_kernel_device_ms",
+                    "partial_mbytes"))
 
 
 def five_by_five_phases(ops, device, ds) -> tuple[list, dict, dict, dict]:
@@ -1225,9 +1343,12 @@ def run() -> dict:
         if ev[r["name"]]:     # the forward kernels
             r["launches_eval"] = ev[r["name"]]
     for r in rows:
+        dev = ("" if "device_ms" not in r else
+               f" (device {r['device_ms']:.4f} ms, library "
+               f"{r['library_device_ms']:.4f} ms)")
         print(f"[time] {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms{dev}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
               f"{r['launches']}")
     print(json.dumps({"main": main, "train": summary,
                       "main_5x5": summary5["main"],

@@ -1,40 +1,54 @@
 // K2's implicit-GEMM core: one stride-1 SAME conv over a given list of live
-// taps, NHWC in and out. masked_conv.cu instantiates the FMA kernel for the
-// forward conv in f32 and on shapes its tensor-core kernel does not tile
-// (that kernel, conv_wgmma_kernel, lives in masked_conv.cu);
-// masked_conv_bwd.cu instantiates both for dgrad (the conv of the output
-// gradient with the taps mirrored and the weights transposed per tap).
+// taps, NHWC in and out, shared by masked_conv.cu (the forward: f32 out)
+// and masked_conv_bwd.cu (dgrad, the conv of the output gradient with the
+// taps mirrored and the weights transposed per tap: out in the input's
+// type; and wgrad, which stages its rows as the conv does).
 //
 // out[n, y, x, co] = sum over taps t, ci of
 //     in[n, y + dy_t - ph, x + dx_t - pw, ci] * W[t][ci][co]
 // with ph = (kh - 1) / 2, pw = (kw - 1) / 2 and zeros outside the image.
 //
-// A block owns `tr` output rows of one image (every column, every output
-// channel). It stages the input rows those rows read, y0 + dy_lo - ph to
-// y0 + tr - 1 + dy_hi - ph (dy_lo, dy_hi: the taps' row range), with a pw
-// column halo on each side, in shared memory once; zeros stand for the SAME
-// padding, so no padded copy exists in device memory. Then it accumulates
-// over (tap, channel step) with the weights read from L2:
+// Two kernels compute it:
 //
-// * conv_mma_kernel, dgrad only (the forward runs conv_wgmma_kernel; this
-//   one goes when dgrad and wgrad move to wgmma), bf16 operands on the
-//   tensor cores (mma.sync m16n8k16, f32 accumulate): the input is rounded to bf16 as it is staged, with the
-//   channel stride padded by CPAD so a fragment's 8 pixel rows fall in
-//   distinct banks. The block's tr * W/16 16-pixel M tiles (at most MT)
-//   are each warp's whole share of M: a warp owns a pair of 8-wide output
-//   tiles, keeps MT x 2 accumulator tiles in registers, and every B
-//   fragment it loads (weights packed in fragment order, as K1's) feeds MT
-//   M tiles.
+// * conv_wgmma_kernel<N, Tout>, bf16 on the tensor cores: persistent
+//   blocks, one per SM, each walking 128-pixel tiles (8 row segments of
+//   16 pixels of one image). A block is two consumer warpgroups and one
+//   producer warp.
+//   - Activations: the consumers stage the tile's input rows (halo rows
+//     included, the SAME padding zero-filled by cp.async with source size
+//     0; the column halo is zeroed once) with 16-byte cp.async into one of
+//     two buffers while the other buffer's tile computes, so each input
+//     byte is read once per tile and the copy hides behind the tensor
+//     cores. The channel stride is padded by CPAD so the 8 pixel rows of
+//     an ldmatrix phase fall in distinct 16-byte bank groups. Per-thread
+//     copy offsets advance by carries, with no division in the loop.
+//   - Weights: the producer streams each (tap, 32-deep K chunk) slice of
+//     the live-tap weights, packed by the wrapper in wgmma's canonical
+//     K-major layout (8x8 core matrices of 128 contiguous bytes, no
+//     swizzle), into a ring of stages with cp.async.bulk and mbarriers
+//     (full: bytes landed; empty: the 8 consumer warps are done with it).
+//     Where every slice fits at once (32->160: 133 KB) they are loaded
+//     once per block and stay.
+//   - Math: wgmma.mma_async m64nNk16, A from registers (ldmatrix.x4, each
+//     lane giving its own pixel's row address: the implicit-GEMM gather),
+//     B from the ring through a shared-memory descriptor, f32 accumulators
+//     in registers (N = cout rounded up to an instantiated width, the
+//     padding columns zero and never stored). Each warp owns one 16-pixel
+//     segment, each warpgroup 64 pixels. The accumulators go straight
+//     from registers to the output, f32 (forward) or rounded once to bf16
+//     (dgrad's dx).
 // * conv_fma_kernel, FP32 FMA on the CUDA cores (f32, whose tolerance TF32
-//   would break, and shapes the tensor-core path does not tile): the input
-//   is staged as f32 after rounding to the weights' type, one thread item
-//   is one output channel of PX neighbouring pixels, activations broadcast
-//   from shared memory, weights ([taps][cin][cout]) coalesced across output
-//   channels.
+//   would break, and shapes the tensor-core kernel does not tile): a block
+//   owns `tr` output rows of one image and stages the input rows they read
+//   once, as f32 after rounding to the weights' type; one thread item is
+//   one output channel of PX neighbouring pixels, activations broadcast
+//   from shared memory, weights ([taps][cin][cout]) coalesced across
+//   output channels.
 //
 // Types: Tin is the input's (T for the forward, f32 for dgrad's output
-// gradient), Tw the weights', Tout the output's (f32 for the forward, T for
-// dgrad's dx); accumulation is f32.
+// gradient on the FMA path, bf16 on the tensor cores), Tw the weights',
+// Tout the output's (f32 for the forward, T for dgrad's dx); accumulation
+// is f32.
 
 #pragma once
 
@@ -42,11 +56,14 @@
 
 #define MAX_TAPS 64
 #define CPAD 8
-#define MT 8            // tensor-core path: 16-pixel M tiles per block
-#define KU 4            // tensor-core path: k-steps of B loaded ahead
-#define MMA_THREADS 320 // tensor-core path: at most 10 warps (pairs of tiles)
 #define PX 8            // FMA path: output pixels per thread item
 #define FMA_THREADS 256
+#define WG_CONSUMERS 256         // tensor cores: two consumer warpgroups
+#define WG_THREADS (WG_CONSUMERS + 32)  // and one producer warp
+#define WG_TILE_SEGS 8           // 16-pixel row segments per tile
+#define KC 32                    // K depth of one weight slice
+#define MAX_STAGES 32            // weight ring stages, at most
+#define BAR_BYTES (2 * MAX_STAGES * 8)
 
 struct ConvArgs {
   const void* in;    // [N,H,W,cin] Tin
@@ -59,122 +76,15 @@ struct ConvArgs {
 
 // Staged columns per row: the image with its pw halo on both sides (and,
 // on the FMA path, room for the last pixel group's reads past W).
-__host__ __device__ static inline int staged_cols(int W, int kw, int mma) {
-  return (mma ? W : (W + PX - 1) / PX * PX) + kw - 1;
+__host__ __device__ static inline int staged_cols(int W, int kw,
+                                                  int tensor_cores) {
+  return (tensor_cores ? W : (W + PX - 1) / PX * PX) + kw - 1;
 }
 
-// Dynamic shared memory of one block: (tr + dy_hi - dy_lo) staged rows.
-static size_t conv_smem_bytes(int tr, int W, int cin, int kw, int span,
-                              int mma) {
-  const size_t pixels = (size_t)(tr + span) * staged_cols(W, kw, mma);
-  return mma ? pixels * (cin + CPAD) * 2 : pixels * cin * 4;
-}
-
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(MMA_THREADS)
-    conv_mma_kernel(ConvArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int H = a.H, W = a.W, cin = a.cin, cs = cin + CPAD;
-  const int SC = staged_cols(W, 2 * a.pw + 1, 1);
-  const int SR = a.tr + a.dy_hi - a.dy_lo;
-  const int tiles_y = (H + a.tr - 1) / a.tr;
-  const int n = blockIdx.x / tiles_y, y0 = (blockIdx.x - n * tiles_y) * a.tr;
-  const int row0 = y0 + a.dy_lo - a.ph;  // image row of staged row 0
-
-  const Tin* __restrict__ in =
-      static_cast<const Tin*>(a.in) + (size_t)n * H * W * cin;
-  for (int i = threadIdx.x; i < SR * SC * cin; i += blockDim.x) {
-    const int r = i / (SC * cin), rem = i - r * SC * cin;
-    const int c = rem / cin, ci = rem - c * cin;
-    const int yy = row0 + r, xx = c - a.pw;
-    float v = 0.f;
-    if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-      v = to_f(in[((size_t)yy * W + xx) * cin + ci]);
-    xs[((size_t)r * SC + c) * cs + ci] = __float2bfloat16(v);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int ntiles = a.cout / 8, ksteps = cin / 16;
-  const int segs = W / 16, mtiles = a.tr * segs;
-  const uint2* __restrict__ wf = static_cast<const uint2*>(a.w);
-
-  for (int pair = warp; pair * 2 < ntiles; pair += nwarps) {
-    const bool has1 = pair * 2 + 1 < ntiles;
-    float acc[MT][2][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
-
-    for (int t = 0; t < a.ntaps; ++t) {
-      const int dy = a.tap_dy[t] - a.dy_lo, dx = a.tap_dx[t];
-      const uint2* w0 =
-          wf + ((size_t)(t * ntiles + pair * 2) * ksteps) * 32 + lane;
-      const uint2* w1 = w0 + (size_t)ksteps * 32;
-      for (int kb = 0; kb < ksteps; kb += KU) {
-        uint2 b0[KU], b1[KU];
-#pragma unroll
-        for (int u = 0; u < KU; ++u) {
-          b0[u] = b1[u] = make_uint2(0u, 0u);
-          if (kb + u < ksteps) {
-            b0[u] = __ldg(w0 + (kb + u) * 32);
-            if (has1) b1[u] = __ldg(w1 + (kb + u) * 32);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < KU; ++u) {
-          if (kb + u >= ksteps) break;
-          const int k0 = (kb + u) * 16 + 2 * tig;
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            if (m >= mtiles) break;
-            const int ry = m / segs, sx = (m - ry * segs) * 16;
-            // output pixel (y0 + ry, sx + g) reads staged row ry + dy,
-            // staged column sx + g + dx
-            const __nv_bfloat16* ab =
-                xs + ((size_t)(ry + dy) * SC + sx + g + dx) * cs + k0;
-            uint32_t af[4];
-            af[0] = lds32(ab);
-            af[1] = lds32(ab + 8 * cs);
-            af[2] = lds32(ab + 8);
-            af[3] = lds32(ab + 8 * cs + 8);
-            mma_16816(acc[m][0], af, b0[u].x, b0[u].y);
-            if (has1) mma_16816(acc[m][1], af, b1[u].x, b1[u].y);
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m >= mtiles) break;
-      const int ry = m / segs, sx = (m - ry * segs) * 16, y = y0 + ry;
-      if (y >= H) break;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (j == 1 && !has1) break;
-        const int co = (pair * 2 + j) * 8 + 2 * tig;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int x = sx + g + half * 8;
-          const size_t idx = (((size_t)n * H + y) * W + x) * a.cout + co;
-          const float v0 = acc[m][j][2 * half], v1 = acc[m][j][2 * half + 1];
-          if (sizeof(Tout) == 4)
-            *reinterpret_cast<float2*>(static_cast<float*>(a.out) + idx) =
-                make_float2(v0, v1);
-          else
-            *reinterpret_cast<__nv_bfloat162*>(
-                static_cast<__nv_bfloat16*>(a.out) + idx) =
-                __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-  }
+// Dynamic shared memory of one FMA-path block: (tr + dy_hi - dy_lo)
+// staged rows of f32.
+static size_t conv_smem_bytes(int tr, int W, int cin, int kw, int span) {
+  return (size_t)(tr + span) * staged_cols(W, kw, 0) * cin * 4;
 }
 
 template <typename Tin, typename Tw, typename Tout>
@@ -266,13 +176,562 @@ static int conv_prepare(ConvArgs& a, const void* in, const void* w,
 
 template <typename Kernel>
 static int conv_launch(Kernel kernel, const ConvArgs& a, int n_images,
-                       int kw, int mma, int threads, cudaStream_t stream) {
+                       int kw, int threads, cudaStream_t stream) {
   const size_t smem =
-      conv_smem_bytes(a.tr, a.W, a.cin, kw, a.dy_hi - a.dy_lo, mma);
+      conv_smem_bytes(a.tr, a.W, a.cin, kw, a.dy_hi - a.dy_lo);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = n_images * ((a.H + a.tr - 1) / a.tr);
   kernel<<<blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// --- the tensor-core path ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Spin until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Bulk copy of ``bytes`` (a multiple of 16) from global to shared memory,
+// completing on ``bar``'s transaction count.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The same with each 8x8 matrix transposed: lanes give the addresses of
+// the 16-byte rows of K (pixels), and the fragments come out as A rows of
+// M (channels), the mma.sync A layout.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Shared-memory matrix descriptor of a K-major, unswizzled B operand: 8x8
+// core matrices of 128 contiguous bytes, the two of a k16 step 128 bytes
+// apart (leading byte offset), neighbouring 8-column groups 256 bytes
+// apart (stride byte offset).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+// D[64 x N] += A[64 x 16] (registers, the mma.sync A-fragment layout per
+// warp) * B[16 x N] (shared memory, through the descriptor).
+template <int N>
+__device__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<160>(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS) : "memory");
+}
+
+__host__ __device__ static inline int round128(int b) {
+  return (b + 127) / 128 * 128;
+}
+
+// Bytes of one staged activation buffer: (tr + span) rows of W + kw - 1
+// columns, cin + CPAD channels, bf16.
+__host__ __device__ static inline int wg_a_bytes(int tr, int W, int cin,
+                                                 int kw, int span) {
+  return round128((tr + span) * staged_cols(W, kw, 1) * (cin + CPAD) * 2);
+}
+
+// Zeros the column halo of one staged buffer of SR rows (never
+// overwritten by the row copies).
+__device__ __forceinline__ void zero_halo(unsigned char* buf, int SR, int SC,
+                                          int W, int cs, int pw, int tid,
+                                          int nthreads) {
+  const int halo = SC - W, chunks = cs / 8;   // uint4 per pixel
+  for (int i = tid; i < SR * halo * chunks; i += nthreads) {
+    const int c = i % chunks, rest = i / chunks;
+    const int hc = rest % halo, r = rest / halo;
+    const int col = hc < pw ? hc : W + hc;
+    reinterpret_cast<uint4*>(buf)[(r * SC + col) * chunks + c] =
+        make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The staged-row copy of ``cin`` channels by one thread among
+// ``nthreads``: its first 16-byte chunk as mixed-radix digits (row,
+// column, 8-channel chunk) and the stride between its chunks in the same
+// digits, so that the copy loop advances by carries with no division.
+struct RowCopy {
+  int CH, ch0, c0, r0, dch, dcol, drow;
+  __device__ RowCopy(int tid, int nthreads, int cin, int W)
+      : CH(cin / 8),
+        ch0(tid % (cin / 8)),
+        c0((tid / (cin / 8)) % W),
+        r0(tid / (cin / 8) / W),
+        dch(nthreads % (cin / 8)),
+        dcol((nthreads / (cin / 8)) % W),
+        drow(nthreads / (cin / 8) / W) {}
+
+  // cp.async of staged rows 0..SR-1 (image rows row0..row0+SR-1 of img,
+  // whose pixels are ``stride`` channels apart; zeros outside the image)
+  // into the buffer at shared address ``base``; the caller commits the
+  // group.
+  __device__ __forceinline__ void rows(uint32_t base,
+                                       const __nv_bfloat16* img, int stride,
+                                       int row0, int SR, int H, int W, int SC,
+                                       int cs, int pw) const {
+    int ch = ch0, c = c0, r = r0;
+    while (r < SR) {
+      const int yy = row0 + r;
+      const bool inside = yy >= 0 && yy < H;
+      cp_async16(base + ((r * SC + c + pw) * cs + ch * 8) * 2,
+                 inside ? img + ((size_t)yy * W + c) * stride + ch * 8 : img,
+                 inside ? 16 : 0);
+      ch += dch;
+      if (ch >= CH) {
+        ch -= CH;
+        ++c;
+      }
+      c += dcol;
+      if (c >= W) {
+        c -= W;
+        ++r;
+      }
+      r += drow;
+    }
+  }
+};
+
+// The weights are packed [taps][cin/16 k-steps][N/8 column groups][2 k
+// halves][8 columns][8 k] (bf16), so one (tap, 32-deep chunk) slice is
+// contiguous and each k-step in it is one canonical B operand.
+template <int N, typename Tout>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    conv_wgmma_kernel(ConvArgs a, int n_tiles, int stages, int resident) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + MAX_STAGES;
+  const int H = a.H, W = a.W, cin = a.cin, cs = cin + CPAD;
+  const int SC = staged_cols(W, 2 * a.pw + 1, 1);
+  const int SR = a.tr + a.dy_hi - a.dy_lo;
+  const int a_bytes = wg_a_bytes(a.tr, W, cin, 2 * a.pw + 1,
+                                 a.dy_hi - a.dy_lo);
+  unsigned char* abuf = smem + BAR_BYTES;
+  unsigned char* ring = abuf + 2 * a_bytes;
+  const int nchunks = (cin + KC - 1) / KC;
+  const int slice_bytes = KC * N * 2;
+  const int tiles_y = (H + a.tr - 1) / a.tr;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  zero_halo(abuf, SR, SC, W, cs, a.pw, tid, blockDim.x);
+  zero_halo(abuf + a_bytes, SR, SC, W, cs, a.pw, tid, blockDim.x);
+  __syncthreads();
+
+  const __nv_bfloat16* __restrict__ wp =
+      static_cast<const __nv_bfloat16*>(a.w);
+  if (warp == WG_CONSUMERS / 32) {
+    // producer: one thread streams the weight slices through the ring
+    if (lane == 0) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        for (int t = 0; t < a.ntaps; ++t) {
+          for (int c = 0; c < nchunks; ++c) {
+            const int kd = min(KC, cin - c * KC);
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], kd * N * 2);
+            bulk_g2s(ring + stage * slice_bytes,
+                     wp + ((size_t)t * cin + c * KC) * N, kd * N * 2,
+                     &full[stage]);
+            if (++stage == stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+        if (resident) break;
+      }
+    }
+    return;
+  }
+
+  // consumers: warp w computes row segment w of the tile (warpgroup w / 4
+  // owns segments 4(w/4) .. 4(w/4) + 3 as its 64 M rows)
+  const int segs = W / 16;
+  const int ry = warp / segs, sx = (warp - ry * segs) * 16;
+  const int g = lane >> 2, tig = lane & 3;
+  // ldmatrix.x4: lanes 0-15 give pixel rows 0-15 at k 0-7, lanes 16-31
+  // the same rows at k 8-15
+  const int lane_off = ((ry * SC + sx + (lane & 15)) * cs + (lane >> 4) * 8)
+                       * 2;
+  const RowCopy copy(tid, WG_CONSUMERS, cin, W);
+  const __nv_bfloat16* __restrict__ in =
+      static_cast<const __nv_bfloat16*>(a.in);
+
+  auto stage_tile = [&](int tile, int buf) {
+    const int n = tile / tiles_y, y0 = (tile - n * tiles_y) * a.tr;
+    copy.rows(smem_u32(abuf + buf * a_bytes), in + (size_t)n * H * W * cin,
+              cin, y0 + a.dy_lo - a.ph, SR, H, W, SC, cs, a.pw);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float acc[N / 2];
+  int stage = 0, phase = 0, buf = 0;
+  if (blockIdx.x < n_tiles) stage_tile(blockIdx.x, 0);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    consumers_sync();   // the tile has landed; the other buffer is free
+    if (tile + (int)gridDim.x < n_tiles) stage_tile(tile + gridDim.x, buf ^ 1);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    const uint32_t abase = smem_u32(abuf + buf * a_bytes) + lane_off;
+    for (int t = 0; t < a.ntaps; ++t) {
+      const uint32_t atap =
+          abase + (((a.tap_dy[t] - a.dy_lo) * SC + a.tap_dx[t]) * cs) * 2;
+      for (int c = 0; c < nchunks; ++c) {
+        const int kd = min(KC, cin - c * KC);
+        uint32_t af[2][4];
+        ldmatrix_x4(af[0], atap + c * KC * 2);
+        if (kd > 16) ldmatrix_x4(af[1], atap + (c * KC + 16) * 2);
+        mbar_wait(&full[stage], resident ? 0 : phase);
+        __syncwarp();
+        const uint64_t desc = b_desc(smem_u32(ring + stage * slice_bytes));
+        wgmma_fence();
+        wgmma_rs<N>(acc, af[0], desc);
+        if (kd > 16) wgmma_rs<N>(acc, af[1], desc + ((16 * N * 2) >> 4));
+        wgmma_commit();
+        wgmma_wait0();
+        if (!resident) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[stage]);
+        }
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+
+    const int n = tile / tiles_y, y = (tile - n * tiles_y) * a.tr + ry;
+    if (y < H) {
+      Tout* out = static_cast<Tout*>(a.out) +
+                  (((size_t)n * H + y) * W + sx + g) * a.cout;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int co = j * 8 + 2 * tig;
+        if (co < a.cout) {
+          if constexpr (sizeof(Tout) == 4) {
+            *reinterpret_cast<float2*>(out + co) =
+                make_float2(acc[4 * j], acc[4 * j + 1]);
+            *reinterpret_cast<float2*>(out + 8 * a.cout + co) =
+                make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(out + co) =
+                __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(out + 8 * a.cout + co) =
+                __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Weight ring stages for the tensor-core path within ``limit`` bytes of
+// dynamic shared memory, capped at the slices a tile streams (all of them
+// resident) and MAX_STAGES; below 2 the shape does not fit.
+static int wg_stages(int tr, int W, int cin, int kw, int span, int npad,
+                     int ntaps, size_t limit) {
+  const long fixed = BAR_BYTES + 2L * wg_a_bytes(tr, W, cin, kw, span);
+  const long slice = (long)KC * npad * 2;
+  const long fit = ((long)limit - fixed) / slice;
+  const long slices = (long)ntaps * ((cin + KC - 1) / KC);
+  long s = fit < slices ? fit : slices;
+  return (int)(s < MAX_STAGES ? s : MAX_STAGES);
+}
+
+// Rows of a 128-pixel tile at width W, or 0 where the tile is not whole
+// rows (W of 16, 32, 64 or 128).
+__host__ __device__ static inline int wg_tile_rows(int W) {
+  if (W < 16 || W % 16 || WG_TILE_SEGS % (W / 16)) return 0;
+  return WG_TILE_SEGS / (W / 16);
+}
+
+// Launches conv_wgmma_kernel<N, Tout> on ``a`` (its tr already the tile's
+// rows): one persistent block per SM, at most one per tile.
+template <int N, typename Tout>
+static int wgmma_launch(const ConvArgs& a, int n_images, int kw,
+                        size_t limit, cudaStream_t stream) {
+  const int span = a.dy_hi - a.dy_lo;
+  const int stages = wg_stages(a.tr, a.W, a.cin, kw, span, N, a.ntaps, limit);
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  const int slices = a.ntaps * ((a.cin + KC - 1) / KC);
+  const size_t smem = BAR_BYTES + 2 * (size_t)wg_a_bytes(a.tr, a.W, a.cin,
+                                                         kw, span) +
+                      (size_t)stages * KC * N * 2;
+  auto kernel = conv_wgmma_kernel<N, Tout>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    WG_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int n_tiles = n_images * ((a.H + a.tr - 1) / a.tr);
+  const int blocks = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  kernel<<<blocks, WG_THREADS, smem, stream>>>(a, n_tiles, stages,
+                                               stages >= slices);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core conv of ``in`` (bf16, 16-byte aligned) with the packed
+// weights (their columns zero-padded to npad, one of 32, 64, 128, 160,
+// 256) into ``out`` (Tout) over the ntaps (dy, dx) pairs of ``taps``;
+// cin % 16 == 0, cout even and <= npad; ``limit``: dynamic shared memory
+// allowed.
+template <typename Tout>
+static int wgmma_conv(const void* in, const void* w, void* out,
+                      const int* taps, int ntaps, int n_images, int H, int W,
+                      int cin, int cout, int npad, int kh, int kw,
+                      size_t limit, cudaStream_t s) {
+  const int tr = wg_tile_rows(W);
+  if (!tr || cin % 16 || cout % 2 || cout > npad ||
+      reinterpret_cast<uintptr_t>(in) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  ConvArgs a;
+  int e = conv_prepare(a, in, w, out, taps, ntaps, H, W, cin, cout, kh, kw,
+                       tr);
+  if (e) return e;
+  switch (npad) {
+    case 32: return wgmma_launch<32, Tout>(a, n_images, kw, limit, s);
+    case 64: return wgmma_launch<64, Tout>(a, n_images, kw, limit, s);
+    case 128: return wgmma_launch<128, Tout>(a, n_images, kw, limit, s);
+    case 160: return wgmma_launch<160, Tout>(a, n_images, kw, limit, s);
+    case 256: return wgmma_launch<256, Tout>(a, n_images, kw, limit, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

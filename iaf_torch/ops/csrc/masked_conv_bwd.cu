@@ -18,32 +18,53 @@
 //
 // In bf16 the output gradient is rounded to bf16 where it enters a product,
 // as the twin's autograd rounds it (the forward output is widened from
-// bf16 there).
-//
-// wgrad is a reduction over N*H*W pixels (8192 at batch 32). Blocks run in
-// no order, so it is made deterministic as K1's is: each block owns a chunk
-// of image rows, a 32 x 32 (ci x co) tile and a group of TG taps, keeps its
-// sums in registers (a warp's lanes are 32 output channels, each holding 4
-// input channels x TG taps), writes them as a partial, and a second kernel
-// adds the partials in chunk order. The same inputs give the same bits.
+// bf16 there): on the tensor cores the wrapper rounds it once (for dgrad
+// to bf16 NHWC, for wgrad into wgmma's B layout).
 //
 // Bound on the H100 per 5x5 AR layer at batch 32, paper widths (convs
 // 32->160, 160->160, 160->64, 13 live taps): 2 x 8.7 GFLOP (dgrad and
 // wgrad) against ~27 MB of compulsory traffic: ~18 us at the bf16 tensor-
-// core peak against ~8 us of HBM time, so bound by operations. dgrad runs
-// on the tensor cores (the forward's core); wgrad is FP32 FMA on the CUDA
-// cores (bf16 operands widened as staged), whose floor is the 67 TFLOP/s
-// FMA rate: tensor cores for wgrad are the next step.
+// core peak against ~8 us of HBM time, so bound by operations.
+//
+// Design, bf16:
+// * dgrad runs the forward's tensor-core kernel, conv_wgmma_kernel<N,
+//   bf16> (masked_conv.cuh), on G in bf16 with the mirrored taps.
+// * wgrad is a GEMM per conv, M = taps x cin rows (t, ci), N = cout, K =
+//   the N*H*W pixels, on wgmma (conv_wgrad_wgmma_kernel): A from
+//   registers, gathered from the input's staged rows by ldmatrix.trans
+//   (each lane gives the 16-byte channel row of its own shifted pixel, the
+//   forward's implicit-GEMM trick with pixels as K), B from shared memory,
+//   G's 128-pixel slice packed by the wrapper in the canonical K-major
+//   layout (the forward's weight layout with pixels as K). Both are staged
+//   with 16-byte cp.async, double-buffered. A block owns a chunk of
+//   128-pixel sub-tiles and 128 rows of M (a warpgroup 64): 4 taps of one
+//   32-channel block, so it stages only those 32 channels of its rows
+//   (the kernel is bound by these reads from L2, not by wgmma). It keeps
+//   its sums in registers over the chunk and writes them as an f32
+//   partial.
+// wgrad is a reduction over N*H*W pixels (8192 at batch 32), and blocks run
+// in no order, so it is made deterministic as K1's is: each block writes
+// the partial of its pixel chunk, and conv_wreduce_kernel adds the
+// partials in chunk order. The same inputs give the same bits. The wrapper
+// picks the chunk count so that chunks x M blocks fill the SMs once.
+//
+// f32 and the shapes the tensor-core kernels do not tile: dgrad on
+// conv_fma_kernel, wgrad on conv_wgrad_kernel (FP32 FMA: each block owns a
+// chunk of image rows, a 32 x 32 (ci x co) tile and a group of TG taps,
+// keeps its sums in registers, a warp's lanes being 32 output channels,
+// each holding 4 input channels x TG taps), both through the same partials
+// and reduce.
 //
 // Entry points (plain C, loaded with ctypes): masked_conv_dgrad,
-// masked_conv_wgrad, masked_conv_wreduce.
+// masked_conv_dgrad_wgmma, masked_conv_wgrad, masked_conv_wgrad_wgmma_smem,
+// masked_conv_wgrad_wgmma, masked_conv_wreduce.
 
 #include "masked_conv.cuh"
 
-#define WG_CI 32    // wgrad: input channels per block (8 warps x 4)
-#define WG_CO 32    // wgrad: output channels per block (one per lane)
-#define WG_THREADS 256
-#define TG 8        // wgrad: taps per block
+#define FW_CI 32    // FMA wgrad: input channels per block (8 warps x 4)
+#define FW_CO 32    // FMA wgrad: output channels per block (one per lane)
+#define FW_THREADS 256
+#define TG 8        // FMA wgrad: taps per block
 
 struct WgradArgs {
   const void* x;     // [N,H,W,cin] T conv input
@@ -55,16 +76,16 @@ struct WgradArgs {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(WG_THREADS)
+__global__ void __launch_bounds__(FW_THREADS)
     conv_wgrad_kernel(WgradArgs a) {
   extern __shared__ __align__(16) float wsm[];
   const int H = a.H, W = a.W, XW = W + 2 * a.pw;
   const int XR = a.dy_hi - a.dy_lo + 1;
-  float* xs = wsm;                    // [XR][XW][WG_CI] input rows
-  float* gs = wsm + XR * XW * WG_CI;  // [W][WG_CO] gradient row y
+  float* xs = wsm;                    // [XR][XW][FW_CI] input rows
+  float* gs = wsm + XR * XW * FW_CI;  // [W][FW_CO] gradient row y
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ci0 = blockIdx.y * WG_CI;
-  const int co0 = (blockIdx.z % a.co_tiles) * WG_CO;
+  const int ci0 = blockIdx.y * FW_CI;
+  const int co0 = (blockIdx.z % a.co_tiles) * FW_CO;
   const int t0 = (blockIdx.z / a.co_tiles) * TG;
   const int r0 = blockIdx.x * a.rows_per_chunk;
   const int r1 = min(r0 + a.rows_per_chunk, a.rows);
@@ -77,9 +98,9 @@ __global__ void __launch_bounds__(WG_THREADS)
   for (int r = r0; r < r1; ++r) {
     const int n = r / H, y = r - n * H;
     __syncthreads();
-    for (int i = threadIdx.x; i < XR * XW * WG_CI; i += blockDim.x) {
-      const int s = i / (XW * WG_CI), rem = i - s * XW * WG_CI;
-      const int col = rem / WG_CI, c = rem - col * WG_CI;
+    for (int i = threadIdx.x; i < XR * XW * FW_CI; i += blockDim.x) {
+      const int s = i / (XW * FW_CI), rem = i - s * XW * FW_CI;
+      const int col = rem / FW_CI, c = rem - col * FW_CI;
       const int yy = y + a.dy_lo - a.ph + s, xx = col - a.pw, ci = ci0 + c;
       float v = 0.f;
       if (yy >= 0 && yy < H && xx >= 0 && xx < W && ci < a.cin)
@@ -87,8 +108,8 @@ __global__ void __launch_bounds__(WG_THREADS)
                                                 a.cin + ci]);
       xs[i] = v;
     }
-    for (int i = threadIdx.x; i < W * WG_CO; i += blockDim.x) {
-      const int x = i / WG_CO, c = i - x * WG_CO, co = co0 + c;
+    for (int i = threadIdx.x; i < W * FW_CO; i += blockDim.x) {
+      const int x = i / FW_CO, c = i - x * FW_CO, co = co0 + c;
       gs[i] = co < a.cout
                   ? to_f(from_f<T>(
                         a.g[(((size_t)n * H + y) * W + x) * a.cout + co]))
@@ -96,7 +117,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     }
     __syncthreads();
     for (int x = 0; x < W; ++x) {
-      const float gv = gs[x * WG_CO + lane];
+      const float gv = gs[x * FW_CO + lane];
 #pragma unroll
       for (int u = 0; u < TG; ++u) {
         const int t = t0 + u;
@@ -104,7 +125,7 @@ __global__ void __launch_bounds__(WG_THREADS)
         // tap (dy, dx) reads input row y + dy - ph (staged row dy - dy_lo),
         // pixel x + dx - pw (staged column x + dx)
         const float4 xv = *reinterpret_cast<const float4*>(
-            xs + (((a.tap_dy[t] - a.dy_lo) * XW) + x + a.tap_dx[t]) * WG_CI +
+            xs + (((a.tap_dy[t] - a.dy_lo) * XW) + x + a.tap_dx[t]) * FW_CI +
             4 * warp);
         acc[u][0] = fmaf(xv.x, gv, acc[u][0]);
         acc[u][1] = fmaf(xv.y, gv, acc[u][1]);
@@ -129,60 +150,204 @@ __global__ void __launch_bounds__(WG_THREADS)
   }
 }
 
-// Sums the partials in chunk order into dW [kh][kw][cin][cout] T: tap
-// (dy, dx) takes live tap slot[dy * kw + dx] of the partials, or zeros
-// where that is -1.
-struct ReduceArgs {
-  const float* part;
-  void* dw;
-  int chunks, ntaps, cin, cout, kk;
-  signed char slot[MAX_TAPS];
+#define RD_THREADS 256
+#define RD_ITEMS 4      // reduce: outputs per thread, RD_THREADS apart
+
+// Sums the partials in chunk order into dW [kh*kw][cin][cout] T: kernel
+// position blockIdx.y takes live tap slot[blockIdx.y] of the partials, or
+// zeros where that is -1. A block covers RD_THREADS * RD_ITEMS consecutive
+// outputs of one position, so every load is coalesced and each thread
+// keeps RD_ITEMS loads in flight.
+template <typename T>
+__global__ void __launch_bounds__(RD_THREADS)
+    conv_wreduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
+                        const int* __restrict__ slot, int chunks, int ntaps,
+                        int per_tap) {
+  const int pos = blockIdx.y, t = __ldg(slot + pos);
+  const int i0 = blockIdx.x * RD_THREADS * RD_ITEMS + threadIdx.x;
+  float s[RD_ITEMS];
+#pragma unroll
+  for (int j = 0; j < RD_ITEMS; ++j) s[j] = 0.f;
+  if (t >= 0) {
+    const size_t stride = (size_t)ntaps * per_tap;
+    const float* __restrict__ p = part + (size_t)t * per_tap;
+    for (int k = 0; k < chunks; ++k, p += stride)
+#pragma unroll
+      for (int j = 0; j < RD_ITEMS; ++j) {
+        const int i = i0 + j * RD_THREADS;
+        if (i < per_tap) s[j] += p[i];
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < RD_ITEMS; ++j) {
+    const int i = i0 + j * RD_THREADS;
+    if (i < per_tap) dw[(size_t)pos * per_tap + i] = from_f<T>(s[j]);
+  }
+}
+
+#define GW_PIXELS 128   // wgmma wgrad: pixels per sub-tile (8 k16 steps)
+#define GW_KSTEPS (GW_PIXELS / 16)
+#define GW_CB 32        // wgmma wgrad: input channels per block
+#define GW_TG 4         // wgmma wgrad: taps per block (two warps a tap)
+
+struct WgradWgArgs {
+  const __nv_bfloat16* x;   // [N,H,W,cin] conv input
+  const void* gp;           // G packed: [N*H*W/16][npad/8][2][8][8] bf16
+  float* part;              // [chunks][ntaps * cin][cout] f32 partials
+  int H, W, cin, cout, ph, pw, ntaps, dy_lo, dy_hi, tr;
+  int n_sub, sub_per_chunk;
+  signed char tap_dy[MAX_TAPS], tap_dx[MAX_TAPS];
 };
 
-template <typename T>
-__global__ void conv_wreduce_kernel(ReduceArgs a) {
-  const size_t per_tap = (size_t)a.cin * a.cout;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)a.kk * per_tap) return;
-  const int tap = (int)(i / per_tap);
-  const size_t rem = i - tap * per_tap;
-  const int t = a.slot[tap];
-  float s = 0.f;
-  if (t >= 0) {
-    const size_t stride = (size_t)a.ntaps * per_tap;
-    const float* p = a.part + t * per_tap + rem;
-    for (int k = 0; k < a.chunks; ++k) s += p[k * stride];
+// Bytes of one stage of conv_wgrad_wgmma_kernel: the sub-tile's staged
+// input rows (the block's GW_CB channels), then its packed G slice.
+__host__ __device__ static inline int gw_stage_bytes(int tr, int W, int kw,
+                                                     int span, int npad) {
+  return wg_a_bytes(tr, W, GW_CB, kw, span) + GW_PIXELS * npad * 2;
+}
+
+// A block's 128 rows of M are GW_TG taps x one block of GW_CB input
+// channels (blockIdx.y = channel block x tap groups + tap group), so it
+// stages only those channels of its rows (tap rows past ntaps are
+// computed and not stored). Sub-tile s is rows tr*(s % (H/tr)) .. + tr -
+// 1 of image s / (H/tr): the 128 pixels (s*128 .. s*128 + 127) in NHWC
+// order, k-steps 8s .. 8s + 7 of the packed G.
+template <int N>
+__global__ void __launch_bounds__(WG_CONSUMERS, 1)
+    conv_wgrad_wgmma_kernel(WgradWgArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int H = a.H, W = a.W, cin = a.cin, cs = GW_CB + CPAD;
+  const int kw = 2 * a.pw + 1, span = a.dy_hi - a.dy_lo;
+  const int SC = staged_cols(W, kw, 1);
+  const int SR = a.tr + span;
+  const int a_bytes = wg_a_bytes(a.tr, W, GW_CB, kw, span);
+  const int st_bytes = gw_stage_bytes(a.tr, W, kw, span, N);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int M = a.ntaps * cin;
+  const int s0 = blockIdx.x * a.sub_per_chunk;
+  const int s1 = min(s0 + a.sub_per_chunk, a.n_sub);
+
+  zero_halo(smem, SR, SC, W, cs, a.pw, tid, WG_CONSUMERS);
+  zero_halo(smem + st_bytes, SR, SC, W, cs, a.pw, tid, WG_CONSUMERS);
+  __syncthreads();
+
+  // this warp's 16 rows of M: tap t, channels ci .. ci + 15, staged
+  // channels c0 .. c0 + 15 (a tap past ntaps reads tap 0 and is not
+  // stored)
+  const int tgroups = (a.ntaps + GW_TG - 1) / GW_TG;
+  const int cb = blockIdx.y / tgroups;
+  const int t_w = (blockIdx.y - cb * tgroups) * GW_TG + warp / 2;
+  const bool live = t_w < a.ntaps;
+  const int t = live ? t_w : 0, c0 = (warp & 1) * 16, ci = cb * GW_CB + c0;
+  // ldmatrix.x4.trans: lane l gives pixel (l & 7) + 8 (l >> 4) of the
+  // k-step at channel c0 + 8 ((l >> 3) & 1), shifted by tap t (staged row
+  // dy_t - dy_lo, staged column dx_t)
+  const int lane_off =
+      (((a.tap_dy[t] - a.dy_lo) * SC + a.tap_dx[t] + (lane & 7) +
+        ((lane >> 4) << 3)) * cs + c0 + ((lane >> 3) & 1) * 8) * 2;
+  const int segs = W / 16, tiles_y = H / a.tr;
+  const RowCopy copy(tid, WG_CONSUMERS, GW_CB, W);
+  const int g_chunks = GW_PIXELS * N * 2 / 16;
+
+  auto stage = [&](int s, int buf) {
+    unsigned char* b = smem + buf * st_bytes;
+    const int n = s / tiles_y, y0 = (s - n * tiles_y) * a.tr;
+    copy.rows(smem_u32(b), a.x + (size_t)n * H * W * cin + cb * GW_CB, cin,
+              y0 + a.dy_lo - a.ph, SR, H, W, SC, cs, a.pw);
+    const uint32_t gdst = smem_u32(b + a_bytes);
+    const unsigned char* gsrc = static_cast<const unsigned char*>(a.gp) +
+                                (size_t)s * GW_PIXELS * N * 2;
+    for (int i = tid; i < g_chunks; i += WG_CONSUMERS)
+      cp_async16(gdst + i * 16, gsrc + i * 16, 16);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  if (s0 < s1) stage(s0, 0);
+  int buf = 0;
+  for (int s = s0; s < s1; ++s, buf ^= 1) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();   // the sub-tile has landed; the other stage is free
+    if (s + 1 < s1) stage(s + 1, buf ^ 1);
+    const uint32_t abase = smem_u32(smem + buf * st_bytes) + lane_off;
+    const uint32_t gbase = smem_u32(smem + buf * st_bytes + a_bytes);
+    uint32_t af[GW_KSTEPS][4];
+#pragma unroll
+    for (int i = 0; i < GW_KSTEPS; ++i) {
+      const int ry = i / segs, sx = (i - ry * segs) * 16;
+      ldmatrix_x4_trans(af[i], abase + (ry * SC + sx) * cs * 2);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < GW_KSTEPS; ++i)
+      wgmma_rs<N>(acc, af[i], b_desc(gbase + i * 16 * N * 2));
+    wgmma_commit();
+    wgmma_wait0();
   }
-  static_cast<T*>(a.dw)[i] = from_f<T>(s);
+
+  if (!live) return;
+  const int g = lane >> 2, tig = lane & 3;
+  float* out =
+      a.part + ((size_t)blockIdx.x * M + (size_t)t * cin + ci + g) * a.cout;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int co = j * 8 + 2 * tig;
+    if (co < a.cout) {
+      *reinterpret_cast<float2*>(out + co) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(out + 8 * a.cout + co) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+template <int N>
+static int wgrad_wgmma_launch(const WgradWgArgs& a, int chunks, size_t smem,
+                              cudaStream_t s) {
+  auto kernel = conv_wgrad_wgmma_kernel<N>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(chunks,
+                  a.cin / GW_CB * ((a.ntaps + GW_TG - 1) / GW_TG));
+  kernel<<<grid, WG_CONSUMERS, smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 // dx [N,H,W,cdx] (T) of the conv, from the f32 output gradient g
-// [N,H,W,cg] and the weights transposed per tap, over the ntaps mirrored
-// (kh-1-dy, kw-1-dx) pairs of ``taps`` (host array), packed in mma.sync
-// fragment order for [taps][cg][cdx] (mma = 1) or as [taps][cg][cdx]
-// (mma = 0). Returns cudaGetLastError() after the launch (0 on success).
+// [N,H,W,cg] and the weights transposed per tap ([taps][cg][cdx], T),
+// over the ntaps mirrored (kh-1-dy, kw-1-dx) pairs of ``taps`` (host
+// array), on the CUDA cores (FMA). Returns cudaGetLastError() after the
+// launch (0 on success).
 int masked_conv_dgrad(const void* g, const void* wt, void* dx,
                       const int* taps, int ntaps, int n_images, int H, int W,
                       int cg, int cdx, int kh, int kw, int tr, int bf16,
-                      int mma, int threads, void* stream) {
+                      int threads, void* stream) {
   ConvArgs a;
   int e = conv_prepare(a, g, wt, dx, taps, ntaps, H, W, cg, cdx, kh, kw, tr);
   if (e) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mma) {
-    if (!bf16 || W % 16 || W > 16 * MT || cg % 16 || cdx % 8 ||
-        tr * (W / 16) > MT)
-      return (int)cudaErrorInvalidValue;
-    return conv_launch(conv_mma_kernel<float, __nv_bfloat16>, a, n_images,
-                       kw, 1, threads, s);
-  }
   return bf16 ? conv_launch(conv_fma_kernel<float, __nv_bfloat16,
                                             __nv_bfloat16>,
-                            a, n_images, kw, 0, threads, s)
+                            a, n_images, kw, threads, s)
               : conv_launch(conv_fma_kernel<float, float, float>, a,
-                            n_images, kw, 0, threads, s);
+                            n_images, kw, threads, s);
+}
+
+// The same on the tensor cores, dx bf16: g in bf16 (16-byte aligned), the
+// transposed weights packed as conv_wgmma_kernel reads them with their
+// columns zero-padded to npad; see wgmma_conv (masked_conv.cuh).
+int masked_conv_dgrad_wgmma(const void* g, const void* wt, void* dx,
+                            const int* taps, int ntaps, int n_images, int H,
+                            int W, int cg, int cdx, int npad, int kh, int kw,
+                            size_t limit, void* stream) {
+  return wgmma_conv<__nv_bfloat16>(g, wt, dx, taps, ntaps, n_images, H, W,
+                                   cg, cdx, npad, kh, kw, limit,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // Per-chunk weight-gradient partials [chunks][ntaps][cin][cout] f32 over
@@ -212,14 +377,14 @@ int masked_conv_wgrad(const void* x, const void* g, void* part,
   a.ntaps = ntaps;
   a.dy_lo = c.dy_lo;
   a.dy_hi = c.dy_hi;
-  a.co_tiles = (cout + WG_CO - 1) / WG_CO;
+  a.co_tiles = (cout + FW_CO - 1) / FW_CO;
   for (int t = 0; t < ntaps; ++t) {
     a.tap_dy[t] = c.tap_dy[t];
     a.tap_dx[t] = c.tap_dx[t];
   }
   const size_t smem = ((size_t)(a.dy_hi - a.dy_lo + 1) * (W + 2 * a.pw) *
-                           WG_CI +
-                       (size_t)W * WG_CO) *
+                           FW_CI +
+                       (size_t)W * FW_CO) *
                       sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto kernel = bf16 ? conv_wgrad_kernel<__nv_bfloat16>
@@ -228,42 +393,95 @@ int masked_conv_wgrad(const void* x, const void* g, void* part,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
   const dim3 grid((a.rows + rows_per_chunk - 1) / rows_per_chunk,
-                  (cin + WG_CI - 1) / WG_CI,
+                  (cin + FW_CI - 1) / FW_CI,
                   a.co_tiles * ((ntaps + TG - 1) / TG));
-  kernel<<<grid, WG_THREADS, smem, s>>>(a);
+  kernel<<<grid, FW_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The partials' sum, in chunk order, into dW [kh][kw][cin][cout] (T),
-// zeros at the taps not in ``taps``.
-int masked_conv_wreduce(const void* part, void* dw, const int* taps,
-                        int ntaps, int chunks, int cin, int cout, int kh,
-                        int kw, int bf16, void* stream) {
-  if (kh * kw > MAX_TAPS || ntaps < 1 || ntaps > kh * kw)
+// Dynamic shared memory of the tensor-core wgrad at this shape (two
+// stages), or 0 where it does not tile it: W of 16, 32, 64 or 128 with
+// H a multiple of the sub-tile's 128 / W rows, cin a multiple of GW_CB.
+size_t masked_conv_wgrad_wgmma_smem(int H, int W, int cin, int kw, int span,
+                                    int npad) {
+  const int tr = wg_tile_rows(W);
+  if (!tr || H % tr || cin % GW_CB) return 0;
+  return 2 * (size_t)gw_stage_bytes(tr, W, kw, span, npad);
+}
+
+// Weight-gradient partials [chunks][ntaps][cin][cout] f32 on the tensor
+// cores, chunks = ceil(N*H*W / 128 / sub_per_chunk): x [N,H,W,cin] bf16
+// and G packed [N*H*W/16][npad/8][2][8][8] bf16 (both 16-byte aligned),
+// cin % GW_CB == 0, cout even and <= npad, at the ntaps (dy, dx) pairs of
+// ``taps``.
+int masked_conv_wgrad_wgmma(const void* x, const void* gp, void* part,
+                            const int* taps, int ntaps, int n_images, int H,
+                            int W, int cin, int cout, int npad, int kh,
+                            int kw, int sub_per_chunk, void* stream) {
+  const int tr = wg_tile_rows(W);
+  if (!tr || H % tr || cin % GW_CB || cout % 2 || cout > npad ||
+      sub_per_chunk < 1 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(gp) % 16)
     return (int)cudaErrorInvalidValue;
-  ReduceArgs a;
-  a.part = static_cast<const float*>(part);
-  a.dw = dw;
-  a.chunks = chunks;
-  a.ntaps = ntaps;
+  ConvArgs c;  // for its tap checks and row range
+  int e = conv_prepare(c, x, gp, part, taps, ntaps, H, W, cin, cout, kh, kw,
+                       tr);
+  if (e) return e;
+  WgradWgArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.gp = gp;
+  a.part = static_cast<float*>(part);
+  a.H = H;
+  a.W = W;
   a.cin = cin;
   a.cout = cout;
-  a.kk = kh * kw;
-  for (int i = 0; i < kh * kw; ++i) a.slot[i] = -1;
+  a.ph = c.ph;
+  a.pw = c.pw;
+  a.ntaps = ntaps;
+  a.dy_lo = c.dy_lo;
+  a.dy_hi = c.dy_hi;
+  a.tr = tr;
+  a.n_sub = n_images * H / tr;
+  a.sub_per_chunk = sub_per_chunk;
   for (int t = 0; t < ntaps; ++t) {
-    const int dy = taps[2 * t], dx = taps[2 * t + 1];
-    if (dy < 0 || dy >= kh || dx < 0 || dx >= kw)
-      return (int)cudaErrorInvalidValue;
-    a.slot[dy * kw + dx] = (signed char)t;
+    a.tap_dy[t] = c.tap_dy[t];
+    a.tap_dx[t] = c.tap_dx[t];
   }
-  const size_t total = (size_t)a.kk * cin * cout;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  const int chunks = (a.n_sub + sub_per_chunk - 1) / sub_per_chunk;
+  const size_t smem =
+      2 * (size_t)gw_stage_bytes(tr, W, kw, c.dy_hi - c.dy_lo, npad);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (npad) {
+    case 32: return wgrad_wgmma_launch<32>(a, chunks, smem, s);
+    case 64: return wgrad_wgmma_launch<64>(a, chunks, smem, s);
+    case 128: return wgrad_wgmma_launch<128>(a, chunks, smem, s);
+    case 160: return wgrad_wgmma_launch<160>(a, chunks, smem, s);
+    case 256: return wgrad_wgmma_launch<256>(a, chunks, smem, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The partials' sum, in chunk order, into dW [kh][kw][cin][cout] (T):
+// ``slot`` (device, kk = kh * kw ints) names the live tap of each kernel
+// position, -1 for the dead ones (zeros).
+int masked_conv_wreduce(const void* part, void* dw, const void* slot,
+                        int ntaps, int chunks, int cin, int cout, int kk,
+                        int bf16, void* stream) {
+  if (ntaps < 1 || kk < ntaps || kk > MAX_TAPS || chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  const int per_tap = cin * cout;
+  const dim3 grid((per_tap + RD_THREADS * RD_ITEMS - 1) /
+                      (RD_THREADS * RD_ITEMS),
+                  kk);
+  const float* p = static_cast<const float*>(part);
+  const int* sl = static_cast<const int*>(slot);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    conv_wreduce_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(a);
+    conv_wreduce_kernel<<<grid, RD_THREADS, 0, s>>>(
+        p, static_cast<__nv_bfloat16*>(dw), sl, chunks, ntaps, per_tap);
   else
-    conv_wreduce_kernel<float><<<blocks, threads, 0, s>>>(a);
+    conv_wreduce_kernel<<<grid, RD_THREADS, 0, s>>>(
+        p, static_cast<float*>(dw), sl, chunks, ntaps, per_tap);
   return (int)cudaGetLastError();
 }
 

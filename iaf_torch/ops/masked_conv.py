@@ -9,8 +9,9 @@ a CUDA kernel for CUDA tensors (the tensor-core kernel or the FMA one,
 as ``fwd_route`` decides from the shapes) and runs ``masked_conv2d_ref``,
 its plain PyTorch twin (the counterpart of ``xla_conv2d_same``), for CPU
 tensors only. Under autograd on CUDA it is a ``torch.autograd.Function``
-whose backward, ``masked_conv2d_bwd``, runs the dgrad and wgrad kernels;
-on the CPU autograd differentiates the twin (``masked_conv2d_bwd_ref``).
+whose backward, ``masked_conv2d_bwd``, runs the dgrad and wgrad kernels
+(tensor cores or FMA, as ``bwd_route`` decides); on the CPU autograd
+differentiates the twin (``masked_conv2d_bwd_ref``).
 Layouts are the JAX ones: activations NHWC, weights HWIO.
 
 ``taps`` names the (dy, dx) kernel positions that may hold nonzero
@@ -29,17 +30,18 @@ import torch
 import torch.nn.functional as F
 
 from iaf_torch.ops import _build
-from iaf_torch.ops.ar_stack import _SMEM_LIMIT, _raise_on, tap_fragments
+from iaf_torch.ops.ar_stack import _SMEM_LIMIT, _raise_on
 
 Taps = tuple[tuple[int, int], ...]
 
 _MAX_TAPS = 64          # masked_conv.cuh MAX_TAPS: taps per conv
-_MT = 8                 # masked_conv.cuh MT: 16-pixel M tiles per block
-WGMMA_WIDTHS = (32, 64, 128, 160, 256)   # conv_wgmma_kernel's N
+WGMMA_WIDTHS = (32, 64, 128, 160, 256)   # the tensor-core kernels' N
 _FMA_ROWS = 8           # FMA path: output rows per block, at most
-_MMA_WARPS = 10         # masked_conv.cuh MMA_THREADS / 32
 _FMA_THREADS = 256      # masked_conv.cuh FMA_THREADS
-_WGRAD_CHUNKS = 32      # wgrad partials: pixel-row chunks per conv
+_WGRAD_CHUNKS = 32      # FMA wgrad partials: pixel-row chunks per conv
+_GW_PIXELS = 128        # masked_conv_bwd.cu GW_PIXELS: wgrad sub-tile
+_GW_CB = 32             # masked_conv_bwd.cu GW_CB: wgrad channels per block
+_GW_TG = 4              # masked_conv_bwd.cu GW_TG: wgrad taps per block
 
 launches = {"masked_conv2d": 0, "masked_conv2d_bwd": 0}  # since the reset
 
@@ -85,22 +87,27 @@ def masked_conv2d_bwd_ref(x, w, g, taps=None):
         return torch.autograd.grad(out, (x_, w_), g)
 
 
-def mma_path(dtype: torch.dtype, w: int, cin: int, cout: int) -> bool:
-    """Whether dgrad runs on the tensor cores (mma.sync): bf16, rows of
-    whole 16-pixel tiles (at most MT of them), channels in whole 16-deep
-    steps in and 8-wide tiles out."""
-    return (dtype == torch.bfloat16 and w % 16 == 0 and w <= 16 * _MT
-            and cin % 16 == 0 and cout % 8 == 0)
-
-
 def wgmma_path(dtype: torch.dtype, w: int, cin: int, cout: int) -> bool:
-    """Whether the forward's shape is one the tensor-core kernel tiles:
-    bf16, a 128-pixel tile of whole rows (W of 16, 32, 64 or 128), whole
-    16-deep channel steps in, and at most 256 outputs in whole 8-wide
-    groups. The launch also needs two weight stages beside the staged
-    rows in shared memory (``_wgmma_fits``)."""
+    """Whether a conv's shape (the forward's, or dgrad's with cin and cout
+    swapped) is one the tensor-core kernel tiles: bf16, a 128-pixel tile
+    of whole rows (W of 16, 32, 64 or 128), whole 16-deep channel steps
+    in, and at most 256 outputs in whole 8-wide groups. The launch also
+    needs two weight stages beside the staged rows in shared memory
+    (``_route``)."""
     return (dtype == torch.bfloat16 and w in (16, 32, 64, 128)
             and cin % 16 == 0 and cout % 8 == 0 and cout <= WGMMA_WIDTHS[-1])
+
+
+def wgrad_wgmma_path(dtype: torch.dtype, h: int, w: int, cin: int,
+                     cout: int) -> bool:
+    """Whether wgrad's shape is one the tensor-core wgrad tiles: bf16,
+    128-pixel sub-tiles of whole rows of one image (W of 16, 32, 64 or
+    128, H a multiple of 128 / W), input channels in whole blocks of 32,
+    and at most 256 outputs in whole 8-wide groups. Its two stages must
+    also fit one block's shared memory (``_wgrad_route``)."""
+    return (dtype == torch.bfloat16 and w in (16, 32, 64, 128)
+            and h % (_GW_PIXELS // w) == 0 and cin % _GW_CB == 0
+            and cout % 8 == 0 and cout <= WGMMA_WIDTHS[-1])
 
 
 def wgmma_width(cout: int) -> int:
@@ -109,36 +116,63 @@ def wgmma_width(cout: int) -> int:
     return next(n for n in WGMMA_WIDTHS if n >= cout)
 
 
-def wgmma_pack(t: torch.Tensor, npad: int) -> torch.Tensor:
-    """[taps, cin, cout] -> the tensor-core forward's weight order,
-    [taps, cin/16, npad/8, 2, 8, 8]: element [t, s, j, h, n, k] is
-    ``t[t, 16 s + 8 h + k, 8 j + n]`` (zero for 8 j + n >= cout). Each
-    k-step is one wgmma B operand in the canonical K-major layout without
-    swizzle (8x8 core matrices of 128 bytes, the two k halves 128 bytes
-    apart, column groups 256 bytes apart) and each (tap, 32-deep chunk)
-    slice that the kernel streams is contiguous. One copy."""
-    taps, cin, cout = t.shape
+def wgmma_pack(t: torch.Tensor, npad: int,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+    """[taps, K, cout] -> the tensor-core kernels' B order, [taps, K/16,
+    npad/8, 2, 8, 8] in ``dtype`` (default t's): element [t, s, j, h, n,
+    k] is ``t[t, 16 s + 8 h + k, 8 j + n]`` (zero for 8 j + n >= cout).
+    Each k-step is one wgmma B operand in the canonical K-major layout
+    without swizzle (8x8 core matrices of 128 bytes, the two k halves 128
+    bytes apart, column groups 256 bytes apart) and each (tap, 32-deep
+    chunk) slice that the conv kernel streams is contiguous. K is cin for
+    the forward's weights, cout for dgrad's (``t`` the transposed view;
+    the copy transposes) and the pixels for wgrad's G (``wgrad_pack``).
+    One copy (two where cout is padded)."""
+    taps, k, cout = t.shape
     if npad != cout:
         t = F.pad(t, (0, npad - cout))
-    t = t.reshape(taps, cin // 16, 2, 8, npad // 8, 8)   # t s h k j n
-    return t.permute(0, 1, 4, 2, 5, 3).contiguous()
+    t = t.reshape(taps, k // 16, 2, 8, npad // 8, 8)     # t s h k j n
+    t = t.permute(0, 1, 4, 2, 5, 3)
+    return torch.empty(t.shape, dtype=dtype or t.dtype,
+                       device=t.device).copy_(t)
+
+
+def dgrad_pack(w: torch.Tensor, taps: Taps) -> torch.Tensor:
+    """dgrad's weights on the tensor cores: the live taps transposed per
+    tap, [taps, cout, cin], in ``wgmma_pack`` order with N = cin (one
+    gather, then one copy that transposes and packs)."""
+    return wgmma_pack(_live(w, taps).transpose(1, 2),
+                      wgmma_width(w.shape[2]))
+
+
+def wgrad_pack(g: torch.Tensor) -> torch.Tensor:
+    """wgrad's B on the tensor cores: the output gradient g [N,H,W,cout]
+    (f32) rounded to bf16 as [1, N*H*W/16, npad/8, 2, 8, 8] in
+    ``wgmma_pack`` order with the pixels (NHWC order) as K: one copy."""
+    n, h, w_, cout = g.shape
+    return wgmma_pack(g.reshape(1, n * h * w_, cout), wgmma_width(cout),
+                      torch.bfloat16)
+
+
+# the tensor-core conv entries (forward and dgrad): 4 pointers, 9 ints,
+# the shared-memory limit and the stream
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_size_t, ctypes.c_void_p])
 
 
 def _lib():
     lib = _build.load("masked_conv")
     if not getattr(lib, "_iaf_typed", False):
         lib.masked_conv_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-        lib.masked_conv_fwd.restype = ctypes.c_int
-        lib.masked_conv_smem_bytes.argtypes = [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+        lib.masked_conv_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.masked_conv_smem_bytes.restype = ctypes.c_size_t
         lib.masked_conv_wgmma_stages.argtypes = (
             [ctypes.c_int] * 6 + [ctypes.c_size_t])
-        lib.masked_conv_wgmma_stages.restype = ctypes.c_int
-        lib.masked_conv_fwd_wgmma.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-            + [ctypes.c_size_t, ctypes.c_void_p])
-        lib.masked_conv_fwd_wgmma.restype = ctypes.c_int
+        lib.masked_conv_fwd_wgmma.argtypes = _WGMMA_ARGTYPES
+        for fn in (lib.masked_conv_fwd, lib.masked_conv_wgmma_stages,
+                   lib.masked_conv_fwd_wgmma):
+            fn.restype = ctypes.c_int
         lib._iaf_typed = True
     return lib
 
@@ -147,12 +181,18 @@ def _bwd_lib():
     lib = _build.load("masked_conv_bwd")
     if not getattr(lib, "_iaf_typed", False):
         lib.masked_conv_dgrad.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+        lib.masked_conv_dgrad_wgmma.argtypes = _WGMMA_ARGTYPES
         lib.masked_conv_wgrad.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        lib.masked_conv_wgrad_wgmma_smem.argtypes = [ctypes.c_int] * 6
+        lib.masked_conv_wgrad_wgmma_smem.restype = ctypes.c_size_t
+        lib.masked_conv_wgrad_wgmma.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         lib.masked_conv_wreduce.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        for fn in (lib.masked_conv_dgrad, lib.masked_conv_wgrad,
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        for fn in (lib.masked_conv_dgrad, lib.masked_conv_dgrad_wgmma,
+                   lib.masked_conv_wgrad, lib.masked_conv_wgrad_wgmma,
                    lib.masked_conv_wreduce):
             fn.restype = ctypes.c_int
         lib._iaf_typed = True
@@ -178,38 +218,71 @@ def _c_taps(taps: Taps) -> ctypes.Array:
     return (ctypes.c_int * (2 * len(taps)))(*[v for t in taps for v in t])
 
 
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _aligned(what: str, *ts: torch.Tensor) -> None:
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what}: the tensor-core kernel needs its inputs "
+                         "16-byte aligned")
+
+
 def _launch_conv(fn, what: str, inp, packed, out, taps: Taps, kh: int,
-                 kw: int, mma: bool) -> None:
-    """Launch the implicit-GEMM core (``fn``: the forward or dgrad entry)
-    on ``inp`` [N,H,W,c_in] into ``out`` [N,H,W,c_out], choosing the
-    output rows per block so the staged rows fit shared memory."""
+                 kw: int) -> None:
+    """Launch the FMA conv (``fn``: the forward or dgrad entry) on ``inp``
+    [N,H,W,c_in] into ``out`` [N,H,W,c_out], choosing the output rows per
+    block so the staged rows fit shared memory."""
     n, h, w_, c_in = inp.shape
     c_out = out.shape[-1]
     span = _span(taps)
     lib = _lib()
-    top = min(h, _MT // (w_ // 16) if mma else _FMA_ROWS)
-    tr = next((r for r in range(top, 0, -1)
-               if lib.masked_conv_smem_bytes(r, w_, c_in, kw, span, int(mma))
+    tr = next((r for r in range(min(h, _FMA_ROWS), 0, -1)
+               if lib.masked_conv_smem_bytes(r, w_, c_in, kw, span)
                <= _SMEM_LIMIT), 0)
     if tr == 0:
-        need = lib.masked_conv_smem_bytes(1, w_, c_in, kw, span, int(mma))
+        need = lib.masked_conv_smem_bytes(1, w_, c_in, kw, span)
         raise ValueError(f"{what}: one output row stages {need} B of shared "
                          f"memory at W={w_}, cin={c_in}, kw={kw}; a Hopper "
                          f"block has {_SMEM_LIMIT}")
-    threads = (32 * min(_MMA_WARPS, -(-c_out // 16)) if mma
-               else _FMA_THREADS)
     bf16 = int(packed.dtype == torch.bfloat16)
     with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream(inp.device).cuda_stream
         err = fn(inp.data_ptr(), packed.data_ptr(), out.data_ptr(),
                  _c_taps(taps), len(taps), n, h, w_, c_in, c_out, kh, kw, tr,
-                 bf16, int(mma), threads, stream)
+                 bf16, _FMA_THREADS, _stream(inp.device))
+    _raise_on(err, what)
+
+
+def _launch_wgmma(fn, what: str, inp, packed, out, taps: Taps, kh: int,
+                  kw: int) -> None:
+    """Launch the tensor-core conv (``fn``: the forward or dgrad entry) on
+    ``inp`` [N,H,W,c_in] bf16 with ``packed`` (``wgmma_pack`` order) into
+    ``out`` [N,H,W,c_out]."""
+    n, h, w_, c_in = inp.shape
+    c_out = out.shape[-1]
+    _aligned(what, inp, packed)
+    with torch.cuda.device(inp.device):
+        err = fn(inp.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                 _c_taps(taps), len(taps), n, h, w_, c_in, c_out,
+                 packed.shape[-4] * 8, kh, kw, _SMEM_LIMIT,
+                 _stream(inp.device))
     _raise_on(err, what)
 
 
 @functools.lru_cache(maxsize=None)
 def _tap_index(taps: Taps, kw: int, device: torch.device) -> torch.Tensor:
     return torch.tensor([dy * kw + dx for dy, dx in taps], device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_index(taps: Taps, kh: int, kw: int,
+                device: torch.device) -> torch.Tensor:
+    """Each kernel position's live tap (its index in ``taps``), -1 where
+    it is dead: the reduce's map, int32 on ``device``."""
+    slot = [-1] * (kh * kw)
+    for t, (dy, dx) in enumerate(taps):
+        slot[dy * kw + dx] = t
+    return torch.tensor(slot, dtype=torch.int32, device=device)
 
 
 def _live(w: torch.Tensor, taps: Taps) -> torch.Tensor:
@@ -225,13 +298,8 @@ def _span(taps: Taps) -> int:
     return max(dys) - min(dys)
 
 
-def _wgmma_fits(lib, w_: int, cin: int, cout: int, kw: int,
-                taps: Taps) -> bool:
-    """Whether the tensor-core kernel's staged rows and two weight stages
-    fit one block's shared memory at this shape (its own count)."""
-    return lib.masked_conv_wgmma_stages(w_, cin, kw, _span(taps),
-                                        wgmma_width(cout), len(taps),
-                                        _SMEM_LIMIT) >= 2
+def _mirrored(taps: Taps, kh: int, kw: int) -> Taps:
+    return tuple((kh - 1 - dy, kw - 1 - dx) for dy, dx in taps)
 
 
 def fwd_route(x: torch.Tensor, w: torch.Tensor, taps: Iterable | None
@@ -245,11 +313,40 @@ def fwd_route(x: torch.Tensor, w: torch.Tensor, taps: Iterable | None
                   _taps(w, taps))
 
 
+def bwd_route(x: torch.Tensor, w: torch.Tensor, taps: Iterable | None
+              = None) -> tuple[str, str]:
+    """The kernels the backward launches for CUDA inputs ``x``, ``w``:
+    (dgrad's, wgrad's), each ``"wgmma"`` (tensor cores) or ``"fma"``.
+    dgrad is the conv of g (cout channels in, cin out) over the mirrored
+    taps, routed as the forward's; wgrad takes the tensor cores where
+    ``wgrad_wgmma_path`` holds and its two stages fit one block's shared
+    memory. Decided from the shapes before any launch."""
+    taps = _taps(w, taps)
+    kh, kw, cin, cout = w.shape
+    _, h, w_, _ = x.shape
+    return (_route(x.dtype, w_, cout, cin, kw, _mirrored(taps, kh, kw)),
+            _wgrad_route(x.dtype, h, w_, cin, cout, kw, _span(taps)))
+
+
 @functools.lru_cache(maxsize=None)
 def _route(dtype: torch.dtype, w_: int, cin: int, cout: int, kw: int,
            taps: Taps) -> str:
-    if wgmma_path(dtype, w_, cin, cout) and _wgmma_fits(_lib(), w_, cin,
-                                                        cout, kw, taps):
+    """The conv's kernel: the tensor cores where ``wgmma_path`` holds and
+    the staged rows and two weight stages fit one block's shared memory
+    (the kernel's own count), else FMA."""
+    if wgmma_path(dtype, w_, cin, cout) and _lib().masked_conv_wgmma_stages(
+            w_, cin, kw, _span(taps), wgmma_width(cout), len(taps),
+            _SMEM_LIMIT) >= 2:
+        return "wgmma"
+    return "fma"
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_route(dtype: torch.dtype, h: int, w_: int, cin: int, cout: int,
+                 kw: int, span: int) -> str:
+    if wgrad_wgmma_path(dtype, h, w_, cin, cout) and 0 < (
+            _bwd_lib().masked_conv_wgrad_wgmma_smem(
+                h, w_, cin, kw, span, wgmma_width(cout)) <= _SMEM_LIMIT):
         return "wgmma"
     return "fma"
 
@@ -263,26 +360,100 @@ def _fwd(x: torch.Tensor, w: torch.Tensor, taps: Taps) -> torch.Tensor:
     n, h, w_, cin = x.shape
     kh, kw, _, cout = w.shape
     lib = _lib()
-    live = _live(w, taps)
     out = torch.empty((n, h, w_, cout), device=x.device, dtype=torch.float32)
     if _route(x.dtype, w_, cin, cout, kw, taps) == "wgmma":
-        if x.data_ptr() % 16:
-            raise ValueError("masked_conv2d: the tensor-core kernel needs x "
-                             "16-byte aligned")
-        npad = wgmma_width(cout)
-        packed = wgmma_pack(live, npad)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.masked_conv_fwd_wgmma(
-                x.data_ptr(), packed.data_ptr(), out.data_ptr(),
-                _c_taps(taps), len(taps), n, h, w_, cin, cout, npad, kh, kw,
-                _SMEM_LIMIT, stream)
-        _raise_on(err, "masked_conv2d")
+        _launch_wgmma(lib.masked_conv_fwd_wgmma, "masked_conv2d", x,
+                      wgmma_pack(_live(w, taps), wgmma_width(cout)), out,
+                      taps, kh, kw)
     else:
-        _launch_conv(lib.masked_conv_fwd, "masked_conv2d", x, live, out,
-                     taps, kh, kw, False)
+        _launch_conv(lib.masked_conv_fwd, "masked_conv2d", x, _live(w, taps),
+                     out, taps, kh, kw)
     launches["masked_conv2d"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def wgrad_m_blocks(ntaps: int, cin: int) -> int:
+    """The tensor-core wgrad's blocks over M: 32-channel blocks x groups
+    of 4 taps."""
+    return cin // _GW_CB * -(-ntaps // _GW_TG)
+
+
+def wgrad_chunks(n_sub: int, m_blocks: int, sms: int) -> tuple[int, int]:
+    """(sub-tiles per chunk, chunks) for the tensor-core wgrad: about one
+    block per SM over chunks x ``m_blocks`` blocks, every chunk holding
+    at least one of the ``n_sub`` 128-pixel sub-tiles."""
+    per = -(-n_sub // max(1, sms // m_blocks))
+    return per, -(-n_sub // per)
+
+
+def _dgrad(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+           taps: Taps) -> torch.Tensor:
+    """dx in x's dtype: the conv of ``g`` (f32) with the mirrored taps and
+    the weights transposed per tap, on the kernel ``bwd_route`` names
+    (the tensor cores take g rounded to bf16 once, as the twin does)."""
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    mirrored = _mirrored(taps, kh, kw)
+    dx = torch.empty(x.shape, device=x.device, dtype=x.dtype)
+    lib = _bwd_lib()
+    if _route(x.dtype, w_, cout, cin, kw, mirrored) == "wgmma":
+        _launch_wgmma(lib.masked_conv_dgrad_wgmma, "masked_conv2d dgrad",
+                      g.to(torch.bfloat16), dgrad_pack(w, taps), dx, mirrored,
+                      kh, kw)
+    else:
+        _launch_conv(lib.masked_conv_dgrad, "masked_conv2d dgrad", g,
+                     _live(w, taps).transpose(1, 2).contiguous(), dx,
+                     mirrored, kh, kw)
+    return dx
+
+
+def _wgrad(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+           taps: Taps) -> torch.Tensor:
+    """dW [kh,kw,cin,cout] in w's dtype, zero outside ``taps``: per-chunk
+    f32 partials on the kernel ``bwd_route`` names, then their sum in
+    chunk order (deterministic)."""
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    dev = x.device
+    lib = _bwd_lib()
+    c_taps = _c_taps(taps)
+    with torch.cuda.device(dev):
+        if _wgrad_route(x.dtype, h, w_, cin, cout, kw,
+                        _span(taps)) == "wgmma":
+            gp = wgrad_pack(g)
+            _aligned("masked_conv2d wgrad", x, gp)
+            per, chunks = wgrad_chunks(n * h * w_ // _GW_PIXELS,
+                                       wgrad_m_blocks(len(taps), cin),
+                                       _sm_count(dev))
+            part = torch.empty((chunks, len(taps), cin, cout), device=dev,
+                               dtype=torch.float32)
+            err = lib.masked_conv_wgrad_wgmma(
+                x.data_ptr(), gp.data_ptr(), part.data_ptr(), c_taps,
+                len(taps), n, h, w_, cin, cout, gp.shape[-4] * 8, kh, kw,
+                per, _stream(dev))
+        else:
+            rows = n * h
+            per = -(-rows // _WGRAD_CHUNKS)
+            chunks = -(-rows // per)
+            part = torch.empty((chunks, len(taps), cin, cout), device=dev,
+                               dtype=torch.float32)
+            err = lib.masked_conv_wgrad(
+                x.data_ptr(), g.data_ptr(), part.data_ptr(), c_taps,
+                len(taps), n, h, w_, cin, cout, kh, kw, per,
+                int(x.dtype == torch.bfloat16), _stream(dev))
+        _raise_on(err, "masked_conv2d wgrad")
+        dw = torch.empty((kh, kw, cin, cout), device=dev, dtype=w.dtype)
+        _raise_on(lib.masked_conv_wreduce(
+            part.data_ptr(), dw.data_ptr(),
+            _slot_index(taps, kh, kw, dev).data_ptr(), len(taps), chunks,
+            cin, cout, kh * kw, int(w.dtype == torch.bfloat16), _stream(dev)),
+            "masked_conv2d wreduce")
+    return dw
 
 
 def masked_conv2d_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
@@ -290,15 +461,15 @@ def masked_conv2d_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     """K2's backward kernels: from the forward's input ``x`` and weights
     ``w`` and the output gradient ``g`` [N,H,W,cout] f32, return (dx in
     x's dtype, dW [kh,kw,cin,cout] in w's dtype, zero outside ``taps``).
-    The dgrad kernel, then the wgrad kernel's chunk partials and their
-    in-order sum: one launch in the count."""
+    dgrad, then wgrad's chunk partials and their in-order sum, each on the
+    kernels ``bwd_route`` names: one launch in the count."""
     if x.device.type != "cuda":
         raise RuntimeError(f"masked_conv2d_bwd: no kernel for device "
                            f"{x.device}")
     _check(x, w)
     taps = _taps(w, taps)
-    n, h, w_, cin = x.shape
-    kh, kw, _, cout = w.shape
+    n, h, w_, _ = x.shape
+    cout = w.shape[3]
     if any(t.device != x.device for t in (w, g)):
         raise RuntimeError("masked_conv2d_bwd: inputs on different devices")
     if (g.dtype != torch.float32 or not g.is_contiguous()
@@ -307,36 +478,8 @@ def masked_conv2d_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                          f"{(n, h, w_, cout)}")
     if not x.is_contiguous():
         raise ValueError("masked_conv2d_bwd: x must be contiguous")
-    lib = _bwd_lib()
-    bf16 = int(x.dtype == torch.bfloat16)
-    dev = x.device
-
-    # dgrad: the conv of g with the taps mirrored, weights [taps, cout, cin]
-    mirrored = tuple((kh - 1 - dy, kw - 1 - dx) for dy, dx in taps)
-    live_t = _live(w, taps).transpose(1, 2)
-    mma = mma_path(x.dtype, w_, cout, cin)
-    packed = tap_fragments(live_t) if mma else live_t.contiguous()
-    dx = torch.empty(x.shape, device=dev, dtype=x.dtype)
-    _launch_conv(lib.masked_conv_dgrad, "masked_conv2d dgrad", g, packed, dx,
-                 mirrored, kh, kw, mma)
-
-    # wgrad: per-chunk partials, then their sum in chunk order
-    rows = n * h
-    rows_per_chunk = -(-rows // _WGRAD_CHUNKS)
-    chunks = -(-rows // rows_per_chunk)
-    part = torch.empty((chunks, len(taps), cin, cout), device=dev,
-                       dtype=torch.float32)
-    dw = torch.empty((kh, kw, cin, cout), device=dev, dtype=w.dtype)
-    c_taps = _c_taps(taps)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib.masked_conv_wgrad(
-            x.data_ptr(), g.data_ptr(), part.data_ptr(), c_taps, len(taps),
-            n, h, w_, cin, cout, kh, kw, rows_per_chunk, bf16, stream),
-            "masked_conv2d wgrad")
-        _raise_on(lib.masked_conv_wreduce(
-            part.data_ptr(), dw.data_ptr(), c_taps, len(taps), chunks, cin,
-            cout, kh, kw, bf16, stream), "masked_conv2d wreduce")
+    dx = _dgrad(x, w, g, taps)
+    dw = _wgrad(x, w, g, taps)
     launches["masked_conv2d_bwd"] += 1
     return dx, dw
 

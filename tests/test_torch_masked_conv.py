@@ -200,6 +200,10 @@ def cuda():
 CARD_CASES = [(5, (8, 16, 16, 32), 160), (5, (8, 16, 16, 160), 160),
               (5, (8, 16, 16, 160), 64), (5, (3, 6, 5, 3), 9),
               (3, (4, 16, 32, 16), 8), (7, (2, 9, 16, 16), 32)]
+# the backward also at the training step's batch 32: 64 tiles of 128
+# pixels for dgrad, 64 sub-tiles for wgrad
+TRAIN_CASES = [(5, (32, 16, 16, 32), 160), (5, (32, 16, 16, 160), 160),
+               (5, (32, 16, 16, 160), 64)]
 
 
 @pytest.mark.cuda
@@ -224,7 +228,7 @@ def test_masked_conv_kernel_matches_twin_on_card(cuda, dtype, k, shape,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,shape,cout", CARD_CASES)
+@pytest.mark.parametrize("k,shape,cout", CARD_CASES + TRAIN_CASES)
 def test_masked_conv_bwd_kernel_matches_twin_on_card(cuda, dtype, k, shape,
                                                      cout):
     """dx and dW (dead taps zero) against autograd of the twin, at 1e-4
@@ -256,7 +260,27 @@ def test_masked_conv_bwd_kernel_matches_twin_on_card(cuda, dtype, k, shape,
     assert not (got[1].float() * (1 - live)).any()
 
 
-# --- the tensor-core forward's weight packing and route ---------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,shape,cout", TRAIN_CASES)
+def test_masked_conv_bwd_tensor_cores_deterministic_on_card(cuda, k, shape,
+                                                            cout):
+    """At the training shapes in bf16 both dgrad and wgrad take the
+    tensor cores, and two calls on the same inputs give the same bits
+    (wgrad's partials are summed in chunk order, never by atomics)."""
+    x, w, m = _inputs(k, shape, cout, seed=7)
+    taps = nonzero_taps(m)
+    tx = _t(x).to(cuda, torch.bfloat16)
+    tw = _t(w).to(cuda, torch.bfloat16)
+    g = torch.randn(*shape[:3], cout, generator=torch.Generator()
+                    .manual_seed(8)).to(cuda)
+    assert ops.masked_conv.bwd_route(tx, tw, taps) == ("wgmma", "wgmma")
+    first = ops.masked_conv2d_bwd(tx, tw, g, taps)
+    second = ops.masked_conv2d_bwd(tx, tw, g, taps)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# --- the tensor-core kernels' packing and routes ----------------------------
 
 @pytest.mark.parametrize("taps,cin,cout,npad", [(13, 32, 160, 160),
                                                 (3, 48, 20, 32)])
@@ -307,3 +331,109 @@ def test_wgmma_route_predicate():
     assert not wgmma_path(bf16, 16, 24, 64)     # cin not whole k16 steps
     assert not wgmma_path(bf16, 16, 32, 264)    # wider than 256
     assert [wgmma_width(c) for c in (64, 72, 160, 168)] == [64, 128, 160, 256]
+
+
+def test_bwd_route_predicates():
+    """dgrad takes the forward's tensor-core predicate with cin and cout
+    swapped, wgrad its own: bf16 at the paper widths at batch-32 maps
+    (all three 5x5 AR convs, both ways); f32, maps that are not whole
+    128-pixel sub-tiles and input channels that are not whole blocks of
+    32 stay on FMA. wgrad's blocks over M are 32-channel blocks x groups
+    of 4 taps."""
+    from iaf_torch.ops.masked_conv import wgrad_m_blocks
+    assert [wgrad_m_blocks(13, c) for c in (32, 160)] == [4, 20]
+    from iaf_torch.ops.masked_conv import wgmma_path, wgrad_wgmma_path
+    bf16 = torch.bfloat16
+    for cin, cout in ((32, 160), (160, 160), (160, 64)):
+        assert wgmma_path(bf16, 16, cout, cin)           # dgrad
+        assert wgrad_wgmma_path(bf16, 16, 16, cin, cout)
+        assert not wgmma_path(torch.float32, 16, cout, cin)
+        assert not wgrad_wgmma_path(torch.float32, 16, 16, cin, cout)
+    assert wgrad_wgmma_path(bf16, 3, 128, 64, 8)       # one row a sub-tile
+    assert not wgrad_wgmma_path(bf16, 12, 16, 32, 64)  # H not 8-row tiles
+    assert not wgrad_wgmma_path(bf16, 16, 48, 32, 64)  # W not a tile width
+    assert not wgrad_wgmma_path(bf16, 16, 16, 48, 64)  # cin not 32-blocks
+    assert not wgrad_wgmma_path(bf16, 16, 16, 32, 12)  # cout not 8-wide
+    assert not wgrad_wgmma_path(bf16, 16, 16, 32, 264)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 160), (24, 16)])
+def test_dgrad_pack_layout(cin, cout):
+    """``dgrad_pack``: the live taps' weights transposed per tap, element
+    [t, s, j, h, n, k] = w[dy_t, dx_t, 8 j + n, 16 s + 8 h + k] (K is
+    cout, N is cin padded to its width with zeros), in one contiguous
+    copy."""
+    from iaf_torch.ops.masked_conv import dgrad_pack, wgmma_width
+    x, w, m = _inputs(5, (1, 4, 4, cin), cout, seed=9)
+    taps = nonzero_taps(m)
+    tw = _t(w)
+    p = dgrad_pack(tw, taps)
+    npad = wgmma_width(cin)
+    assert p.shape == (len(taps), cout // 16, npad // 8, 2, 8, 8)
+    assert p.is_contiguous()
+    back = p.permute(0, 1, 3, 5, 2, 4).reshape(len(taps), cout, npad)
+    for i, (dy, dx) in enumerate(taps):
+        assert torch.equal(back[i, :, :cin], tw[dy, dx].t())
+    assert not back[..., cin:].any()
+    flat = p.reshape(-1)
+    rs = np.random.RandomState(1)
+    for _ in range(50):
+        i, ci, co = (int(rs.randint(v)) for v in (len(taps), cin, cout))
+        s_, h, k, j, n = co // 16, co % 16 // 8, co % 8, ci // 8, ci % 8
+        off = ((((i * (cout // 16) + s_) * (npad // 8) + j) * 2 + h) * 8
+               + n) * 8 + k
+        assert flat[off] == tw[taps[i][0], taps[i][1], ci, co]
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 16, 16, 32), 160),
+                                        ((1, 8, 32, 16), 8)])
+def test_wgrad_pack_is_the_gemm_operand(shape, cout):
+    """``wgrad_pack``: g rounded to bf16 with the NHWC pixel index as K,
+    element [0, s, j, h, n, k] = g[pixel 16 s + 8 h + k, 8 j + n] (zero
+    past cout), one contiguous copy; and the kernel's GEMM over it, dW[t]
+    = (the input shifted by tap t)^T x g over all pixels, is the twin's
+    dW at every live tap (1e-5 of max, f32 on bf16 values)."""
+    from iaf_torch.ops.masked_conv import wgmma_width, wgrad_pack
+    k = 5
+    x, w, m = _inputs(k, shape, cout, seed=11)
+    taps = nonzero_taps(m)
+    n, hh, ww, cin = shape
+    g = torch.from_numpy(np.random.RandomState(12).randn(
+        n, hh, ww, cout).astype(np.float32))
+    p = wgrad_pack(g)
+    npad, pixels = wgmma_width(cout), n * hh * ww
+    assert p.dtype == torch.bfloat16 and p.is_contiguous()
+    assert p.shape == (1, pixels // 16, npad // 8, 2, 8, 8)
+    b = p[0].permute(0, 2, 4, 1, 3).reshape(pixels, npad)
+    assert torch.equal(b[:, :cout], g.reshape(pixels, cout).bfloat16())
+    assert not b[:, cout:].any()
+    flat = p.reshape(-1)
+    rs = np.random.RandomState(2)
+    for _ in range(50):
+        px, co = int(rs.randint(pixels)), int(rs.randint(cout))
+        s_, h, kk, j, nn = px // 16, px % 16 // 8, px % 8, co // 8, co % 8
+        off = (((s_ * (npad // 8) + j) * 2 + h) * 8 + nn) * 8 + kk
+        assert flat[off] == g.reshape(pixels, cout)[px, co].bfloat16()
+    tx = _t(x).bfloat16().float()
+    dw_ref = ops.masked_conv2d_bwd_ref(tx, _t(w), b[:, :cout].float()
+                                       .reshape(g.shape), taps)[1]
+    ph = (k - 1) // 2
+    xp = F.pad(tx, (0, 0, ph, ph, ph, ph))
+    for dy, dx in taps:
+        shifted = xp[:, dy:dy + hh, dx:dx + ww].reshape(pixels, cin)
+        torch.testing.assert_close(shifted.t() @ b[:, :cout].float(),
+                                   dw_ref[dy, dx], **TOL)
+
+
+@pytest.mark.parametrize("n_sub,m_blocks,sms", [(64, 4, 132), (64, 17, 132),
+                                                (64, 200, 132), (5, 1, 132),
+                                                (1000, 3, 114)])
+def test_wgrad_chunks_cover_the_pixels(n_sub, m_blocks, sms):
+    """The tensor-core wgrad's chunking: every sub-tile in exactly one
+    chunk, no chunk empty, and no more blocks than SMs where M leaves
+    room for a chunk per SM."""
+    from iaf_torch.ops.masked_conv import wgrad_chunks
+    per, chunks = wgrad_chunks(n_sub, m_blocks, sms)
+    assert per >= 1 and per * chunks >= n_sub > per * (chunks - 1)
+    if m_blocks <= sms:
+        assert chunks * m_blocks <= sms
