@@ -34,7 +34,13 @@ Phases, any failure exits non-zero:
    each output's max and f32 with TF32 off at 1e-4, K3 at 1e-6 (1 + |ref|),
    K4 at 1e-5) and K5 to its twin bitwise on that step's parameters and
    gradients; each is timed beside its twin and its bound, K1's backward
-   also beside autograd through three full cuDNN convs.
+   also beside autograd through three full cuDNN convs (bf16, and f32 with
+   TF32 off beside its f32 FMA route). K1's bf16 backward must take the
+   tensor cores for dgrad and wgrad on every conv (``bwd_route``), give
+   the same bits on two calls and list its device time per call by
+   kernel; its dgrad chain (with the weight pack and the glue passes)
+   and its wgrad (with the reduce) are timed apart, and the glue and pack
+   kernels are held to their twins.
 7. One f32 training step of the paper config at batch 4, card (kernels)
    against CPU (twins), same params, batch and noise: the loss, every
    gradient leaf and every updated parameter and EMA leaf are compared.
@@ -74,10 +80,10 @@ Phases, any failure exits non-zero:
    (f32, TF32 off) of the output's max.
 
 Times: ``ms`` is by CUDA events around 20 back-to-back calls (what a
-caller waits, host included); ``device_ms`` (K1, K2 and their backward,
-and their library calls) is the device time the profiler records for
-the same calls, host gaps left out, which ranks a kernel against its
-library call.
+caller waits, host included); ``device_ms`` (every kernel, and K1's and
+K2's library calls) is the device time the profiler records for the same
+calls, host gaps left out, which ranks a kernel against its library
+call.
 
 The second-last line of standard output is the ``kernels`` JSON, the last
 ``{"ok": true, "device": {...}}``.
@@ -298,13 +304,14 @@ def kernel_phase(ops, cap, device) -> list[dict]:
         print(f"[K3] iaf_update {tuple(a[0].shape)}: max abs err {err:.3e}")
         check(ok, f"K3 err {err} beyond 1e-6 * (1 + |ref|)")
         ms = cuda_ms(lambda: ops.iaf_update(*a))
+        dev_ms = device_ms(lambda: ops.iaf_update(*a))
         plain = cuda_ms(lambda: ops.iaf_update_ref(*a))
     b_ms, b_by = bound_ms(4 * a[0].numel(), "float32", nbytes(*a, *got))
     rows.append(dict(
         name="iaf_update", route="triton", source="iaf_torch/ops/fused.py",
         replaces="iaf_tpu/ops/fused.py:43", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        mbytes=nbytes(*a, *got) / 1e6))
+        device_ms=dev_ms, mbytes=nbytes(*a, *got) / 1e6))
 
     # K4: the chunk's likelihood
     mean, logscale, sample = cap["disc_logistic_logp"]
@@ -317,6 +324,8 @@ def kernel_phase(ops, cap, device) -> list[dict]:
               f"{err:.3e} (rel {rel:.3e})")
         check(rel <= 1e-5, f"K4 rel err {rel} > 1e-5")
         ms = cuda_ms(lambda: ops.disc_logistic_logp(mean, logscale, sample))
+        dev_ms = device_ms(lambda: ops.disc_logistic_logp(mean, logscale,
+                                                          sample))
         plain = cuda_ms(lambda: ops.disc_logistic_ref(mean, logscale, sample))
     moved = nbytes(mean, sample, got, logscale)
     b_ms, b_by = bound_ms(15 * mean.numel(), "float32", moved)
@@ -324,7 +333,7 @@ def kernel_phase(ops, cap, device) -> list[dict]:
         name="disc_logistic_logp", route="triton",
         source="iaf_torch/ops/fused.py", replaces="iaf_tpu/ops/fused.py:103",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, mbytes=moved / 1e6))
+        library_ms=None, device_ms=dev_ms, mbytes=moved / 1e6))
     return rows
 
 
@@ -552,6 +561,35 @@ def _k1_grads_close(ops, got, want, tol, label) -> float:
     return worst_abs
 
 
+def _glue_check(ar_mod, g, pre) -> None:
+    """The glue kernel against its twin at the main path's shapes: the
+    head pass on the step's f32 G and a hidden pass on a bf16 dX from a
+    seed with the step's pre-activation. G in f32 within 1e-6 of its max
+    (expf against torch.exp), G in bf16 (NHWC and packed) within one bf16
+    rounding of each element, bf16(ELU(pre)) too, give or take 4e-7 (the
+    forward's fast exponential against expm1 near 0), the db sums within
+    1e-5 of max."""
+    import torch
+    gen = torch.Generator(device=g.device).manual_seed(21)
+    dx = torch.randn(pre.shape, generator=gen, device=g.device).bfloat16()
+    for label, src, p in (("head", g, None), ("hidden", dx, pre)):
+        gb, gp, g32, x, dbp = ar_mod.glue(src, p, with_f32=True)
+        rb, rp, r32, rx, rdb = ar_mod.glue_ref(src, p)
+        errs = {"g32": _rel_err(g32, r32)[0] / max(1.0, float(
+            r32.abs().max())), "db": _rel_err(dbp.sum(0), rdb)[1]}
+        for nm, a, b, slack in (("gb", gb, rb, 0.0), ("gp", gp, rp, 0.0)) + (
+                (("x", x, rx, 4e-7),) if p is not None else ()):
+            d = (a.float() - b.float()).abs()
+            errs[nm] = float(d.max())
+            check(bool((d <= 2 ** -7 * b.float().abs() + slack).all()),
+                  f"glue {label} {nm}: beyond one bf16 rounding")
+        check(errs["g32"] <= 1e-6, f"glue {label} g32 {errs['g32']}")
+        check(errs["db"] <= 1e-5, f"glue {label} db {errs['db']}")
+        print(f"[K1 bwd] glue kernel, {label} {tuple(src.shape)}: against "
+              f"its twin " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       errs.items()))
+
+
 def backward_kernel_phase(ops, cap) -> list[dict]:
     """K1's, K3's and K4's backward kernels against autograd of their
     twins on the captured inputs, timed beside the twin's backward."""
@@ -561,21 +599,54 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
 
     # K1 backward, the first AR net the step differentiates (bf16)
     (z, ctx, ws, bs, masks), (bz, bws, pre, g) = cap["ar_stack"]
+    routes = ar_mod.bwd_route(bz, bws)
+    print(f"[K1 bwd] bf16 z{tuple(bz.shape)}, convs "
+          f"{[tuple(w.shape[2:]) for w in bws]}: (dgrad, wgrad) per conv "
+          f"{routes}")
+    check(routes == (("wgmma", "wgmma"),) * len(bws),
+          f"K1 bwd bf16 takes {routes}, not the tensor cores on every conv")
     got = ops.ar_stack_bwd(bz, bws, pre, g)
+    again = ops.ar_stack_bwd(bz, bws, pre, g)
+    flat = [got[0], got[1], *got[2], *got[3]]
+    check(all(torch.equal(a, b) for a, b in zip(
+        flat, [again[0], again[1], *again[2], *again[3]])),
+        "K1 bwd: two bf16 calls differ")
     err = _k1_grads_close(ops, got, ops.ar_stack_bwd_ref(z, ctx, ws, bs, g),
-                          2e-2, "bf16")
+                          2e-2, "bf16 (two calls bitwise equal)")
+    _glue_check(ar_mod, g, pre[-1])
+    check(all(torch.equal(a, b) for a, b in zip(
+        ar_mod.pack_dgrad(bws), ar_mod.pack_dgrad_ref(bws))),
+        "K1 bwd: the weight pack kernel differs from its twin")
+    print("[K1 bwd] weight pack kernel, all convs: bitwise equal to its twin")
     z32 = z.float()
     ws32 = [w.float() for w in ws]
+    check(ar_mod.bwd_route(z32, ws32) == (("fma", "fma"),) * len(ws),
+          "K1 bwd f32 does not take the FMA kernels")
     with torch.no_grad():
         pre32 = ar_mod._fwd(z32, ctx, ws32, bs, save_pre=True)[1]
     got32 = ops.ar_stack_bwd(z32, ws32, pre32, g)
     err32 = _k1_grads_close(ops, got32,
                             ops.ar_stack_bwd_ref(z32, ctx, ws32, bs, g),
                             1e-4, "f32")
-    ms = cuda_ms(lambda: ops.ar_stack_bwd(bz, bws, pre, g))
-    dev_ms = device_ms(lambda: ops.ar_stack_bwd(bz, bws, pre, g))
+    call = lambda: ops.ar_stack_bwd(bz, bws, pre, g)  # noqa: E731
+    by_kernel = sorted(device_kernels(call, 10, 2), key=lambda d: -d[1])
+    for key, k_ms, k in by_kernel:
+        print(f"[K1 bwd] by kernel, per call: {k_ms:.4f} ms x{k} {key[:80]}")
+    per_call = sum(k for _, _, k in by_kernel)
+    ms = cuda_ms(call)
+    dev_ms = device_ms(call)
+    feeds = ar_mod._dgrad_wgmma(bz, bws, pre, g)[2]
+    t = {}
+    for part, fn in (("dgrad_", lambda: ar_mod._dgrad_wgmma(bz, bws, pre, g)),
+                     ("wgrad_", lambda: ar_mod._wgrad_wgmma(bws, feeds))):
+        t[part + "ms"] = cuda_ms(fn)
+        t[part + "device_ms"] = device_ms(fn)
     ms32 = cuda_ms(lambda: ops.ar_stack_bwd(z32, ws32, pre32, g))
-    leaves = [t.detach().clone().requires_grad_() for t in (z, ctx, *ws, *bs)]
+    dev32 = device_ms(lambda: ops.ar_stack_bwd(z32, ws32, pre32, g))
+    leaves = [t_.detach().clone().requires_grad_()
+              for t_ in (z, ctx, *ws, *bs)]
+    leaves32 = [t_.detach().clone().requires_grad_()
+                for t_ in (z32, ctx, *ws32, *bs)]
     nw = len(ws)
 
     def twin(z_, c_, *wb):
@@ -587,18 +658,35 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
     plain = _backward_ms(twin, leaves, g)
     lib = _backward_ms(yard, leaves, g.permute(0, 3, 1, 2))
     lib_dev = _backward_ms(yard, leaves, g.permute(0, 3, 1, 2), device_ms)
+    lib_dev32 = _backward_ms(yard, leaves32, g.permute(0, 3, 1, 2),
+                             device_ms)
     n, hh, ww, _ = z.shape
     flops = 2 * 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
     live_w = sum(5 * w.shape[2] * w.shape[3] * w.element_size() for w in ws)
     moved = (nbytes(bz, g, *pre, got[0], got[1], *got[3]) + 2 * live_w)
     b_ms, b_by = bound_ms(flops, "bfloat16", moved)
+    print(f"[K1 bwd] bf16 (tensor cores): by events {ms:.4f} ms (dgrad chain "
+          f"{t['dgrad_ms']:.4f}, wgrad + reduce {t['wgrad_ms']:.4f}), cuDNN "
+          f"{lib:.4f}; by device time {dev_ms:.4f} ms (dgrad chain "
+          f"{t['dgrad_device_ms']:.4f}, wgrad + reduce "
+          f"{t['wgrad_device_ms']:.4f}), cuDNN {lib_dev:.4f}, ratio "
+          f"{dev_ms / lib_dev:.3f}; {per_call} device launches a call; bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    print(f"[K1 bwd] f32 (FMA): by events {ms32:.4f} ms, by device time "
+          f"{dev32:.4f} ms, cuDNN f32 (TF32 off) {lib_dev32:.4f} ms, ratio "
+          f"{dev32 / lib_dev32:.3f}")
     rows.append(dict(
         name="ar_stack_bwd", route="cuda",
         source="iaf_torch/ops/csrc/ar_stack_bwd.cu",
+        sources=["iaf_torch/ops/csrc/ar_stack_bwd.cu",
+                 "iaf_torch/ops/csrc/masked_conv_bwd.cu"],
         replaces="iaf_tpu/ops/ar_stack.py:251", max_abs_err=err,
         max_abs_err_f32=err32, ms=ms, ms_f32=ms32, plain_ms=plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib, device_ms=dev_ms,
-        library_device_ms=lib_dev, gflop=flops / 1e9, mbytes=moved / 1e6))
+        library_device_ms=lib_dev, device_ms_f32=dev32,
+        library_device_ms_f32=lib_dev32, device_launches_per_call=per_call,
+        routes=[list(r) for r in routes], gflop=flops / 1e9,
+        mbytes=moved / 1e6, **t))
 
     # K3 backward, the same IAF step's update
     (zz, m, s, lq), (z_new, s_b, gz, glq) = cap["iaf_update"]
@@ -610,6 +698,7 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
     print(f"[K3 bwd] iaf_update_bwd {tuple(gz.shape)}: max abs err {err:.3e}")
     check(ok, f"K3 bwd err {err} beyond 1e-6 * (1 + |ref|)")
     ms = cuda_ms(lambda: ops.iaf_update_bwd(z_new, s_b, gz, glq))
+    dev_ms = device_ms(lambda: ops.iaf_update_bwd(z_new, s_b, gz, glq))
     leaves = [t.detach().clone().requires_grad_() for t in (zz, m, s, lq)]
     plain = _backward_ms(ops.iaf_update_ref, leaves, (gz, glq))
     moved = nbytes(gz, glq, z_new, s_b, *got[:3])
@@ -618,7 +707,7 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
         name="iaf_update_bwd", route="triton", source="iaf_torch/ops/fused.py",
         replaces="iaf_tpu/ops/fused.py:79", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        mbytes=moved / 1e6))
+        device_ms=dev_ms, mbytes=moved / 1e6))
 
     # K4 backward, the step's likelihood
     mean, ls, sample, g = cap["disc_logistic_logp"][:4]
@@ -632,6 +721,7 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
     check(rel <= 1e-5, f"K4 bwd dmean {rel} of max > 1e-5")
     check(rel_ls <= 1e-5, f"K4 bwd dlogscale rel err {rel_ls} > 1e-5")
     ms = cuda_ms(lambda: ops.disc_logistic_bwd(mean, ls, sample, g))
+    dev_ms = device_ms(lambda: ops.disc_logistic_bwd(mean, ls, sample, g))
     leaves = [t.detach().clone().requires_grad_() for t in (mean, ls)]
     plain = _backward_ms(lambda m_, l_: ops.disc_logistic_ref(m_, l_, sample),
                          leaves, g)
@@ -641,7 +731,7 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
         name="disc_logistic_logp_bwd", route="triton",
         source="iaf_torch/ops/fused.py", replaces="iaf_tpu/ops/fused.py:148",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, mbytes=moved / 1e6))
+        library_ms=None, device_ms=dev_ms, mbytes=moved / 1e6))
     return rows
 
 
@@ -673,6 +763,8 @@ def adamax_phase(ops, cfg, state) -> dict:
           f"bitwise equal to the twin: {same}")
     check(same, "K5 differs from its twin")
     ms = cuda_ms(lambda: ops.adamax_polyak(p, grads, m, u, e, lr_t, **hyper))
+    dev_ms = device_ms(lambda: ops.adamax_polyak(p, grads, m, u, e, lr_t,
+                                                 **hyper))
 
     def twin_all():
         for i in range(len(grads)):
@@ -686,7 +778,8 @@ def adamax_phase(ops, cfg, state) -> dict:
                 source="iaf_torch/ops/fused_adamax.py",
                 replaces="iaf_tpu/ops/fused_adamax.py:33", max_abs_err=0.0,
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, mbytes=moved / 1e6, leaves=len(names))
+                library_ms=None, device_ms=dev_ms, mbytes=moved / 1e6,
+                leaves=len(names))
 
 
 def train_reference_phase(device, hp: str = PAPER) -> None:
@@ -1345,7 +1438,7 @@ def run() -> dict:
     for r in rows:
         dev = ("" if "device_ms" not in r else
                f" (device {r['device_ms']:.4f} ms, library "
-               f"{r['library_device_ms']:.4f} ms)")
+               f"{r.get('library_device_ms')} ms)")
         print(f"[time] {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms{dev}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), launches "

@@ -7,14 +7,16 @@ Replaces ``iaf_tpu/ops/ar_stack.py:_stack_kernel`` and its ``_bwd``.
 ``ar_stack_xla``), for CPU tensors only. Under autograd on CUDA it is a
 ``torch.autograd.Function``: the forward kernel also writes the hidden
 convs' pre-activations, and ``ar_stack_bwd`` runs the dgrad and wgrad
-kernels over them; on the CPU autograd differentiates the twin
-(``ar_stack_bwd_ref``). Layouts are the JAX ones: activations NHWC,
-weights HWIO.
+kernels over them (in bf16 K2's tensor-core kernels, with this file's
+glue, pack and reduce kernels between them); on the CPU autograd
+differentiates the twin (``ar_stack_bwd_ref``). Layouts are the JAX ones:
+activations NHWC, weights HWIO.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -25,12 +27,15 @@ from iaf_torch.nn.masks import nonzero_taps
 from iaf_torch.ops import _build
 
 LIVE_TAPS = ((0, 0), (0, 1), (0, 2), (1, 0), (1, 1))
+# dgrad's taps: the transpose of the causal conv reads the mirrored ones
+MIRRORED_TAPS = tuple((2 - dy, 2 - dx) for dy, dx in LIVE_TAPS)
 _MAX_CONVS = 32             # the kernel arguments' pointer arrays (MAX_CONVS)
 _PX = 8                     # output pixels per thread item (ar_stack.cu PX)
 _SMEM_LIMIT = 232_448       # dynamic shared memory a Hopper block may use
 _MMA_WARPS = 10             # tensor-core path's block size cap (launch bounds)
 
-_WGRAD_CHUNKS = 64          # wgrad partials: pixel-row chunks per conv
+_WGRAD_CHUNKS = 64          # FMA wgrad partials: pixel-row chunks per conv
+_GLUE_THREADS = 512         # ar_stack_bwd.cu GL_THREADS: glue block size
 
 launches = {"ar_stack": 0, "ar_stack_bwd": 0}  # launches since the reset
 
@@ -174,9 +179,15 @@ def _bwd_lib():
         lib.ar_stack_wgrad.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.ar_stack_wreduce.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] * 2
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.ar_stack_glue.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.ar_stack_pack_wt.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
         for fn in (lib.ar_stack_dgrad, lib.ar_stack_wgrad,
-                   lib.ar_stack_wreduce):
+                   lib.ar_stack_wreduce, lib.ar_stack_glue,
+                   lib.ar_stack_pack_wt):
             fn.restype = ctypes.c_int
         lib._iaf_typed = True
     return lib
@@ -265,13 +276,293 @@ def _fwd(z, context, weights, biases, save_pre: bool):
     return out, pre
 
 
+def bwd_wgmma_path(dtype: torch.dtype, h: int, w: int,
+                   shapes: Sequence[tuple[int, int]]) -> bool:
+    """Whether every conv (cin, cout) of the chain has a shape that K2's
+    tensor-core kernels tile in the backward: dgrad on ``wgmma_path``
+    with cin and cout swapped, wgrad on ``wgrad_wgmma_path`` (bf16, W of
+    16-128 with H whole 128-pixel sub-tiles, input channels in whole
+    blocks of 32). Needs no built library."""
+    # imported here and below: masked_conv imports this module
+    from iaf_torch.ops import masked_conv as mc
+    return all(mc.wgmma_path(dtype, w, co, ci)
+               and mc.wgrad_wgmma_path(dtype, h, w, ci, co)
+               for ci, co in shapes)
+
+
+def bwd_route(z: torch.Tensor, weights: Sequence[torch.Tensor]
+              ) -> tuple[tuple[str, str], ...]:
+    """The kernels K1's backward launches for CUDA inputs: per conv
+    (dgrad's, wgrad's), each ``"wgmma"`` (tensor cores) or ``"fma"``. The
+    chain takes the tensor cores where ``bwd_wgmma_path`` holds and every
+    conv's kernels fit shared memory (K2's own checks, ``masked_conv``'s
+    ``_route`` and ``_wgrad_route``), else FMA throughout. Decided from
+    the shapes before any launch (builds K2's libraries on first use)."""
+    _, h, w_, _ = z.shape
+    return _bwd_route(z.dtype, h, w_, tuple((int(w.shape[2]), int(w.shape[3]))
+                                            for w in weights))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_route(dtype, h, w_, shapes):
+    from iaf_torch.ops import masked_conv as mc
+    if bwd_wgmma_path(dtype, h, w_, shapes):
+        routes = tuple((mc._route(dtype, w_, co, ci, 3, MIRRORED_TAPS),
+                        mc._wgrad_route(dtype, h, w_, ci, co, 3, 1))
+                       for ci, co in shapes)
+        if all(r == ("wgmma", "wgmma") for r in routes):
+            return routes
+    return (("fma", "fma"),) * len(shapes)
+
+
+def glue_ref(src: torch.Tensor, pre: torch.Tensor | None = None):
+    """The glue pass in plain ops. ``src`` [N,H,W,C] is the head's f32 G,
+    or, with ``pre`` (the f32 pre-activation of a hidden conv's input),
+    that conv's bf16 dX. G = f32(src), times ELU'(pre) = (pre > 0 ? 1 :
+    exp(pre)) with ``pre``, as autograd of the twin's ELU step computes
+    it. Returns (G in bf16, G in wgrad's packed B order [1, P/16, npad/8,
+    2, 8, 8] bf16 as the kernel's stores place it, G in f32, bf16(ELU(pre))
+    or None, db = G summed over the pixels)."""
+    from iaf_torch.ops.masked_conv import wgmma_width
+    c = src.shape[-1]
+    p = src.numel() // c
+    npad = wgmma_width(c)
+    g = src.float()
+    x = None
+    if pre is not None:
+        g = torch.where(pre > 0, g, g * torch.exp(pre))
+        x = F.elu(pre).to(torch.bfloat16)
+    gb = g.to(torch.bfloat16)
+    # pixel 8 q + k, channel 8 j + n -> ((((q / 2) npad/8 + j) 2 + q % 2)
+    # 8 + n) 8 + k: the kernel's 16-byte store of the 8 k of one column
+    dev = src.device
+    q, k = (torch.arange(p, device=dev) // 8)[:, None], \
+        (torch.arange(p, device=dev) % 8)[:, None]
+    j, n = torch.arange(c, device=dev) // 8, torch.arange(c, device=dev) % 8
+    off = ((((q // 2) * (npad // 8) + j) * 2 + q % 2) * 8 + n) * 8 + k
+    gp = torch.zeros(p * npad, dtype=torch.bfloat16, device=dev)
+    gp[off.reshape(-1)] = gb.reshape(-1)
+    return (gb, gp.reshape(1, p // 16, npad // 8, 2, 8, 8), g, x,
+            g.reshape(p, c).sum(0))
+
+
+def glue_blocks(pixels: int, npad: int) -> tuple[int, int]:
+    """(groups of 8 pixels per block, blocks) of the glue pass: a block is
+    npad channel threads x ``_GLUE_THREADS // npad`` rows of groups, one
+    group a thread; a block's db sums are one row of its partials."""
+    per = _GLUE_THREADS // npad
+    return per, -(-(pixels // 8) // per)
+
+
+def glue(src: torch.Tensor, pre: torch.Tensor | None = None,
+         with_f32: bool = False):
+    """The glue kernel (``ar_glue_kernel``) on CUDA tensors: as
+    ``glue_ref`` (G in f32 only ``with_f32``, else None), with db as the
+    per-block sums [blocks, C] f32 that the reduce adds in order."""
+    if src.device.type != "cuda":
+        raise RuntimeError(f"ar_stack glue: no kernel for device "
+                           f"{src.device}")
+    from iaf_torch.ops.masked_conv import wgmma_width
+    c = src.shape[-1]
+    p = src.numel() // c
+    npad = wgmma_width(c)
+    per, blocks = glue_blocks(p, npad)
+    dev = src.device
+
+    def new(dtype):
+        return torch.empty(src.shape, device=dev, dtype=dtype)
+
+    gb = new(torch.bfloat16)
+    gp = torch.empty((1, p // 16, npad // 8, 2, 8, 8), device=dev,
+                     dtype=torch.bfloat16)
+    g32 = new(torch.float32) if with_f32 else None
+    x = new(torch.bfloat16) if pre is not None else None
+    dbp = torch.empty((blocks, c), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        err = _bwd_lib().ar_stack_glue(
+            src.data_ptr(), None if pre is None else pre.data_ptr(),
+            gb.data_ptr(), gp.data_ptr(),
+            None if g32 is None else g32.data_ptr(),
+            None if x is None else x.data_ptr(), dbp.data_ptr(), p, c, npad,
+            per, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "ar_stack glue")
+    return gb, gp, g32, x, dbp
+
+
+def pack_dgrad_ref(weights: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """dgrad's weights on the tensor cores, in plain ops: per conv the live
+    taps transposed per tap, [5, cout/16, npad/8, 2, 8, 8] in
+    ``masked_conv.wgmma_pack`` order with K = cout and N = cin (npad =
+    ``wgmma_width(cin)``, zero columns past cin)."""
+    from iaf_torch.ops import masked_conv as mc
+    return [mc.wgmma_pack(_live_taps(w).transpose(1, 2),
+                          mc.wgmma_width(w.shape[2])) for w in weights]
+
+
+def pack_dgrad(weights: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """``pack_dgrad_ref`` for every conv in one launch of
+    ``ar_pack_wt_kernel`` (bf16 CUDA weights of any strides)."""
+    from iaf_torch.ops import masked_conv as mc
+    w0 = weights[0]
+    if w0.device.type != "cuda":
+        raise RuntimeError(f"ar_stack pack: no kernel for device "
+                           f"{w0.device}")
+    if any(w.dtype != torch.bfloat16 for w in weights):
+        raise ValueError("ar_stack pack: weights must be bf16")
+    dims, strides, out = [], [], []
+    for w in weights:
+        cin, cout = w.shape[2], w.shape[3]
+        npad = mc.wgmma_width(cin)
+        dims += [cin, cout, npad]
+        strides += list(w.stride())
+        out.append(torch.empty((5, cout // 16, npad // 8, 2, 8, 8),
+                               device=w0.device, dtype=torch.bfloat16))
+    with torch.cuda.device(w0.device):
+        err = _bwd_lib().ar_stack_pack_wt(
+            _ptrs(weights), _ptrs(out), (ctypes.c_int * len(dims))(*dims),
+            (ctypes.c_longlong * len(strides))(*strides), len(weights),
+            torch.cuda.current_stream(w0.device).cuda_stream)
+    _raise_on(err, "ar_stack pack")
+    return out
+
+
+def _dgrad_wgmma(z, weights, pre, g):
+    """The dgrad chain on the tensor cores, head first: every conv's
+    weights transposed and packed (``pack_dgrad``, one launch), the head's
+    G through the glue kernel (cast, pack, db sums), then per conv dgrad on
+    ``conv_wgmma_kernel`` (bf16 out) and, for a hidden conv, the glue
+    pass. Returns (dz, dcontext, per conv (its wgrad input X, its packed
+    G, its G's db sums))."""
+    from iaf_torch.ops import masked_conv as mc
+    klib = mc._bwd_lib()
+    n_convs = len(weights)
+    feeds = [None] * n_convs
+    packed = pack_dgrad(weights)
+    gb, gp, _, _, dbp = glue(g)
+    dctx = None
+    for c in reversed(range(n_convs)):
+        w = weights[c]
+        cin = w.shape[2]
+        dx = torch.empty(z.shape[:3] + (cin,), device=z.device,
+                         dtype=torch.bfloat16)
+        mc._launch_wgmma(klib.masked_conv_dgrad_wgmma, "ar_stack dgrad", gb,
+                         packed[c], dx, MIRRORED_TAPS, 3, 3)
+        if c == 0:
+            feeds[0] = (z, gp, dbp)
+            return dx, dctx, feeds
+        gb_next, gp_next, g32, x, dbp_next = glue(dx, pre[c - 1], c == 1)
+        feeds[c] = (x, gp, dbp)
+        gb, gp, dbp = gb_next, gp_next, dbp_next
+        if c == 1:
+            dctx = g32      # conv 0's output gradient is the context's
+
+
+def _reduce(part, pstride, chunks, dbp, dbstride, dbchunks, w):
+    """dW (w's shape and dtype, zeros at the dead taps) and db from the
+    partials, in order (``ar_wreduce_kernel``)."""
+    dev = w.device
+    cin, cout = w.shape[2], w.shape[3]
+    dw = torch.empty(w.shape, device=dev, dtype=w.dtype)
+    db = torch.empty((cout,), device=dev, dtype=torch.float32)
+    _raise_on(_bwd_lib().ar_stack_wreduce(
+        part.data_ptr(), pstride, chunks, dbp, dbstride, dbchunks,
+        dw.data_ptr(), db.data_ptr(), cin, cout,
+        int(w.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream), "ar_stack wreduce")
+    return dw, db
+
+
+def _wgrad_wgmma(weights, feeds):
+    """Per conv, wgrad on ``conv_wgrad_wgmma_kernel`` (X and the packed G
+    of ``feeds``, per-chunk partials) and the in-order reduce of those
+    partials and the glue's db sums. Returns ([dW], [db])."""
+    from iaf_torch.ops import masked_conv as mc
+    klib = mc._bwd_lib()
+    x0 = feeds[0][0]
+    dev = x0.device
+    n, h, w_, _ = x0.shape
+    c_taps = mc._c_taps(LIVE_TAPS)
+    dws, dbs = [], []
+    for w, (x, gp, dbp) in zip(weights, feeds):
+        cin, cout = w.shape[2], w.shape[3]
+        mc._aligned("ar_stack wgrad", x, gp)
+        per, chunks = mc.wgrad_chunks(n * h * w_ // mc._GW_PIXELS,
+                                      mc.wgrad_m_blocks(5, cin),
+                                      mc._sm_count(dev))
+        part = torch.empty((chunks, 5, cin, cout), device=dev,
+                           dtype=torch.float32)
+        _raise_on(klib.masked_conv_wgrad_wgmma(
+            x.data_ptr(), gp.data_ptr(), part.data_ptr(), c_taps, 5, n, h, w_,
+            cin, cout, gp.shape[-4] * 8, 3, 3, per, mc._stream(dev)),
+            "ar_stack wgrad")
+        dw, db = _reduce(part, 5 * cin * cout, chunks, dbp.data_ptr(), cout,
+                         dbp.shape[0], w)
+        dws.append(dw)
+        dbs.append(db)
+    return dws, dbs
+
+
+def _bwd_fma(z, weights, pre, g):
+    """f32 and untiled shapes, per conv head first: the FMA wgrad kernel's
+    chunk partials (db folded in), their in-order sum, then the FMA dgrad
+    kernel (times ELU' of the conv's input)."""
+    n, h, w_, _ = z.shape
+    bf16 = int(z.dtype == torch.bfloat16)
+    lib = _bwd_lib()
+    dev = z.device
+    rows = n * h
+    rows_per_chunk = -(-rows // _WGRAD_CHUNKS)
+    chunks = -(-rows // rows_per_chunk)
+    n_convs = len(weights)
+    dws, dbs = [None] * n_convs, [None] * n_convs
+    dctx = None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for c in reversed(range(n_convs)):
+        w = weights[c]
+        cin, cout = w.shape[2], w.shape[3]
+        src = pre[c - 1] if c > 0 else None
+        live = 5 * cin * cout
+        part = torch.empty((chunks, live + cout), device=dev,
+                           dtype=torch.float32)
+        _raise_on(lib.ar_stack_wgrad(
+            None if src is not None else z.data_ptr(),
+            src.data_ptr() if src is not None else None, g.data_ptr(),
+            part.data_ptr(), n, h, w_, cin, cout, rows_per_chunk, bf16,
+            stream), "ar_stack wgrad")
+        dws[c], dbs[c] = _reduce(part, live + cout, chunks,
+                                 part.data_ptr() + 4 * live, live + cout,
+                                 chunks, w)
+        wt = pack_weights_t(w)
+        dx = torch.empty((n, h, w_, cin), device=dev,
+                         dtype=torch.float32 if c > 0 else z.dtype)
+        _raise_on(lib.ar_stack_dgrad(
+            g.data_ptr(), wt.data_ptr(),
+            src.data_ptr() if src is not None else None, dx.data_ptr(),
+            n, h, w_, cin, cout, bf16, stream), "ar_stack dgrad")
+        if c == 1:
+            dctx = dx      # conv 0's output gradient is the context's
+        g = dx
+    return g, dctx, dws, dbs
+
+
 def ar_stack_bwd(z, weights, pre, g):
     """K1's backward kernels: from the forward's input ``z``, weights and
     saved pre-activations ``pre`` and the output gradient ``g`` [N,H,W,cout]
     f32, return (dz in z's dtype, dcontext f32, [dW per conv, 3x3 HWIO in
-    the weights' dtype, zero at the dead taps], [db per conv, f32]). Per
-    conv, head first: the wgrad kernel's chunk partials, their in-order
-    sum, then the dgrad kernel (times ELU' of the conv's input)."""
+    the weights' dtype, zero at the dead taps], [db per conv, f32]); one
+    launch in the count. Replaces ``iaf_tpu/ops/ar_stack.py:251 _bwd``.
+    Bound by operations: 6.7 GFLOP per call at batch 32 and the paper
+    widths (dgrad and wgrad over the 5 live taps).
+
+    bf16 at shapes the tensor cores tile (``bwd_route``): the dgrad chain
+    (``_dgrad_wgmma``: K2's ``conv_wgmma_kernel`` per conv, with the glue
+    kernel between convs applying ELU' and writing G in bf16, in wgrad's
+    packed order and the db sums, and each conv's wgrad input bf16(ELU(a))
+    as the forward computed it), then per conv wgrad on K2's
+    ``conv_wgrad_wgmma_kernel`` and the in-order reduce of its partials
+    and of the db sums (``_wgrad_wgmma``): 13 launches for 3 convs, no
+    atomics, so two calls give the same bits. f32 and other shapes stay on
+    the FMA kernels (``_bwd_fma``), deterministic the same way."""
     if z.device.type != "cuda":
         raise RuntimeError(f"ar_stack_bwd: no kernel for device {z.device}")
     n, h, w_, _ = z.shape
@@ -289,45 +580,14 @@ def ar_stack_bwd(z, weights, pre, g):
     if not z.is_contiguous() or any(w.dtype != z.dtype for w in weights):
         raise ValueError("ar_stack_bwd: z must be contiguous and the "
                          "weights in its dtype")
-    bf16 = int(z.dtype == torch.bfloat16)
-    lib = _bwd_lib()
-    dev = z.device
-    rows = n * h
-    rows_per_chunk = -(-rows // _WGRAD_CHUNKS)
-    chunks = -(-rows // rows_per_chunk)
-    n_convs = len(weights)
-    dws, dbs = [None] * n_convs, [None] * n_convs
-    dctx = None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for c in reversed(range(n_convs)):
-            w = weights[c]
-            cin, cout = w.shape[2], w.shape[3]
-            src = pre[c - 1] if c > 0 else None
-            part = torch.empty((chunks, 5 * cin * cout + cout), device=dev,
-                               dtype=torch.float32)
-            _raise_on(lib.ar_stack_wgrad(
-                None if src is not None else z.data_ptr(),
-                src.data_ptr() if src is not None else None, g.data_ptr(),
-                part.data_ptr(), n, h, w_, cin, cout, rows_per_chunk, bf16,
-                stream), "ar_stack wgrad")
-            dws[c] = torch.empty(w.shape, device=dev, dtype=w.dtype)
-            dbs[c] = torch.empty((cout,), device=dev, dtype=torch.float32)
-            _raise_on(lib.ar_stack_wreduce(
-                part.data_ptr(), dws[c].data_ptr(), dbs[c].data_ptr(),
-                chunks, cin, cout, bf16, stream), "ar_stack wreduce")
-            wt = pack_weights_t(w)
-            dx = torch.empty((n, h, w_, cin), device=dev,
-                             dtype=torch.float32 if c > 0 else z.dtype)
-            _raise_on(lib.ar_stack_dgrad(
-                g.data_ptr(), wt.data_ptr(),
-                src.data_ptr() if src is not None else None, dx.data_ptr(),
-                n, h, w_, cin, cout, bf16, stream), "ar_stack dgrad")
-            if c == 1:
-                dctx = dx      # conv 0's output gradient is the context's
-            g = dx
+    with torch.cuda.device(z.device):
+        if bwd_route(z, weights)[0][0] == "wgmma":
+            dz, dctx, feeds = _dgrad_wgmma(z, weights, pre, g)
+            dws, dbs = _wgrad_wgmma(weights, feeds)
+        else:
+            dz, dctx, dws, dbs = _bwd_fma(z, weights, pre, g)
     launches["ar_stack_bwd"] += 1
-    return g, dctx, dws, dbs
+    return dz, dctx, dws, dbs
 
 
 class _ARStack(torch.autograd.Function):

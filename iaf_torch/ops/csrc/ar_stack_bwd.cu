@@ -14,35 +14,51 @@
 //   wgrad  dW[t][ci][co] = sum over N*H*W of X[y+dy-1, x+dx-1, ci] G[y,x,co]
 //          and db[co] = sum G[., co].
 //
-// The forward is causal in rows (output row y reads rows y-1, y), so its
-// transpose is anti-causal: input row y reads output-gradient rows y and
-// y+1 with the tap offsets mirrored. dgrad gives each block one image row
-// and stages those two gradient rows (zero past the last row and at the
-// column halo) in shared memory, then runs the forward FMA path's scheme
-// with the roles of cin and cout swapped: one thread per input channel and
-// PX neighbouring pixels, gradients broadcast from shared memory, weights
-// (packed [5][cout][cin]) coalesced across input channels.
+// Bound on the H100 per call at batch 32, paper widths (cz=32, ch=160,
+// cout=64): 2 x 3.36 GFLOP over the live taps (dgrad and wgrad), 6.7 us at
+// the bf16 tensor-core rate (989 TFLOP/s), against ~20 MB of compulsory
+// traffic (~6 us at 3.35 TB/s): bound by operations, just.
 //
-// wgrad is a reduction over N*H*W pixels (8192 at batch 32). Blocks run in
-// no order, so it is made deterministic: each block owns a chunk of image
-// rows and a 32 x 32 (ci x co) tile of all 5 taps, keeps its sums in
-// registers (a warp's lanes are 32 output channels, each holding 4 input
-// channels x 5 taps), writes them as a partial, and a second kernel adds
-// the partials in chunk order. The same launch gives the same bits.
+// Design, bf16 (ar_stack.py _bwd_wgmma): both products run on K2's
+// tensor-core kernels (masked_conv.cuh, masked_conv_bwd.cu), which take
+// any list of live taps: the 3x3 raster mask is 5 of them.
+// * dgrad is conv_wgmma_kernel<N, bf16> on G in bf16 over the mirrored
+//   taps, the weights transposed per tap and packed for every conv in one
+//   launch (ar_pack_wt_kernel, from the weights' own strides: the model
+//   hands K1 permuted views). dX comes out in bf16, where the twin's
+//   autograd rounds it (the bf16 conv's input gradient).
+// * The glue between convs is one pass per hidden conv here,
+//   ar_glue_kernel: from dX (bf16) and a_{c-1} (f32) it writes the next G
+//   = f32(dX) * ELU'(a) in bf16 NHWC (the next dgrad's input), in wgrad's
+//   packed B order (the next wgrad's operand), in f32 where dcontext needs
+//   it (c = 1), the per-block sums of G for db, and X_c = T(ELU(a_{c-1})),
+//   this conv's wgrad input, bit for bit what the forward fed it (elu() is
+//   the forward's own, common.cuh). The head's G (f32, from K3's and K4's
+//   backward) goes through the same kernel without the ELU: cast, pack
+//   and db sums in one launch.
+// * wgrad is conv_wgrad_wgmma_kernel (a GEMM over the pixels, A gathered
+//   from X's staged rows, B the packed G) writing per-chunk f32 partials.
+// * ar_wreduce_kernel sums the partials in chunk order into dW (zeros at
+//   the 4 dead taps) and the glue's per-block db sums in block order into
+//   db (a warp per channel, lanes over blocks, then a fixed shuffle tree).
+// No atomics anywhere, so the same inputs give the same bits. 13
+// launches per call of 3 convs: the weight pack, the head pass, then per
+// conv dgrad, glue (hidden convs), wgrad and reduce.
 //
-// Bound on the H100 per IAF step at batch 32, paper widths (cz=32,
-// ch=160, cout=64): 2 x 3.36 GFLOP over the live taps (dgrad and wgrad) at
-// the f32 FMA rate (67 TFLOP/s) is ~0.1 ms, or ~7 us at the bf16
-// tensor-core rate, against ~26 MB of compulsory traffic (~8 us). This
-// first version computes both on the CUDA cores in f32 (bf16 operands are
-// widened on load), so its floor is the FMA rate; tensor cores are the
-// next step.
+// f32 and the shapes those kernels do not tile stay on FP32 FMA, on the
+// CUDA cores (bf16 operands widened on load):
+// * ar_dgrad_kernel gives each block one image row and stages the two
+//   gradient rows it reads (the transpose of a row-causal conv is
+//   anti-causal: rows y and y+1, taps mirrored), one thread per input
+//   channel and PX pixels, weights packed [5][cout][cin], with ELU'
+//   fused into its output;
+// * ar_wgrad_kernel: each block owns a chunk of image rows and a 32 x 32
+//   (ci x co) tile of all 5 taps in registers (db folded in), written as
+//   a partial; the same ar_wreduce_kernel sums them in chunk order.
 //
 // Types: T = float or __nv_bfloat16 for z, the weights and dz/dW; the
-// gradients between convs, the pre-activations and db are f32.
+// pre-activations, db and the FMA path's gradients between convs are f32.
 
-// elu() is the forward's own (common.cuh), so the recomputed conv input is
-// bit for bit the one the forward fed to the next conv.
 #include "common.cuh"
 
 #define NTAPS 5
@@ -206,28 +222,160 @@ __global__ void __launch_bounds__(WG_THREADS)
     base[(size_t)NTAPS * a.cin * a.cout + co] = bacc;
 }
 
-// Sums the partials in chunk order into dW ([3,3,cin,cout] T: the live
-// taps are its first 5 (dy, dx) positions in raster order, the dead 4 get
-// zeros) and db ([cout] f32).
+#define RD_THREADS 256
+
+// Sums the weight partials (chunks x [NTAPS*cin*cout], ``pstride`` apart)
+// in chunk order into dW ([3,3,cin,cout] T: the live taps are its first 5
+// (dy, dx) positions in raster order, the dead 4 get zeros), and the bias
+// partials (dbchunks x [cout], ``dbstride`` apart) into db ([cout] f32).
+// The first ``dw_blocks`` blocks cover dW, one output a thread (coalesced;
+// the chunk loop unrolled, so 4 loads are in flight a thread, and enough
+// blocks to spread over the SMs: 180 at 32->160); the rest give each db
+// channel one warp: lane l sums partials l, l + 32, ... in order (8 loads
+// in flight), then a fixed shuffle tree adds the lanes.
 template <typename T>
-__global__ void ar_wreduce_kernel(const float* part, T* dw, float* db,
-                                  int chunks, int cin, int cout) {
+__global__ void __launch_bounds__(RD_THREADS)
+    ar_wreduce_kernel(const float* __restrict__ part, size_t pstride,
+                      int chunks, const float* __restrict__ dbpart,
+                      size_t dbstride, int dbchunks, T* __restrict__ dw,
+                      float* __restrict__ db, int cin, int cout,
+                      int dw_blocks) {
   const size_t live = (size_t)NTAPS * cin * cout;
   const size_t full = (size_t)9 * cin * cout;
-  const size_t M = live + cout;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= full + cout) return;
-  if (i >= live && i < full) {
-    dw[i] = from_f<T>(0.f);
+  if ((int)blockIdx.x < dw_blocks) {
+    const size_t i = (size_t)blockIdx.x * RD_THREADS + threadIdx.x;
+    float s = 0.f;
+    if (i < live) {
+      const float* p = part + i;
+#pragma unroll 4
+      for (int k = 0; k < chunks; ++k) s += p[k * pstride];
+    }
+    if (i < full) dw[i] = from_f<T>(s);
     return;
   }
-  const size_t j = i < live ? i : live + (i - full);
+  const int co = (blockIdx.x - dw_blocks) * (RD_THREADS / 32) +
+                 (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (co >= cout) return;
   float s = 0.f;
-  for (int k = 0; k < chunks; ++k) s += part[(size_t)k * M + j];
-  if (i < live)
-    dw[i] = from_f<T>(s);
-  else
-    db[i - full] = s;
+#pragma unroll 8
+  for (int k = lane; k < dbchunks; k += 32) s += dbpart[k * dbstride + co];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_down_sync(0xffffffffu, s, off);
+  if (lane == 0) db[co] = s;
+}
+
+#define GL_THREADS 512   // glue: threads per block, at most
+
+struct GlueArgs {
+  const void* src;     // [P][C] the head's G (f32) or dgrad's dX (bf16)
+  const float* pre;    // [P][C] f32 pre-activation a (hidden), or null
+  __nv_bfloat16* gb;   // [P][C] bf16 G: the next dgrad's input
+  __nv_bfloat16* gp;   // G packed: [P/16][npad/8][2][8][8] bf16
+  float* g32;          // [P][C] f32 G (dcontext), or null
+  __nv_bfloat16* x;    // [P][C] bf16 ELU(a): this conv's wgrad input
+  float* dbpart;       // [gridDim.x][C] f32 sums of G per block
+  int P, C, npad, groups_per_block;
+};
+
+// One thread per channel (threadIdx.x < npad; those past C write the
+// packed G's zero columns) and group of 8 consecutive pixels (threadIdx.y
+// strides over the block's groups; the wrapper gives each thread one). Group q is pixels 8q .. 8q + 7: half
+// q & 1 of k-step q / 2 of the packed G, whose 8 k values for one column
+// are one 16-byte store (wgmma_pack's layout: element [s][j][h][n][k] =
+// G[16 s + 8 h + k][8 j + n]). G (and the block's db sum) follows the
+// twin's autograd: f32(dX) times ELU'(a) in f32, rounded to bf16 where
+// the next products read it.
+template <typename Tin, bool kHidden>
+__global__ void __launch_bounds__(GL_THREADS) ar_glue_kernel(GlueArgs a) {
+  __shared__ float red[GL_THREADS];
+  const int co = threadIdx.x, C = a.C;
+  const bool live = co < C;
+  const int j = co >> 3, n = co & 7;
+  const int q0 = blockIdx.x * a.groups_per_block;
+  const int q1 = min(q0 + a.groups_per_block, a.P / 8);
+  const Tin* __restrict__ src = static_cast<const Tin*>(a.src);
+  float db = 0.f;
+  for (int q = q0 + threadIdx.y; q < q1; q += blockDim.y) {
+    uint32_t packed[4] = {0u, 0u, 0u, 0u};   // the 8 k values, bf16
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      __nv_bfloat16 vb = __float2bfloat16(0.f);
+      if (live) {
+        const size_t idx = ((size_t)q * 8 + k) * C + co;
+        float v = to_f(src[idx]);
+        if constexpr (kHidden) {
+          const float p = a.pre[idx];
+          v = p > 0.f ? v : v * expf(p);
+          a.x[idx] = __float2bfloat16(elu(p));
+        }
+        vb = __float2bfloat16(v);
+        a.gb[idx] = vb;
+        if (a.g32 != nullptr) a.g32[idx] = v;
+        db += v;
+      }
+      packed[k >> 1] |= (uint32_t)__bfloat16_as_ushort(vb) << (16 * (k & 1));
+    }
+    const int s = q >> 1, h = q & 1;
+    *reinterpret_cast<uint4*>(
+        a.gp + ((((size_t)s * (a.npad / 8) + j) * 2 + h) * 8 + n) * 8) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  }
+  red[threadIdx.y * blockDim.x + co] = db;
+  __syncthreads();
+  if (threadIdx.y == 0 && live) {
+    float s = 0.f;
+    for (int y = 0; y < (int)blockDim.y; ++y) s += red[y * blockDim.x + co];
+    a.dbpart[(size_t)blockIdx.x * C + co] = s;
+  }
+}
+
+#define MAX_PACK 32        // convs per pack launch (ar_stack.cu MAX_CONVS)
+#define PK_THREADS 256
+
+struct PackArgs {
+  const __nv_bfloat16* w[MAX_PACK];  // [3][3][cin][cout], any strides
+  long long st[MAX_PACK][4];         // its strides in elements
+  uint4* out[MAX_PACK];    // [5][cout/16][npad/8][2][8][8] bf16
+  int cin[MAX_PACK], cout[MAX_PACK], npad[MAX_PACK];
+  int start[MAX_PACK + 1];           // each conv's first item
+  int n;
+};
+
+// dgrad's weights of every conv in one launch: conv c's 5 live taps
+// ((dy, dx) = (t / 3, t % 3), the first 5 in raster order) transposed per
+// tap in wgmma_pack order with K = cout and N = cin padded to npad
+// (element [t][s][j][h][n][k] = W[t][8 j + n][16 s + 8 h + k], zero for
+// 8 j + n >= cin). One item is one (t, s, j, h, n): 8 loads of the
+// strided weights (the model's are permuted views), one 16-byte store.
+__global__ void __launch_bounds__(PK_THREADS) ar_pack_wt_kernel(PackArgs a) {
+  const int i = blockIdx.x * PK_THREADS + threadIdx.x;
+  if (i >= a.start[a.n]) return;
+  int c = 0;
+  while (i >= a.start[c + 1]) ++c;
+  const int item = i - a.start[c];
+  const int cin = a.cin[c], cout = a.cout[c], jn = a.npad[c] / 8;
+  int r = item;
+  const int n = r & 7;
+  r >>= 3;
+  const int h = r & 1;
+  r >>= 1;
+  const int j = r % jn;
+  r /= jn;
+  const int s = r % (cout / 16), t = r / (cout / 16);
+  const int ci = 8 * j + n;
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+  if (ci < cin) {
+    const long long* st = a.st[c];
+    const __nv_bfloat16* src = a.w[c] + (t / 3) * st[0] + (t % 3) * st[1] +
+                               ci * st[2] + (16 * s + 8 * h) * st[3];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k >> 1] |= (uint32_t)__bfloat16_as_ushort(src[k * st[3]])
+                   << (16 * (k & 1));
+  }
+  a.out[c][item] = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
 template <typename T>
@@ -305,21 +453,98 @@ int ar_stack_wgrad(const void* x, const void* pre, const void* g, void* part,
               : launch_wgrad<float>(a, s);
 }
 
-// The partials' sum, in chunk order, into dW (all 9 taps) and db.
-int ar_stack_wreduce(const void* part, void* dw, void* db, int chunks,
-                     int cin, int cout, int bf16, void* stream) {
-  const size_t total = (size_t)9 * cin * cout + cout;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+// The sum of the weight partials (chunks x [5*cin*cout] f32, ``pstride``
+// apart) in chunk order into dW (all 9 taps, T) and of the bias partials
+// (dbchunks x [cout] f32, ``dbstride`` apart) in order into db (f32).
+int ar_stack_wreduce(const void* part, long long pstride, int chunks,
+                     const void* dbpart, long long dbstride, int dbchunks,
+                     void* dw, void* db, int cin, int cout, int bf16,
+                     void* stream) {
+  if (chunks < 1 || dbchunks < 1) return (int)cudaErrorInvalidValue;
+  const size_t full = (size_t)9 * cin * cout;
+  const int dw_blocks = (int)((full + RD_THREADS - 1) / RD_THREADS);
+  const int db_blocks = (cout + RD_THREADS / 32 - 1) / (RD_THREADS / 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(part);
+  const float* dp = static_cast<const float*>(dbpart);
   float* b = static_cast<float*>(db);
   if (bf16)
-    ar_wreduce_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        p, static_cast<__nv_bfloat16*>(dw), b, chunks, cin, cout);
+    ar_wreduce_kernel<__nv_bfloat16><<<dw_blocks + db_blocks, RD_THREADS, 0,
+                                       s>>>(
+        p, (size_t)pstride, chunks, dp, (size_t)dbstride, dbchunks,
+        static_cast<__nv_bfloat16*>(dw), b, cin, cout, dw_blocks);
   else
-    ar_wreduce_kernel<float><<<blocks, threads, 0, s>>>(
-        p, static_cast<float*>(dw), b, chunks, cin, cout);
+    ar_wreduce_kernel<float><<<dw_blocks + db_blocks, RD_THREADS, 0, s>>>(
+        p, (size_t)pstride, chunks, dp, (size_t)dbstride, dbchunks,
+        static_cast<float*>(dw), b, cin, cout, dw_blocks);
+  return (int)cudaGetLastError();
+}
+
+// dgrad's packed weights of ``n`` convs in one launch (bf16): ``w`` and
+// ``out`` host arrays of device pointers (``out`` 16-byte aligned),
+// ``dims`` n triples (cin, cout, npad) with cout % 16 == 0, npad % 8 == 0
+// and cin <= npad, ``strides`` n quadruples (each weight's [3][3][cin]
+// [cout] strides in elements).
+int ar_stack_pack_wt(void* const* w, void* const* out, const int* dims,
+                     const long long* strides, int n, void* stream) {
+  if (n < 1 || n > MAX_PACK) return (int)cudaErrorInvalidValue;
+  PackArgs a;
+  a.n = n;
+  a.start[0] = 0;
+  for (int c = 0; c < n; ++c) {
+    const int cin = dims[3 * c], cout = dims[3 * c + 1],
+              npad = dims[3 * c + 2];
+    if (cout % 16 || npad % 8 || cin > npad ||
+        reinterpret_cast<uintptr_t>(out[c]) % 16)
+      return (int)cudaErrorInvalidValue;
+    a.w[c] = static_cast<const __nv_bfloat16*>(w[c]);
+    for (int d = 0; d < 4; ++d) a.st[c][d] = strides[4 * c + d];
+    a.out[c] = static_cast<uint4*>(out[c]);
+    a.cin[c] = cin;
+    a.cout[c] = cout;
+    a.npad[c] = npad;
+    a.start[c + 1] = a.start[c] + 5 * (cout / 8) * npad;
+  }
+  const int blocks = (a.start[n] + PK_THREADS - 1) / PK_THREADS;
+  ar_pack_wt_kernel<<<blocks, PK_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The glue pass over P pixels of C channels (P % 16 == 0, C <= npad <=
+// 256, npad % 8 == 0, gp 16-byte aligned): with ``pre`` (hidden conv) src
+// is dgrad's bf16 dX, G = f32(dX) * ELU'(pre) and x = bf16(ELU(pre)) is
+// written; without it src is the head's f32 G and x is not written. Writes
+// gb, gp, g32 (if not null) and one row of db sums per block, blocks of
+// ``groups_per_block`` groups of 8 pixels: ceil(P / 8 / groups_per_block)
+// rows.
+int ar_stack_glue(const void* src, const void* pre, void* gb, void* gp,
+                  void* g32, void* x, void* dbpart, int P, int C, int npad,
+                  int groups_per_block, void* stream) {
+  if (P % 16 || C < 1 || C > npad || npad % 8 || npad > 256 ||
+      groups_per_block < 1 || (pre == nullptr) != (x == nullptr) ||
+      reinterpret_cast<uintptr_t>(gp) % 16)
+    return (int)cudaErrorInvalidValue;
+  GlueArgs a;
+  a.src = src;
+  a.pre = static_cast<const float*>(pre);
+  a.gb = static_cast<__nv_bfloat16*>(gb);
+  a.gp = static_cast<__nv_bfloat16*>(gp);
+  a.g32 = static_cast<float*>(g32);
+  a.x = static_cast<__nv_bfloat16*>(x);
+  a.dbpart = static_cast<float*>(dbpart);
+  a.P = P;
+  a.C = C;
+  a.npad = npad;
+  a.groups_per_block = groups_per_block;
+  const dim3 block(npad, GL_THREADS / npad);
+  const int groups = P / 8;
+  const int blocks = (groups + groups_per_block - 1) / groups_per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pre != nullptr)
+    ar_glue_kernel<__nv_bfloat16, true><<<blocks, block, 0, s>>>(a);
+  else
+    ar_glue_kernel<float, false><<<blocks, block, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -322,7 +322,11 @@ def test_ar_stack_bwd_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
                                                   depth_ar):
     """dz, dcontext, db and dW at the live taps against autograd of the
     twin (the dead taps are zero), at 1e-4 (f32) / 2e-2 (bf16) of each
-    output's max."""
+    output's max. At the paper widths in bf16 every conv's dgrad and
+    wgrad take the tensor cores, and f32 and the small shape FMA; two
+    calls on the same inputs give the same bits on either route."""
+    import importlib
+    k1 = importlib.import_module("iaf_torch.ops.ar_stack")
     z, c, ws, bs, masks = _k1_inputs(zs, hs, n, hw, depth_ar)
     g = torch.randn(n, hw, hw, 2 * zs, generator=torch.Generator()
                     .manual_seed(0)).to(cuda)
@@ -345,6 +349,68 @@ def test_ar_stack_bwd_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
             a, b = a.float() * live, b.float() * live
         err = float((a.float() - b.float()).abs().max())
         assert err <= tol * float(b.float().abs().max()), (i, err)
+    paper = zs == 32 and hs == 160 and dtype == torch.bfloat16
+    route = "wgmma" if paper else "fma"
+    assert k1.bwd_route(zt, wt) == ((route, route),) * len(ws)
+    with torch.no_grad():
+        pre = k1._fwd(zt, ct, wt, bt, save_pre=True)[1]
+    first = ops.ar_stack_bwd(zt.detach(), [w.detach() for w in wt], pre, g)
+    second = ops.ar_stack_bwd(zt.detach(), [w.detach() for w in wt], pre, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first[:2] + tuple(first[2] + first[3]),
+                    second[:2] + tuple(second[2] + second[3])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,hidden", [((8, 16, 16, 64), False),
+                                          ((8, 16, 16, 160), True),
+                                          ((2, 8, 16, 20), True)])
+def test_ar_glue_kernel_matches_twin_on_card(cuda, shape, hidden):
+    """K1 backward's glue kernel against its twin: G in f32 at 1e-6 of
+    max, G in bf16 (NHWC and packed, zero columns past C) and bf16(ELU)
+    within one bf16 rounding (ELU give or take 4e-7: the forward's fast
+    exponential), the per-block db sums added in order at 1e-5 of max."""
+    import importlib
+    k1 = importlib.import_module("iaf_torch.ops.ar_stack")
+    rs = np.random.RandomState(5)
+    src = _t(rs.randn(*shape).astype(np.float32)).to(cuda)
+    pre = _t((2 * rs.randn(*shape)).astype(np.float32)).to(cuda)
+    if hidden:
+        src = src.bfloat16()
+    gb, gp, g32, x, dbp = k1.glue(src, pre if hidden else None, True)
+    rb, rp, r32, rx, rdb = k1.glue_ref(src, pre if hidden else None)
+    npad = ops.masked_conv.wgmma_width(shape[-1])
+    assert dbp.shape == (k1.glue_blocks(src.numel() // shape[-1], npad)[1],
+                         shape[-1])
+    torch.testing.assert_close(g32, r32, rtol=0.0,
+                               atol=1e-6 * float(r32.abs().max()))
+    pairs = [(gb, rb, 0.0), (gp, rp, 0.0)] + ([(x, rx, 4e-7)] if hidden
+                                              else [])
+    for a, b, slack in pairs:
+        d = (a.float() - b.float()).abs()
+        assert bool((d <= 2 ** -7 * b.float().abs() + slack).all())
+    torch.testing.assert_close(dbp.sum(0), rdb, rtol=0.0,
+                               atol=1e-5 * float(rdb.abs().max()))
+
+
+@pytest.mark.cuda
+def test_ar_dgrad_pack_kernel_equals_twin_on_card(cuda):
+    """K1 backward's weight pack, all convs in one launch, bitwise equal
+    to its twin at the paper widths and at one that pads N, on contiguous
+    HWIO weights and on the model's permuted OIHW views."""
+    import importlib
+    k1 = importlib.import_module("iaf_torch.ops.ar_stack")
+    rs = np.random.RandomState(6)
+    for shapes in (((32, 160), (160, 160), (160, 64)), ((16, 32), (32, 48))):
+        ws = [_t(rs.randn(3, 3, ci, co).astype(np.float32)).to(
+            cuda, torch.bfloat16) for ci, co in shapes]
+        views = [w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+                 for w in ws]
+        assert not views[0].is_contiguous()
+        for group in (ws, views):
+            for a, b in zip(k1.pack_dgrad(group), k1.pack_dgrad_ref(ws)):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
