@@ -2,6 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (``iaf_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab DIR [CASE]   # one kernel of DIR's tree
+                                            # against this one's, A B B A
+                                            # (``ab``; CASE in AB_CASES)
 
 Phases, any failure exits non-zero:
 
@@ -19,7 +22,14 @@ Phases, any failure exits non-zero:
    captured from the first launches of one real eval chunk (16 images x 64
    samples); each kernel is held to its twin on them (K1 in bf16 and in f32
    with TF32 off) and timed beside its twin, K1 also beside three cuDNN
-   convs (its yardstick), and each bound is computed from the shapes.
+   convs (its yardstick), and each bound is computed from the shapes. K1
+   in bf16 must take the tensor-core kernel (``fwd_route``) and give the
+   same bits on two calls, and its weight pack kernel must equal the
+   pack's twin bitwise (offsets too) on the model's weights and on
+   contiguous copies; its device time per call is listed by kernel
+   (weight pack, main kernel), at N = 1024 and at the training shape
+   (the chunk's first 32 images with the pre-activations written, heads
+   and pre-activations held to the twin's at 2e-2 of max).
    One chunk is then profiled (device time by kernel name).
 4. Port vs plain on a small input: one f32 eval forward on the card
    (kernels) against the same forward on the CPU (twins), same noise.
@@ -30,7 +40,8 @@ Phases, any failure exits non-zero:
 6. Backward kernels against their twins on the card: the inputs and
    upstream gradients of K1's, K3's and K4's backward are captured from the
    first launches of one real training step (paper config, bf16, batch
-   32); each backward is held to autograd of its twin (K1 bf16 at 2e-2 of
+   32; K1's forward there must take the tensor-core kernel); each
+   backward is held to autograd of its twin (K1 bf16 at 2e-2 of
    each output's max and f32 with TF32 off at 1e-4, K3 at 1e-6 (1 + |ref|),
    K4 at 1e-5) and K5 to its twin bitwise on that step's parameters and
    gradients; each is timed beside its twin and its bound, K1's backward
@@ -52,8 +63,9 @@ Phases, any failure exits non-zero:
    K5 = 1. Every step's loss must be finite; the steady seconds per step
    (median of steps 3-10) and examples/s are printed, and one more step is
    profiled (device time by kernel name, device-busy share).
-9. K1 at five convs (depth_ar=4, paper widths, 64 images) against its
-   twin, bf16 at 2e-2 and f32 (TF32 off) at 1e-4 of the output's max.
+9. K1 at the deepest chain it holds at the paper widths (16 convs on the
+   tensor cores in bf16, 7 on the FMA kernel in f32; 64 images) against
+   its twin, bf16 at 2e-2 and f32 (TF32 off) at 1e-4 of the output's max.
 10. The 5x5 config (the paper config with ``kernel_size=5``: every AR net
    runs conv by conv through K2, three masked 5x5 convs per IAF step) at
    full width and depth: init; K2's inputs captured from one real eval
@@ -73,9 +85,9 @@ Phases, any failure exits non-zero:
    exactly K2 = K2-backward = 60, K3 = K3-backward = 20, K4 =
    K4-backward = K5 = 1, K1 = K1-backward = 0 per step, and one step
    profiled.
-11. A 3x3 AR net with depth_ar=10 (11 convs) at the paper widths, deeper
-   than K1's shared memory holds in bf16 and f32, through
-   ``ARMultiConv2d`` on 64 images: launches exactly K1 = 0 and K2 = 11
+11. A 3x3 AR net one conv deeper than K1 holds at the paper widths in
+   bf16 (depth_ar=16, 17 convs; f32 holds fewer), through
+   ``ARMultiConv2d`` on 64 images: launches exactly K1 = 0 and K2 = 17
    per forward, and the heads match K1's twin at 2e-2 (bf16) and 1e-5
    (f32, TF32 off) of the output's max.
 
@@ -254,14 +266,72 @@ def k1_yardstick(z, ctx, ws, bs):
     return h
 
 
+def _by_kernel(label: str, call) -> int:
+    """Print the device time per call of each kernel ``call`` launches;
+    return its device launches per call."""
+    found = sorted(device_kernels(call, 10, 2), key=lambda d: -d[1])
+    for key, k_ms, k in found:
+        print(f"[{label}] by kernel, per call: {k_ms:.4f} ms x{k} {key[:80]}")
+    return sum(k for _, _, k in found)
+
+
+def _k1_training_shape(ops, ar_mod, z, ctx, ws, bs, batch=32) -> dict:
+    """K1's forward at the training shape: the first ``batch`` images of
+    the captured chunk with the pre-activations written (what autograd
+    asks for). Heads and pre-activations against the twin's at 2e-2 of
+    each one's max, two calls bitwise equal; device time by kernel, by
+    events, the bound (bytes: pre-activations included) and cuDNN's three
+    convs. Returns the numbers for the kernels line."""
+    import torch
+    zb, cb = z[:batch].contiguous(), ctx[:batch].contiguous()
+    with torch.inference_mode():
+        out, pre = ar_mod._fwd(zb, cb, ws, bs, save_pre=True)
+        again = ar_mod._fwd(zb, cb, ws, bs, save_pre=True)
+        check(all(torch.equal(a, b) for a, b in zip([out, *pre],
+                                                     [again[0], *again[1]])),
+              f"K1 at batch {batch}: two calls differ")
+        rout, rpre = ops.ar_stack_ref_pre(zb, cb, ws, bs)
+        worst = max(_rel_err(a, b)[1] for a, b in zip([out, *pre],
+                                                      [rout, *rpre]))
+        check(worst <= 2e-2, f"K1 at batch {batch}: heads or pre-activations "
+              f"{worst:.3e} of max > 2e-2")
+        call = lambda: ar_mod._fwd(zb, cb, ws, bs, True)  # noqa: E731
+        per_call = _by_kernel(f"K1 b{batch}", call)
+        ms = cuda_ms(call)
+        dev = device_ms(call)
+        lib_dev = device_ms(lambda: k1_yardstick(zb, cb, ws, bs))
+    n, hh, ww, _ = zb.shape
+    flops = 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
+    moved = (nbytes(zb, cb, out, *pre, *bs)
+             + sum(5 * w[0, 0].numel() * w.element_size() for w in ws))
+    b_ms, b_by = bound_ms(flops, "bfloat16", moved)
+    print(f"[K1 b{batch}] z{tuple(zb.shape)} with pre-activations: heads and "
+          f"pre-activations {worst:.3e} of max from the twin's, two calls "
+          f"bitwise equal; by events {ms:.4f} ms, by device time {dev:.4f} "
+          f"ms ({per_call} device launches a call), cuDNN {lib_dev:.4f}, "
+          f"ratio {dev / lib_dev:.3f}; bound {b_ms:.4f} ms ({b_by}, "
+          f"{moved / 1e6:.1f} MB)")
+    return {"ms_b32": ms, "device_ms_b32": dev, "library_device_ms_b32":
+            lib_dev, "bound_ms_b32": b_ms, "bound_by_b32": b_by,
+            "max_rel_err_b32": worst}
+
+
 def kernel_phase(ops, cap, device) -> list[dict]:
     import torch
     rows = []
 
     # K1: the AR chain of the first IAF step of the chunk (bf16 inputs)
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
     z, ctx, ws, bs, masks = cap["ar_stack"]
+    n, hh, ww, cz = z.shape
+    route = ar_mod.fwd_route(z.dtype, ww, cz, ws[0].shape[-1],
+                             ws[-1].shape[-1])
+    check(route == "wgmma", f"K1 bf16 z{tuple(z.shape)} takes the {route} "
+          "kernel, not the tensor-core one")
     with torch.inference_mode():
         got = ops.ar_stack(z, ctx, ws, bs, masks)
+        check(torch.equal(got, ops.ar_stack(z, ctx, ws, bs, masks)),
+              "K1: two bf16 calls differ")
         ref = ops.ar_stack_ref(z, ctx, ws, bs)
         err_bf16 = float((got - ref).abs().max())
         rel_bf16 = err_bf16 / float(ref.abs().max())
@@ -271,27 +341,42 @@ def kernel_phase(ops, cap, device) -> list[dict]:
         err_f32 = float((got32 - ref32).abs().max())
         scale32 = max(1.0, float(ref32.abs().max()))
         print(f"[K1] ar_stack z{tuple(z.shape)} ctx{tuple(ctx.shape)} -> "
-              f"{tuple(got.shape)}: bf16 max abs err {err_bf16:.3e} "
-              f"(rel {rel_bf16:.3e}); f32 max abs err {err_f32:.3e}")
+              f"{tuple(got.shape)} ({route}): bf16 max abs err "
+              f"{err_bf16:.3e} (rel {rel_bf16:.3e}), two calls bitwise "
+              f"equal; f32 max abs err {err_f32:.3e}")
         check(rel_bf16 <= 2e-2, f"K1 bf16 rel err {rel_bf16} > 2e-2")
         check(err_f32 <= 1e-4 * scale32, f"K1 f32 err {err_f32} > 1e-4")
-        ms = cuda_ms(lambda: ops.ar_stack(z, ctx, ws, bs, masks))
-        dev_ms = device_ms(lambda: ops.ar_stack(z, ctx, ws, bs, masks))
+        want, offsets = ar_mod.pack_fwd_ref(ws)
+        for group in (ws, [w.contiguous() for w in ws]):
+            packed, got_offsets = ar_mod.pack_fwd(group)
+            check(got_offsets == offsets and torch.equal(packed, want),
+                  "K1: the forward weight pack kernel differs from its twin")
+        print(f"[K1] forward weight pack kernel, all convs (the model's "
+              f"weights, contiguous: {ws[0].is_contiguous()}, and contiguous "
+              f"copies): bitwise equal to its twin, offsets {offsets}")
+        call = lambda: ops.ar_stack(z, ctx, ws, bs, masks)  # noqa: E731
+        by_kernel = _by_kernel("K1", call)
+        ms = cuda_ms(call)
+        dev_ms = device_ms(call)
         plain = cuda_ms(lambda: ops.ar_stack_ref(z, ctx, ws, bs))
         lib = cuda_ms(lambda: k1_yardstick(z, ctx, ws, bs))
         lib_dev = device_ms(lambda: k1_yardstick(z, ctx, ws, bs))
         ms32 = cuda_ms(lambda: ops.ar_stack(z32, ctx, ws32, bs, masks))
-    n, hh, ww, _ = z.shape
     flops = 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
-    moved = nbytes(z, ctx, got, *bs) + sum(5 * w[0, 0].numel() *
-                                           w.element_size() for w in ws)
+    live_w = sum(5 * w[0, 0].numel() * w.element_size() for w in ws)
+    moved = nbytes(z, ctx, got, *bs) + live_w
     b_ms, b_by = bound_ms(flops, "bfloat16", moved)
+    print(f"[K1] N={n}: by events {ms:.4f} ms, by device time {dev_ms:.4f} "
+          f"ms ({by_kernel} device launches a call), cuDNN {lib_dev:.4f}, "
+          f"ratio {dev_ms / lib_dev:.3f}; bound {b_ms:.4f} ms ({b_by})")
+    train = _k1_training_shape(ops, ar_mod, z, ctx, ws, bs)
     rows.append(dict(
         name="ar_stack", route="cuda", source="iaf_torch/ops/csrc/ar_stack.cu",
         replaces="iaf_tpu/ops/ar_stack.py:115", max_abs_err=err_bf16,
         max_abs_err_f32=err_f32, ms=ms, ms_f32=ms32, plain_ms=plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib, device_ms=dev_ms,
-        library_device_ms=lib_dev, gflop=flops / 1e9, mbytes=moved / 1e6))
+        library_device_ms=lib_dev, gflop=flops / 1e9, mbytes=moved / 1e6,
+        kernel_route=route, device_launches_per_call=by_kernel, **train))
 
     # K3: the division update of the same IAF step
     a = cap["iaf_update"]
@@ -605,6 +690,11 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
           f"{routes}")
     check(routes == (("wgmma", "wgmma"),) * len(bws),
           f"K1 bwd bf16 takes {routes}, not the tensor cores on every conv")
+    fwd = ar_mod.fwd_route(z.dtype, z.shape[2], z.shape[3], ws[0].shape[-1],
+                           ws[-1].shape[-1])
+    print(f"[K1] the step's forward, z{tuple(z.shape)}: the {fwd} kernel")
+    check(fwd == "wgmma", f"K1 bf16 at the training shape takes the {fwd} "
+          "kernel, not the tensor-core one")
     got = ops.ar_stack_bwd(bz, bws, pre, g)
     again = ops.ar_stack_bwd(bz, bws, pre, g)
     flat = [got[0], got[1], *got[2], *got[3]]
@@ -629,10 +719,7 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
                             ops.ar_stack_bwd_ref(z32, ctx, ws32, bs, g),
                             1e-4, "f32")
     call = lambda: ops.ar_stack_bwd(bz, bws, pre, g)  # noqa: E731
-    by_kernel = sorted(device_kernels(call, 10, 2), key=lambda d: -d[1])
-    for key, k_ms, k in by_kernel:
-        print(f"[K1 bwd] by kernel, per call: {k_ms:.4f} ms x{k} {key[:80]}")
-    per_call = sum(k for _, _, k in by_kernel)
+    per_call = _by_kernel("K1 bwd", call)
     ms = cuda_ms(call)
     dev_ms = device_ms(call)
     feeds = ar_mod._dgrad_wgmma(bz, bws, pre, g)[2]
@@ -975,14 +1062,12 @@ def eval_phase(ops, device, cfg, model, ds, per_chunk: dict):
         "k": EVAL_K, "eval_batch_size": EVAL_BATCH, "batches": EVAL_BATCHES}
 
 
-def k1_depth_phase(ops, device, depth_ar: int = 4, n: int = 64) -> None:
-    """K1 with depth_ar + 1 convs at the paper widths on random inputs
-    from a seed, against its twin: bf16 at 2e-2 and f32 (TF32 off) at
-    1e-4 of the output's max."""
+def _paper_chain(depth_ar: int, gen):
+    """Random folded weights, biases and masks of a 3x3 AR chain of
+    depth_ar + 1 convs at the paper widths (z=32, h=160, merged heads)."""
     import numpy as np
     import torch
     from iaf_torch.nn.masks import get_conv_ar_mask
-    gen = torch.Generator().manual_seed(9)
     zs, hs = 32, 160
     ws, bs, masks, prev = [], [], [], zs
     for i in range(depth_ar + 1):
@@ -997,9 +1082,26 @@ def k1_depth_phase(ops, device, depth_ar: int = 4, n: int = 64) -> None:
         bs.append(0.1 * torch.randn(cout, generator=gen))
         masks.append(m)
         prev = hs
-    z = torch.randn(n, 16, 16, zs, generator=gen)
-    ctx = torch.randn(n, 16, 16, hs, generator=gen)
+    return ws, bs, masks
+
+
+def _most_convs(ops, dtype) -> int:
+    """The deepest chain K1 holds at the paper widths in ``dtype``."""
+    return max(k for k in range(2, 33)
+               if ops.ar_stack_fits(k, 16, 32, 160, 64, dtype))
+
+
+def k1_depth_phase(ops, device, n: int = 64) -> None:
+    """K1 with the deepest chain it holds at the paper widths (bf16: the
+    tensor-core kernel; f32: the FMA kernel, TF32 off) on random inputs
+    from a seed, against its twin: bf16 at 2e-2 and f32 at 1e-4 of the
+    output's max."""
+    import torch
+    gen = torch.Generator().manual_seed(9)
+    z = torch.randn(n, 16, 16, 32, generator=gen)
+    ctx = torch.randn(n, 16, 16, 160, generator=gen)
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        ws, bs, masks = _paper_chain(_most_convs(ops, dtype) - 1, gen)
         args = (z.to(device, dtype), ctx.to(device),
                 [w.to(device, dtype) for w in ws], [b.to(device) for b in bs])
         with torch.inference_mode():
@@ -1007,20 +1109,23 @@ def k1_depth_phase(ops, device, depth_ar: int = 4, n: int = 64) -> None:
             ref = ops.ar_stack_ref(*args)
         err, rel = _rel_err(got, ref)
         print(f"[K1 depth] ar_stack with {len(ws)} convs (depth_ar="
-              f"{depth_ar}), {str(dtype)[6:]}, z{tuple(z.shape)}: max abs err "
-              f"{err:.3e} ({rel:.3e} of max, limit {tol})")
+              f"{len(ws) - 1}, the most it holds), {str(dtype)[6:]}, "
+              f"z{tuple(z.shape)}: max abs err {err:.3e} ({rel:.3e} of max, "
+              f"limit {tol})")
         check(rel <= tol, f"K1 at {len(ws)} convs {dtype}: {rel} > {tol}")
 
 
-def deep_chain_phase(ops, device, depth_ar: int = 10, n: int = 64) -> dict:
-    """A kernel_size=3 AR net with depth_ar + 1 convs at the paper widths,
-    deeper than K1's shared memory holds, through ``ARMultiConv2d`` on
-    random weights from a seed: it must run conv by conv through K2
-    (exactly K1 = 0, K2 = depth_ar + 1 launches per forward) and match
-    K1's twin on the same folded weights, bf16 at 2e-2 and f32 (TF32 off)
-    at 1e-5 of the output's max. Returns the launches of one forward."""
+def deep_chain_phase(ops, device, n: int = 64) -> dict:
+    """A kernel_size=3 AR net at the paper widths one conv deeper than K1
+    holds in bf16 (and so in f32), through ``ARMultiConv2d`` on random
+    weights from a seed: it must run conv by conv through K2 (exactly
+    K1 = 0, K2 = one launch per conv per forward) and match K1's twin on
+    the same folded weights, bf16 at 2e-2 and f32 (TF32 off) at 1e-5 of
+    the output's max. Returns the launches of one forward."""
     import torch
     from iaf_torch.nn.layers import ARMultiConv2d
+    n_convs = min(_most_convs(ops, torch.bfloat16) + 1, 32)
+    depth_ar = n_convs - 1
     gen = torch.Generator().manual_seed(12)
     zs, hs = 32, 160
     mod = ARMultiConv2d(zs, [hs] * depth_ar, [zs, zs], (3, 3), device=device)
@@ -1045,7 +1150,7 @@ def deep_chain_phase(ops, device, depth_ar: int = 10, n: int = 64) -> dict:
             counts = ops.launch_counts()
             ref = ops.ar_stack_ref(z.to(dtype), ctx, ws, bs)
             ms = cuda_ms(lambda: mod(z, ctx, dtype), 5, 1)
-        want = _expect(counts, {"masked_conv2d": depth_ar + 1}, 1)
+        want = _expect(counts, {"masked_conv2d": n_convs}, 1)
         err, rel = _rel_err(got, ref)
         print(f"[deep] 3x3 AR net, depth_ar={depth_ar} ({len(ws)} convs), "
               f"{str(dtype)[6:]}, z{tuple(z.shape)}: through K2, launches "
@@ -1451,8 +1556,96 @@ def run() -> dict:
                                    "count": torch.cuda.device_count()}}
 
 
+def _ab_k1_fwd(ops, k1) -> dict:
+    """A/B case ``k1_fwd``: K1's forward at the eval shape (N = 1024) and
+    at batch 32 with the pre-activations written, paper widths, inputs
+    from a seed."""
+    import torch
+    gen = torch.Generator().manual_seed(5)
+    ws, bs, _ = _paper_chain(2, gen)
+    ws = [w.cuda().bfloat16() for w in ws]
+    bs = [b.cuda() for b in bs]
+    out = {}
+    for label, n, pre in (("eval", 1024, False), ("b32", 32, True)):
+        z = torch.randn(n, 16, 16, 32, generator=gen).cuda().bfloat16()
+        c = torch.randn(n, 16, 16, 160, generator=gen).cuda()
+        with torch.inference_mode():
+            err = _rel_err(k1._fwd(z, c, ws, bs, pre)[0],
+                           ops.ar_stack_ref(z, c, ws, bs))[1]
+            out[label] = (lambda z=z, c=c, pre=pre:  # noqa: E731
+                          k1._fwd(z, c, ws, bs, pre), err)
+    return out
+
+
+# The A/B cases: each takes (ops, the K1 module) of the tree under test
+# and returns {label: (a call of the kernel's wrapper, its relative error
+# against the twin)}; ``ab`` times every call by device time and events.
+AB_CASES = {"k1_fwd": _ab_k1_fwd}
+
+# One process per tree for ``ab``: the iaf_torch beside argv[1], timed
+# with this script's helpers (argv[2]) on case argv[3].
+_AB_CHILD = r"""
+import importlib, importlib.util, json, os, sys
+root, here, case = sys.argv[1:4]
+sys.path.insert(0, root)
+spec = importlib.util.spec_from_file_location("smoke", here)
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from iaf_torch import ops
+k1 = importlib.import_module("iaf_torch.ops.ar_stack")
+assert os.path.dirname(k1.__file__).startswith(os.path.abspath(root)), \
+    k1.__file__
+out = {}
+for label, (call, err) in cs.AB_CASES[case](ops, k1).items():
+    kernels = cs.device_kernels(call)
+    out[label] = {"rel_err": err, "ms": cs.cuda_ms(call),
+                  "device_ms": sum(k[1] for k in kernels),
+                  "by_kernel": [[k[0][:60], k[1], k[2]] for k in kernels]}
+print(json.dumps({"tree": root, "case": case, **out}))
+"""
+
+
+def ab(other: str, case: str = "k1_fwd") -> list[dict]:
+    """The A/B case ``case`` (``AB_CASES``) run on the tree ``other`` (A)
+    and on this one (B) in the order A B B A, each run a process of its
+    own on the same card, by device time and by events, each call held
+    to its twin at 2e-2 of max. Returns each run's numbers."""
+    check(case in AB_CASES, f"no A/B case {case!r}; cases: "
+          f"{sorted(AB_CASES)}")
+    runs = []
+    for root in (other, HERE, HERE, other):
+        proc = subprocess.run(
+            [sys.executable, "-c", _AB_CHILD, os.path.abspath(root),
+             os.path.abspath(__file__), case], capture_output=True,
+            text=True, timeout=900)
+        check(proc.returncode == 0, f"A/B run of {root} failed:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        labels = [k for k in r if k not in ("tree", "case")]
+        print(f"[A/B {case}] {root}: " + "; ".join(
+            f"{k} device {r[k]['device_ms']:.4f} ms, events {r[k]['ms']:.4f} "
+            f"ms, err {r[k]['rel_err']:.2e} of max" for k in labels))
+        for k in labels:
+            for name, ms, cnt in r[k]["by_kernel"]:
+                print(f"[A/B {case}]   {k} by kernel: {ms:.4f} ms x{cnt} "
+                      f"{name}")
+        check(all(r[k]["rel_err"] <= 2e-2 for k in labels),
+              f"A/B run of {root} disagrees with the twin")
+        runs.append(r)
+    return runs
+
+
 def main() -> int:
+    """No arguments: the smoke run above. ``--ab DIR [CASE]``: only ``ab``
+    of CASE (default ``k1_fwd``) against the tree unpacked at DIR (for
+    example ``git archive`` of the parent commit under build/)."""
     try:
+        if len(sys.argv) in (3, 4) and sys.argv[1] == "--ab":
+            import torch
+            if not torch.cuda.is_available():
+                raise SmokeFailure("torch.cuda.is_available() is false")
+            print(json.dumps({"ab": ab(*sys.argv[2:])}))
+            return 0
         result = run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

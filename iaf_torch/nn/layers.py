@@ -308,7 +308,7 @@ class ARMultiConv2d(nn.Module):
                 dtype: torch.dtype | None = None) -> list[torch.Tensor]:
         """The whole chain through K1 (``ops.ar_stack``: the CUDA kernel on
         CUDA tensors, its twin on CPU tensors) where it applies (3x3,
-        uniform hidden widths, and on CUDA rings that fit one block:
+        uniform hidden widths, and on CUDA a chain that fits one block:
         ``k1_fits``), else conv by conv through K2."""
         if not self.fusable:
             return self.forward_unfused(x, context, dtype)
@@ -321,8 +321,9 @@ class ARMultiConv2d(nn.Module):
     @staticmethod
     def k1_fits(z: torch.Tensor, ws) -> bool:
         """Whether K1 takes this chain: always on CPU tensors (its twin
-        runs any depth); on CUDA where its rings fit one block's shared
-        memory (``ops.ar_stack_fits``, decided before any launch)."""
+        runs any depth); on CUDA where its kernel holds the chain in one
+        block's shared memory (``ops.ar_stack_fits``, decided before any
+        launch)."""
         if z.device.type != "cuda":
             return True
         _, _, w, cz = z.shape

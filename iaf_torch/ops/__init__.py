@@ -5,7 +5,8 @@ tests) only. There is no switch between the two. Under autograd the
 forward kernels are ``torch.autograd.Function``s whose backward is a
 kernel too.
 
-- K1 ``ar_stack`` (CUDA C++, ``csrc/ar_stack.cu``), twin ``ar_stack_ref``;
+- K1 ``ar_stack`` (CUDA C++, ``csrc/ar_stack.cu``), twin ``ar_stack_ref``
+  (``ar_stack_ref_pre`` with the hidden pre-activations);
   backward ``ar_stack_bwd`` (``csrc/ar_stack_bwd.cu``), twin
   ``ar_stack_bwd_ref``
 - K2 ``masked_conv2d`` (CUDA C++, ``csrc/masked_conv.cu``), twin
@@ -29,6 +30,7 @@ from iaf_torch.ops.ar_stack import (  # noqa: F401
     ar_stack_bwd_ref,
     ar_stack_fits,
     ar_stack_ref,
+    ar_stack_ref_pre,
 )
 from iaf_torch.ops.fused import (  # noqa: F401
     disc_logistic_bwd,

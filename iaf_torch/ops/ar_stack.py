@@ -2,7 +2,8 @@
 and its backward (``csrc/ar_stack_bwd.cu``).
 
 Replaces ``iaf_tpu/ops/ar_stack.py:_stack_kernel`` and its ``_bwd``.
-``ar_stack`` launches the CUDA kernel for CUDA tensors and runs
+``ar_stack`` launches a CUDA kernel for CUDA tensors (the tensor-core
+kernel or the FMA one, as ``fwd_route`` decides from the shapes) and runs
 ``ar_stack_ref``, its plain PyTorch twin (the counterpart of
 ``ar_stack_xla``), for CPU tensors only. Under autograd on CUDA it is a
 ``torch.autograd.Function``: the forward kernel also writes the hidden
@@ -32,7 +33,8 @@ MIRRORED_TAPS = tuple((2 - dy, 2 - dx) for dy, dx in LIVE_TAPS)
 _MAX_CONVS = 32             # the kernel arguments' pointer arrays (MAX_CONVS)
 _PX = 8                     # output pixels per thread item (ar_stack.cu PX)
 _SMEM_LIMIT = 232_448       # dynamic shared memory a Hopper block may use
-_MMA_WARPS = 10             # tensor-core path's block size cap (launch bounds)
+_WGMMA_W = 16               # ar_stack.cu TW: the width the wgmma kernel tiles
+_KC = 32                    # masked_conv.cuh KC: K depth of one weight slice
 
 _WGRAD_CHUNKS = 64          # FMA wgrad partials: pixel-row chunks per conv
 _GLUE_THREADS = 512         # ar_stack_bwd.cu GL_THREADS: glue block size
@@ -49,22 +51,32 @@ def conv_nhwc(x: torch.Tensor, w_hwio: torch.Tensor, padding) -> torch.Tensor:
     return out.float().permute(0, 2, 3, 1)
 
 
-def ar_stack_ref(z: torch.Tensor, context: torch.Tensor,
-                 weights: Sequence[torch.Tensor],
-                 biases: Sequence[torch.Tensor]) -> torch.Tensor:
+def ar_stack_ref_pre(z: torch.Tensor, context: torch.Tensor,
+                     weights: Sequence[torch.Tensor],
+                     biases: Sequence[torch.Tensor]):
     """The chain in plain ops on the row-trimmed weights: each 3x3 AR conv
     keeps kernel rows {0, 1} with padding ((1, 0), (1, 1)), exactly the
     SAME conv. Conv inputs run in the weights' dtype (bf16 convs round
-    their output, as XLA's do); bias, context add and ELU are f32."""
+    their output, as XLA's do); bias, context add and ELU are f32. Returns
+    (the heads, [each hidden conv's f32 pre-activation])."""
     h = z
     n = len(weights)
+    pre = []
     for i, (w, b) in enumerate(zip(weights, biases)):
         h = conv_nhwc(h.to(w.dtype), w[:2], ((1, 0), (1, 1))) + b
         if i == 0:
             h = h + context
         if i < n - 1:
+            pre.append(h)
             h = F.elu(h)
-    return h
+    return h, pre
+
+
+def ar_stack_ref(z: torch.Tensor, context: torch.Tensor,
+                 weights: Sequence[torch.Tensor],
+                 biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The twin (``ar_stack_ref_pre``'s heads)."""
+    return ar_stack_ref_pre(z, context, weights, biases)[0]
 
 
 def ar_stack_bwd_ref(z, context, weights, biases, g):
@@ -93,27 +105,72 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
     return _live_taps(w).contiguous()
 
 
-def tap_fragments(t: torch.Tensor) -> torch.Tensor:
-    """[taps, cin, cout] -> mma.sync B-fragment order, [taps, cout/8,
-    cin/16, 8 (g), 4 (tig), 2 (k half), 2]: lane g*4+tig of the warp holds
-    output n-tile*8+g and inputs k-step*16 + half*8 + tig*2 + {0, 1}
-    (the tensor-core paths of K1 and K2). One copy."""
-    taps, cin, cout = t.shape
-    t = t.transpose(1, 2).reshape(taps, cout // 8, 8, cin // 16, 2, 4, 2)
-    return t.permute(0, 1, 3, 2, 5, 4, 6).contiguous()
+def fwd_route(dtype: torch.dtype, w: int, cz: int, ch: int, cout: int) -> str:
+    """The kernel K1's forward launches for CUDA inputs: ``"wgmma"``
+    (``ar_stack_wgmma_kernel``, tensor cores) for bf16 at the width its
+    tiles cover (W = 16: a row a warp) with cz and ch in whole 16-deep
+    steps and cout in whole 8-wide groups, each at most the widest wgmma N
+    (``masked_conv.WGMMA_WIDTHS``); else ``"fma"`` (``ar_stack_kernel``).
+    Every shape it takes holds a two-conv chain with two weight stages;
+    how deep a chain fits is ``ar_stack_fits``'s. Needs no built library."""
+    from iaf_torch.ops.masked_conv import WGMMA_WIDTHS
+    if (dtype == torch.bfloat16 and w == _WGMMA_W and cz % 16 == 0
+            and ch % 16 == 0 and cout % 8 == 0
+            and max(cz, ch, cout) <= WGMMA_WIDTHS[-1]):
+        return "wgmma"
+    return "fma"
 
 
-def pack_fragments(w: torch.Tensor) -> torch.Tensor:
-    """[3, 3, cin, cout] -> the live taps in B-fragment order (K1's
-    tensor-core path)."""
-    return tap_fragments(_live_taps(w))
+def _pack_dims(weights: Sequence[torch.Tensor]):
+    """Per conv (cin, cout, npad) of the forward's packed weights and the
+    element offset where each starts in the buffer that holds them all:
+    5 live taps x K x npad, K = cin padded to whole 32-deep slices."""
+    from iaf_torch.ops.masked_conv import wgmma_width
+    dims, offsets, at = [], [], 0
+    for w in weights:
+        cin, cout = int(w.shape[2]), int(w.shape[3])
+        npad = wgmma_width(cout)
+        dims.append((cin, cout, npad))
+        offsets.append(at)
+        at += 5 * -(-cin // _KC) * _KC * npad
+    return dims, offsets, at
 
 
-def mma_path(dtype: torch.dtype, w: int, cz: int, ch: int, cout: int) -> bool:
-    """Whether K1 runs on the tensor cores: bf16, rows of whole 16-pixel
-    tiles, channel counts in whole 16-deep steps and 8-wide tiles."""
-    return (dtype == torch.bfloat16 and w % 16 == 0 and cz % 16 == 0
-            and ch % 16 == 0 and cout % 8 == 0)
+def pack_fwd_ref(weights: Sequence[torch.Tensor]):
+    """The tensor-core forward's weights in plain ops: every conv's live
+    taps, their input channels zero-padded to whole 32-deep slices, in
+    ``masked_conv.wgmma_pack`` order ([5, K/16, npad/8, 2, 8, 8] with K the
+    padded cin and N = cout, npad = ``wgmma_width(cout)``, zero columns
+    past cout), conv after conv in one flat bf16 buffer. Returns (the
+    buffer, each conv's element offset in it)."""
+    from iaf_torch.ops import masked_conv as mc
+    _, offsets, _ = _pack_dims(weights)
+    flat = torch.cat([mc.wgmma_pack(
+        F.pad(_live_taps(w), (0, 0, 0, -w.shape[2] % _KC)),
+        mc.wgmma_width(w.shape[3])).reshape(-1) for w in weights])
+    return flat, offsets
+
+
+def pack_fwd(weights: Sequence[torch.Tensor]):
+    """``pack_fwd_ref`` for every conv in one launch of
+    ``ar_pack_w_kernel`` (bf16 CUDA weights of any strides)."""
+    w0 = weights[0]
+    if w0.device.type != "cuda":
+        raise RuntimeError(f"ar_stack pack: no kernel for device "
+                           f"{w0.device}")
+    if any(w.dtype != torch.bfloat16 for w in weights):
+        raise ValueError("ar_stack pack: weights must be bf16")
+    dims, offsets, total = _pack_dims(weights)
+    flat = torch.empty((total,), device=w0.device, dtype=torch.bfloat16)
+    strides = [s for w in weights for s in w.stride()]
+    with torch.cuda.device(w0.device):
+        err = _lib().ar_stack_pack_w(
+            _ptrs(weights), flat.data_ptr(),
+            (ctypes.c_int * (3 * len(dims)))(*[v for d in dims for v in d]),
+            (ctypes.c_longlong * len(strides))(*strides), len(weights),
+            torch.cuda.current_stream(w0.device).cuda_stream)
+    _raise_on(err, "ar_stack pack")
+    return flat, offsets
 
 
 def _check(z, context, weights, biases, masks):
@@ -163,9 +220,13 @@ def _lib():
     lib = _build.load("ar_stack")
     if not getattr(lib, "_iaf_typed", False):
         lib.ar_stack_fwd.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-        lib.ar_stack_fwd.restype = ctypes.c_int
-        lib.ar_stack_smem_bytes.argtypes = [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+            + [ctypes.c_size_t, ctypes.c_void_p])
+        lib.ar_stack_pack_w.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+        for fn in (lib.ar_stack_fwd, lib.ar_stack_pack_w):
+            fn.restype = ctypes.c_int
+        lib.ar_stack_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.ar_stack_smem_bytes.restype = ctypes.c_size_t
         lib._iaf_typed = True
     return lib
@@ -207,41 +268,45 @@ def ar_stack_fits(n_convs: int, w: int, cz: int, ch: int, cout: int,
                   dtype: torch.dtype, smem_bytes=None) -> bool:
     """Whether K1's kernel takes a chain of ``n_convs`` convs at width
     ``w``, input channels ``cz``, hidden ``ch`` and head ``cout`` in
-    ``dtype``: its rings fit one Hopper block's shared memory. The byte
-    count is the kernel's own (``ar_stack_smem_bytes``, or ``smem_bytes``
-    with the same arguments); nothing is launched. ``ar_stack`` raises on
-    a chain that does not fit, and ``ARMultiConv2d`` sends it conv by conv
+    ``dtype``: the shared memory that the kernel ``fwd_route`` names needs
+    for it (the tensor-core kernel's buffers, halo rows and two weight
+    stages; the FMA kernel's rings) fits one Hopper block. The byte count
+    is the kernel's own (``ar_stack_smem_bytes``, or ``smem_bytes`` with
+    the same arguments); nothing is launched. ``ar_stack`` raises on a
+    chain that does not fit, and ``ARMultiConv2d`` sends it conv by conv
     through K2 instead."""
     if smem_bytes is None:
         smem_bytes = _lib().ar_stack_smem_bytes
-    mma = mma_path(dtype, w, cz, ch, cout)
-    return smem_bytes(n_convs, w, cz, ch, int(dtype == torch.bfloat16),
-                      int(mma)) <= _SMEM_LIMIT
+    wgmma = fwd_route(dtype, w, cz, ch, cout) == "wgmma"
+    return smem_bytes(n_convs, w, cz, ch, cout, int(dtype == torch.bfloat16),
+                      int(wgmma)) <= _SMEM_LIMIT
 
 
 def _check_smem(lib, n_convs, w_, cz, ch, cout, dtype) -> None:
-    """Raise when the chain's rings do not fit one block's shared memory,
+    """Raise when the chain does not fit one block's shared memory,
     naming the most convs that fit at these widths."""
     if ar_stack_fits(n_convs, w_, cz, ch, cout, dtype,
                      lib.ar_stack_smem_bytes):
         return
     bf16 = int(dtype == torch.bfloat16)
-    mma = int(mma_path(dtype, w_, cz, ch, cout))
-    smem = lib.ar_stack_smem_bytes(n_convs, w_, cz, ch, bf16, mma)
-    fit = max([k for k in range(2, n_convs)
-               if lib.ar_stack_smem_bytes(k, w_, cz, ch, bf16, mma)
-               <= _SMEM_LIMIT], default=0)
-    path = "tensor-core" if mma else ("bf16" if bf16 else "f32") + " FMA"
+    wgmma = int(fwd_route(dtype, w_, cz, ch, cout) == "wgmma")
+
+    def need(k):
+        return lib.ar_stack_smem_bytes(k, w_, cz, ch, cout, bf16, wgmma)
+    fit = max([k for k in range(2, n_convs) if need(k) <= _SMEM_LIMIT],
+              default=0)
+    path = "tensor-core" if wgmma else ("bf16" if bf16 else "f32") + " FMA"
     raise ValueError(
-        f"ar_stack: {n_convs} convs (depth_ar={n_convs - 1}) need {smem} B "
-        f"of shared memory per block; a Hopper block has {_SMEM_LIMIT}. At "
-        f"W={w_}, cz={cz}, ch={ch} the {path} path holds at most {fit} "
-        f"convs (depth_ar <= {fit - 1})")
+        f"ar_stack: {n_convs} convs (depth_ar={n_convs - 1}) need "
+        f"{need(n_convs)} B of shared memory per block; a Hopper block has "
+        f"{_SMEM_LIMIT}. At W={w_}, cz={cz}, ch={ch} the {path} path holds "
+        f"at most {fit} convs (depth_ar <= {fit - 1})")
 
 
 def _fwd(z, context, weights, biases, save_pre: bool):
-    """Launch the forward kernel; with ``save_pre`` also return the hidden
-    convs' f32 pre-activations for the backward."""
+    """Launch the forward kernel that ``fwd_route`` names; with
+    ``save_pre`` also return the hidden convs' f32 pre-activations for the
+    backward."""
     tensors = [z, context, *weights, *biases]
     if any(t.device != z.device for t in tensors):
         raise RuntimeError("ar_stack: inputs on different devices")
@@ -250,27 +315,34 @@ def _fwd(z, context, weights, biases, save_pre: bool):
                          "contiguous")
     n, h, w_, cz = z.shape
     ch, cout = weights[0].shape[-1], weights[-1].shape[-1]
-    mma = mma_path(z.dtype, w_, cz, ch, cout)
-    packed = [pack_fragments(w) if mma else pack_weights(w) for w in weights]
     n_convs = len(weights)
     bf16 = int(z.dtype == torch.bfloat16)
     lib = _lib()
     _check_smem(lib, n_convs, w_, cz, ch, cout, z.dtype)
-    if mma:   # a warp per pair of 8-wide output tiles, at most 10 warps
-        threads = 32 * min(_MMA_WARPS, -(-max(ch, cout) // 16))
-    else:     # one thread per output channel and PX-pixel group
-        threads = 32 * -(-(max(ch, cout) * -(-w_ // _PX)) // 32)
-    threads = min(1024, threads)
+    wgmma = fwd_route(z.dtype, w_, cz, ch, cout) == "wgmma"
+    if wgmma:
+        if z.data_ptr() % 16:
+            raise ValueError("ar_stack: the tensor-core kernel needs z "
+                             "16-byte aligned")
+        flat, offsets = pack_fwd(weights)
+        w_ptrs = (ctypes.c_void_p * n_convs)(
+            *[flat.data_ptr() + 2 * o for o in offsets])
+        threads = 0      # the kernel's own: two warpgroups and a producer
+    else:
+        packed = [pack_weights(w) for w in weights]
+        w_ptrs = _ptrs(packed)
+        # one thread per output channel and PX-pixel group
+        threads = min(1024, 32 * -(-(max(ch, cout) * -(-w_ // _PX)) // 32))
     out = torch.empty((n, h, w_, cout), device=z.device, dtype=torch.float32)
     pre = [torch.empty((n, h, w_, ch), device=z.device, dtype=torch.float32)
            for _ in range(n_convs - 1)] if save_pre else []
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.ar_stack_fwd(z.data_ptr(), context.data_ptr(),
-                               _ptrs(packed), _ptrs(biases), out.data_ptr(),
+        err = lib.ar_stack_fwd(z.data_ptr(), context.data_ptr(), w_ptrs,
+                               _ptrs(biases), out.data_ptr(),
                                _ptrs(pre) if pre else None, n_convs, n, h,
-                               w_, cz, ch, cout, bf16, int(mma), threads,
-                               stream)
+                               w_, cz, ch, cout, bf16, int(wgmma), threads,
+                               _SMEM_LIMIT, stream)
     _raise_on(err, "ar_stack")
     launches["ar_stack"] += 1
     return out, pre

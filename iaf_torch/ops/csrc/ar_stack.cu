@@ -1,64 +1,103 @@
 // K1: the whole masked AR conv net of one IAF step, fused, for Hopper.
 //
-// Replaces iaf_tpu/ops/ar_stack.py:_stack_kernel (pallas_call at :219,
-// entry ar_stack_fused :268). Computes, per image, the chain
+// Replaces iaf_tpu/ops/ar_stack.py:_stack_kernel (:115, pallas_call at
+// :219, entry ar_stack_fused :268). Computes, per image, the chain
 //   h1 = ELU(conv(z, W0) + b0 + ctx)        z: cz -> ch, zero-diagonal centre
 //   h_i = ELU(conv(h_{i-1}, W_i) + b_i)     ch -> ch   (depth_ar - 1 times)
 //   out = conv(h_last, W_out) + b_out       ch -> cout (merged m|s heads)
-// with 3x3 stride-1 SAME convs whose weights arrive folded (V/|V|*g*mask)
-// and packed per live tap: a 3x3 raster AR mask leaves only the taps
-// (0,0) (0,1) (0,2) (1,0) (1,1) nonzero, so each conv is a sum over those
-// five taps and the four dead ones are never computed.
+// with 3x3 stride-1 SAME convs whose weights arrive folded (V/|V|*g*mask):
+// a 3x3 raster AR mask leaves only the taps (0,0) (0,1) (0,2) (1,0) (1,1)
+// nonzero, so each conv is a sum over those five taps and the four dead
+// ones are never computed. Each conv's input is rounded to T where it
+// enters the product (as the Pallas kernel rounds at each matmul input);
+// accumulation, bias, context add and ELU are f32. Under autograd the
+// hidden convs' f32 pre-activations are written too (K1's backward reads
+// them).
 //
-// Design. The TPU kernel kept 4 images and a [4,18,18,160] f32 scratch in
-// 16 MB of VMEM. A Hopper block has 227 KB of shared memory, where one
-// padded 160-wide f32 image (207 KB) fits only once. But the mask makes
-// every conv causal in rows: output row y reads input rows y-1 and y only.
-// So a block walks its image's rows top to bottom as a wavefront and keeps,
-// for the input of every conv, a ring of just two padded rows in shared
-// memory; every intermediate stays on chip and only z, ctx and the heads
-// touch device memory. The context add, bias and ELU are fused into each
-// conv's epilogue, which writes the row into the next ring (rounded to T
-// there, as the Pallas kernel rounds at each matmul input) or, for the head
-// conv, to device memory. Two paths share this structure:
+// The mask makes every conv causal in rows: output row y reads input rows
+// y-1 and y only. The TPU kernel kept 4 whole images and a [4,18,18,160]
+// f32 scratch in 16 MB of VMEM; a Hopper block has 227 KB. Two kernels:
 //
-// * bf16 with whole 16-pixel rows and 16-deep channel steps (the paper
-//   config): ar_stack_mma_kernel, tensor cores through mma.sync m16n8k16
-//   (bf16 in, f32 accumulate). MMA_IMAGES = 2 images per block share every
-//   weight fragment, which halves the weight traffic through L2.
-// * anything else, and f32 (whose tolerance TF32 would break):
-//   ar_stack_kernel, FP32 FMA on the CUDA cores, one thread per output
-//   channel of PX neighbouring pixels, activations broadcast from shared
-//   memory, weights coalesced across output channels from L1/L2.
+// * ar_stack_wgmma_kernel, bf16 at W = 16 (the paper config), on the
+//   tensor cores. Persistent blocks, one per SM, each walking whole images
+//   over the SMs; an image is walked as tiles of 8 rows (128 pixels: two
+//   half-image tiles at H = 16), top to bottom. A block is two consumer
+//   warpgroups (warp r computes row r of the tile, 16 pixels, so each
+//   warpgroup is one m64 of wgmma) and one producer warp.
+//   - Activations stay on chip. z's rows (the tile's 8 and the one above)
+//     are staged with 16-byte cp.async, the next tile's while the hidden
+//     convs run. Each hidden conv's output goes from the accumulators
+//     (bias from shared memory, ctx for conv 0, f32 pre-activation to
+//     device memory when asked, ELU, rounded to bf16) into the next conv's
+//     input buffer, 8 rows x 18 columns (a zero column each side) x
+//     (ch + CPAD) channels; two buffers alternate along the chain. The row
+//     above a tile is each conv input's halo row, kept aside per conv
+//     (6 KB each at ch = 160): the last row's warp copies it there once
+//     the conv has read it, and writes zeros after an image's last tile.
+//     Per tile and conv one barrier of the consumers; only z, ctx, the
+//     heads and the pre-activations touch device memory.
+//   - Weights and ctx: the producer streams every conv's (tap, 32-deep K
+//     chunk) slices, packed for all convs in one launch (ar_pack_w_kernel)
+//     in masked_conv.cuh's wgmma B order, each conv's input channels
+//     padded with zeros to whole chunks (so no wgmma is conditional, which
+//     ptxas would serialize), through a ring of cp.async.bulk stages with
+//     mbarriers, running ahead across conv and tile bounds. After conv 0's
+//     slices it streams the tile's 8 ctx rows (one row, 16 x ch f32, a
+//     stage): read in the epilogue as plain loads, ctx cost a memory
+//     latency per 8 columns.
+//   - Math: wgmma.mma_async m64nNk16 with A from registers (ldmatrix.x4
+//     from the staged rows, each lane its own pixel's address), B from the
+//     ring, f32 accumulators; N is the conv's width rounded up to an
+//     instantiated one (160 for the hidden convs, 64 for the heads at the
+//     paper widths), its padding columns zero and never stored. N = 256
+//     is compiled into a second instantiation only (NMAX).
+// * ar_stack_kernel, everything else (f32, whose tolerance TF32 would
+//   break, and shapes the tensor-core kernel does not tile): FP32 FMA on
+//   the CUDA cores, one block per image walking its rows as a wavefront
+//   with a ring of two padded rows per conv input in shared memory, one
+//   thread per output channel of PX neighbouring pixels, weights coalesced
+//   across output channels from L1/L2.
 //
-// Bound on the H100 at the eval shape (N=1024 images of 16x16, cz=32,
-// ch=160, cout=64): 107.4 GFLOP over the live taps against ~252 MB of
-// compulsory traffic in bf16 (~270 MB in f32), i.e. ~109 us at the bf16
-// tensor-core peak vs ~75 us of HBM time: bound by operations. The mma.sync
-// path reaches about an eleventh of that bound. Cutting the weight traffic
-// through L2 (tried at up to 8 images per block) or widening the weight
-// loads did not move its time; what did was keeping more warps resident
-// (two blocks per SM). Staging each tap's weights in shared memory, wgmma
-// with asynchronous accumulators, and one barrier per row are the next
-// things to try. The FMA path's floor is 107.4 GFLOP at 67 TFLOP/s, ~1.6 ms.
+// Bound on the H100 (paper widths: cz=32, ch=160, cout=64, 3 convs, bf16):
+// at the eval shape (N = 1024 images of 16x16) 107.4 GFLOP over the live
+// taps, 0.109 ms at 989 TFLOP/s, against ~252 MB of compulsory traffic,
+// 0.075 ms at 3.35 TB/s: bound by operations. At the training shape
+// (batch 32, pre-activations written) 3.4 GFLOP against 18.8 MB (z 0.5,
+// ctx 5.2, heads 2.1, pre-activations 10.5, weights 0.4): 5.6 us, bound
+// by bytes. What the design does: the chain never leaves the SM (the
+// bytes are the compulsory ones), the tensor cores run wgmma, and at batch
+// 32 every image is its own block (32 blocks). What bounds it instead
+// (PERF.md): a tile's critical path, the same at both shapes. Each
+// slice waits for its own wgmma (as K2's forward does), and the three
+// epilogues (a third of the time) run while the tensor cores idle, both
+// warpgroups held by the barrier between convs; the L2 weight stream
+// (410 KB a tile pass, 0.84 GB a launch at N = 1024) costs little beside
+// them, and at batch 32 only 32 of the 132 SMs have work. Tried and worse:
+// 64-deep slices, and overlapping a slice's wgmma with the next slice's
+// ldmatrix (wait_group 1). Untried: warpgroups synchronised by row flags
+// instead of a barrier (warpgroup 0 never waits for warpgroup 1 within a
+// tile), so one's epilogue overlaps the other's products; two blocks of a
+// cluster sharing each weight slice by TMA multicast; independent half-
+// image tiles that recompute a halo growing by one row per conv (64
+// blocks at batch 32).
+// The FMA kernel's floor is 107.4 GFLOP at 67 TFLOP/s, ~1.6 ms.
 //
 // Types: T = float or __nv_bfloat16 for z, weights and the on-chip
 // activations; ctx, biases, accumulation and the output are f32.
 
-#include "common.cuh"
+#include "masked_conv.cuh"
 
 // Convs in one chain: the kernel arguments carry one weight, bias and
 // pre-activation pointer per conv. Shared memory binds first: at the paper
-// widths (W=16, cz=32, ch=160) a block holds 7 convs on the f32 FMA path,
-// 14 on the bf16 one and 10 on the tensor-core path (ar_stack_smem_bytes).
+// widths (W=16, cz=32, ch=160) a block holds 7 convs on the f32 FMA path
+// and 16 on the tensor cores (ar_stack_smem_bytes).
 #define MAX_CONVS 32
 #define NTAPS 5
-#define PX 8  // output pixels per thread item
 
 struct StackArgs {
   const void* z;              // [N,H,W,cz] T
   const float* ctx;           // [N,H,W,ch] f32
-  const void* w[MAX_CONVS];   // [NTAPS, cin_i, cout_i] T
+  const void* w[MAX_CONVS];   // packed weights of conv i, T
   const float* b[MAX_CONVS];  // [cout_i] f32
   float* out;                 // [N,H,W,cout] f32
   // [N,H,W,ch] f32 pre-activation of hidden conv i (before its ELU), or
@@ -75,32 +114,32 @@ __device__ __forceinline__ int conv_cin(const StackArgs& a, int i) {
 __device__ __forceinline__ int conv_cout(const StackArgs& a, int i) {
   return i == a.n_convs - 1 ? a.cout : a.ch;
 }
-// Sum of the input widths of convs 0..i-1, each widened by pad: where conv
-// i's ring starts, in (padded) channels per ring column.
-__host__ __device__ static inline size_t chans_before(int i, int cz, int ch,
-                                                      int pad) {
-  return i == 0 ? 0 : (size_t)(cz + pad) + (size_t)(i - 1) * (ch + pad);
+// Sum of the input widths of convs 0..i-1: where conv i's ring starts, in
+// channels per ring column (FMA path).
+__host__ __device__ static inline size_t chans_before(int i, int cz, int ch) {
+  return i == 0 ? 0 : (size_t)cz + (size_t)(i - 1) * ch;
 }
 
 __host__ __device__ static inline int ring_width(int W) { return W + 2 + PX; }
 
-// Shared memory: for conv i, two padded rows [2][W+2+PX][cin_i] of T.
+// Shared memory of the FMA path: for conv i, two padded rows
+// [2][W+2+PX][cin_i] of T.
 static size_t smem_bytes(int n_convs, int W, int cz, int ch, size_t elem) {
-  return (size_t)2 * ring_width(W) * chans_before(n_convs, cz, ch, 0) * elem;
+  return (size_t)2 * ring_width(W) * chans_before(n_convs, cz, ch) * elem;
 }
 
 template <typename T>
 __global__ void ar_stack_kernel(StackArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(128) unsigned char smem[];
   const int n = blockIdx.x;
   const int H = a.H, W = a.W, RW = ring_width(W);
   // conv i's ring: [2][RW][cin_i] of T, after the rings of convs 0..i-1
   T* const rings = reinterpret_cast<T*>(smem);
   auto ring = [&](int i) {
-    return rings + (size_t)2 * RW * chans_before(i, a.cz, a.ch, 0);
+    return rings + (size_t)2 * RW * chans_before(i, a.cz, a.ch);
   };
   // Zero once: the padding columns and the row above the image stay zero.
-  const size_t off = (size_t)2 * RW * chans_before(a.n_convs, a.cz, a.ch, 0) *
+  const size_t off = (size_t)2 * RW * chans_before(a.n_convs, a.cz, a.ch) *
                      sizeof(T);
   uint32_t* s32 = reinterpret_cast<uint32_t*>(smem);
   for (size_t i = threadIdx.x; i < off / 4; i += blockDim.x) s32[i] = 0u;
@@ -169,178 +208,6 @@ __global__ void ar_stack_kernel(StackArgs a) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// Tensor-core path (bf16): the same row wavefront, but each conv row is a
-// [W pixels x cout] tile computed with mma.sync m16n8k16 (bf16 in, f32
-// accumulate). A fragments (16 pixels x 16 channels of one tap) come from
-// the shared-memory rings, whose channel stride is padded by CPAD so the
-// 8 pixel rows of a fragment fall in distinct banks. B fragments (16
-// channels x 8 outputs) come from weights the wrapper packs in fragment
-// order, [tap][n-tile][k-step][lane][2 x bf16x2], so a warp reads one
-// 256-byte run per fragment with one 8-byte load per lane. One block holds
-// R = MMA_IMAGES images and every B fragment feeds all R of them (1 and 4
-// images per block were measured too: 1 is slower, 4 no faster and it
-// spills registers under the two-blocks-per-SM cap). Each warp owns pairs
-// of 8-wide output tiles; KU k-steps of B fragments are loaded before the
-// first is used.
-// ---------------------------------------------------------------------------
-
-#define CPAD 8
-#define KU 4
-#define MMA_IMAGES 2
-
-// Padded ring row of the tensor-core path: pixel x at column x+1.
-__host__ __device__ static inline int mma_ring_width(int W) { return W + 2; }
-
-// bf16 elements of one image's rings: for conv i, [2][W+2][cin_i + CPAD].
-__host__ __device__ static inline size_t mma_image_elems(int n_convs, int W,
-                                                         int cz, int ch) {
-  return (size_t)2 * mma_ring_width(W) * chans_before(n_convs, cz, ch, CPAD);
-}
-
-static size_t mma_smem_bytes(int n_convs, int W, int cz, int ch) {
-  return mma_image_elems(n_convs, W, cz, ch) * 2 * MMA_IMAGES;
-}
-
-// Two blocks per SM: at 320 threads the registers are capped so that two
-// blocks fit on an SM; what bounds this kernel is how many warps are
-// resident, not how many bytes it moves.
-__global__ void __launch_bounds__(320, 2)
-    ar_stack_mma_kernel(StackArgs a, int n_images) {
-  constexpr int R = MMA_IMAGES;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H = a.H, W = a.W, RW = mma_ring_width(W);
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  // image r's rings follow those of images 0..r-1; within an image, conv
-  // i's ring [2][RW][cin_i + CPAD] follows those of convs 0..i-1
-  const size_t per_image = mma_image_elems(a.n_convs, W, a.cz, a.ch);
-  __nv_bfloat16* const rings = reinterpret_cast<__nv_bfloat16*>(smem);
-  auto ring = [&](int r, int i) {
-    return rings + r * per_image +
-           (size_t)2 * RW * chans_before(i, a.cz, a.ch, CPAD);
-  };
-  const size_t off = per_image * R * 2;
-  uint32_t* s32 = reinterpret_cast<uint32_t*>(smem);
-  for (size_t i = threadIdx.x; i < off / 4; i += blockDim.x) s32[i] = 0u;
-  __syncthreads();
-
-  const int img0 = blockIdx.x * R;
-  const __nv_bfloat16* z = static_cast<const __nv_bfloat16*>(a.z);
-  const int zrow = W * a.cz;
-
-  for (int y = 0; y < H; ++y) {
-    const int s = y & 1, p = s ^ 1;
-    for (int idx = threadIdx.x; idx < R * zrow; idx += blockDim.x) {
-      const int r = idx / zrow, rem = idx - r * zrow;
-      const int x = rem / a.cz, c = rem - x * a.cz;
-      const int img = img0 + r;
-      ring(r, 0)[((size_t)s * RW + x + 1) * (a.cz + CPAD) + c] =
-          img < n_images ? z[((size_t)img * H + y) * zrow + rem]
-                         : __float2bfloat16(0.f);
-    }
-    __syncthreads();
-
-    for (int c = 0; c < a.n_convs; ++c) {
-      const int ci_n = conv_cin(a, c), co_n = conv_cout(a, c);
-      const int ntiles = co_n / 8, ksteps = ci_n / 16, csc = ci_n + CPAD;
-      const uint2* __restrict__ wf = static_cast<const uint2*>(a.w[c]);
-      const float* __restrict__ bias = a.b[c];
-      const bool last = (c == a.n_convs - 1);
-      const __nv_bfloat16* src[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) src[r] = ring(r, c);
-      for (int pair = warp; pair * 2 < ntiles; pair += nwarps) {
-        const bool has1 = pair * 2 + 1 < ntiles;
-        for (int x0 = 0; x0 < W; x0 += 16) {
-          float acc[2][R][4];
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) acc[j][r][q] = 0.f;
-#pragma unroll
-          for (int t = 0; t < NTAPS; ++t) {
-            const int slot = t < 3 ? p : s;
-            const int dx = t < 3 ? t : t - 3;
-            const uint2* w0 =
-                wf + ((size_t)(t * ntiles + pair * 2) * ksteps) * 32 + lane;
-            const uint2* w1 = w0 + (size_t)ksteps * 32;
-            const int abase = (slot * RW + x0 + g + dx) * csc + 2 * tig;
-            for (int kb = 0; kb < ksteps; kb += KU) {
-              uint2 b0[KU], b1[KU];
-#pragma unroll
-              for (int u = 0; u < KU; ++u) {
-                b0[u] = b1[u] = make_uint2(0u, 0u);
-                if (kb + u < ksteps) {
-                  b0[u] = __ldg(w0 + (kb + u) * 32);
-                  if (has1) b1[u] = __ldg(w1 + (kb + u) * 32);
-                }
-              }
-#pragma unroll
-              for (int u = 0; u < KU; ++u) {
-                if (kb + u >= ksteps) break;
-                const int k0 = (kb + u) * 16;
-#pragma unroll
-                for (int r = 0; r < R; ++r) {
-                  const __nv_bfloat16* ab = src[r] + abase + k0;
-                  uint32_t af[4];
-                  af[0] = lds32(ab);
-                  af[1] = lds32(ab + 8 * csc);
-                  af[2] = lds32(ab + 8);
-                  af[3] = lds32(ab + 8 * csc + 8);
-                  mma_16816(acc[0][r], af, b0[u].x, b0[u].y);
-                  if (has1) mma_16816(acc[1][r], af, b1[u].x, b1[u].y);
-                }
-              }
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            if (j == 1 && !has1) break;
-            const int co = (pair * 2 + j) * 8 + 2 * tig;
-            const float bv0 = bias[co], bv1 = bias[co + 1];
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const int img = img0 + r;
-#pragma unroll
-              for (int half = 0; half < 2; ++half) {
-                const int x = x0 + g + half * 8;
-                float v0 = acc[j][r][2 * half] + bv0;
-                float v1 = acc[j][r][2 * half + 1] + bv1;
-                const size_t pix = ((size_t)img * H + y) * W + x;
-                if (c == 0 && img < n_images) {
-                  const float2 cv =
-                      *reinterpret_cast<const float2*>(a.ctx + pix * a.ch + co);
-                  v0 += cv.x;
-                  v1 += cv.y;
-                }
-                if (last) {
-                  if (img < n_images)
-                    *reinterpret_cast<float2*>(a.out + pix * a.cout + co) =
-                        make_float2(v0, v1);
-                } else {
-                  if (a.pre[c] != nullptr && img < n_images)
-                    *reinterpret_cast<float2*>(a.pre[c] + pix * a.ch + co) =
-                        make_float2(v0, v1);
-                  v0 = elu(v0);
-                  v1 = elu(v1);
-                  *reinterpret_cast<__nv_bfloat162*>(
-                      ring(r, c + 1) +
-                      ((size_t)s * RW + x + 1) * (a.ch + CPAD) + co) =
-                      __floats2bfloat162_rn(v0, v1);
-                }
-              }
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 template <typename T>
 static int launch(const StackArgs& a, int n_images, int threads,
                   cudaStream_t stream) {
@@ -354,37 +221,488 @@ static int launch(const StackArgs& a, int n_images, int threads,
   return (int)cudaGetLastError();
 }
 
-static int launch_mma(const StackArgs& a, int n_images, int threads,
-                      cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(a.n_convs, a.W, a.cz, a.ch);
+// ---------------------------------------------------------------------------
+// Tensor-core path (bf16, W = 16): ar_stack_wgmma_kernel. See the note at
+// the top; the staged-row copy, barriers, ldmatrix, descriptors and wgmma
+// are masked_conv.cuh's (K2's forward).
+// ---------------------------------------------------------------------------
+
+#define TR 8         // rows per tile: 8 rows x 16 pixels = 128 = 2 x m64
+#define TW 16        // the only width the kernel tiles: one warp per row
+#define SCOL 18      // staged columns: pixel x at column x + 1
+
+// A conv's K as the kernel runs it: its input channels padded to whole
+// 32-deep slices with zeros (zero weight rows, zero buffer channels), so
+// every slice is two k16 steps and no wgmma is conditional.
+__host__ __device__ static inline int wg_k(int c) {
+  return (c + KC - 1) / KC * KC;
+}
+
+// The wgmma N of a conv with ``c`` outputs: the narrowest instantiated
+// width that holds them (masked_conv.py WGMMA_WIDTHS).
+__host__ __device__ static inline int wg_width(int c) {
+  return c <= 32 ? 32 : c <= 64 ? 64 : c <= 128 ? 128 : c <= 160 ? 160 : 256;
+}
+
+// Shared memory of one block: barriers, z's buffer (the tile's 8 rows and
+// the one above), the hidden buffers (two alternate along the chain, one
+// for a two-conv chain), one halo row per hidden conv input, every conv's
+// bias (f32, conv c's from c * ch on), then the ring of ``slice``-byte
+// stages from ``fixed`` on (a weight slice, or one image row of ctx).
+struct WgLayout {
+  int zbytes, hbytes, halo, nbuf, bias, fixed, slice;
+};
+
+__host__ __device__ static inline WgLayout wg_layout(int n_convs, int cz,
+                                                     int ch, int cout) {
+  WgLayout L;
+  L.zbytes = round128((TR + 1) * SCOL * (wg_k(cz) + CPAD) * 2);
+  L.hbytes = round128(TR * SCOL * (wg_k(ch) + CPAD) * 2);
+  L.halo = SCOL * (wg_k(ch) + CPAD) * 2;
+  L.nbuf = n_convs > 2 ? 2 : 1;
+  L.bias = BAR_BYTES + L.zbytes + L.nbuf * L.hbytes + (n_convs - 1) * L.halo;
+  L.fixed = round128(L.bias + ((n_convs - 1) * ch + cout) * 4);
+  const int np = wg_width(ch) > wg_width(cout) ? wg_width(ch)
+                                                : wg_width(cout);
+  L.slice = KC * np * 2;
+  return L;
+}
+
+// One conv of one tile by one consumer warp, N its wgmma width: the
+// mainloop over the 5 live taps and the 32-deep K chunks of each (``cin``
+// = wg_k of the input channels; A rows: ``above`` and ``here``, shared
+// addresses of the input rows y-1 and y of this warp's output row, column
+// 0; B: the ring), then the epilogue from the
+// accumulators (``bias``: this conv's in shared memory; for conv 0 the
+// tile's 8 ctx rows follow its weight slices through the ring, row r
+// read by warp r). ``img``, ``y``: the image and row this warp computes
+// (rows y >= H are computed and not stored).
+template <int N>
+__device__ __forceinline__ void wg_conv(
+    const StackArgs& a, int c, uint32_t above, uint32_t here, int cin,
+    unsigned char* ring, int slice, uint64_t* full, uint64_t* empty,
+    int stages, int& stage, int& phase, unsigned char* next, int img,
+    int y, const float* bias) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const int cs = cin + CPAD;
+  // ldmatrix.x4: lanes 0-15 give pixel rows 0-15 at k 0-7, lanes 16-31
+  // the same rows at k 8-15
+  const uint32_t lane_off = ((lane & 15) * cs + (lane >> 4) * 8) * 2;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int t = 0; t < NTAPS; ++t) {
+    // taps (0,0) (0,1) (0,2) read row y-1, (1,0) (1,1) row y; pixel x's
+    // tap dx reads column x + dx
+    const uint32_t arow =
+        (t < 3 ? above + t * cs * 2 : here + (t - 3) * cs * 2) + lane_off;
+    for (int k0 = 0; k0 < cin; k0 += KC) {
+      uint32_t af[2][4];
+      ldmatrix_x4(af[0], arow + k0 * 2);
+      ldmatrix_x4(af[1], arow + (k0 + 16) * 2);
+      mbar_wait(&full[stage], phase);
+      __syncwarp();
+      const uint64_t desc = b_desc(smem_u32(ring + stage * slice));
+      wgmma_fence();
+      wgmma_rs<N>(acc, af[0], desc);
+      wgmma_rs<N>(acc, af[1], desc + ((16 * N * 2) >> 4));
+      wgmma_commit();
+      wgmma_wait0();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+
+  // Epilogue: bias (shared memory), then ctx for conv 0 (from the ring:
+  // each warp waits for every ctx row's stage and adds its own row), in
+  // the twin's order, (conv + b) + ctx.
+  const bool inside = y < a.H;
+  const bool last = c == a.n_convs - 1;
+  const int co_n = last ? a.cout : a.ch;
+  const size_t pix = ((size_t)img * a.H + y) * TW + g;   // and pix + 8
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int co = j * 8 + 2 * tig;
+    if (co < co_n) {
+      const float2 bv = *reinterpret_cast<const float2*>(bias + co);
+      acc[4 * j] += bv.x;
+      acc[4 * j + 1] += bv.y;
+      acc[4 * j + 2] += bv.x;
+      acc[4 * j + 3] += bv.y;
+    }
+  }
+  if (c == 0) {
+    const int r = threadIdx.x >> 5;
+    for (int rr = 0; rr < TR; ++rr) {
+      mbar_wait(&full[stage], phase);
+      if (rr == r) {
+        // [16 pixels][ch] f32: pixel g and g + 8 of this row
+        const float* row =
+            reinterpret_cast<const float*>(ring + stage * slice) + g * a.ch;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const int co = j * 8 + 2 * tig;
+          if (co < co_n) {
+            const float2 c0 = *reinterpret_cast<const float2*>(row + co);
+            const float2 c1 =
+                *reinterpret_cast<const float2*>(row + 8 * a.ch + co);
+            acc[4 * j] += c0.x;
+            acc[4 * j + 1] += c0.y;
+            acc[4 * j + 2] += c1.x;
+            acc[4 * j + 3] += c1.y;
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  if (last) {
+    if (!inside) return;
+    float* out = a.out + pix * a.cout;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int co = j * 8 + 2 * tig;
+      if (co < a.cout) {
+        *reinterpret_cast<float2*>(out + co) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(out + 8 * a.cout + co) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+    return;
+  }
+  const int ch = a.ch, ncs = wg_k(ch) + CPAD;
+  float* pre = a.pre[c] != nullptr && inside ? a.pre[c] + pix * ch : nullptr;
+  // this warp's row of the next conv's input, pixel g at column g + 1
+  __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(next) +
+                       ((size_t)(threadIdx.x >> 5) * SCOL + g + 1) * ncs;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int co = j * 8 + 2 * tig;
+    if (co < ch) {
+      if (pre != nullptr) {
+        *reinterpret_cast<float2*>(pre + co) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(pre + 8 * ch + co) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dst + co) =
+          __floats2bfloat162_rn(elu(acc[4 * j]), elu(acc[4 * j + 1]));
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * ncs + co) =
+          __floats2bfloat162_rn(elu(acc[4 * j + 2]), elu(acc[4 * j + 3]));
+    }
+  }
+}
+
+// The weights are packed for all convs back to back (ar_pack_w_kernel),
+// a.w[c] pointing at conv c's [5][wg_k(cin)/16][npad/8][2][8][8] (bf16),
+// so one (tap, 32-deep chunk) slice is contiguous and each k-step in it is
+// one canonical B operand. ``stages`` ring stages of L.slice bytes. NMAX: the
+// widest N instantiated (160, or 256 for chains wider than 160: N = 256
+// needs 128 accumulator registers a thread, and compiled in it makes the
+// kernel spill and the paper widths slower).
+template <int NMAX>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    ar_stack_wgmma_kernel(StackArgs a, int n_images, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + MAX_STAGES;
+  const WgLayout L = wg_layout(a.n_convs, a.cz, a.ch, a.cout);
+  unsigned char* zbuf = smem + BAR_BYTES;
+  unsigned char* hbuf = zbuf + L.zbytes;      // buffer i at i * L.hbytes
+  unsigned char* halos = hbuf + L.nbuf * L.hbytes;
+  unsigned char* ring = smem + L.fixed;
+  const int H = a.H, tiles = (H + TR - 1) / TR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // zero the buffers and halos once: the padding columns stay zero, and
+  // so does every halo until a tile's last row is copied there
+  for (int i = BAR_BYTES / 16 + tid; i < L.bias / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  float* biases = reinterpret_cast<float*>(smem + L.bias);
+  for (int c = 0; c < a.n_convs; ++c)
+    for (int i = tid; i < conv_cout(a, c); i += blockDim.x)
+      biases[c * a.ch + i] = a.b[c][i];
+  __syncthreads();
+
+  if (warp == WG_CONSUMERS / 32) {
+    // producer: one thread streams every conv's slices through the ring
+    if (lane == 0) {
+      int stage = 0, phase = 0;
+      for (int img = blockIdx.x; img < n_images; img += gridDim.x) {
+        for (int tile = 0; tile < tiles; ++tile) {
+          for (int c = 0; c < a.n_convs; ++c) {
+            const int cin = wg_k(c == 0 ? a.cz : a.ch);
+            const int np = wg_width(c == a.n_convs - 1 ? a.cout : a.ch);
+            const __nv_bfloat16* wp =
+                static_cast<const __nv_bfloat16*>(a.w[c]);
+            for (int t = 0; t < NTAPS; ++t) {
+              for (int k0 = 0; k0 < cin; k0 += KC) {
+                const int bytes = KC * np * 2;
+                mbar_wait(&empty[stage], phase ^ 1);
+                mbar_expect_tx(&full[stage], bytes);
+                bulk_g2s(ring + stage * L.slice,
+                         wp + ((size_t)t * cin + k0) * np, bytes,
+                         &full[stage]);
+                if (++stage == stages) {
+                  stage = 0;
+                  phase ^= 1;
+                }
+              }
+            }
+            for (int r = 0; c == 0 && r < TR; ++r) {
+              // the tile's ctx rows (16 x ch f32, within a slice); a row
+              // past the image completes its stage empty
+              const int yy = tile * TR + r;
+              mbar_wait(&empty[stage], phase ^ 1);
+              if (yy < H) {
+                const int bytes = TW * a.ch * 4;
+                mbar_expect_tx(&full[stage], bytes);
+                bulk_g2s(ring + stage * L.slice,
+                         a.ctx + ((size_t)img * H + yy) * TW * a.ch, bytes,
+                         &full[stage]);
+              } else {
+                mbar_arrive(&full[stage]);
+              }
+              if (++stage == stages) {
+                stage = 0;
+                phase ^= 1;
+              }
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warp r computes row r of each tile
+  const int r = warp;
+  const int zcs = wg_k(a.cz) + CPAD, hcs = wg_k(a.ch) + CPAD;
+  const RowCopy copy(tid, WG_CONSUMERS, a.cz, TW);
+  const __nv_bfloat16* __restrict__ z =
+      static_cast<const __nv_bfloat16*>(a.z);
+  // z rows y0-1 .. y0+7 of image img (zeros outside it) into zbuf
+  auto stage_z = [&](int img, int y0) {
+    copy.rows(smem_u32(zbuf), z + (size_t)img * H * TW * a.cz, a.cz, y0 - 1,
+              TR + 1, H, TW, SCOL, zcs, 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  int stage = 0, phase = 0;
+  if (blockIdx.x < n_images) stage_z(blockIdx.x, 0);
+  for (int img = blockIdx.x; img < n_images; img += gridDim.x) {
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int y = tile * TR + r;
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      consumers_sync();   // z has landed; the last tile's halos are kept
+      for (int c = 0; c < a.n_convs; ++c) {
+        uint32_t above, here;
+        int cin;
+        if (c == 0) {
+          cin = wg_k(a.cz);
+          above = smem_u32(zbuf) + r * SCOL * zcs * 2;
+          here = above + SCOL * zcs * 2;
+        } else {
+          cin = wg_k(a.ch);
+          const uint32_t in = smem_u32(hbuf + ((c - 1) & 1) * L.hbytes);
+          here = in + r * SCOL * hcs * 2;
+          above = r == 0 ? smem_u32(halos + (c - 1) * L.halo)
+                         : here - SCOL * hcs * 2;
+        }
+        unsigned char* next = hbuf + (c & 1) * L.hbytes;
+        const int np = wg_width(conv_cout(a, c));
+        const float* cb = biases + c * a.ch;
+        switch (np) {
+          case 32:
+            wg_conv<32>(a, c, above, here, cin, ring, L.slice, full, empty,
+                        stages, stage, phase, next, img, y, cb);
+            break;
+          case 64:
+            wg_conv<64>(a, c, above, here, cin, ring, L.slice, full, empty,
+                        stages, stage, phase, next, img, y, cb);
+            break;
+          case 128:
+            wg_conv<128>(a, c, above, here, cin, ring, L.slice, full, empty,
+                         stages, stage, phase, next, img, y, cb);
+            break;
+          case 160:
+            wg_conv<160>(a, c, above, here, cin, ring, L.slice, full, empty,
+                         stages, stage, phase, next, img, y, cb);
+            break;
+          default:
+            if constexpr (NMAX == 256)
+              wg_conv<256>(a, c, above, here, cin, ring, L.slice, full,
+                           empty, stages, stage, phase, next, img, y, cb);
+        }
+        consumers_sync();   // conv c's output is in place, its input read
+        if (c == 0) {
+          // z is free: stage the next tile's (this image's or the next's)
+          if (tile + 1 < tiles)
+            stage_z(img, (tile + 1) * TR);
+          else if (img + (int)gridDim.x < n_images)
+            stage_z(img + gridDim.x, 0);
+        } else if (r == TR - 1) {
+          // conv c's input row 7 is the next tile's halo row (zeros after
+          // the image's last tile); this warp alone writes that row, later
+          const uint4* src = reinterpret_cast<const uint4*>(
+              hbuf + ((c - 1) & 1) * L.hbytes + (TR - 1) * L.halo);
+          uint4* dst = reinterpret_cast<uint4*>(halos + (c - 1) * L.halo);
+          const bool last = tile + 1 == tiles;
+          for (int i = lane; i < L.halo / 16; i += 32)
+            dst[i] = last ? make_uint4(0, 0, 0, 0) : src[i];
+          __syncwarp();
+        }
+      }
+    }
+  }
+}
+
+static int launch_wgmma(const StackArgs& a, int n_images, size_t limit,
+                        cudaStream_t stream) {
+  const WgLayout L = wg_layout(a.n_convs, a.cz, a.ch, a.cout);
+  const long fit = ((long)limit - L.fixed) / L.slice;
+  const int stages = (int)(fit < MAX_STAGES ? fit : MAX_STAGES);
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)L.fixed + (size_t)stages * L.slice;
+  auto kernel = L.slice > KC * 160 * 2 ? ar_stack_wgmma_kernel<256>
+                                       : ar_stack_wgmma_kernel<160>;
   cudaError_t e = cudaFuncSetAttribute(
-      ar_stack_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (n_images + MMA_IMAGES - 1) / MMA_IMAGES;
-  ar_stack_mma_kernel<<<blocks, threads, smem, stream>>>(a, n_images);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = n_images < sms ? n_images : sms;
+  kernel<<<blocks, WG_THREADS, smem, stream>>>(a, n_images, stages);
   return (int)cudaGetLastError();
+}
+
+// The forward weights of every conv in one launch, packed back to back:
+// conv c's 5 live taps ((dy, dx) = (t / 3, t % 3), the first 5 in raster
+// order) in masked_conv.cuh's wgmma B order with K = cin and N = cout
+// padded to npad and K = cin padded to wg_k(cin) (element [t][s][j][h][n]
+// [k] = W[t][16 s + 8 h + k][8 j + n], zero for 8 j + n >= cout or 16 s +
+// 8 h + k >= cin), from item start[c] on. One item is
+// one (t, s, j, h, n): 8 loads of the strided weights (the model hands K1
+// permuted views), one 16-byte store.
+#define PK_THREADS 256
+
+struct PackArgs {
+  const __nv_bfloat16* w[MAX_CONVS];  // [3][3][cin][cout], any strides
+  long long st[MAX_CONVS][4];         // its strides in elements
+  int cin[MAX_CONVS], cout[MAX_CONVS], npad[MAX_CONVS];
+  int start[MAX_CONVS + 1];           // each conv's first item
+  uint4* out;
+  int n;
+};
+
+__global__ void __launch_bounds__(PK_THREADS) ar_pack_w_kernel(PackArgs a) {
+  const int i = blockIdx.x * PK_THREADS + threadIdx.x;
+  if (i >= a.start[a.n]) return;
+  int c = 0;
+  while (i >= a.start[c + 1]) ++c;
+  const int cin = a.cin[c], cout = a.cout[c], jn = a.npad[c] / 8;
+  const int ks = wg_k(cin) / 16;
+  int r = i - a.start[c];
+  const int n = r & 7;
+  r >>= 3;
+  const int h = r & 1;
+  r >>= 1;
+  const int j = r % jn;
+  r /= jn;
+  const int s = r % ks, t = r / ks;
+  const int co = 8 * j + n;
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+  if (co < cout && 16 * s < cin) {   // cin % 16 == 0
+    const long long* st = a.st[c];
+    const __nv_bfloat16* src = a.w[c] + (t / 3) * st[0] + (t % 3) * st[1] +
+                               (16 * s + 8 * h) * st[2] + co * st[3];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k >> 1] |= (uint32_t)__bfloat16_as_ushort(src[k * st[2]])
+                   << (16 * (k & 1));
+  }
+  a.out[i] = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block asks for (the wrapper checks it
-// against the 227 KB a Hopper block may use). mma = 0 selects the FMA
-// path, 1 the tensor-core path.
-size_t ar_stack_smem_bytes(int n_convs, int W, int cz, int ch, int bf16,
-                           int mma) {
-  if (mma) return mma_smem_bytes(n_convs, W, cz, ch);
+// Bytes of dynamic shared memory one block needs at least (the wrapper
+// checks it against the 227 KB a Hopper block may use): wgmma = 0 counts
+// the FMA path's rings, 1 the tensor-core path's buffers, halos and two
+// weight stages (the launch takes every further stage that fits).
+size_t ar_stack_smem_bytes(int n_convs, int W, int cz, int ch, int cout,
+                           int bf16, int wgmma) {
+  if (wgmma) {
+    const WgLayout L = wg_layout(n_convs, cz, ch, cout);
+    return (size_t)L.fixed + 2 * (size_t)L.slice;
+  }
   return smem_bytes(n_convs, W, cz, ch, bf16 ? 2 : 4);
 }
 
+// The tensor-core path's weights of ``n`` convs in one launch (bf16) into
+// ``out`` (16-byte aligned), conv after conv: ``w`` a host array of device
+// pointers, ``dims`` n triples (cin, cout, npad) with cin % 16 == 0,
+// npad % 8 == 0 and cout <= npad, ``strides`` n quadruples (each weight's
+// [3][3][cin][cout] strides in elements). Conv c's block, 5 * wg_k(cin)
+// * npad elements, follows those of the convs before it.
+int ar_stack_pack_w(const void* const* w, void* out, const int* dims,
+                    const long long* strides, int n, void* stream) {
+  if (n < 1 || n > MAX_CONVS || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  PackArgs a;
+  a.n = n;
+  a.out = static_cast<uint4*>(out);
+  a.start[0] = 0;
+  for (int c = 0; c < n; ++c) {
+    const int cin = dims[3 * c], cout = dims[3 * c + 1],
+              npad = dims[3 * c + 2];
+    if (cin % 16 || npad % 8 || cout > npad) return (int)cudaErrorInvalidValue;
+    a.w[c] = static_cast<const __nv_bfloat16*>(w[c]);
+    for (int d = 0; d < 4; ++d) a.st[c][d] = strides[4 * c + d];
+    a.cin[c] = cin;
+    a.cout[c] = cout;
+    a.npad[c] = npad;
+    a.start[c + 1] = a.start[c] + 5 * wg_k(cin) * npad / 8;
+  }
+  const int blocks = (a.start[n] + PK_THREADS - 1) / PK_THREADS;
+  ar_pack_w_kernel<<<blocks, PK_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // Returns cudaGetLastError() after the launch (0 on success). w and b are
-// host arrays of n_convs device pointers (packed weights, biases); pre is
-// null or a host array of n_convs - 1 device pointers, each null or where
-// that hidden conv's f32 pre-activation goes.
+// host arrays of n_convs device pointers (weights: [5][cin][cout] T on the
+// FMA path, ar_stack_pack_w's per conv on the tensor cores; biases); pre
+// is null or a host array of n_convs - 1 device pointers, each null or
+// where that hidden conv's f32 pre-activation goes. wgmma = 1 takes the
+// tensor-core kernel (bf16, W = 16, cz and ch multiples of 16 and cout of
+// 8, all at most 256; z, ctx and the weights 16-byte aligned) within
+// ``limit`` bytes of shared memory, 0 the FMA kernel with
+// ``threads`` a block.
 int ar_stack_fwd(const void* z, const void* ctx, const void* const* w,
                  const void* const* b, void* out, void* const* pre,
                  int n_convs, int n_images, int H, int W, int cz, int ch,
-                 int cout, int bf16, int mma, int threads, void* stream) {
+                 int cout, int bf16, int wgmma, int threads, size_t limit,
+                 void* stream) {
   if (n_convs < 2 || n_convs > MAX_CONVS) return (int)cudaErrorInvalidValue;
   StackArgs a = {};
   a.z = z;
@@ -403,10 +721,15 @@ int ar_stack_fwd(const void* z, const void* ctx, const void* const* w,
   a.ch = ch;
   a.cout = cout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mma) {
-    if (!bf16 || W % 16 || cz % 16 || ch % 16 || cout % 8)
-      return (int)cudaErrorInvalidValue;
-    return launch_mma(a, n_images, threads, s);
+  if (wgmma) {
+    bool ok = bf16 && W == TW && cz % 16 == 0 && ch % 16 == 0 &&
+              cout % 8 == 0 && cz <= 256 && ch <= 256 && cout <= 256 &&
+              reinterpret_cast<uintptr_t>(z) % 16 == 0;
+    ok = ok && reinterpret_cast<uintptr_t>(ctx) % 16 == 0;
+    for (int i = 0; i < n_convs; ++i)
+      ok = ok && reinterpret_cast<uintptr_t>(w[i]) % 16 == 0;
+    if (!ok) return (int)cudaErrorInvalidValue;
+    return launch_wgmma(a, n_images, limit, s);
   }
   return bf16 ? launch<__nv_bfloat16>(a, n_images, threads, s)
               : launch<float>(a, n_images, threads, s);

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from iaf_tpu.ops.ar_stack import ar_stack_fused, ar_stack_xla
 from iaf_tpu.ops.fused import (disc_logistic_logp as j_dl_pallas,
@@ -233,25 +234,138 @@ def test_tap_packing_takes_the_live_taps(transposed):
     assert torch.equal(pk, want)
 
 
-def test_fragment_packing_matches_mma_layout():
-    """The tensor-core path's weight packing puts, for lane g*4+tig, the B
-    elements (k = 2*tig + {0,1} and 8 + 2*tig + {0,1}, n = g) of each
-    m16n8k16 fragment next to each other."""
-    from iaf_torch.ops.ar_stack import LIVE_TAPS, pack_fragments
-    cin, cout = 32, 24
-    w = torch.arange(9 * cin * cout, dtype=torch.float32).reshape(
-        3, 3, cin, cout)
-    pk = pack_fragments(w).reshape(5, cout // 8, cin // 16, 32, 2, 2)
-    for t, (dy, dx) in enumerate(LIVE_TAPS):
-        for nt in range(cout // 8):
-            for ks in range(cin // 16):
-                for lane in range(32):
-                    g, tig = divmod(lane, 4)
-                    for half in range(2):
-                        for e in range(2):
-                            k = ks * 16 + half * 8 + 2 * tig + e
-                            assert pk[t, nt, ks, lane, half, e] == \
-                                w[dy, dx, k, nt * 8 + g]
+def _fwd_pack_weights(shapes, seed=0):
+    rs = np.random.RandomState(seed)
+    return [_t(rs.randn(3, 3, ci, co).astype(np.float32)).bfloat16()
+            for ci, co in shapes]
+
+
+@pytest.mark.parametrize("permuted", [False, True])
+def test_forward_packing_matches_wgmma_pack(permuted):
+    """The tensor-core forward's weights, all convs in one buffer: conv c
+    at its offset (5 * npad * the cin of the convs before it, each padded
+    to whole 32-deep slices) is ``masked_conv.wgmma_pack`` of its live
+    taps, npad = ``wgmma_width`` of its outputs, on contiguous HWIO weights
+    and on the model's permuted OIHW views."""
+    from iaf_torch.ops.ar_stack import _live_taps, pack_fwd_ref
+    from iaf_torch.ops.masked_conv import wgmma_pack, wgmma_width
+    shapes = ((32, 160), (160, 160), (160, 48))
+    ws = _fwd_pack_weights(shapes)
+    if permuted:
+        ws = [w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+              for w in ws]
+        assert not ws[0].is_contiguous()
+    flat, offsets = pack_fwd_ref(ws)
+    npads = [wgmma_width(co) for _, co in shapes]
+    assert npads == [160, 160, 64]
+    sizes = [5 * ci * npad for (ci, _), npad in zip(shapes, npads)]
+    assert offsets == [0, sizes[0], sizes[0] + sizes[1]]
+    assert flat.dtype == torch.bfloat16 and flat.numel() == sum(sizes)
+    for w, (ci, _), npad, off, size in zip(ws, shapes, npads, offsets, sizes):
+        block = flat[off:off + size].reshape(5, ci // 16, npad // 8, 2, 8, 8)
+        assert torch.equal(block, wgmma_pack(_live_taps(w), npad))
+
+
+def test_forward_packing_element_by_element():
+    """Element [t][s][j][h][n][k] of conv c's block is W_c[dy, dx, 16 s +
+    8 h + k, 8 j + n] at live tap t = (dy, dx), zero past cout and past cin
+    (K is padded to whole 32-deep slices): the wgmma B operand of k-step
+    s, K-major 8x8 core matrices."""
+    from iaf_torch.ops.ar_stack import LIVE_TAPS, pack_fwd_ref
+    shapes = ((16, 24), (16, 16))
+    ws = _fwd_pack_weights(shapes, seed=1)
+    flat, offsets = pack_fwd_ref(ws)
+    kpad, npad = 32, 32
+    assert offsets == [0, 5 * kpad * npad]
+    assert flat.numel() == 2 * 5 * kpad * npad
+    for w, (cin, cout), off in zip(ws, shapes, offsets):
+        blk = flat[off:off + 5 * kpad * npad].reshape(5, kpad // 16,
+                                                      npad // 8, 2, 8, 8)
+        for t, (dy, dx) in enumerate(LIVE_TAPS):
+            for s in range(kpad // 16):
+                for j in range(npad // 8):
+                    for h in range(2):
+                        for n in range(8):
+                            co = 8 * j + n
+                            for k in range(8):
+                                ci = 16 * s + 8 * h + k
+                                want = (w[dy, dx, ci, co]
+                                        if co < cout and ci < cin else 0.0)
+                                assert blk[t, s, j, h, n, k] == want
+
+
+@pytest.mark.parametrize("dtype,w,cz,ch,cout,route", [
+    (torch.bfloat16, 16, 32, 160, 64, "wgmma"),      # the paper widths
+    (torch.bfloat16, 16, 16, 32, 8, "wgmma"),
+    (torch.float32, 16, 32, 160, 64, "fma"),
+    (torch.bfloat16, 12, 32, 160, 64, "fma"),        # W not one warp's row
+    (torch.bfloat16, 32, 32, 160, 64, "fma"),
+    (torch.bfloat16, 16, 24, 160, 64, "fma"),        # cz not 16-deep steps
+    (torch.bfloat16, 16, 32, 160, 264, "fma"),       # wider than 256
+])
+def test_forward_route(dtype, w, cz, ch, cout, route):
+    import importlib
+    k1 = importlib.import_module("iaf_torch.ops.ar_stack")
+    assert k1.fwd_route(dtype, w, cz, ch, cout) == route
+
+
+def _tile_walk(z, ctx, weights, biases, rows=8):
+    """A plain model of ``ar_stack_wgmma_kernel``'s walk: each image as
+    tiles of ``rows`` rows, top to bottom. Per conv the input is the
+    tile's rows with a zero column each side and the row above, which for
+    z is read again and for a hidden conv's input is the halo row carried
+    from the last tile (zeros at an image's first). Products in f32 of
+    inputs rounded to the weights' dtype, bias, context and ELU in f32,
+    the next conv's input rounded to the weights' dtype."""
+    n, hh, ww, cz = z.shape
+    dt = weights[0].dtype
+    wts = [w.float() for w in weights]
+    nc, ch = len(weights), weights[0].shape[-1]
+    out = torch.zeros(n, hh, ww, weights[-1].shape[-1])
+    for img in range(n):
+        halo = [torch.zeros(ww + 2, ch) for _ in range(nc)]
+        for y0 in range(0, hh, rows):
+            zb = torch.zeros(rows + 1, ww + 2, cz)
+            for i in range(rows + 1):
+                if 0 <= y0 - 1 + i < hh:
+                    zb[i, 1:ww + 1] = z[img, y0 - 1 + i].to(dt).float()
+            above, here = zb[:-1], zb[1:]
+            for c in range(nc):
+                acc = sum((above if dy == 0 else here)[:, dx:dx + ww]
+                          @ wts[c][dy, dx]
+                          for dy, dx in ((0, 0), (0, 1), (0, 2), (1, 0),
+                                         (1, 1))) + biases[c]
+                if c == 0:
+                    acc = acc + ctx[img, y0:y0 + rows]
+                if c == nc - 1:
+                    out[img, y0:y0 + rows] = acc
+                    break
+                here = torch.zeros(rows, ww + 2, ch)
+                here[:, 1:ww + 1] = F.elu(acc).to(dt).float()
+                above = torch.cat([halo[c + 1][None], here[:-1]])
+                halo[c + 1] = here[-1].clone()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth_ar", [2, 4])
+def test_tile_walk_matches_twin_and_jax(dtype, depth_ar):
+    """The kernel's walk (two half-image tiles of a 16-row image, the
+    halo rows carried between them) in plain ops: in f32 against the twin
+    and JAX's ``ar_stack_xla`` at 1e-5; in bf16 against the twin at its
+    tolerance on the card (2e-2)."""
+    z, c, ws, bs, masks = _k1_inputs(4, 8, 2, 16, depth_ar, seed=3)
+    args = (_t(z).to(dtype), _t(c), [_t(w).to(dtype) for w in ws],
+            [_t(b) for b in bs])
+    got = _tile_walk(*args)
+    twin = ops.ar_stack_ref(*args)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got, twin, rtol=2e-2, atol=2e-2)
+        return
+    np.testing.assert_allclose(got.numpy(), twin.numpy(), **TOL)
+    wb = [jnp.asarray(t) for pair in zip(ws, bs) for t in pair]
+    want = np.asarray(ar_stack_xla(jnp.asarray(z), jnp.asarray(c), *wb))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 # --- on the card ------------------------------------------------------------
@@ -268,9 +382,21 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("zs,hs,n,hw,depth_ar", [
-    (32, 160, 8, 16, 2), (4, 8, 3, 6, 2), (32, 160, 8, 16, 4)])
+    (32, 160, 8, 16, 2), (4, 8, 3, 6, 2), (32, 160, 8, 16, 4),
+    (16, 32, 8, 16, 2), (16, 48, 8, 16, 2), (32, 128, 8, 16, 2),
+    (32, 256, 8, 16, 2)])
 def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
                                               depth_ar):
+    """The heads against the twin, 1e-4 (f32) / 2e-2 (bf16). In bf16 at
+    W = 16 the tensor-core kernel runs (``fwd_route``), two calls give the
+    same bits, and at batch 32 with the pre-activations written (the
+    training forward) heads and pre-activations match the twin's at 2e-2
+    of each one's max; elsewhere the FMA kernel runs. Beside the paper
+    widths the bf16 cases run every wgmma width the kernel takes (N = 32,
+    64, 128, 160 and the N = 256 instantiation) and input channels padded
+    to whole 32-deep slices (cz = 16, ch = 48)."""
+    import importlib
+    k1 = importlib.import_module("iaf_torch.ops.ar_stack")
     z, c, ws, bs, masks = _k1_inputs(zs, hs, n, hw, depth_ar)
     args = (_t(z).to(cuda, dtype), _t(c).to(cuda),
             [_t(w).to(cuda, dtype) for w in ws], [_t(b).to(cuda) for b in bs])
@@ -279,14 +405,30 @@ def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
         want = ops.ar_stack_ref(*args)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    wgmma = hw == 16 and dtype == torch.bfloat16
+    assert k1.fwd_route(dtype, hw, zs, hs, 2 * zs) == (
+        "wgmma" if wgmma else "fma")
+    if not wgmma:
+        return
+    with torch.inference_mode():
+        assert torch.equal(ops.ar_stack(*args, masks), got)
+        z, c = _k1_inputs(zs, hs, 32, hw, depth_ar, seed=1)[:2]
+        args = (_t(z).to(cuda, dtype), _t(c).to(cuda), *args[2:])
+        out, pre = k1._fwd(*args, save_pre=True)
+        rout, rpre = ops.ar_stack_ref_pre(*args)
+    assert len(pre) == len(rpre) == depth_ar
+    for a, b in zip([out, *pre], [rout, *rpre]):
+        err = float((a - b.float()).abs().max())
+        assert err <= 2e-2 * float(b.float().abs().max()), err
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,most", [(torch.float32, 7),
-                                        (torch.bfloat16, 10)])
+                                        (torch.bfloat16, 16)])
 def test_ar_stack_deeper_than_shared_memory_raises(cuda, dtype, most):
-    """At the paper widths a block holds 7 convs on the f32 path and 10 on
-    the tensor-core one; one more raises, naming that limit."""
+    """At the paper widths a block holds 7 convs on the f32 FMA kernel and
+    16 on the tensor-core one (its halo rows and biases grow with the
+    chain); one more raises, naming that limit."""
     for n_convs in (most, most + 1):
         z, c, ws, bs, masks = _k1_inputs(32, 160, 2, 16, n_convs - 1)
         args = (_t(z).to(cuda, dtype), _t(c).to(cuda),
@@ -298,6 +440,23 @@ def test_ar_stack_deeper_than_shared_memory_raises(cuda, dtype, most):
                 continue
             with pytest.raises(ValueError, match=f"at most {most} convs"):
                 ops.ar_stack(*args)
+
+
+@pytest.mark.cuda
+def test_ar_fwd_pack_kernel_equals_twin_on_card(cuda):
+    """K1 forward's weight pack, all convs in one launch, bitwise equal to
+    its twin at the paper widths and at one that pads N, on contiguous
+    HWIO weights and on the model's permuted OIHW views."""
+    import importlib
+    k1 = importlib.import_module("iaf_torch.ops.ar_stack")
+    for shapes in (((32, 160), (160, 160), (160, 64)), ((16, 32), (32, 48))):
+        ws = [w.to(cuda) for w in _fwd_pack_weights(shapes, seed=2)]
+        views = [w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+                 for w in ws]
+        want, offsets = k1.pack_fwd_ref(ws)
+        for group in (ws, views):
+            got, got_offsets = k1.pack_fwd(group)
+            assert got_offsets == offsets and torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -252,15 +252,19 @@ def test_deep_chain_route(monkeypatch, fits):
 @pytest.mark.parametrize("n_convs,fits", [(10, True), (11, False)])
 def test_ar_stack_fits_reads_the_byte_count(n_convs, fits):
     """The route predicate compares K1's byte count for (convs, W, cz, ch,
-    dtype, path) with one Hopper block's shared memory: a fake count that
-    passes the limit past 10 convs picks K2 for 11 and K1 for 10, and is
-    asked with the tensor-core path for bf16 at paper widths."""
+    cout, dtype, route) with one Hopper block's shared memory: a fake count
+    that passes the limit past 10 convs picks K2 for 11 and K1 for 10, and
+    is asked with the tensor-core kernel's flag for bf16 at paper widths
+    and the FMA kernel's for f32."""
     from iaf_torch.ops.ar_stack import _SMEM_LIMIT, ar_stack_fits
     seen = []
 
-    def fake_bytes(n, w, cz, ch, bf16, mma):
-        seen.append((n, w, cz, ch, bf16, mma))
+    def fake_bytes(n, w, cz, ch, cout, bf16, wgmma):
+        seen.append((n, w, cz, ch, cout, bf16, wgmma))
         return _SMEM_LIMIT if n <= 10 else _SMEM_LIMIT + 1
     assert ar_stack_fits(n_convs, 16, 32, 160, 64, torch.bfloat16,
                          fake_bytes) is fits
-    assert seen == [(n_convs, 16, 32, 160, 1, 1)]
+    assert ar_stack_fits(n_convs, 16, 32, 160, 64, torch.float32,
+                         fake_bytes) is fits
+    assert seen == [(n_convs, 16, 32, 160, 64, 1, 1),
+                    (n_convs, 16, 32, 160, 64, 0, 0)]
