@@ -4,7 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab DIR [CASE]   # one kernel of DIR's tree
                                             # against this one's, A B B A
-                                            # (``ab``; CASE in AB_CASES)
+                                            # (``ab``; CASE in AB_CASES:
+                                            # k1_fwd, k1_fwd_f32,
+                                            # f32_chunk)
 
 Phases, any failure exits non-zero:
 
@@ -37,7 +39,24 @@ Phases, any failure exits non-zero:
    of 16 at k=256 (4 chunks of 64); the launch counters are zeroed just
    before and read just after, and must be K1 = K3 = 160, K4 = 8. One more
    batch through the eval step alone gives the steady seconds per batch.
-6. Backward kernels against their twins on the card: the inputs and
+6. The f32 recipe (the same model, ``compute_dtype=float32``): K1's
+   inputs captured from one real f32 eval chunk (posterior samples and
+   folded weights with full f32 mantissas, not bf16 upcast); K1 must take
+   the 3xTF32 tensor-core kernel (``fwd_route`` ``"3xtf32"``), give the
+   same bits on two calls and hold the twin in f64 at 1e-5 of the
+   output's max, at N = 1024 and at batch 32 with the pre-activations
+   written (each within 1e-5 of its max); its f32 weight pack kernel must
+   equal its twin bitwise. Each shape is timed by events and by device
+   time (by kernel too) beside the twin and cuDNN's three f32 convs (TF32
+   off), with the design's bound (three TF32 products per f32 product at
+   495 TFLOP/s) and the FP32 CUDA-core floor (67 TFLOP/s). One f32 chunk
+   is profiled; ``evaluate`` at k=256 over 2 batches must launch exactly
+   K1 = K3 = 160, K4 = 8 with every K1 forward on ``"3xtf32"`` (steady
+   seconds per batch as in phase 5); ``train`` at batch 32 for 6 steps
+   exactly the per-step counts of phase 9, every K1 forward on
+   ``"3xtf32"`` and every loss finite (steady step: median of steps 3-6);
+   one f32 step is profiled.
+7. Backward kernels against their twins on the card: the inputs and
    upstream gradients of K1's, K3's and K4's backward are captured from the
    first launches of one real training step (paper config, bf16, batch
    32; K1's forward there must take the tensor-core kernel); each
@@ -52,10 +71,10 @@ Phases, any failure exits non-zero:
    kernel; its dgrad chain (with the weight pack and the glue passes)
    and its wgrad (with the reduce) are timed apart, and the glue and pack
    kernels are held to their twins.
-7. One f32 training step of the paper config at batch 4, card (kernels)
+8. One f32 training step of the paper config at batch 4, card (kernels)
    against CPU (twins), same params, batch and noise: the loss, every
    gradient leaf and every updated parameter and EMA leaf are compared.
-8. Training main path: ``iaf_torch.train_lib.train`` at the paper config
+9. Training main path: ``iaf_torch.train_lib.train`` at the paper config
    (bf16, batch 32, synthetic data) for 10 steps with a checkpoint at step
    10, then a resume for 2 more steps that must restore at step 10. The
    counters are zeroed before each run and read after it, and must be,
@@ -63,29 +82,31 @@ Phases, any failure exits non-zero:
    K5 = 1. Every step's loss must be finite; the steady seconds per step
    (median of steps 3-10) and examples/s are printed, and one more step is
    profiled (device time by kernel name, device-busy share).
-9. K1 at the deepest chain it holds at the paper widths (16 convs on the
-   tensor cores in bf16, 7 on the FMA kernel in f32; 64 images) against
-   its twin, bf16 at 2e-2 and f32 (TF32 off) at 1e-4 of the output's max.
-10. The 5x5 config (the paper config with ``kernel_size=5``: every AR net
+10. K1 at the deepest chain it holds at the paper widths (on the tensor
+   cores: 16 convs in bf16, 8 in f32 by 3xTF32; 64 images) against its
+   twin, bf16 at 2e-2 of the output's max and f32 at 1e-5 of the twin's
+   in f64.
+11. The 5x5 config (the paper config with ``kernel_size=5``: every AR net
    runs conv by conv through K2, three masked 5x5 convs per IAF step) at
    full width and depth: init; K2's inputs captured from one real eval
    chunk for all three conv shapes, each of which must take the
    tensor-core forward kernel, held to the twin in bf16 at 2e-2 and in
    f32 at 1e-5 of the output's max, timed beside the twin, one cuDNN conv
-   (with the ratio) and the bound, and one chunk profiled; one f32 eval
-   forward, card against CPU twins; ``evaluate`` at k=256 with launches exactly K2 = 60,
-   K3 = 20, K4 = 1 per chunk and K1 = 0; K2's backward on inputs captured
-   from a real bf16 step at batch 32, each shape's dgrad and wgrad on the
+   (with the ratio; in f32 too, TF32 off, beside the f32 FMA kernel) and
+   the bound, and one chunk profiled; one f32 eval forward, card against
+   CPU twins; ``evaluate`` at k=256 with launches exactly K2 = 60, K3 =
+   20, K4 = 1 per chunk and K1 = 0; K2's backward on inputs captured from
+   a real bf16 step at batch 32, each shape's dgrad and wgrad on the
    tensor cores, held to autograd of its twin (2e-2 of each output's
    max; f32 at 1e-4 of the twin in f64), two calls bitwise equal, its
    device time per call by kernel, timed whole and as dgrad and wgrad
-   apart beside the
-   twin's and cuDNN's backward; one f32 training step at batch 4, card against CPU; and
-   ``train_lib.train`` for 10 steps plus a 2-step resume with launches
-   exactly K2 = K2-backward = 60, K3 = K3-backward = 20, K4 =
-   K4-backward = K5 = 1, K1 = K1-backward = 0 per step, and one step
+   apart beside the twin's and cuDNN's backward (and in f32, TF32 off,
+   beside the f32 FMA kernels); one f32 training step at batch 4, card
+   against CPU; and ``train_lib.train`` for 10 steps plus a 2-step resume
+   with launches exactly K2 = K2-backward = 60, K3 = K3-backward = 20, K4
+   = K4-backward = K5 = 1, K1 = K1-backward = 0 per step, and one step
    profiled.
-11. A 3x3 AR net one conv deeper than K1 holds at the paper widths in
+12. A 3x3 AR net one conv deeper than K1 holds at the paper widths in
    bf16 (depth_ar=16, 17 convs; f32 holds fewer), through
    ``ARMultiConv2d`` on 64 images: launches exactly K1 = 0 and K2 = 17
    per forward, and the heads match K1's twin at 2e-2 (bf16) and 1e-5
@@ -97,8 +118,9 @@ K2's library calls) is the device time the profiler records for the same
 calls, host gaps left out, which ranks a kernel against its library
 call.
 
-The second-last line of standard output is the ``kernels`` JSON, the last
-``{"ok": true, "device": {...}}``.
+The second-last line of standard output is the ``kernels`` JSON (K1's f32
+forward a row of its own, ``ar_stack_f32``, its launches those of phase
+6's runs), the last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -121,9 +143,12 @@ PAPER = "depth=1,num_blocks=20,kl_min=0.25,learning_rate=0.002,batch_size=32"
 PAPER5 = PAPER + ",kernel_size=5"
 K2_NAMES = ("masked_conv2d", "masked_conv2d_bwd")
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# dense peaks (data sheet): bf16 and TF32 on the tensor cores, f32 on the
+# CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 EVAL_BATCH, EVAL_K, EVAL_CHUNK, EVAL_BATCHES = 16, 256, 64, 2
 TRAIN_STEPS, RESUME_STEPS = 10, 2
+F32_TRAIN_STEPS = 6
 # f32 step, card vs CPU: small-gradient elements whose Adamax sign may
 # flip. 129-133 of 41.6 M flipped on an H100; a wrong gradient in one
 # leaf flips thousands.
@@ -314,6 +339,128 @@ def _k1_training_shape(ops, ar_mod, z, ctx, ws, bs, batch=32) -> dict:
     return {"ms_b32": ms, "device_ms_b32": dev, "library_device_ms_b32":
             lib_dev, "bound_ms_b32": b_ms, "bound_by_b32": b_by,
             "max_rel_err_b32": worst}
+
+
+def _f64(z, ctx, ws, bs):
+    """The K1 twin's arguments in f64 (the f32 kernel's reference)."""
+    return (z.double(), ctx.double(), [w.double() for w in ws],
+            [b.double() for b in bs])
+
+
+def _k1_f32_shape(ops, ar_mod, label, z, ctx, ws, bs, masks,
+                  save_pre: bool) -> dict:
+    """K1's f32 forward on (z, ctx, ws, bs): the 3xTF32 tensor-core route,
+    two calls bitwise equal, the heads (and with ``save_pre`` the
+    pre-activations) within 1e-5 of each one's max of the twin's in f64;
+    device time by kernel, by events and by device time beside the twin
+    (f32, TF32 off) and cuDNN's three f32 convs (TF32 off); the design's
+    bound (three TF32 products per f32 product) and the FP32 CUDA-core
+    floor (each product once at the f32 peak). Returns the numbers."""
+    import torch
+    n, hh, ww, cz = z.shape
+    route = ar_mod.fwd_route(z.dtype, ww, cz, ws[0].shape[-1],
+                             ws[-1].shape[-1])
+    check(route == "3xtf32", f"K1 f32 z{tuple(z.shape)} takes the {route} "
+          "kernel, not the 3xTF32 tensor-core one")
+    with torch.inference_mode():
+        out, pre = ar_mod._fwd(z, ctx, ws, bs, save_pre)
+        again = ar_mod._fwd(z, ctx, ws, bs, save_pre)
+        check(all(torch.equal(a, b) for a, b in zip([out, *pre],
+                                                     [again[0], *again[1]])),
+              f"K1 f32 {label}: two calls differ")
+        rout, rpre = ops.ar_stack_ref_pre(*_f64(z, ctx, ws, bs))
+        errs = [_rel_err(a, b) for a, b in zip([out, *pre],
+                                               [rout, *rpre])]
+        err, worst = max(e[0] for e in errs), max(e[1] for e in errs)
+        check(worst <= 1e-5, f"K1 f32 {label}: {worst:.3e} of max from the "
+              "f64 twin > 1e-5")
+        if save_pre:
+            call = lambda: ar_mod._fwd(z, ctx, ws, bs, True)  # noqa: E731
+        else:
+            call = lambda: ops.ar_stack(z, ctx, ws, bs, masks)  # noqa: E731
+        per_call = _by_kernel(f"K1 f32 {label}", call)
+        ms = cuda_ms(call)
+        dev = device_ms(call)
+        plain = cuda_ms(lambda: ops.ar_stack_ref(z, ctx, ws, bs))
+        lib = cuda_ms(lambda: k1_yardstick(z, ctx, ws, bs))
+        lib_dev = device_ms(lambda: k1_yardstick(z, ctx, ws, bs))
+    flops = 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
+    moved = (nbytes(z, ctx, out, *pre, *bs)
+             + sum(5 * w[0, 0].numel() * w.element_size() for w in ws))
+    b_ms, b_by = bound_ms(3 * flops, "tf32", moved)
+    floor = bound_ms(flops, "float32", moved)[0]
+    print(f"[K1 f32 {label}] z{tuple(z.shape)} ({route}"
+          f"{', with pre-activations' if save_pre else ''}): "
+          f"{worst:.3e} of max from the f64 twin (max abs {err:.3e}), two "
+          f"calls bitwise equal; by events {ms:.4f} ms, by device time "
+          f"{dev:.4f} ms ({per_call} device launches a call), twin "
+          f"{plain:.4f} ms; cuDNN f32 (TF32 off) {lib:.4f} ms, by device "
+          f"time {lib_dev:.4f} ms, ratio {dev / lib_dev:.3f}; bound "
+          f"{b_ms:.4f} ms ({b_by}: 3 TF32 products per f32 product, "
+          f"{3 * flops / 1e9:.1f} GFLOP at 495 TFLOP/s), FP32 CUDA-core "
+          f"floor {floor:.4f} ms")
+    return {"max_abs_err": err, "max_rel_err": worst, "ms": ms,
+            "device_ms": dev, "plain_ms": plain, "library_ms": lib,
+            "library_device_ms": lib_dev, "bound_ms": b_ms,
+            "bound_by": b_by, "fp32_floor_ms": floor,
+            "device_launches_per_call": per_call, "gflop": flops / 1e9,
+            "mbytes": moved / 1e6}
+
+
+def k1_f32_phase(ops, cap) -> dict:
+    """K1 in f32 (the f32 recipe) on the inputs of one real f32 eval chunk
+    (16 images x 64 samples: the posterior samples and the folded weights
+    carry full f32 mantissas, where an upcast from bf16 would leave the
+    low 16 bits zero and so hide a kernel that drops the lo parts): at
+    N = 1024 and at the training shape (the first 32 images with the
+    pre-activations written), each as ``_k1_f32_shape``; the f32 weight
+    pack kernel bitwise equal to its twin (offsets too) on the model's
+    weights and on contiguous copies. Returns the kernels-line row."""
+    import torch
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    z, ctx, ws, bs, masks = cap["ar_stack"]
+    check(z.dtype == torch.float32
+          and all(w.dtype == torch.float32 for w in ws),
+          "K1's captured f32 inputs are not f32")
+    full = [bool((t.view(torch.int32) & 0xFFFF).any()) for t in (z, *ws)]
+    check(all(full), f"K1 f32 inputs without low mantissa bits: {full}")
+    with torch.inference_mode():
+        want, offsets = ar_mod.pack_fwd_ref(ws)
+        for group in (ws, [w.contiguous() for w in ws]):
+            packed, got_offsets = ar_mod.pack_fwd(group)
+            check(got_offsets == offsets and torch.equal(packed, want),
+                  "K1: the f32 weight pack kernel differs from its twin")
+    print(f"[K1 f32] forward weight pack kernel, all convs (the model's "
+          f"weights, contiguous: {ws[0].is_contiguous()}, and contiguous "
+          f"copies): bitwise equal to its twin, offsets {offsets}")
+    row = _k1_f32_shape(ops, ar_mod, f"N={z.shape[0]}", z, ctx, ws, bs,
+                        masks, False)
+    b32 = _k1_f32_shape(ops, ar_mod, "b32", z[:32].contiguous(),
+                        ctx[:32].contiguous(), ws, bs, masks, True)
+    row.update({k + "_b32": v for k, v in b32.items()})
+    return dict(name="ar_stack_f32", route="cuda",
+                source="iaf_torch/ops/csrc/ar_stack.cu",
+                replaces="iaf_tpu/ops/ar_stack.py:115", path="paper f32",
+                counter="ar_stack", kernel_route="3xtf32", **row)
+
+
+@contextlib.contextmanager
+def k1_routes():
+    """Record the route (``fwd_route``) of every K1 forward launched
+    inside the block, in order."""
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    original, seen = ar_mod._fwd, []
+
+    def spy(z, context, weights, biases, save_pre):
+        seen.append(ar_mod.fwd_route(z.dtype, z.shape[2], z.shape[3],
+                                     weights[0].shape[-1],
+                                     weights[-1].shape[-1]))
+        return original(z, context, weights, biases, save_pre)
+    ar_mod._fwd = spy
+    try:
+        yield seen
+    finally:
+        ar_mod._fwd = original
 
 
 def kernel_phase(ops, cap, device) -> list[dict]:
@@ -951,7 +1098,8 @@ PER_STEP_5X5 = {"masked_conv2d": 60, "masked_conv2d_bwd": 60,
 
 
 def _label(cfg) -> str:
-    return "5x5" if cfg.kernel_size == 5 else "paper"
+    return (("5x5" if cfg.kernel_size == 5 else "paper")
+            + (" f32" if cfg.compute_dtype == "float32" else ""))
 
 
 def _expect(counts: dict, per: dict, times: int) -> dict:
@@ -961,62 +1109,67 @@ def _expect(counts: dict, per: dict, times: int) -> dict:
     return want
 
 
-def train_phase(ops, device, hp: str = PAPER, per_step: dict = PER_STEP):
-    """The training main path through ``train_lib.train``: 10 steps with a
-    checkpoint at step 10, then 2 more from it. Returns (the final state,
-    the first run's launch counts, its summary)."""
+def train_phase(ops, device, hp: str = PAPER, per_step: dict = PER_STEP,
+                steps: int = TRAIN_STEPS, resume_steps: int = RESUME_STEPS):
+    """The training main path through ``train_lib.train``: ``steps``
+    steps with a checkpoint at the last, then ``resume_steps`` more from
+    it (none: no resume). Returns (the config, the final state, the first
+    run's launch counts, its summary)."""
     import torch
     from iaf_torch import train_lib
     from iaf_torch.core.config import Config
     cfg = Config().parse(hp + f",dataset=synthetic,log_every=1,"
-                         f"ckpt_every={TRAIN_STEPS},eval_every=0")
+                         f"ckpt_every={steps},eval_every=0")
     tag = _label(cfg)
-    logdir = os.path.join(HERE, "build", f"chip_smoke_train_{tag}")
+    logdir = os.path.join(HERE, "build",
+                          f"chip_smoke_train_{tag.replace(' ', '_')}")
     shutil.rmtree(logdir, ignore_errors=True)
     cfg = cfg.replace(logdir=logdir)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    state = train_lib.train(cfg, max_steps=TRAIN_STEPS, device=device)
+    state = train_lib.train(cfg, max_steps=steps, device=device)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
-    want = _expect(counts, per_step, TRAIN_STEPS)
-    print(f"[train] {tag}: {TRAIN_STEPS} steps with init and set-up "
+    want = _expect(counts, per_step, steps)
+    print(f"[train] {tag}: {steps} steps with init and set-up "
           f"{secs:.3f} s, launches {counts}")
     check(counts == want, f"launch counts {counts} != {want}")
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     losses = [r["loss"] for r in rows]
-    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
           f"losses {losses}")
     step_s = [1.0 / r["steps_per_sec"] for r in rows[2:]]
     steady = statistics.median(step_s)
     print(f"[train] {tag}: losses {[round(v, 2) for v in losses]}")
-    print(f"[train] {tag}: steady step (median of steps 3-{TRAIN_STEPS}): "
+    print(f"[train] {tag}: steady step (median of steps 3-{steps}): "
           f"{steady:.4f} s, {1 / steady:.3f} steps/s, "
           f"{cfg.batch_size / steady:.1f} examples/s at batch "
           f"{cfg.batch_size}")
-    check(os.path.isfile(os.path.join(logdir, f"ckpt-{TRAIN_STEPS:09d}.npz")),
+    check(os.path.isfile(os.path.join(logdir, f"ckpt-{steps:09d}.npz")),
           "no checkpoint at the last step")
+    summary = {"steps": steps, "batch_size": cfg.batch_size,
+               "seconds_with_setup": secs, "steady_seconds_per_step": steady,
+               "steps_per_s": 1 / steady,
+               "examples_per_s": cfg.batch_size / steady,
+               "first_loss": losses[0], "last_loss": losses[-1]}
+    if not resume_steps:
+        return cfg, state, counts, summary
 
     ops.reset_launch_counts()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        state = train_lib.train(cfg, max_steps=TRAIN_STEPS + RESUME_STEPS,
+        state = train_lib.train(cfg, max_steps=steps + resume_steps,
                                 device=device)
     torch.cuda.synchronize()
     log = out.getvalue()
     print("\n".join(f"[resume] {tag}: {line}" for line in log.splitlines()))
     resumed = ops.launch_counts()
-    check(f"at step {TRAIN_STEPS}" in log, "the resume did not restore")
-    check(resumed == _expect(resumed, per_step, RESUME_STEPS),
+    check(f"at step {steps}" in log, "the resume did not restore")
+    check(resumed == _expect(resumed, per_step, resume_steps),
           f"resume launch counts {resumed}")
-    summary = {"steps": TRAIN_STEPS, "batch_size": cfg.batch_size,
-               "seconds_with_setup": secs, "steady_seconds_per_step": steady,
-               "steps_per_s": 1 / steady,
-               "examples_per_s": cfg.batch_size / steady,
-               "first_loss": losses[0], "last_loss": losses[-1]}
     return cfg, state, counts, summary
 
 
@@ -1062,6 +1215,49 @@ def eval_phase(ops, device, cfg, model, ds, per_chunk: dict):
         "k": EVAL_K, "eval_batch_size": EVAL_BATCH, "batches": EVAL_BATCHES}
 
 
+def f32_phases(ops, device, model, ds):
+    """The paper config's f32 recipe (``compute_dtype=float32``, phase 6
+    of the module docstring) on the bf16 phases' model. Returns (K1's f32
+    row, the eval and training launch counts, a summary)."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.models import cvae
+    from iaf_torch.parallel import train_step as ts
+    hp = PAPER + ",compute_dtype=float32"
+    cfg = Config().parse(hp + f",dataset=synthetic,eval_batch_size="
+                         f"{EVAL_BATCH},eval_k_chunk={EVAL_CHUNK}")
+
+    def one_chunk():
+        with torch.inference_mode():
+            cvae.apply_fn(cfg, model, 1, ds.test_x[:EVAL_BATCH], mode="eval",
+                          k=EVAL_CHUNK)
+    row = k1_f32_phase(ops, capture_inputs(ops, one_chunk))
+    chunk = profile_phase(f"paper f32: one eval chunk (16 images x "
+                          f"{EVAL_CHUNK} samples)", one_chunk)
+    blocks = len(model.blocks)
+    with k1_routes() as routes:
+        eval_counts, main = eval_phase(
+            ops, device, cfg, model, ds,
+            {"ar_stack": blocks, "iaf_update": blocks,
+             "disc_logistic_logp": 1})
+    check(len(routes) > eval_counts["ar_stack"]
+          and set(routes) == {"3xtf32"},
+          f"f32 eval: K1 routes {sorted(set(routes))}, not all 3xtf32")
+    main["profile"] = chunk
+    with k1_routes() as routes:
+        tcfg, tstate, counts, summary = train_phase(
+            ops, device, hp, PER_STEP, F32_TRAIN_STEPS, 0)
+    check(len(routes) == counts["ar_stack"] and set(routes) == {"3xtf32"},
+          f"f32 training: K1 routes {sorted(set(routes))}, not all 3xtf32")
+    print(f"[main] paper f32: every K1 forward of the eval and the training "
+          f"runs took the 3xtf32 route ({counts['ar_stack']} in training)")
+    tbatch = ds.train_x[:tcfg.batch_size]
+    summary["profile"] = profile_phase(
+        f"paper f32: one training step (batch {tcfg.batch_size})",
+        lambda: ts.train_step(tcfg, tstate, 99, tbatch))
+    return row, eval_counts, counts, {"main": main, "train": summary}
+
+
 def _paper_chain(depth_ar: int, gen):
     """Random folded weights, biases and masks of a 3x3 AR chain of
     depth_ar + 1 convs at the paper widths (z=32, h=160, merged heads)."""
@@ -1092,26 +1288,32 @@ def _most_convs(ops, dtype) -> int:
 
 
 def k1_depth_phase(ops, device, n: int = 64) -> None:
-    """K1 with the deepest chain it holds at the paper widths (bf16: the
-    tensor-core kernel; f32: the FMA kernel, TF32 off) on random inputs
-    from a seed, against its twin: bf16 at 2e-2 and f32 at 1e-4 of the
-    output's max."""
+    """K1 with the deepest chain it holds at the paper widths (bf16 and
+    f32 both on the tensor cores, f32 by 3xTF32) on random inputs from a
+    seed, against its twin: bf16 at 2e-2 of the output's max, f32 at 1e-5
+    of it against the twin in f64."""
     import torch
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
     gen = torch.Generator().manual_seed(9)
     z = torch.randn(n, 16, 16, 32, generator=gen)
     ctx = torch.randn(n, 16, 16, 160, generator=gen)
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
         ws, bs, masks = _paper_chain(_most_convs(ops, dtype) - 1, gen)
         args = (z.to(device, dtype), ctx.to(device),
                 [w.to(device, dtype) for w in ws], [b.to(device) for b in bs])
+        route = ar_mod.fwd_route(dtype, 16, 32, 160, 64)
+        check(route == ("wgmma" if dtype == torch.bfloat16 else "3xtf32"),
+              f"K1 {dtype} at the paper widths takes the {route} kernel")
         with torch.inference_mode():
             got = ops.ar_stack(*args, masks)
-            ref = ops.ar_stack_ref(*args)
+            ref = ops.ar_stack_ref(*(args if dtype == torch.bfloat16
+                                     else _f64(*args)))
         err, rel = _rel_err(got, ref)
         print(f"[K1 depth] ar_stack with {len(ws)} convs (depth_ar="
-              f"{len(ws) - 1}, the most it holds), {str(dtype)[6:]}, "
-              f"z{tuple(z.shape)}: max abs err {err:.3e} ({rel:.3e} of max, "
-              f"limit {tol})")
+              f"{len(ws) - 1}, the most it holds), {str(dtype)[6:]} "
+              f"({route}), z{tuple(z.shape)}: max abs err {err:.3e} "
+              f"({rel:.3e} of max{' of the f64 twin' if tol < 1e-4 else ''},"
+              f" limit {tol})")
         check(rel <= tol, f"K1 at {len(ws)} convs {dtype}: {rel} > {tol}")
 
 
@@ -1245,14 +1447,19 @@ def k2_forward_phase(ops, cap: dict) -> dict:
             ms = cuda_ms(lambda: ops.masked_conv2d(x, w, taps))
             dev = device_ms(lambda: ops.masked_conv2d(x, w, taps))
             ms32 = cuda_ms(lambda: ops.masked_conv2d(x32, w32, taps), 5, 1)
+            dev32 = device_ms(lambda: ops.masked_conv2d(x32, w32, taps), 5, 1)
             plain = cuda_ms(lambda: ops.masked_conv2d_ref(x, w, taps))
             conv, xl, wl = _k2_conv_lib(x, w)
             lib = cuda_ms(lambda: conv(xl, wl))
             lib_dev = device_ms(lambda: conv(xl, wl))
+            _, xl32, wl32 = _k2_conv_lib(x32, w32)
+            lib_dev32 = device_ms(lambda: conv(xl32, wl32), 5, 1)
         print(f"[K2] {cin}->{cout} ({route}): kernel {ms:.4f} ms, cuDNN "
               f"{lib:.4f} ms, ratio {ms / lib:.3f}; by device time "
               f"{dev:.4f} ms against {lib_dev:.4f} ms, ratio "
-              f"{dev / lib_dev:.3f}")
+              f"{dev / lib_dev:.3f}; f32 (FMA) by device time {dev32:.4f} "
+              f"ms against cuDNN f32 (TF32 off) {lib_dev32:.4f} ms, ratio "
+              f"{dev32 / lib_dev32:.3f}")
         n, hh, ww, _ = x.shape
         flops = 2 * n * hh * ww * len(taps) * cin * cout
         moved = nbytes(x, got) + len(taps) * cin * cout * w.element_size()
@@ -1261,10 +1468,12 @@ def k2_forward_phase(ops, cap: dict) -> dict:
                            max_abs_err_f32=err32, ms=ms, ms_f32=ms32,
                            plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                            bound_by=b_by, device_ms=dev,
-                           library_device_ms=lib_dev, gflop=flops / 1e9,
-                           mbytes=moved / 1e6))
+                           library_device_ms=lib_dev, device_ms_f32=dev32,
+                           library_device_ms_f32=lib_dev32,
+                           gflop=flops / 1e9, mbytes=moved / 1e6))
     return _k2_row("masked_conv2d", "iaf_torch/ops/csrc/masked_conv.cu",
-                   "iaf_tpu/ops/masked_conv.py:40", shapes)
+                   "iaf_tpu/ops/masked_conv.py:40", shapes,
+                   ("device_ms_f32", "library_device_ms_f32"))
 
 
 def k2_backward_phase(ops, cap: dict) -> dict:
@@ -1339,6 +1548,8 @@ def k2_backward_phase(ops, cap: dict) -> dict:
             mirrored, kh, kw))
         x32, w32 = x.float(), w.float()
         ms32 = cuda_ms(lambda: ops.masked_conv2d_bwd(x32, w32, g, taps), 5, 1)
+        dev32 = device_ms(lambda: ops.masked_conv2d_bwd(x32, w32, g, taps),
+                          5, 1)
         leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w)]
         plain = _backward_ms(
             lambda a, b: ops.masked_conv2d_ref(a, b, taps), leaves, g)
@@ -1348,6 +1559,9 @@ def k2_backward_phase(ops, cap: dict) -> dict:
                     leaves, g.permute(0, 3, 1, 2).to(x.dtype))
         lib = _backward_ms(*lib_args)
         lib_dev = _backward_ms(*lib_args, timer=device_ms)
+        leaves32 = [t_.detach().clone().requires_grad_() for t_ in (x32, w32)]
+        lib_dev32 = _backward_ms(lib_args[0], leaves32,
+                                 g.permute(0, 3, 1, 2), timer=device_ms)
         n, hh, ww, _ = x.shape
         flops = 2 * 2 * n * hh * ww * len(taps) * cin * cout
         moved = (nbytes(x, g, *outs["bf16"]) + len(taps) * cin * cout
@@ -1362,7 +1576,9 @@ def k2_backward_phase(ops, cap: dict) -> dict:
               f"{t['wgrad_ms']:.4f}), cuDNN {lib:.4f}; by device time "
               f"{t['device_ms']:.4f} ms (dgrad {t['dgrad_device_ms']:.4f}, "
               f"wgrad + reduce {t['wgrad_device_ms']:.4f}), cuDNN "
-              f"{lib_dev:.4f}, ratio {t['device_ms'] / lib_dev:.3f}; dgrad "
+              f"{lib_dev:.4f}, ratio {t['device_ms'] / lib_dev:.3f}; f32 "
+              f"(FMA) by device time {dev32:.4f} ms, cuDNN f32 (TF32 off) "
+              f"{lib_dev32:.4f}, ratio {dev32 / lib_dev32:.3f}; dgrad "
               f"kernel alone {t['dgrad_kernel_device_ms']:.4f} ms; wgrad "
               f"{chunks} chunks, partials {partial_mb:.1f} MB written and "
               f"read; bound {b_ms:.4f} ms ({b_by})")
@@ -1372,17 +1588,19 @@ def k2_backward_phase(ops, cap: dict) -> dict:
                            library_device_ms=lib_dev, bound_ms=b_ms,
                            bound_by=b_by, gflop=flops / 1e9,
                            mbytes=moved / 1e6, wgrad_chunks=chunks,
-                           partial_mbytes=partial_mb, **t))
+                           partial_mbytes=partial_mb, device_ms_f32=dev32,
+                           library_device_ms_f32=lib_dev32, **t))
     return _k2_row("masked_conv2d_bwd",
                    "iaf_torch/ops/csrc/masked_conv_bwd.cu",
                    "iaf_tpu/ops/masked_conv.py:98", shapes,
                    ("dgrad_ms", "dgrad_device_ms", "wgrad_ms",
                     "wgrad_device_ms", "dgrad_kernel_device_ms",
-                    "partial_mbytes"))
+                    "partial_mbytes", "device_ms_f32",
+                    "library_device_ms_f32"))
 
 
 def five_by_five_phases(ops, device, ds) -> tuple[list, dict, dict, dict]:
-    """The 5x5 config's phases (phase 10 of the module docstring). Returns
+    """The 5x5 config's phases (phase 11 of the module docstring). Returns
     (K2's two rows, the eval and training launch counts, a summary)."""
     import torch
     from iaf_torch.core.config import Config
@@ -1498,10 +1716,14 @@ def run() -> dict:
         ops, device, cfg, model, ds,
         {"ar_stack": len(model.blocks), "iaf_update": len(model.blocks),
          "disc_logistic_logp": 1})
+
+    # phase 6: the f32 recipe: K1's f32 kernel, eval and training, counted
+    row32, eval32, counts32, summary32 = f32_phases(ops, device, model, ds)
+    rows.append(row32)
     del model
     torch.cuda.empty_cache()
 
-    # phase 6: backward kernels and K5 against their twins on one real
+    # phase 7: backward kernels and K5 against their twins on one real
     # training step's inputs (paper config, bf16, batch 32)
     from iaf_torch.parallel import train_step as ts
     tcfg = Config().parse(PAPER + ",dataset=synthetic")
@@ -1514,10 +1736,10 @@ def run() -> dict:
     del cap, tstate
     torch.cuda.empty_cache()
 
-    # phase 7: one f32 training step, card against the CPU twins
+    # phase 8: one f32 training step, card against the CPU twins
     train_reference_phase(device)
 
-    # phase 8: the training main path, counted, resumed, profiled
+    # phase 9: the training main path, counted, resumed, profiled
     tcfg, tstate, counts, summary = train_phase(ops, device)
     summary["profile"] = profile_phase(
         f"one training step (batch {tcfg.batch_size})",
@@ -1525,21 +1747,24 @@ def run() -> dict:
     del tstate
     torch.cuda.empty_cache()
 
-    # phase 9: K1 past four convs
+    # phase 10: K1 at the deepest chain it holds
     k1_depth_phase(ops, device)
 
-    # phase 10: the 5x5 config through K2
+    # phase 11: the 5x5 config through K2
     k2_rows, eval5, counts5, summary5 = five_by_five_phases(ops, device, ds)
     rows += k2_rows
 
-    # phase 11: a 3x3 chain deeper than K1 holds, through K2
+    # phase 12: a 3x3 chain deeper than K1 holds, through K2
     deep_chain_phase(ops, device)
+    paths = {"paper": (eval_counts, counts), "5x5": (eval5, counts5),
+             "paper f32": (eval32, counts32)}
     for r in rows:     # each kernel's launches on the main path it is on
-        ev, tr = ((eval5, counts5) if r["name"] in K2_NAMES
-                  else (eval_counts, counts))
-        r["launches"] = tr[r["name"]]
-        if ev[r["name"]]:     # the forward kernels
-            r["launches_eval"] = ev[r["name"]]
+        ev, tr = paths[r.setdefault(
+            "path", "5x5" if r["name"] in K2_NAMES else "paper")]
+        key = r.get("counter", r["name"])
+        r["launches"] = tr[key]
+        if ev[key]:     # the forward kernels
+            r["launches_eval"] = ev[key]
     for r in rows:
         dev = ("" if "device_ms" not in r else
                f" (device {r['device_ms']:.4f} ms, library "
@@ -1549,6 +1774,8 @@ def run() -> dict:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
               f"{r['launches']}")
     print(json.dumps({"main": main, "train": summary,
+                      "main_f32": summary32["main"],
+                      "train_f32": summary32["train"],
                       "main_5x5": summary5["main"],
                       "train_5x5": summary5["train"]}))
     print(json.dumps({"kernels": rows}))
@@ -1556,31 +1783,73 @@ def run() -> dict:
                                    "count": torch.cuda.device_count()}}
 
 
-def _ab_k1_fwd(ops, k1) -> dict:
+def _ab_k1_fwd(ops, k1, f32: bool = False) -> dict:
     """A/B case ``k1_fwd``: K1's forward at the eval shape (N = 1024) and
     at batch 32 with the pre-activations written, paper widths, inputs
-    from a seed."""
+    from a seed. With ``f32`` (case ``k1_fwd_f32``) the same in f32 (the
+    f32 recipe's), full-mantissa inputs, the error against the twin in
+    f64; whatever kernel the tree routes f32 to runs (before the 3xTF32
+    route: the FMA kernel)."""
     import torch
+    dtype = torch.float32 if f32 else torch.bfloat16
     gen = torch.Generator().manual_seed(5)
     ws, bs, _ = _paper_chain(2, gen)
-    ws = [w.cuda().bfloat16() for w in ws]
+    ws = [w.cuda().to(dtype) for w in ws]
     bs = [b.cuda() for b in bs]
     out = {}
     for label, n, pre in (("eval", 1024, False), ("b32", 32, True)):
-        z = torch.randn(n, 16, 16, 32, generator=gen).cuda().bfloat16()
+        z = torch.randn(n, 16, 16, 32, generator=gen).cuda().to(dtype)
         c = torch.randn(n, 16, 16, 160, generator=gen).cuda()
         with torch.inference_mode():
-            err = _rel_err(k1._fwd(z, c, ws, bs, pre)[0],
-                           ops.ar_stack_ref(z, c, ws, bs))[1]
+            ref = ops.ar_stack_ref(*(_f64(z, c, ws, bs) if f32
+                                     else (z, c, ws, bs)))
+            err = _rel_err(k1._fwd(z, c, ws, bs, pre)[0], ref)[1]
             out[label] = (lambda z=z, c=c, pre=pre:  # noqa: E731
                           k1._fwd(z, c, ws, bs, pre), err)
     return out
 
 
+def _ab_f32_chunk(ops, k1, device="cuda") -> dict:
+    """A/B case ``f32_chunk``: one eval chunk of the paper config in f32
+    (16 images x 64 samples; random weights from a data-dependent init on
+    synthetic data; TF32 off, as ``train_lib`` sets it for the f32
+    recipe), timed over 5 calls; the error is the chunk's log-weights
+    against the same chunk with K1's twin in place of its kernel."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.models import cvae
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config().parse(PAPER + f",compute_dtype=float32,dataset=synthetic,"
+                         f"eval_batch_size={EVAL_BATCH},eval_k_chunk="
+                         f"{EVAL_CHUNK}")
+    ds = synthetic_dataset(cfg.image_size, cfg.channels)
+    model = cvae.init_params(cfg, ds.train_x[:32], rng=cfg.seed,
+                             device=torch.device(device))
+    x = ds.test_x[:EVAL_BATCH]
+
+    def chunk():
+        with torch.inference_mode():
+            return cvae.apply_fn(cfg, model, 1, x, mode="eval",
+                                 k=EVAL_CHUNK).log_w
+    got = chunk()
+    kernel = ops.ar_stack
+    ops.ar_stack = lambda z, c, ws, bs, masks: ops.ar_stack_ref(z, c, ws, bs)
+    try:
+        ref = chunk()
+    finally:
+        ops.ar_stack = kernel
+    return {"chunk": (chunk, _rel_err(got, ref)[1], 5)}
+
+
 # The A/B cases: each takes (ops, the K1 module) of the tree under test
-# and returns {label: (a call of the kernel's wrapper, its relative error
-# against the twin)}; ``ab`` times every call by device time and events.
-AB_CASES = {"k1_fwd": _ab_k1_fwd}
+# and returns {label: (a call of the kernel's wrapper or of the path
+# around it, its relative error against the twin[, calls to time, 20 if
+# not given])}; ``ab`` times every call by device time and events.
+AB_CASES = {"k1_fwd": _ab_k1_fwd,
+            "k1_fwd_f32": lambda ops, k1: _ab_k1_fwd(ops, k1, f32=True),
+            "f32_chunk": _ab_f32_chunk}
 
 # One process per tree for ``ab``: the iaf_torch beside argv[1], timed
 # with this script's helpers (argv[2]) on case argv[3].
@@ -1596,11 +1865,13 @@ k1 = importlib.import_module("iaf_torch.ops.ar_stack")
 assert os.path.dirname(k1.__file__).startswith(os.path.abspath(root)), \
     k1.__file__
 out = {}
-for label, (call, err) in cs.AB_CASES[case](ops, k1).items():
-    kernels = cs.device_kernels(call)
-    out[label] = {"rel_err": err, "ms": cs.cuda_ms(call),
+for label, (call, err, *n) in cs.AB_CASES[case](ops, k1).items():
+    iters = n[0] if n else 20
+    kernels = sorted(cs.device_kernels(call, iters), key=lambda k: -k[1])
+    out[label] = {"rel_err": err, "ms": cs.cuda_ms(call, iters),
                   "device_ms": sum(k[1] for k in kernels),
-                  "by_kernel": [[k[0][:60], k[1], k[2]] for k in kernels]}
+                  "by_kernel": [[k[0][:60], k[1], k[2]]
+                                for k in kernels[:8]]}
 print(json.dumps({"tree": root, "case": case, **out}))
 """
 

@@ -18,3 +18,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def full_f32(compute_dtype: str, dev: torch.device) -> bool:
+    """The f32 recipe runs in f32 on the card too: for ``compute_dtype``
+    float32 on CUDA, turn off TF32 in cuDNN's convs and in matmuls
+    (PyTorch runs f32 convs in TF32 by default, ~3 decimal digits; the
+    reference computes them at "highest"). Returns whether it did; the
+    flags are process-wide and stay off."""
+    if compute_dtype != "float32" or dev.type != "cuda":
+        return False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return True

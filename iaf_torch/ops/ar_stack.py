@@ -3,7 +3,8 @@ and its backward (``csrc/ar_stack_bwd.cu``).
 
 Replaces ``iaf_tpu/ops/ar_stack.py:_stack_kernel`` and its ``_bwd``.
 ``ar_stack`` launches a CUDA kernel for CUDA tensors (the tensor-core
-kernel or the FMA one, as ``fwd_route`` decides from the shapes) and runs
+kernel, bf16 or f32 by 3xTF32, or the FMA one, as ``fwd_route`` decides
+from the dtype and the shapes) and runs
 ``ar_stack_ref``, its plain PyTorch twin (the counterpart of
 ``ar_stack_xla``), for CPU tensors only. Under autograd on CUDA it is a
 ``torch.autograd.Function``: the forward kernel also writes the hidden
@@ -35,6 +36,8 @@ _PX = 8                     # output pixels per thread item (ar_stack.cu PX)
 _SMEM_LIMIT = 232_448       # dynamic shared memory a Hopper block may use
 _WGMMA_W = 16               # ar_stack.cu TW: the width the wgmma kernel tiles
 _KC = 32                    # masked_conv.cuh KC: K depth of one weight slice
+_KF = 8                     # ar_stack.cu KF: the same in f32 (3xTF32)
+_TF32_MAX = (64, 160, 160)  # ar_stack.cu: the widest cz, ch, cout in f32
 
 _WGRAD_CHUNKS = 64          # FMA wgrad partials: pixel-row chunks per conv
 _GLUE_THREADS = 512         # ar_stack_bwd.cu GL_THREADS: glue block size
@@ -44,11 +47,14 @@ launches = {"ar_stack": 0, "ar_stack_bwd": 0}  # launches since the reset
 
 def conv_nhwc(x: torch.Tensor, w_hwio: torch.Tensor, padding) -> torch.Tensor:
     """Stride-1 conv, NHWC in and out, HWIO weights, explicit
-    ``((top, bottom), (left, right))`` zero padding; f32 output."""
+    ``((top, bottom), (left, right))`` zero padding; f32 output (f64 for
+    f64 inputs: the twin in f64 is the f32 kernels' reference)."""
     (pt, pb), (pl, pr) = padding
     xt = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
     out = F.conv2d(xt, w_hwio.permute(3, 2, 0, 1))
-    return out.float().permute(0, 2, 3, 1)
+    if out.dtype != torch.float64:
+        out = out.float()
+    return out.permute(0, 2, 3, 1)
 
 
 def ar_stack_ref_pre(z: torch.Tensor, context: torch.Tensor,
@@ -106,68 +112,96 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_route(dtype: torch.dtype, w: int, cz: int, ch: int, cout: int) -> str:
-    """The kernel K1's forward launches for CUDA inputs: ``"wgmma"``
-    (``ar_stack_wgmma_kernel``, tensor cores) for bf16 at the width its
-    tiles cover (W = 16: a row a warp) with cz and ch in whole 16-deep
-    steps and cout in whole 8-wide groups, each at most the widest wgmma N
-    (``masked_conv.WGMMA_WIDTHS``); else ``"fma"`` (``ar_stack_kernel``).
-    Every shape it takes holds a two-conv chain with two weight stages;
-    how deep a chain fits is ``ar_stack_fits``'s. Needs no built library."""
+    """The kernel K1's forward launches for CUDA inputs, by dtype and
+    shape. At the width the tensor-core kernel's tiles cover (W = 16: a
+    row a warp) with cout in whole 8-wide groups:
+
+    - ``"wgmma"`` (``ar_stack_wgmma_kernel``, bf16 wgmma) for bf16 with cz
+      and ch in whole 16-deep steps, each width at most the widest wgmma N
+      (``masked_conv.WGMMA_WIDTHS``);
+    - ``"3xtf32"`` (the same kernel's f32 instantiation: every product as
+      three TF32 wgmma products of split operands) for f32 with cz and ch
+      in whole 8-deep steps, cz at most 64 and ch and cout at most 160
+      (``_TF32_MAX``: f32 buffers are twice bf16's, and wider chains leave
+      no room for two weight stages).
+
+    Every other shape takes ``"fma"`` (``ar_stack_kernel``, FP32 FMA).
+    Every shape a tensor-core route takes holds a two-conv chain with two
+    weight stages; how deep a chain fits is ``ar_stack_fits``'s. Needs no
+    built library."""
     from iaf_torch.ops.masked_conv import WGMMA_WIDTHS
-    if (dtype == torch.bfloat16 and w == _WGMMA_W and cz % 16 == 0
-            and ch % 16 == 0 and cout % 8 == 0
+    if w != _WGMMA_W or cout % 8:
+        return "fma"
+    if (dtype == torch.bfloat16 and cz % 16 == 0 and ch % 16 == 0
             and max(cz, ch, cout) <= WGMMA_WIDTHS[-1]):
         return "wgmma"
+    if (dtype == torch.float32 and cz % 8 == 0 and ch % 8 == 0
+            and all(v <= m for v, m in zip((cz, ch, cout), _TF32_MAX))):
+        return "3xtf32"
     return "fma"
+
+
+def _slice_depth(dtype: torch.dtype) -> int:
+    """K depth of one streamed weight slice: 32 in bf16, 8 in f32."""
+    return _KF if dtype == torch.float32 else _KC
 
 
 def _pack_dims(weights: Sequence[torch.Tensor]):
     """Per conv (cin, cout, npad) of the forward's packed weights and the
     element offset where each starts in the buffer that holds them all:
-    5 live taps x K x npad, K = cin padded to whole 32-deep slices."""
+    5 live taps x K x npad, K = cin padded to whole slices (32-deep in
+    bf16, 8-deep in f32)."""
     from iaf_torch.ops.masked_conv import wgmma_width
+    ks = _slice_depth(weights[0].dtype)
     dims, offsets, at = [], [], 0
     for w in weights:
         cin, cout = int(w.shape[2]), int(w.shape[3])
         npad = wgmma_width(cout)
         dims.append((cin, cout, npad))
         offsets.append(at)
-        at += 5 * -(-cin // _KC) * _KC * npad
+        at += 5 * -(-cin // ks) * ks * npad
     return dims, offsets, at
 
 
 def pack_fwd_ref(weights: Sequence[torch.Tensor]):
     """The tensor-core forward's weights in plain ops: every conv's live
-    taps, their input channels zero-padded to whole 32-deep slices, in
-    ``masked_conv.wgmma_pack`` order ([5, K/16, npad/8, 2, 8, 8] with K the
+    taps, their input channels zero-padded to whole slices (32-deep in
+    bf16, 8-deep in f32), in ``masked_conv.wgmma_pack`` order ([5, K/16,
+    npad/8, 2, 8, 8] in bf16, [5, K/8, npad/8, 2, 8, 4] in f32, with K the
     padded cin and N = cout, npad = ``wgmma_width(cout)``, zero columns
-    past cout), conv after conv in one flat bf16 buffer. Returns (the
-    buffer, each conv's element offset in it)."""
+    past cout), conv after conv in one flat buffer in the weights' dtype
+    (f32 as it is: the kernel splits it into tf32 parts as it lands).
+    Returns (the buffer, each conv's element offset in it)."""
     from iaf_torch.ops import masked_conv as mc
     _, offsets, _ = _pack_dims(weights)
+    ks = _slice_depth(weights[0].dtype)
+    e = 16 // weights[0].element_size()
     flat = torch.cat([mc.wgmma_pack(
-        F.pad(_live_taps(w), (0, 0, 0, -w.shape[2] % _KC)),
-        mc.wgmma_width(w.shape[3])).reshape(-1) for w in weights])
+        F.pad(_live_taps(w), (0, 0, 0, -w.shape[2] % ks)),
+        mc.wgmma_width(w.shape[3]), e=e).reshape(-1) for w in weights])
     return flat, offsets
 
 
 def pack_fwd(weights: Sequence[torch.Tensor]):
     """``pack_fwd_ref`` for every conv in one launch of
-    ``ar_pack_w_kernel`` (bf16 CUDA weights of any strides)."""
+    ``ar_pack_w_kernel`` (bf16 or f32 CUDA weights of any strides)."""
     w0 = weights[0]
     if w0.device.type != "cuda":
         raise RuntimeError(f"ar_stack pack: no kernel for device "
                            f"{w0.device}")
-    if any(w.dtype != torch.bfloat16 for w in weights):
-        raise ValueError("ar_stack pack: weights must be bf16")
+    if (w0.dtype not in (torch.bfloat16, torch.float32)
+            or any(w.dtype != w0.dtype for w in weights)):
+        raise ValueError("ar_stack pack: weights must be all bf16 or all "
+                         "f32")
     dims, offsets, total = _pack_dims(weights)
-    flat = torch.empty((total,), device=w0.device, dtype=torch.bfloat16)
+    flat = torch.empty((total,), device=w0.device, dtype=w0.dtype)
     strides = [s for w in weights for s in w.stride()]
     with torch.cuda.device(w0.device):
         err = _lib().ar_stack_pack_w(
             _ptrs(weights), flat.data_ptr(),
             (ctypes.c_int * (3 * len(dims)))(*[v for d in dims for v in d]),
             (ctypes.c_longlong * len(strides))(*strides), len(weights),
+            int(w0.dtype == torch.float32),
             torch.cuda.current_stream(w0.device).cuda_stream)
     _raise_on(err, "ar_stack pack")
     return flat, offsets
@@ -223,7 +257,7 @@ def _lib():
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
             + [ctypes.c_size_t, ctypes.c_void_p])
         lib.ar_stack_pack_w.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         for fn in (lib.ar_stack_fwd, lib.ar_stack_pack_w):
             fn.restype = ctypes.c_int
         lib.ar_stack_smem_bytes.argtypes = [ctypes.c_int] * 7
@@ -270,16 +304,17 @@ def ar_stack_fits(n_convs: int, w: int, cz: int, ch: int, cout: int,
     ``w``, input channels ``cz``, hidden ``ch`` and head ``cout`` in
     ``dtype``: the shared memory that the kernel ``fwd_route`` names needs
     for it (the tensor-core kernel's buffers, halo rows and two weight
-    stages; the FMA kernel's rings) fits one Hopper block. The byte count
+    stages, bf16 or f32; the FMA kernel's rings) fits one Hopper block.
+    The byte count
     is the kernel's own (``ar_stack_smem_bytes``, or ``smem_bytes`` with
     the same arguments); nothing is launched. ``ar_stack`` raises on a
     chain that does not fit, and ``ARMultiConv2d`` sends it conv by conv
     through K2 instead."""
     if smem_bytes is None:
         smem_bytes = _lib().ar_stack_smem_bytes
-    wgmma = fwd_route(dtype, w, cz, ch, cout) == "wgmma"
+    tensor_cores = fwd_route(dtype, w, cz, ch, cout) != "fma"
     return smem_bytes(n_convs, w, cz, ch, cout, int(dtype == torch.bfloat16),
-                      int(wgmma)) <= _SMEM_LIMIT
+                      int(tensor_cores)) <= _SMEM_LIMIT
 
 
 def _check_smem(lib, n_convs, w_, cz, ch, cout, dtype) -> None:
@@ -289,13 +324,15 @@ def _check_smem(lib, n_convs, w_, cz, ch, cout, dtype) -> None:
                      lib.ar_stack_smem_bytes):
         return
     bf16 = int(dtype == torch.bfloat16)
-    wgmma = int(fwd_route(dtype, w_, cz, ch, cout) == "wgmma")
+    route = fwd_route(dtype, w_, cz, ch, cout)
 
     def need(k):
-        return lib.ar_stack_smem_bytes(k, w_, cz, ch, cout, bf16, wgmma)
+        return lib.ar_stack_smem_bytes(k, w_, cz, ch, cout, bf16,
+                                       int(route != "fma"))
     fit = max([k for k in range(2, n_convs) if need(k) <= _SMEM_LIMIT],
               default=0)
-    path = "tensor-core" if wgmma else ("bf16" if bf16 else "f32") + " FMA"
+    path = {"wgmma": "tensor-core", "3xtf32": "3xTF32 tensor-core"}.get(
+        route, ("bf16" if bf16 else "f32") + " FMA")
     raise ValueError(
         f"ar_stack: {n_convs} convs (depth_ar={n_convs - 1}) need "
         f"{need(n_convs)} B of shared memory per block; a Hopper block has "
@@ -319,15 +356,16 @@ def _fwd(z, context, weights, biases, save_pre: bool):
     bf16 = int(z.dtype == torch.bfloat16)
     lib = _lib()
     _check_smem(lib, n_convs, w_, cz, ch, cout, z.dtype)
-    wgmma = fwd_route(z.dtype, w_, cz, ch, cout) == "wgmma"
-    if wgmma:
+    tensor_cores = fwd_route(z.dtype, w_, cz, ch, cout) != "fma"
+    if tensor_cores:
         if z.data_ptr() % 16:
             raise ValueError("ar_stack: the tensor-core kernel needs z "
                              "16-byte aligned")
         flat, offsets = pack_fwd(weights)
         w_ptrs = (ctypes.c_void_p * n_convs)(
-            *[flat.data_ptr() + 2 * o for o in offsets])
-        threads = 0      # the kernel's own: two warpgroups and a producer
+            *[flat.data_ptr() + flat.element_size() * o for o in offsets])
+        threads = 0      # the kernel's own: two warpgroups, a producer
+                         # (and in f32 two splitter warps)
     else:
         packed = [pack_weights(w) for w in weights]
         w_ptrs = _ptrs(packed)
@@ -341,8 +379,8 @@ def _fwd(z, context, weights, biases, save_pre: bool):
         err = lib.ar_stack_fwd(z.data_ptr(), context.data_ptr(), w_ptrs,
                                _ptrs(biases), out.data_ptr(),
                                _ptrs(pre) if pre else None, n_convs, n, h,
-                               w_, cz, ch, cout, bf16, int(wgmma), threads,
-                               _SMEM_LIMIT, stream)
+                               w_, cz, ch, cout, bf16, int(tensor_cores),
+                               threads, _SMEM_LIMIT, stream)
     _raise_on(err, "ar_stack")
     launches["ar_stack"] += 1
     return out, pre

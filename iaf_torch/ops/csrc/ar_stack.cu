@@ -16,7 +16,8 @@
 //
 // The mask makes every conv causal in rows: output row y reads input rows
 // y-1 and y only. The TPU kernel kept 4 whole images and a [4,18,18,160]
-// f32 scratch in 16 MB of VMEM; a Hopper block has 227 KB. Two kernels:
+// f32 scratch in 16 MB of VMEM; a Hopper block has 227 KB. Two kernels,
+// the first in two instantiations:
 //
 // * ar_stack_wgmma_kernel, bf16 at W = 16 (the paper config), on the
 //   tensor cores. Persistent blocks, one per SM, each walking whole images
@@ -51,12 +52,35 @@
 //     instantiated one (160 for the hidden convs, 64 for the heads at the
 //     paper widths), its padding columns zero and never stored. N = 256
 //     is compiled into a second instantiation only (NMAX).
-// * ar_stack_kernel, everything else (f32, whose tolerance TF32 would
-//   break, and shapes the tensor-core kernel does not tile): FP32 FMA on
-//   the CUDA cores, one block per image walking its rows as a wavefront
-//   with a ring of two padded rows per conv input in shared memory, one
-//   thread per output channel of PX neighbouring pixels, weights coalesced
-//   across output channels from L1/L2.
+// * The same kernel for f32 at W = 16 (ar_stack_wgmma_kernel<160, true>,
+//   the f32 recipe's every call at the paper widths), on the tensor cores
+//   by 3xTF32: Hopper has no f32 tensor-core product and one TF32 product
+//   keeps ~11 bits, so each f32 operand x is split into hi = tf32(x) and
+//   lo = tf32(x - hi) (round to nearest, ties away) and every product is
+//   lo*hi + hi*lo + hi*hi, small terms first (~2^-21 relative per
+//   product; lo*lo is below f32's own rounding). A is split in registers
+//   after ldmatrix (each 32-bit word one element: the four 8x8 b16
+//   matrices are the tf32 A fragment); B, the weights, stream as f32 (4
+//   bytes, not a pre-split 8) in KF = 8-deep slices, and three splitter
+//   warps walk the ring beside the producer, splitting each landed slice
+//   in place (hi over it, lo after it) before the consumers may read it
+//   (a third mbarrier per stage, ready; ctx rows pass through). The
+//   tensor cores' own sums lose ~1/3 ulp of the running sum per wgmma
+//   (measured: 1.0e-5 of the output's max from the f64 twin on a 3-conv
+//   chain, 2.0e-5 on 8), so each 4 slices' sum is added into f32 totals
+//   rounded to nearest, which doubles the accumulators: the producer's
+//   warpgroup hands registers to the consumers (setmaxnreg, 224 a
+//   consumer thread). f32 buffers are twice bf16's: one hidden buffer,
+//   each conv's output written over its input once every warp has read
+//   it (a consumer barrier between the mainloop and the epilogue; the
+//   last row's warp keeps the halo row first); 8 stages and at most 8
+//   convs at the paper widths.
+// * ar_stack_kernel, the shapes the tensor-core kernel does not tile (W !=
+//   16, channels not in whole k-steps, f32 with cz over 64 or ch or cout
+//   over 160): FP32 FMA on the CUDA cores, one block per image walking
+//   its rows as a wavefront with a ring of two padded rows per conv input
+//   in shared memory, one thread per output channel of PX neighbouring
+//   pixels, weights coalesced across output channels from L1/L2.
 //
 // Bound on the H100 (paper widths: cz=32, ch=160, cout=64, 3 convs, bf16):
 // at the eval shape (N = 1024 images of 16x16) 107.4 GFLOP over the live
@@ -80,17 +104,25 @@
 // cluster sharing each weight slice by TMA multicast; independent half-
 // image tiles that recompute a halo growing by one row per conv (64
 // blocks at batch 32).
-// The FMA kernel's floor is 107.4 GFLOP at 67 TFLOP/s, ~1.6 ms.
+// In f32 the same 107.4 GFLOP are three TF32 products each: 322 GFLOP at
+// 495 TFLOP/s, 0.65 ms at N = 1024 (~268 MB compulsory, 0.08 ms); the
+// f32 weight stream is 0.82 MB a tile pass, 1.7 GB a launch from L2. Any
+// kernel with exact f32 products on the CUDA cores has 107.4 GFLOP at 67
+// TFLOP/s, ~1.6 ms, as its floor. The f32 kernel's critical path is the
+// bf16 one's with twice the slices per K (each waiting for its own three
+// wgmmas) and a flush of 80 sums a thread every 4 slices.
 //
 // Types: T = float or __nv_bfloat16 for z, weights and the on-chip
 // activations; ctx, biases, accumulation and the output are f32.
+
+#include <type_traits>
 
 #include "masked_conv.cuh"
 
 // Convs in one chain: the kernel arguments carry one weight, bias and
 // pre-activation pointer per conv. Shared memory binds first: at the paper
-// widths (W=16, cz=32, ch=160) a block holds 7 convs on the f32 FMA path
-// and 16 on the tensor cores (ar_stack_smem_bytes).
+// widths (W=16, cz=32, ch=160) a block holds 16 convs on the tensor cores
+// in bf16 and 8 in f32 (ar_stack_smem_bytes).
 #define MAX_CONVS 32
 #define NTAPS 5
 
@@ -222,20 +254,38 @@ static int launch(const StackArgs& a, int n_images, int threads,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path (bf16, W = 16): ar_stack_wgmma_kernel. See the note at
-// the top; the staged-row copy, barriers, ldmatrix, descriptors and wgmma
-// are masked_conv.cuh's (K2's forward).
+// Tensor-core path (W = 16): ar_stack_wgmma_kernel<NMAX, F32>, bf16 (F32 =
+// false) or f32 by 3xTF32 (F32 = true). See the note at the top; the
+// staged-row copy, barriers, ldmatrix, descriptors and wgmma are
+// masked_conv.cuh's (K2's forward).
 // ---------------------------------------------------------------------------
 
 #define TR 8         // rows per tile: 8 rows x 16 pixels = 128 = 2 x m64
 #define TW 16        // the only width the kernel tiles: one warp per row
 #define SCOL 18      // staged columns: pixel x at column x + 1
+#define KF 8         // f32: K depth of one weight slice (one k8 step)
+#define FLUSH 4      // f32: slices summed on the tensor cores per flush
+#define SPLIT_WARPS 3                // f32: the slice splitters, and
+#define TF_THREADS (WG_CONSUMERS + 128)  // the producer: one warpgroup
+#define TF_CONSUMER_REGS 224         // f32: registers a consumer thread
+#define TF_PRODUCER_REGS 56          // takes, and a producer-group one
 
-// A conv's K as the kernel runs it: its input channels padded to whole
-// 32-deep slices with zeros (zero weight rows, zero buffer channels), so
-// every slice is two k16 steps and no wgmma is conditional.
-__host__ __device__ static inline int wg_k(int c) {
-  return (c + KC - 1) / KC * KC;
+// What the two instantiations differ in: the activations' element size,
+// a slice's K depth, the channel padding (16 bytes, so the 8 rows of an
+// ldmatrix phase fall in distinct bank groups) and the block.
+template <bool F32>
+struct WgPath {
+  static constexpr int E = F32 ? 4 : 2;
+  static constexpr int KS = F32 ? KF : KC;
+  static constexpr int PAD = 16 / E;
+  static constexpr int THREADS = F32 ? TF_THREADS : WG_THREADS;
+};
+
+// A conv's K as the kernel runs it: its input channels padded with zeros
+// to whole ``ks``-deep slices (zero weight rows, zero buffer channels), so
+// no wgmma is conditional (bf16: two k16 steps a slice; f32: one k8).
+__host__ __device__ static inline int wg_k(int c, int ks = KC) {
+  return (c + ks - 1) / ks * ks;
 }
 
 // The wgmma N of a conv with ``c`` outputs: the narrowest instantiated
@@ -244,69 +294,125 @@ __host__ __device__ static inline int wg_width(int c) {
   return c <= 32 ? 32 : c <= 64 ? 64 : c <= 128 ? 128 : c <= 160 ? 160 : 256;
 }
 
-// Shared memory of one block: barriers, z's buffer (the tile's 8 rows and
-// the one above), the hidden buffers (two alternate along the chain, one
-// for a two-conv chain), one halo row per hidden conv input, every conv's
-// bias (f32, conv c's from c * ch on), then the ring of ``slice``-byte
-// stages from ``fixed`` on (a weight slice, or one image row of ctx).
+// Shared memory of one block: the ring's mbarriers (full and empty, and
+// for f32 ready), z's buffer (the tile's 8 rows and the one above), the
+// hidden buffers (bf16: two alternate along the chain, one for a two-conv
+// chain; f32: one, each conv's output written over its input), one halo
+// row per hidden conv input, every conv's bias (f32, conv c's from c * ch
+// on), then the ring of ``slice``-byte stages from ``fixed`` on (a weight
+// slice, or one image row of ctx). An f32 stage holds the landed KF-deep
+// f32 slice, whose hi part is written over it, and its lo part after it.
 struct WgLayout {
-  int zbytes, hbytes, halo, nbuf, bias, fixed, slice;
+  int bars, zbytes, hbytes, halo, nbuf, bias, fixed, slice;
 };
 
 __host__ __device__ static inline WgLayout wg_layout(int n_convs, int cz,
-                                                     int ch, int cout) {
+                                                     int ch, int cout,
+                                                     bool f32) {
+  const int e = f32 ? 4 : 2, ks = f32 ? KF : KC, pad = 16 / e;
   WgLayout L;
-  L.zbytes = round128((TR + 1) * SCOL * (wg_k(cz) + CPAD) * 2);
-  L.hbytes = round128(TR * SCOL * (wg_k(ch) + CPAD) * 2);
-  L.halo = SCOL * (wg_k(ch) + CPAD) * 2;
-  L.nbuf = n_convs > 2 ? 2 : 1;
-  L.bias = BAR_BYTES + L.zbytes + L.nbuf * L.hbytes + (n_convs - 1) * L.halo;
+  L.bars = (f32 ? 3 : 2) * MAX_STAGES * 8;
+  L.zbytes = round128((TR + 1) * SCOL * (wg_k(cz, ks) + pad) * e);
+  L.hbytes = round128(TR * SCOL * (wg_k(ch, ks) + pad) * e);
+  L.halo = SCOL * (wg_k(ch, ks) + pad) * e;
+  L.nbuf = !f32 && n_convs > 2 ? 2 : 1;
+  L.bias = L.bars + L.zbytes + L.nbuf * L.hbytes + (n_convs - 1) * L.halo;
   L.fixed = round128(L.bias + ((n_convs - 1) * ch + cout) * 4);
   const int np = wg_width(ch) > wg_width(cout) ? wg_width(ch)
                                                 : wg_width(cout);
-  L.slice = KC * np * 2;
+  L.slice = f32 ? 2 * KF * np * 4 : KC * np * 2;
   return L;
 }
 
+// One f32 slice split in place by the splitter lane ``sl`` of 32 *
+// SPLIT_WARPS: each element of the landed [KF x N] slice becomes its tf32
+// hi part there and its lo part at the same place KF * N floats on.
+__device__ __forceinline__ void split_slice(unsigned char* stage, int n,
+                                            int sl) {
+  float4* hi = reinterpret_cast<float4*>(stage);
+  float4* lo = hi + KF * n / 4;
+  for (int i = sl; i < KF * n / 4; i += 32 * SPLIT_WARPS) {
+    const float4 v = hi[i];
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) tf32_split(__float_as_uint(x[k]), h[k], l[k]);
+    hi[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                        __uint_as_float(h[2]), __uint_as_float(h[3]));
+    lo[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                        __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
 // One conv of one tile by one consumer warp, N its wgmma width: the
-// mainloop over the 5 live taps and the 32-deep K chunks of each (``cin``
-// = wg_k of the input channels; A rows: ``above`` and ``here``, shared
-// addresses of the input rows y-1 and y of this warp's output row, column
-// 0; B: the ring), then the epilogue from the
-// accumulators (``bias``: this conv's in shared memory; for conv 0 the
-// tile's 8 ctx rows follow its weight slices through the ring, row r
-// read by warp r). ``img``, ``y``: the image and row this warp computes
-// (rows y >= H are computed and not stored).
-template <int N>
+// mainloop over the 5 live taps and the K slices of each (``cin`` = wg_k
+// of the input channels; A rows: ``above`` and ``here``, shared addresses
+// of the input rows y-1 and y of this warp's output row, column 0; B: the
+// ring, each stage waited for on ``full``: for f32 the splitters' ready
+// barriers), then the epilogue from the accumulators (``bias``: this
+// conv's in shared memory; for conv 0 the tile's 8 ctx rows follow its
+// weight slices through the ring, row r read by warp r), ``before`` run
+// by every consumer just before the stores. ``img``, ``y``: the image and
+// row this warp computes (rows y >= H are computed and not stored).
+template <int N, bool F32, typename Before>
 __device__ __forceinline__ void wg_conv(
     const StackArgs& a, int c, uint32_t above, uint32_t here, int cin,
     unsigned char* ring, int slice, uint64_t* full, uint64_t* empty,
     int stages, int& stage, int& phase, unsigned char* next, int img,
-    int y, const float* bias) {
+    int y, const float* bias, Before before) {
+  typedef WgPath<F32> P;
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int cs = cin + CPAD;
-  // ldmatrix.x4: lanes 0-15 give pixel rows 0-15 at k 0-7, lanes 16-31
-  // the same rows at k 8-15
-  const uint32_t lane_off = ((lane & 15) * cs + (lane >> 4) * 8) * 2;
+  const int cs = cin + P::PAD;
+  // ldmatrix.x4: lanes 0-15 give pixel rows 0-15 at a k-step's first 16
+  // bytes of K, lanes 16-31 the same rows at its next 16 (bf16: k 0-7 and
+  // 8-15 of a k16 step; f32: k 0-3 and 4-7 of a k8 step, each 32-bit word
+  // one element, so the four matrices are the tf32 A fragment)
+  const uint32_t lane_off = (lane & 15) * cs * P::E + (lane >> 4) * 16;
   float acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  // f32: acc sums FLUSH slices on the tensor cores, then goes into tot in
+  // f32 (round to nearest): the tensor cores' sums lose ~1/3 ulp of the
+  // running sum per wgmma, so a short run keeps that loss small
+  float tot[F32 ? N / 2 : 1];
+  int run = 0;
+  if constexpr (F32) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) tot[i] = 0.f;
+  }
 #pragma unroll 1
   for (int t = 0; t < NTAPS; ++t) {
     // taps (0,0) (0,1) (0,2) read row y-1, (1,0) (1,1) row y; pixel x's
     // tap dx reads column x + dx
     const uint32_t arow =
-        (t < 3 ? above + t * cs * 2 : here + (t - 3) * cs * 2) + lane_off;
-    for (int k0 = 0; k0 < cin; k0 += KC) {
-      uint32_t af[2][4];
-      ldmatrix_x4(af[0], arow + k0 * 2);
-      ldmatrix_x4(af[1], arow + (k0 + 16) * 2);
-      mbar_wait(&full[stage], phase);
-      __syncwarp();
-      const uint64_t desc = b_desc(smem_u32(ring + stage * slice));
-      wgmma_fence();
-      wgmma_rs<N>(acc, af[0], desc);
-      wgmma_rs<N>(acc, af[1], desc + ((16 * N * 2) >> 4));
+        (t < 3 ? above + t * cs * P::E : here + (t - 3) * cs * P::E) +
+        lane_off;
+    for (int k0 = 0; k0 < cin; k0 += P::KS) {
+      if constexpr (F32) {
+        // 3xTF32, one k8 step: lo*hi + hi*lo + hi*hi, small terms first
+        uint32_t hi[4], lo[4];
+        ldmatrix_x4(hi, arow + k0 * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tf32_split(hi[i], hi[i], lo[i]);
+        mbar_wait(&full[stage], phase);
+        __syncwarp();
+        const uint32_t base = smem_u32(ring + stage * slice);
+        const uint64_t dhi = b_desc(base), dlo = b_desc(base + KF * N * 4);
+        wgmma_fence();
+        wgmma_tf32_rs<N>(acc, lo, dhi, run != 0);
+        wgmma_tf32_rs<N>(acc, hi, dlo, 1);
+        wgmma_tf32_rs<N>(acc, hi, dhi, 1);
+      } else {
+        uint32_t af[2][4];
+        ldmatrix_x4(af[0], arow + k0 * 2);
+        ldmatrix_x4(af[1], arow + (k0 + 16) * 2);
+        mbar_wait(&full[stage], phase);
+        __syncwarp();
+        const uint64_t desc = b_desc(smem_u32(ring + stage * slice));
+        wgmma_fence();
+        wgmma_rs<N>(acc, af[0], desc);
+        wgmma_rs<N>(acc, af[1], desc + ((16 * N * 2) >> 4));
+      }
       wgmma_commit();
       wgmma_wait0();
       __syncwarp();
@@ -315,7 +421,18 @@ __device__ __forceinline__ void wg_conv(
         stage = 0;
         phase ^= 1;
       }
+      if constexpr (F32) {
+        if (++run == FLUSH || (t == NTAPS - 1 && k0 + KF >= cin)) {
+#pragma unroll
+          for (int i = 0; i < N / 2; ++i) tot[i] += acc[i];
+          run = 0;
+        }
+      }
     }
+  }
+  if constexpr (F32) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = tot[i];
   }
 
   // Epilogue: bias (shared memory), then ctx for conv 0 (from the ring:
@@ -366,6 +483,7 @@ __device__ __forceinline__ void wg_conv(
       }
     }
   }
+  before();
   if (last) {
     if (!inside) return;
     float* out = a.out + pix * a.cout;
@@ -381,11 +499,12 @@ __device__ __forceinline__ void wg_conv(
     }
     return;
   }
-  const int ch = a.ch, ncs = wg_k(ch) + CPAD;
+  const int ch = a.ch, ncs = wg_k(ch, P::KS) + P::PAD;
   float* pre = a.pre[c] != nullptr && inside ? a.pre[c] + pix * ch : nullptr;
   // this warp's row of the next conv's input, pixel g at column g + 1
-  __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(next) +
-                       ((size_t)(threadIdx.x >> 5) * SCOL + g + 1) * ncs;
+  typedef typename std::conditional<F32, float, __nv_bfloat16>::type T;
+  T* dst = reinterpret_cast<T*>(next) +
+           ((size_t)(threadIdx.x >> 5) * SCOL + g + 1) * ncs;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const int co = j * 8 + 2 * tig;
@@ -396,29 +515,41 @@ __device__ __forceinline__ void wg_conv(
         *reinterpret_cast<float2*>(pre + 8 * ch + co) =
             make_float2(acc[4 * j + 2], acc[4 * j + 3]);
       }
-      *reinterpret_cast<__nv_bfloat162*>(dst + co) =
-          __floats2bfloat162_rn(elu(acc[4 * j]), elu(acc[4 * j + 1]));
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * ncs + co) =
-          __floats2bfloat162_rn(elu(acc[4 * j + 2]), elu(acc[4 * j + 3]));
+      if constexpr (F32) {
+        *reinterpret_cast<float2*>(dst + co) =
+            make_float2(elu(acc[4 * j]), elu(acc[4 * j + 1]));
+        *reinterpret_cast<float2*>(dst + 8 * ncs + co) =
+            make_float2(elu(acc[4 * j + 2]), elu(acc[4 * j + 3]));
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dst + co) =
+            __floats2bfloat162_rn(elu(acc[4 * j]), elu(acc[4 * j + 1]));
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * ncs + co) =
+            __floats2bfloat162_rn(elu(acc[4 * j + 2]), elu(acc[4 * j + 3]));
+      }
     }
   }
 }
 
 // The weights are packed for all convs back to back (ar_pack_w_kernel),
-// a.w[c] pointing at conv c's [5][wg_k(cin)/16][npad/8][2][8][8] (bf16),
-// so one (tap, 32-deep chunk) slice is contiguous and each k-step in it is
-// one canonical B operand. ``stages`` ring stages of L.slice bytes. NMAX: the
-// widest N instantiated (160, or 256 for chains wider than 160: N = 256
-// needs 128 accumulator registers a thread, and compiled in it makes the
-// kernel spill and the paper widths slower).
-template <int NMAX>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+// a.w[c] pointing at conv c's block (bf16: [5][wg_k(cin)/16][npad/8][2]
+// [8][8]; f32: [5][wg_k(cin, KF)/8][npad/8][2][8][4]), so one (tap, K
+// slice) slice is contiguous and each k-step in it is one canonical B
+// operand. ``stages`` ring stages of L.slice bytes. NMAX: the widest N
+// instantiated (160, or 256 for bf16 chains wider than 160: N = 256 needs
+// 128 accumulator registers a thread, and compiled in it makes the kernel
+// spill and the paper widths slower; f32 takes widths up to 160).
+template <int NMAX, bool F32>
+__global__ void __launch_bounds__(WgPath<F32>::THREADS, 1)
     ar_stack_wgmma_kernel(StackArgs a, int n_images, int stages) {
+  typedef WgPath<F32> P;
+  typedef typename std::conditional<F32, float, __nv_bfloat16>::type T;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + MAX_STAGES;
-  const WgLayout L = wg_layout(a.n_convs, a.cz, a.ch, a.cout);
-  unsigned char* zbuf = smem + BAR_BYTES;
+  // f32: the consumers wait for the splitters' ready, not for the copy
+  uint64_t* ready = F32 ? empty + MAX_STAGES : full;
+  const WgLayout L = wg_layout(a.n_convs, a.cz, a.ch, a.cout, F32);
+  unsigned char* zbuf = smem + L.bars;
   unsigned char* hbuf = zbuf + L.zbytes;      // buffer i at i * L.hbytes
   unsigned char* halos = hbuf + L.nbuf * L.hbytes;
   unsigned char* ring = smem + L.fixed;
@@ -429,12 +560,14 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], WG_CONSUMERS / 32);
+      if (F32) mbar_init(&ready[s], 32 * SPLIT_WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // zero the buffers and halos once: the padding columns stay zero, and
-  // so does every halo until a tile's last row is copied there
-  for (int i = BAR_BYTES / 16 + tid; i < L.bias / 16; i += blockDim.x)
+  // zero the buffers and halos once: the padding columns and channels
+  // stay zero, and so does every halo until a tile's last row is copied
+  // there
+  for (int i = L.bars / 16 + tid; i < L.bias / 16; i += blockDim.x)
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
   float* biases = reinterpret_cast<float*>(smem + L.bias);
   for (int c = 0; c < a.n_convs; ++c)
@@ -442,35 +575,52 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       biases[c * a.ch + i] = a.b[c][i];
   __syncthreads();
 
-  if (warp == WG_CONSUMERS / 32) {
-    // producer: one thread streams every conv's slices through the ring
-    if (lane == 0) {
-      int stage = 0, phase = 0;
-      for (int img = blockIdx.x; img < n_images; img += gridDim.x) {
-        for (int tile = 0; tile < tiles; ++tile) {
-          for (int c = 0; c < a.n_convs; ++c) {
-            const int cin = wg_k(c == 0 ? a.cz : a.ch);
-            const int np = wg_width(c == a.n_convs - 1 ? a.cout : a.ch);
-            const __nv_bfloat16* wp =
-                static_cast<const __nv_bfloat16*>(a.w[c]);
-            for (int t = 0; t < NTAPS; ++t) {
-              for (int k0 = 0; k0 < cin; k0 += KC) {
-                const int bytes = KC * np * 2;
+  if (warp >= WG_CONSUMERS / 32) {
+    // the producer (one thread) streams every conv's slices and the ctx
+    // rows through the ring; for f32 the splitters (the producer
+    // warpgroup's other warps) walk the same order, split each weight
+    // slice as it lands and pass the ctx rows on, and the warpgroup hands
+    // registers to the consumers
+    if constexpr (F32) reg_dealloc<TF_PRODUCER_REGS>();
+    const bool producer = warp == WG_CONSUMERS / 32;
+    if (producer && lane != 0) return;
+    const int sl = (warp - WG_CONSUMERS / 32 - 1) * 32 + lane;
+    int stage = 0, phase = 0;
+    auto next_stage = [&]() {
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    for (int img = blockIdx.x; img < n_images; img += gridDim.x) {
+      for (int tile = 0; tile < tiles; ++tile) {
+        for (int c = 0; c < a.n_convs; ++c) {
+          const int cin = wg_k(c == 0 ? a.cz : a.ch, P::KS);
+          const int np = wg_width(c == a.n_convs - 1 ? a.cout : a.ch);
+          const T* wp = static_cast<const T*>(a.w[c]);
+          for (int t = 0; t < NTAPS; ++t) {
+            for (int k0 = 0; k0 < cin; k0 += P::KS) {
+              unsigned char* dst = ring + stage * L.slice;
+              if (producer) {
+                const int bytes = P::KS * np * P::E;
                 mbar_wait(&empty[stage], phase ^ 1);
                 mbar_expect_tx(&full[stage], bytes);
-                bulk_g2s(ring + stage * L.slice,
-                         wp + ((size_t)t * cin + k0) * np, bytes,
+                bulk_g2s(dst, wp + ((size_t)t * cin + k0) * np, bytes,
                          &full[stage]);
-                if (++stage == stages) {
-                  stage = 0;
-                  phase ^= 1;
-                }
+              } else if constexpr (F32) {
+                mbar_wait(&full[stage], phase);
+                split_slice(dst, np, sl);
+                fence_proxy_async();
+                mbar_arrive(&ready[stage]);
               }
+              next_stage();
             }
-            for (int r = 0; c == 0 && r < TR; ++r) {
-              // the tile's ctx rows (16 x ch f32, within a slice); a row
-              // past the image completes its stage empty
-              const int yy = tile * TR + r;
+          }
+          for (int r = 0; c == 0 && r < TR; ++r) {
+            // the tile's ctx rows (16 x ch f32, within a slice); a row
+            // past the image completes its stage empty
+            const int yy = tile * TR + r;
+            if (producer) {
               mbar_wait(&empty[stage], phase ^ 1);
               if (yy < H) {
                 const int bytes = TW * a.ch * 4;
@@ -481,11 +631,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
               } else {
                 mbar_arrive(&full[stage]);
               }
-              if (++stage == stages) {
-                stage = 0;
-                phase ^= 1;
-              }
+            } else if constexpr (F32) {
+              mbar_wait(&full[stage], phase);
+              mbar_arrive(&ready[stage]);
             }
+            next_stage();
           }
         }
       }
@@ -494,16 +644,35 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 
   // consumers: warp r computes row r of each tile
+  if constexpr (F32) reg_alloc<TF_CONSUMER_REGS>();
   const int r = warp;
-  const int zcs = wg_k(a.cz) + CPAD, hcs = wg_k(a.ch) + CPAD;
-  const RowCopy copy(tid, WG_CONSUMERS, a.cz, TW);
+  const int zcs = wg_k(a.cz, P::KS) + P::PAD;
+  const int hcs = wg_k(a.ch, P::KS) + P::PAD;
+  // z's rows staged as 2-byte units (an f32 channel is two)
+  const int zu = a.cz * P::E / 2;
+  const RowCopy copy(tid, WG_CONSUMERS, zu, TW);
   const __nv_bfloat16* __restrict__ z =
       static_cast<const __nv_bfloat16*>(a.z);
   // z rows y0-1 .. y0+7 of image img (zeros outside it) into zbuf
   auto stage_z = [&](int img, int y0) {
-    copy.rows(smem_u32(zbuf), z + (size_t)img * H * TW * a.cz, a.cz, y0 - 1,
-              TR + 1, H, TW, SCOL, zcs, 1);
+    copy.rows(smem_u32(zbuf), z + (size_t)img * H * TW * zu, zu, y0 - 1,
+              TR + 1, H, TW, SCOL, zcs * P::E / 2, 1);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // conv c's input buffer (c >= 1)
+  auto input = [&](int c) {
+    return F32 ? hbuf : hbuf + ((c - 1) & 1) * L.hbytes;
+  };
+  // conv c's input row 7 is the next tile's halo row (zeros after the
+  // image's last tile); warp 7 alone writes that row, once every warp has
+  // read the old one
+  auto keep_halo = [&](int c, bool last_tile) {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(input(c) + (TR - 1) * L.halo);
+    uint4* dst = reinterpret_cast<uint4*>(halos + (c - 1) * L.halo);
+    for (int i = lane; i < L.halo / 16; i += 32)
+      dst[i] = last_tile ? make_uint4(0, 0, 0, 0) : src[i];
+    __syncwarp();
   };
 
   int stage = 0, phase = 0;
@@ -517,40 +686,52 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         uint32_t above, here;
         int cin;
         if (c == 0) {
-          cin = wg_k(a.cz);
-          above = smem_u32(zbuf) + r * SCOL * zcs * 2;
-          here = above + SCOL * zcs * 2;
+          cin = wg_k(a.cz, P::KS);
+          above = smem_u32(zbuf) + r * SCOL * zcs * P::E;
+          here = above + SCOL * zcs * P::E;
         } else {
-          cin = wg_k(a.ch);
-          const uint32_t in = smem_u32(hbuf + ((c - 1) & 1) * L.hbytes);
-          here = in + r * SCOL * hcs * 2;
+          cin = wg_k(a.ch, P::KS);
+          here = smem_u32(input(c)) + r * SCOL * hcs * P::E;
           above = r == 0 ? smem_u32(halos + (c - 1) * L.halo)
-                         : here - SCOL * hcs * 2;
+                         : here - SCOL * hcs * P::E;
         }
-        unsigned char* next = hbuf + (c & 1) * L.hbytes;
+        unsigned char* next = F32 ? hbuf : hbuf + (c & 1) * L.hbytes;
+        // f32 writes conv c's output over its input: first every warp
+        // must have read the input, and its row 7 be kept as a halo
+        auto before = [&]() {
+          if (F32 && c > 0) {
+            consumers_sync();
+            if (r == TR - 1) keep_halo(c, tile + 1 == tiles);
+          }
+        };
         const int np = wg_width(conv_cout(a, c));
         const float* cb = biases + c * a.ch;
         switch (np) {
           case 32:
-            wg_conv<32>(a, c, above, here, cin, ring, L.slice, full, empty,
-                        stages, stage, phase, next, img, y, cb);
+            wg_conv<32, F32>(a, c, above, here, cin, ring, L.slice, ready,
+                             empty, stages, stage, phase, next, img, y, cb,
+                             before);
             break;
           case 64:
-            wg_conv<64>(a, c, above, here, cin, ring, L.slice, full, empty,
-                        stages, stage, phase, next, img, y, cb);
+            wg_conv<64, F32>(a, c, above, here, cin, ring, L.slice, ready,
+                             empty, stages, stage, phase, next, img, y, cb,
+                             before);
             break;
           case 128:
-            wg_conv<128>(a, c, above, here, cin, ring, L.slice, full, empty,
-                         stages, stage, phase, next, img, y, cb);
+            wg_conv<128, F32>(a, c, above, here, cin, ring, L.slice, ready,
+                              empty, stages, stage, phase, next, img, y, cb,
+                              before);
             break;
           case 160:
-            wg_conv<160>(a, c, above, here, cin, ring, L.slice, full, empty,
-                         stages, stage, phase, next, img, y, cb);
+            wg_conv<160, F32>(a, c, above, here, cin, ring, L.slice, ready,
+                              empty, stages, stage, phase, next, img, y, cb,
+                              before);
             break;
           default:
             if constexpr (NMAX == 256)
-              wg_conv<256>(a, c, above, here, cin, ring, L.slice, full,
-                           empty, stages, stage, phase, next, img, y, cb);
+              wg_conv<256, F32>(a, c, above, here, cin, ring, L.slice,
+                                ready, empty, stages, stage, phase, next,
+                                img, y, cb, before);
         }
         consumers_sync();   // conv c's output is in place, its input read
         if (c == 0) {
@@ -559,16 +740,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
             stage_z(img, (tile + 1) * TR);
           else if (img + (int)gridDim.x < n_images)
             stage_z(img + gridDim.x, 0);
-        } else if (r == TR - 1) {
-          // conv c's input row 7 is the next tile's halo row (zeros after
-          // the image's last tile); this warp alone writes that row, later
-          const uint4* src = reinterpret_cast<const uint4*>(
-              hbuf + ((c - 1) & 1) * L.hbytes + (TR - 1) * L.halo);
-          uint4* dst = reinterpret_cast<uint4*>(halos + (c - 1) * L.halo);
-          const bool last = tile + 1 == tiles;
-          for (int i = lane; i < L.halo / 16; i += 32)
-            dst[i] = last ? make_uint4(0, 0, 0, 0) : src[i];
-          __syncwarp();
+        } else if (!F32 && r == TR - 1) {
+          keep_halo(c, tile + 1 == tiles);
         }
       }
     }
@@ -576,14 +749,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 }
 
 static int launch_wgmma(const StackArgs& a, int n_images, size_t limit,
-                        cudaStream_t stream) {
-  const WgLayout L = wg_layout(a.n_convs, a.cz, a.ch, a.cout);
+                        bool f32, cudaStream_t stream) {
+  const WgLayout L = wg_layout(a.n_convs, a.cz, a.ch, a.cout, f32);
   const long fit = ((long)limit - L.fixed) / L.slice;
   const int stages = (int)(fit < MAX_STAGES ? fit : MAX_STAGES);
   if (stages < 2) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)L.fixed + (size_t)stages * L.slice;
-  auto kernel = L.slice > KC * 160 * 2 ? ar_stack_wgmma_kernel<256>
-                                       : ar_stack_wgmma_kernel<160>;
+  auto kernel = f32 ? ar_stack_wgmma_kernel<160, true>
+                : L.slice > KC * 160 * 2 ? ar_stack_wgmma_kernel<256, false>
+                                         : ar_stack_wgmma_kernel<160, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -591,22 +765,25 @@ static int launch_wgmma(const StackArgs& a, int n_images, size_t limit,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int blocks = n_images < sms ? n_images : sms;
-  kernel<<<blocks, WG_THREADS, smem, stream>>>(a, n_images, stages);
+  kernel<<<blocks, f32 ? TF_THREADS : WG_THREADS, smem, stream>>>(
+      a, n_images, stages);
   return (int)cudaGetLastError();
 }
 
 // The forward weights of every conv in one launch, packed back to back:
 // conv c's 5 live taps ((dy, dx) = (t / 3, t % 3), the first 5 in raster
-// order) in masked_conv.cuh's wgmma B order with K = cin and N = cout
-// padded to npad and K = cin padded to wg_k(cin) (element [t][s][j][h][n]
-// [k] = W[t][16 s + 8 h + k][8 j + n], zero for 8 j + n >= cout or 16 s +
-// 8 h + k >= cin), from item start[c] on. One item is
-// one (t, s, j, h, n): 8 loads of the strided weights (the model hands K1
-// permuted views), one 16-byte store.
+// order) in masked_conv.cuh's wgmma B order with K = cin padded to
+// wg_k(cin) (bf16: 32-deep slices; f32: KF = 8-deep) and N = cout padded to
+// npad. A k-step is 16 bf16 or 8 f32 of K (32 bytes), as two halves h of
+// KI = 8 or 4: element [t][s][j][h][n][k] = W[t][2 KI s + KI h + k][8 j +
+// n], zero for 8 j + n >= cout or past cin, from item start[c] on. One
+// item is one (t, s, j, h, n): KI loads of the strided weights (the model
+// hands K1 permuted views), one 16-byte store. f32 is packed as it is:
+// the kernel's splitters split each slice as it lands.
 #define PK_THREADS 256
 
 struct PackArgs {
-  const __nv_bfloat16* w[MAX_CONVS];  // [3][3][cin][cout], any strides
+  const void* w[MAX_CONVS];           // [3][3][cin][cout], any strides
   long long st[MAX_CONVS][4];         // its strides in elements
   int cin[MAX_CONVS], cout[MAX_CONVS], npad[MAX_CONVS];
   int start[MAX_CONVS + 1];           // each conv's first item
@@ -614,13 +791,15 @@ struct PackArgs {
   int n;
 };
 
+template <bool F32>
 __global__ void __launch_bounds__(PK_THREADS) ar_pack_w_kernel(PackArgs a) {
+  constexpr int KI = F32 ? 4 : 8;
   const int i = blockIdx.x * PK_THREADS + threadIdx.x;
   if (i >= a.start[a.n]) return;
   int c = 0;
   while (i >= a.start[c + 1]) ++c;
   const int cin = a.cin[c], cout = a.cout[c], jn = a.npad[c] / 8;
-  const int ks = wg_k(cin) / 16;
+  const int ks = wg_k(cin, F32 ? KF : KC) / (2 * KI);
   int r = i - a.start[c];
   const int n = r & 7;
   r >>= 3;
@@ -631,14 +810,22 @@ __global__ void __launch_bounds__(PK_THREADS) ar_pack_w_kernel(PackArgs a) {
   const int s = r % ks, t = r / ks;
   const int co = 8 * j + n;
   uint32_t v[4] = {0u, 0u, 0u, 0u};
-  if (co < cout && 16 * s < cin) {   // cin % 16 == 0
+  if (co < cout && 2 * KI * s < cin) {   // cin % (2 KI) == 0
     const long long* st = a.st[c];
-    const __nv_bfloat16* src = a.w[c] + (t / 3) * st[0] + (t % 3) * st[1] +
-                               (16 * s + 8 * h) * st[2] + co * st[3];
+    const long long off = (t / 3) * st[0] + (t % 3) * st[1] +
+                          (2 * KI * s + KI * h) * st[2] + co * st[3];
+    if constexpr (F32) {
+      const float* src = static_cast<const float*>(a.w[c]) + off;
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      v[k >> 1] |= (uint32_t)__bfloat16_as_ushort(src[k * st[2]])
-                   << (16 * (k & 1));
+      for (int k = 0; k < 4; ++k) v[k] = __float_as_uint(src[k * st[2]]);
+    } else {
+      const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(a.w[c]) +
+                                 off;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k >> 1] |= (uint32_t)__bfloat16_as_ushort(src[k * st[2]])
+                     << (16 * (k & 1));
+    }
   }
   a.out[i] = make_uint4(v[0], v[1], v[2], v[3]);
 }
@@ -647,27 +834,30 @@ extern "C" {
 
 // Bytes of dynamic shared memory one block needs at least (the wrapper
 // checks it against the 227 KB a Hopper block may use): wgmma = 0 counts
-// the FMA path's rings, 1 the tensor-core path's buffers, halos and two
-// weight stages (the launch takes every further stage that fits).
+// the FMA path's rings, 1 the tensor-core path's (bf16, or f32 by 3xTF32)
+// buffers, halos and two weight stages (the launch takes every further
+// stage that fits).
 size_t ar_stack_smem_bytes(int n_convs, int W, int cz, int ch, int cout,
                            int bf16, int wgmma) {
   if (wgmma) {
-    const WgLayout L = wg_layout(n_convs, cz, ch, cout);
+    const WgLayout L = wg_layout(n_convs, cz, ch, cout, !bf16);
     return (size_t)L.fixed + 2 * (size_t)L.slice;
   }
   return smem_bytes(n_convs, W, cz, ch, bf16 ? 2 : 4);
 }
 
-// The tensor-core path's weights of ``n`` convs in one launch (bf16) into
-// ``out`` (16-byte aligned), conv after conv: ``w`` a host array of device
-// pointers, ``dims`` n triples (cin, cout, npad) with cin % 16 == 0,
-// npad % 8 == 0 and cout <= npad, ``strides`` n quadruples (each weight's
-// [3][3][cin][cout] strides in elements). Conv c's block, 5 * wg_k(cin)
-// * npad elements, follows those of the convs before it.
+// The tensor-core path's weights of ``n`` convs in one launch (bf16, or
+// f32 with ``f32``) into ``out`` (16-byte aligned), conv after conv: ``w``
+// a host array of device pointers, ``dims`` n triples (cin, cout, npad)
+// with cin % 16 == 0 (f32: % 8), npad % 8 == 0 and cout <= npad,
+// ``strides`` n quadruples (each weight's [3][3][cin][cout] strides in
+// elements). Conv c's block, 5 * wg_k(cin) * npad elements (f32: wg_k(cin,
+// KF)), follows those of the convs before it.
 int ar_stack_pack_w(const void* const* w, void* out, const int* dims,
-                    const long long* strides, int n, void* stream) {
+                    const long long* strides, int n, int f32, void* stream) {
   if (n < 1 || n > MAX_CONVS || reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
+  const int ki = f32 ? 4 : 8;
   PackArgs a;
   a.n = n;
   a.out = static_cast<uint4*>(out);
@@ -675,17 +865,18 @@ int ar_stack_pack_w(const void* const* w, void* out, const int* dims,
   for (int c = 0; c < n; ++c) {
     const int cin = dims[3 * c], cout = dims[3 * c + 1],
               npad = dims[3 * c + 2];
-    if (cin % 16 || npad % 8 || cout > npad) return (int)cudaErrorInvalidValue;
-    a.w[c] = static_cast<const __nv_bfloat16*>(w[c]);
+    if (cin % (2 * ki) || npad % 8 || cout > npad)
+      return (int)cudaErrorInvalidValue;
+    a.w[c] = w[c];
     for (int d = 0; d < 4; ++d) a.st[c][d] = strides[4 * c + d];
     a.cin[c] = cin;
     a.cout[c] = cout;
     a.npad[c] = npad;
-    a.start[c + 1] = a.start[c] + 5 * wg_k(cin) * npad / 8;
+    a.start[c + 1] = a.start[c] + 5 * wg_k(cin, f32 ? KF : KC) * npad / ki;
   }
   const int blocks = (a.start[n] + PK_THREADS - 1) / PK_THREADS;
-  ar_pack_w_kernel<<<blocks, PK_THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(a);
+  auto kernel = f32 ? ar_pack_w_kernel<true> : ar_pack_w_kernel<false>;
+  kernel<<<blocks, PK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -694,10 +885,11 @@ int ar_stack_pack_w(const void* const* w, void* out, const int* dims,
 // FMA path, ar_stack_pack_w's per conv on the tensor cores; biases); pre
 // is null or a host array of n_convs - 1 device pointers, each null or
 // where that hidden conv's f32 pre-activation goes. wgmma = 1 takes the
-// tensor-core kernel (bf16, W = 16, cz and ch multiples of 16 and cout of
-// 8, all at most 256; z, ctx and the weights 16-byte aligned) within
-// ``limit`` bytes of shared memory, 0 the FMA kernel with
-// ``threads`` a block.
+// tensor-core kernel within ``limit`` bytes of shared memory (W = 16; z,
+// ctx and the weights 16-byte aligned; bf16: cz and ch multiples of 16
+// and cout of 8, all at most 256; f32, by 3xTF32: cz, ch and cout
+// multiples of 8, cz at most 64, ch and cout at most 160), 0 the FMA
+// kernel with ``threads`` a block.
 int ar_stack_fwd(const void* z, const void* ctx, const void* const* w,
                  const void* const* b, void* out, void* const* pre,
                  int n_convs, int n_images, int H, int W, int cz, int ch,
@@ -722,14 +914,18 @@ int ar_stack_fwd(const void* z, const void* ctx, const void* const* w,
   a.cout = cout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wgmma) {
-    bool ok = bf16 && W == TW && cz % 16 == 0 && ch % 16 == 0 &&
-              cout % 8 == 0 && cz <= 256 && ch <= 256 && cout <= 256 &&
-              reinterpret_cast<uintptr_t>(z) % 16 == 0;
-    ok = ok && reinterpret_cast<uintptr_t>(ctx) % 16 == 0;
+    bool ok = W == TW && reinterpret_cast<uintptr_t>(z) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(ctx) % 16 == 0;
+    if (bf16)
+      ok = ok && cz % 16 == 0 && ch % 16 == 0 && cout % 8 == 0 &&
+           cz <= 256 && ch <= 256 && cout <= 256;
+    else
+      ok = ok && cz % 8 == 0 && ch % 8 == 0 && cout % 8 == 0 && cz <= 64 &&
+           ch <= 160 && cout <= 160;
     for (int i = 0; i < n_convs; ++i)
       ok = ok && reinterpret_cast<uintptr_t>(w[i]) % 16 == 0;
     if (!ok) return (int)cudaErrorInvalidValue;
-    return launch_wgmma(a, n_images, limit, s);
+    return launch_wgmma(a, n_images, limit, !bf16, s);
   }
   return bf16 ? launch<__nv_bfloat16>(a, n_images, threads, s)
               : launch<float>(a, n_images, threads, s);

@@ -117,21 +117,23 @@ def wgmma_width(cout: int) -> int:
 
 
 def wgmma_pack(t: torch.Tensor, npad: int,
-               dtype: torch.dtype | None = None) -> torch.Tensor:
-    """[taps, K, cout] -> the tensor-core kernels' B order, [taps, K/16,
-    npad/8, 2, 8, 8] in ``dtype`` (default t's): element [t, s, j, h, n,
-    k] is ``t[t, 16 s + 8 h + k, 8 j + n]`` (zero for 8 j + n >= cout).
-    Each k-step is one wgmma B operand in the canonical K-major layout
-    without swizzle (8x8 core matrices of 128 bytes, the two k halves 128
-    bytes apart, column groups 256 bytes apart) and each (tap, 32-deep
-    chunk) slice that the conv kernel streams is contiguous. K is cin for
-    the forward's weights, cout for dgrad's (``t`` the transposed view;
-    the copy transposes) and the pixels for wgrad's G (``wgrad_pack``).
-    One copy (two where cout is padded)."""
+               dtype: torch.dtype | None = None, e: int = 8) -> torch.Tensor:
+    """[taps, K, cout] -> the tensor-core kernels' B order, [taps, K/2e,
+    npad/8, 2, 8, e] in ``dtype`` (default t's), e the K elements of a
+    16-byte core-matrix row (8 in bf16; 4 for K1's f32 forward, whose
+    tf32 k8 steps span 32 bytes as bf16 k16 steps do): element [t, s, j,
+    h, n, k] is ``t[t, 2e s + e h + k, 8 j + n]`` (zero for 8 j + n >=
+    cout). Each k-step is one wgmma B operand in the canonical K-major
+    layout without swizzle (core matrices of 128 bytes, the two k halves
+    128 bytes apart, column groups 256 bytes apart) and each (tap, K
+    chunk) slice that a kernel streams is contiguous. K is cin for the
+    forward's weights, cout for dgrad's (``t`` the transposed view; the
+    copy transposes) and the pixels for wgrad's G (``wgrad_pack``). One
+    copy (two where cout is padded)."""
     taps, k, cout = t.shape
     if npad != cout:
         t = F.pad(t, (0, npad - cout))
-    t = t.reshape(taps, k // 16, 2, 8, npad // 8, 8)     # t s h k j n
+    t = t.reshape(taps, k // (2 * e), 2, e, npad // 8, 8)   # t s h k j n
     t = t.permute(0, 1, 4, 2, 5, 3)
     return torch.empty(t.shape, dtype=dtype or t.dtype,
                        device=t.device).copy_(t)

@@ -23,7 +23,7 @@ from iaf_torch.bridge import from_jax_params, load_jax_checkpoint, \
 from iaf_torch.core import checkpoint as ckpt
 from iaf_torch.core.checkpoint import latest_checkpoint
 from iaf_torch.core.config import Config, save_hparams
-from iaf_torch.core.device import resolve_device
+from iaf_torch.core.device import full_f32, resolve_device
 from iaf_torch.core.rng import fold
 from iaf_torch.data import feed
 from iaf_torch.data.datasets import load_dataset
@@ -81,6 +81,19 @@ def tree_to_state(tree: dict, cfg: Config, device
         words_to_key(tree["rng"])
 
 
+def _config_line(cfg: Config, dev: torch.device) -> None:
+    """The ``[config]`` line of a run: a recipe other than the reference's
+    f32, or the f32 recipe on the card run in full f32 (``full_f32``: TF32
+    off for cuDNN's convs and for matmuls)."""
+    if full_f32(cfg.compute_dtype, dev):
+        print("[config] compute_dtype=float32 on the card: TF32 off for "
+              "cuDNN convs and matmuls, as the reference recipe computes")
+    elif cfg.compute_dtype != "float32":
+        print(f"[config] compute_dtype={cfg.compute_dtype} (reference "
+              "recipe: float32 — pin compute_dtype=float32 to reproduce "
+              "it exactly)")
+
+
 def train(cfg: Config, max_steps: int | None = None,
           data_iter: Iterator[np.ndarray] | None = None,
           device="cuda") -> ts.TrainState:
@@ -91,10 +104,7 @@ def train(cfg: Config, max_steps: int | None = None,
     dev = resolve_device(device)
     logger = MetricsLogger(cfg.logdir)
     save_hparams(cfg, cfg.logdir)
-    if cfg.compute_dtype != "float32":
-        print(f"[config] compute_dtype={cfg.compute_dtype} (reference "
-              "recipe: float32 — pin compute_dtype=float32 to reproduce "
-              "it exactly)")
+    _config_line(cfg, dev)
 
     # restore before the data iterator, so that the data order continues
     # where the checkpointed run left it
@@ -209,6 +219,7 @@ def evaluate(cfg: Config, mode: str = "eval_test", params=None,
     if cfg.likelihood != "dlogistic" or cfg.binarize:
         raise NotImplementedError("the MNIST family is not ported yet")
     dev = resolve_device(device)
+    _config_line(cfg, dev)
     k = cfg.eval_k if k is None else k
     model = _model(cfg, params, use_ema, dev)
     ds, _ = load_dataset(cfg.dataset, cfg.data_dir, cfg.image_size,

@@ -1,8 +1,12 @@
 """K1/K3/K4: each plain twin against the JAX Pallas kernel (interpret mode)
 and its XLA twin on the same numpy inputs (f32, 1e-5); the CPU wrappers
-(K2's too) route to the twins; a non-CPU tensor never does. The card tests
-at the end hold each kernel to its twin on CUDA and skip where there is no
-card. K2's own tests are in test_torch_masked_conv.py."""
+(K2's too) route to the twins; a non-CPU tensor never does. K1's f32
+forward on the tensor cores splits each f32 operand into tf32 high and low
+parts and forms every product as lo*hi + hi*lo + hi*hi: a plain emulation
+of that arithmetic holds JAX's f32 ``ar_stack`` and the twin in f64 at the
+card's limit, where one TF32 product does not. The card tests at the end
+hold each kernel to its twin on CUDA and skip where there is no card.
+K2's own tests are in test_torch_masked_conv.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -208,6 +212,34 @@ def test_cuda_request_without_card_raises():
         make_eval_step(Config(), device="cuda", k=4)
 
 
+def test_f32_recipe_turns_tf32_off_on_the_card(capsys):
+    """``full_f32`` turns TF32 off for cuDNN and matmuls for f32 on CUDA
+    only, and the ``[config]`` line of train and evaluate says so."""
+    from iaf_torch import train_lib
+    from iaf_torch.core.config import Config
+    from iaf_torch.core.device import full_f32
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        for dtype, dev in (("bfloat16", "cuda"), ("float32", "cpu")):
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            assert not full_f32(dtype, torch.device(dev))
+            assert torch.backends.cudnn.allow_tf32
+            assert torch.backends.cuda.matmul.allow_tf32
+        assert full_f32("float32", torch.device("cuda"))
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        train_lib._config_line(Config().parse("compute_dtype=float32"),
+                               torch.device("cuda"))
+        assert not torch.backends.cudnn.allow_tf32
+        assert "TF32 off" in capsys.readouterr().out
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def test_ar_stack_rejects_bad_masks_and_shapes():
     z, c, ws, bs, masks = _k1_inputs(4, 8, 2, 6)
     bad = [m.copy() for m in masks]
@@ -294,10 +326,45 @@ def test_forward_packing_element_by_element():
                                 assert blk[t, s, j, h, n, k] == want
 
 
+def test_forward_packing_f32_element_by_element():
+    """f32's packed block of conv c: element [t][s][j][h][n][k] is
+    W_c[dy, dx, 8 s + 4 h + k, 8 j + n] at live tap t = (dy, dx), zero
+    past cout, in f32 as it is: the tf32 wgmma B operand of k8 step s,
+    K-major core matrices of 8 columns x 4 f32; conv blocks back to
+    back."""
+    from iaf_torch.ops.ar_stack import LIVE_TAPS, pack_fwd_ref
+    shapes = ((8, 24), (24, 16))
+    rs = np.random.RandomState(1)
+    ws = [_t(rs.randn(3, 3, ci, co).astype(np.float32)) for ci, co in shapes]
+    flat, offsets = pack_fwd_ref(ws)
+    npad = 32
+    assert flat.dtype == torch.float32
+    assert offsets == [0, 5 * 8 * npad]
+    assert flat.numel() == 5 * (8 + 24) * npad
+    for w, (cin, cout), off in zip(ws, shapes, offsets):
+        blk = flat[off:off + 5 * cin * npad].reshape(5, cin // 8, npad // 8,
+                                                     2, 8, 4)
+        for t, (dy, dx) in enumerate(LIVE_TAPS):
+            for s in range(cin // 8):
+                for j in range(npad // 8):
+                    for h in range(2):
+                        for n in range(8):
+                            co = 8 * j + n
+                            for k in range(4):
+                                want = (w[dy, dx, 8 * s + 4 * h + k, co]
+                                        if co < cout else 0.0)
+                                assert blk[t, s, j, h, n, k] == want
+
+
 @pytest.mark.parametrize("dtype,w,cz,ch,cout,route", [
     (torch.bfloat16, 16, 32, 160, 64, "wgmma"),      # the paper widths
     (torch.bfloat16, 16, 16, 32, 8, "wgmma"),
-    (torch.float32, 16, 32, 160, 64, "fma"),
+    (torch.float32, 16, 32, 160, 64, "3xtf32"),      # the f32 recipe
+    (torch.float32, 16, 24, 40, 48, "3xtf32"),       # 8-deep steps
+    (torch.float32, 12, 32, 160, 64, "fma"),         # W not one warp's row
+    (torch.float32, 16, 12, 160, 64, "fma"),         # cz not 8-deep steps
+    (torch.float32, 16, 96, 160, 64, "fma"),         # z wider than 64
+    (torch.float32, 16, 32, 256, 64, "fma"),         # h wider than 160
     (torch.bfloat16, 12, 32, 160, 64, "fma"),        # W not one warp's row
     (torch.bfloat16, 32, 32, 160, 64, "fma"),
     (torch.bfloat16, 16, 24, 160, 64, "fma"),        # cz not 16-deep steps
@@ -368,6 +435,99 @@ def test_tile_walk_matches_twin_and_jax(dtype, depth_ar):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+# --- K1's f32 forward: the 3xTF32 arithmetic -------------------------------
+
+LIMIT_F32 = 1e-5    # of the output's max: the card's check of the kernel
+THREE = (("lo", "hi"), ("hi", "lo"), ("hi", "hi"))   # the kernel's order
+ONE = (("hi", "hi"),)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest tf32 (10 mantissa bits), ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: half an ulp added to the magnitude's bits,
+    the low 13 cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor) -> dict:
+    hi = _tf32(x)
+    return {"hi": hi, "lo": _tf32(x - hi)}
+
+
+def _emulated(z, ctx, ws, bs, products):
+    """The AR chain (``ar_stack_ref``'s) with every conv's products formed
+    from the tf32 parts of its f32 input and weights, the ``products``
+    (input part, weight part) summed in f32 in that order."""
+    from iaf_torch.ops.ar_stack import conv_nhwc
+    h = z
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        xs, wsplit = _split(h), _split(w)
+        acc = None
+        for px, pw in products:
+            y = conv_nhwc(xs[px], wsplit[pw][:2], ((1, 0), (1, 1)))
+            acc = y if acc is None else acc + y
+        h = acc + b
+        if i == 0:
+            h = h + ctx
+        if i < len(ws) - 1:
+            h = F.elu(h)
+    return h
+
+
+def _f64(*args):
+    return [a.double() if torch.is_tensor(a) else [t.double() for t in a]
+            for a in args]
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    """Exact ties go away from zero, either sign; the low 13 bits of the
+    result are zero; hi + lo carries x to 2^-22 of it."""
+    one = 1.0 + 2.0 ** -10                    # a tf32 value
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                        one + 2.0 ** -11, 1.0 + 2.0 ** -12],
+                       dtype=torch.float32)
+    want = torch.tensor([one, -one, 1.0 + 2.0 ** -9, 1.0])
+    assert torch.equal(_tf32(tie), want)
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(0))
+    parts = _split(x)
+    for p in parts.values():
+        assert not bool((p.view(torch.int32) & 0x1FFF).any())
+    err = (parts["hi"].double() + parts["lo"].double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
+
+
+@pytest.mark.parametrize("zs,hs,n,depth_ar", [(32, 160, 1, 2),
+                                              (16, 48, 2, 4)])
+def test_3xtf32_emulation_holds_jax_and_f64_where_1xtf32_does_not(
+        zs, hs, n, depth_ar):
+    """On paper-like chains: the 3xTF32 emulation within 1e-5 of the
+    output's max of JAX's f32 ``ar_stack`` (Pallas, interpret mode, and
+    its XLA twin) and of the twin in f64; the 1xTF32 emulation beyond it
+    against the f64 twin (the card's check would catch a kernel that drops
+    the small terms)."""
+    z, c, ws, bs, masks = _k1_inputs(zs, hs, n, 16, depth_ar)
+    args = (_t(z), _t(c), [_t(w) for w in ws], [_t(b) for b in bs])
+    three = _emulated(*args, THREE)
+    assert three.dtype == torch.float32
+    f64 = ops.ar_stack_ref(*_f64(*args))
+    assert f64.dtype == torch.float64
+    want_pl = ar_stack_fused(jnp.asarray(z), jnp.asarray(c),
+                             [jnp.asarray(w) for w in ws],
+                             [jnp.asarray(b) for b in bs], masks,
+                             batch_block=1)
+    wb = [jnp.asarray(t) for pair in zip(ws, bs) for t in pair]
+    want_xla = ar_stack_xla(jnp.asarray(z), jnp.asarray(c), *wb)
+    for want in (f64, _t(np.array(want_pl)), _t(np.array(want_xla))):
+        assert _rel(three, want) <= LIMIT_F32
+    assert _rel(_emulated(*args, ONE), f64) > LIMIT_F32
+
+
 # --- on the card ------------------------------------------------------------
 
 @pytest.fixture
@@ -391,7 +551,9 @@ def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
     W = 16 the tensor-core kernel runs (``fwd_route``), two calls give the
     same bits, and at batch 32 with the pre-activations written (the
     training forward) heads and pre-activations match the twin's at 2e-2
-    of each one's max; elsewhere the FMA kernel runs. Beside the paper
+    of each one's max; in f32 at W = 16 up to h = 160 the 3xTF32
+    tensor-core kernel runs (``test_3xtf32_kernel_matches_f64_twin_on_card``
+    holds it to the f64 twin); elsewhere the FMA kernel runs. Beside the paper
     widths the bf16 cases run every wgmma width the kernel takes (N = 32,
     64, 128, 160 and the N = 256 instantiation) and input channels padded
     to whole 32-deep slices (cz = 16, ch = 48)."""
@@ -406,8 +568,9 @@ def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     wgmma = hw == 16 and dtype == torch.bfloat16
+    tf32 = hw == 16 and dtype == torch.float32 and hs <= 160
     assert k1.fwd_route(dtype, hw, zs, hs, 2 * zs) == (
-        "wgmma" if wgmma else "fma")
+        "wgmma" if wgmma else "3xtf32" if tf32 else "fma")
     if not wgmma:
         return
     with torch.inference_mode():
@@ -423,12 +586,13 @@ def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,most", [(torch.float32, 7),
+@pytest.mark.parametrize("dtype,most", [(torch.float32, 8),
                                         (torch.bfloat16, 16)])
 def test_ar_stack_deeper_than_shared_memory_raises(cuda, dtype, most):
-    """At the paper widths a block holds 7 convs on the f32 FMA kernel and
-    16 on the tensor-core one (its halo rows and biases grow with the
-    chain); one more raises, naming that limit."""
+    """At the paper widths a block holds 8 convs on the tensor-core kernel
+    in f32 (3xTF32: f32 buffers and slices) and 16 in bf16 (its halo rows
+    and biases grow with the chain); one more raises, naming that
+    limit."""
     for n_convs in (most, most + 1):
         z, c, ws, bs, masks = _k1_inputs(32, 160, 2, 16, n_convs - 1)
         args = (_t(z).to(cuda, dtype), _t(c).to(cuda),
@@ -451,6 +615,54 @@ def test_ar_fwd_pack_kernel_equals_twin_on_card(cuda):
     k1 = importlib.import_module("iaf_torch.ops.ar_stack")
     for shapes in (((32, 160), (160, 160), (160, 64)), ((16, 32), (32, 48))):
         ws = [w.to(cuda) for w in _fwd_pack_weights(shapes, seed=2)]
+        views = [w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+                 for w in ws]
+        want, offsets = k1.pack_fwd_ref(ws)
+        for group in (ws, views):
+            got, got_offsets = k1.pack_fwd(group)
+            assert got_offsets == offsets and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zs,hs,depth_ar", [
+    (32, 160, 2), (32, 160, 7), (16, 32, 2), (8, 48, 2), (24, 48, 2),
+    (16, 128, 2), (64, 128, 1)])
+def test_3xtf32_kernel_matches_f64_twin_on_card(cuda, zs, hs, depth_ar):
+    """K1's f32 kernel at the widths it takes (N = 32 to 160, K in 8-deep
+    steps, the widest z, the deepest chain at the paper widths) against
+    the twin in f64 at 1e-5 of the output's max, two calls bitwise equal;
+    at batch 32 with the pre-activations written (the training forward)
+    heads and pre-activations within 1e-5 of each one's max of the f64
+    twin's."""
+    import importlib
+    k1 = importlib.import_module("iaf_torch.ops.ar_stack")
+    assert k1.fwd_route(torch.float32, 16, zs, hs, 2 * zs) == "3xtf32"
+    for n, pre in ((8, False), (32, True)):
+        z, c, ws, bs, _ = _k1_inputs(zs, hs, n, 16, depth_ar, seed=n)
+        args = (_t(z).to(cuda), _t(c).to(cuda), [_t(w).to(cuda) for w in ws],
+                [_t(b).to(cuda) for b in bs])
+        with torch.inference_mode():
+            out, pres = k1._fwd(*args, save_pre=pre)
+            again = k1._fwd(*args, save_pre=pre)
+            rout, rpre = ops.ar_stack_ref_pre(*_f64(*args))
+        assert all(torch.equal(a, b) for a, b in zip([out, *pres],
+                                                     [again[0], *again[1]]))
+        assert len(pres) == (depth_ar if pre else 0)
+        for a, b in zip([out, *pres], [rout, *rpre]):
+            assert _rel(a, b) <= LIMIT_F32
+
+
+@pytest.mark.cuda
+def test_ar_fwd_pack_kernel_equals_twin_on_card_f32(cuda):
+    """K1 forward's f32 weight pack, all convs in one launch, bitwise
+    equal to its twin at the paper widths and at ones that pad N, on
+    contiguous HWIO weights and on the model's permuted OIHW views."""
+    import importlib
+    k1 = importlib.import_module("iaf_torch.ops.ar_stack")
+    rs = np.random.RandomState(3)
+    for shapes in (((32, 160), (160, 160), (160, 64)), ((8, 24), (24, 48))):
+        ws = [_t(rs.randn(3, 3, ci, co).astype(np.float32)).to(cuda)
+              for ci, co in shapes]
         views = [w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
                  for w in ws]
         want, offsets = k1.pack_fwd_ref(ws)

@@ -254,8 +254,9 @@ def test_ar_stack_fits_reads_the_byte_count(n_convs, fits):
     """The route predicate compares K1's byte count for (convs, W, cz, ch,
     cout, dtype, route) with one Hopper block's shared memory: a fake count
     that passes the limit past 10 convs picks K2 for 11 and K1 for 10, and
-    is asked with the tensor-core kernel's flag for bf16 at paper widths
-    and the FMA kernel's for f32."""
+    is asked with the tensor-core kernel's flag for bf16 and for f32
+    (3xTF32) at paper widths, and with the FMA kernel's for f32 at a
+    hidden width the tensor cores do not take in f32."""
     from iaf_torch.ops.ar_stack import _SMEM_LIMIT, ar_stack_fits
     seen = []
 
@@ -266,5 +267,8 @@ def test_ar_stack_fits_reads_the_byte_count(n_convs, fits):
                          fake_bytes) is fits
     assert ar_stack_fits(n_convs, 16, 32, 160, 64, torch.float32,
                          fake_bytes) is fits
+    assert ar_stack_fits(n_convs, 16, 32, 256, 64, torch.float32,
+                         fake_bytes) is fits
     assert seen == [(n_convs, 16, 32, 160, 64, 1, 1),
-                    (n_convs, 16, 32, 160, 64, 0, 0)]
+                    (n_convs, 16, 32, 160, 64, 0, 1),
+                    (n_convs, 16, 32, 256, 64, 0, 0)]
