@@ -6,7 +6,9 @@
                                             # against this one's, A B B A
                                             # (``ab``; CASE in AB_CASES:
                                             # k1_fwd, k1_fwd_f32,
-                                            # f32_chunk)
+                                            # f32_chunk, k2_fwd_f32,
+                                            # k2_bwd_f32, f32_chunk_5x5,
+                                            # k2_fwd)
 
 Phases, any failure exits non-zero:
 
@@ -48,8 +50,9 @@ Phases, any failure exits non-zero:
    written (each within 1e-5 of its max); its f32 weight pack kernel must
    equal its twin bitwise. Each shape is timed by events and by device
    time (by kernel too) beside the twin and cuDNN's three f32 convs (TF32
-   off), with the design's bound (three TF32 products per f32 product at
-   495 TFLOP/s) and the FP32 CUDA-core floor (67 TFLOP/s). One f32 chunk
+   off), with the bound (each f32 product one TF32 product at 495
+   TFLOP/s), the 3xTF32 design's floor (three of them) and the FP32
+   CUDA-core floor (67 TFLOP/s). One f32 chunk
    is profiled; ``evaluate`` at k=256 over 2 batches must launch exactly
    K1 = K3 = 160, K4 = 8 with every K1 forward on ``"3xtf32"`` (steady
    seconds per batch as in phase 5); ``train`` at batch 32 for 6 steps
@@ -90,23 +93,41 @@ Phases, any failure exits non-zero:
    runs conv by conv through K2, three masked 5x5 convs per IAF step) at
    full width and depth: init; K2's inputs captured from one real eval
    chunk for all three conv shapes, each of which must take the
-   tensor-core forward kernel, held to the twin in bf16 at 2e-2 and in
-   f32 at 1e-5 of the output's max, timed beside the twin, one cuDNN conv
-   (with the ratio; in f32 too, TF32 off, beside the f32 FMA kernel) and
-   the bound, and one chunk profiled; one f32 eval forward, card against
-   CPU twins; ``evaluate`` at k=256 with launches exactly K2 = 60, K3 =
-   20, K4 = 1 per chunk and K1 = 0; K2's backward on inputs captured from
-   a real bf16 step at batch 32, each shape's dgrad and wgrad on the
-   tensor cores, held to autograd of its twin (2e-2 of each output's
-   max; f32 at 1e-4 of the twin in f64), two calls bitwise equal, its
-   device time per call by kernel, timed whole and as dgrad and wgrad
-   apart beside the twin's and cuDNN's backward (and in f32, TF32 off,
-   beside the f32 FMA kernels); one f32 training step at batch 4, card
+   tensor-core forward kernel, held to the twin in bf16 at 2e-2 (and the
+   same inputs upcast to f32 at 1e-5) of the output's max, timed beside
+   the twin, one cuDNN conv (with the ratio) and the bound, and one chunk
+   profiled; one f32 eval forward, card against CPU twins; ``evaluate``
+   at k=256 with launches exactly K2 = 60, K3 = 20, K4 = 1 per chunk and
+   K1 = 0; K2's backward on inputs captured from a real bf16 step at
+   batch 32, each shape's dgrad and wgrad on the tensor cores, held to
+   autograd of its twin (2e-2 of each output's max; upcast to f32 at
+   1e-4 of the twin in f64), two calls bitwise equal, its device time per
+   call by kernel, timed whole and as dgrad and wgrad apart beside the
+   twin's and cuDNN's backward; one f32 training step at batch 4, card
    against CPU; and ``train_lib.train`` for 10 steps plus a 2-step resume
    with launches exactly K2 = K2-backward = 60, K3 = K3-backward = 20, K4
    = K4-backward = K5 = 1, K1 = K1-backward = 0 per step, and one step
    profiled.
-12. A 3x3 AR net one conv deeper than K1 holds at the paper widths in
+12. The 5x5 config's f32 recipe (``compute_dtype=float32``, the same
+   model): K2's inputs captured from one real f32 eval chunk (full f32
+   mantissas) for the three conv shapes, each of which must take the
+   3xTF32 tensor-core kernel (``fwd_route`` ``"3xtf32"``), give the same
+   bits on two calls and hold the twin in f64 at 1e-5 of the output's
+   max; K2's backward on inputs captured from a real f32 step at batch
+   32, dgrad and wgrad on ``"3xtf32"``, dx and dW within 1e-5 of the twin
+   in f64 (values printed), two calls bitwise equal; one TF32 product per
+   f32 product on the same inputs must miss each 1e-5 limit (the
+   control, printed); each timed by events and by device time (by kernel
+   too; the backward whole and as dgrad and wgrad) beside the FMA kernels
+   it replaces (same inputs, same run), the twin and cuDNN f32 (TF32
+   off), with the bound (each f32 product one TF32 product at 495
+   TFLOP/s), the 3xTF32 design's floor and the FP32 CUDA-core floor; one
+   f32 chunk profiled; ``evaluate`` at k=256 with
+   launches exactly K2 = 60, K3 = 20, K4 = 1 per chunk, and ``train`` at
+   batch 32 for 6 steps with exactly the 5x5 per-step counts, every K2
+   forward on ``"3xtf32"`` and every backward on ("3xtf32", "3xtf32"),
+   every loss finite; one f32 step profiled.
+13. A 3x3 AR net one conv deeper than K1 holds at the paper widths in
    bf16 (depth_ar=16, 17 convs; f32 holds fewer), through
    ``ARMultiConv2d`` on 64 images: launches exactly K1 = 0 and K2 = 17
    per forward, and the heads match K1's twin at 2e-2 (bf16) and 1e-5
@@ -118,9 +139,11 @@ K2's library calls) is the device time the profiler records for the same
 calls, host gaps left out, which ranks a kernel against its library
 call.
 
-The second-last line of standard output is the ``kernels`` JSON (K1's f32
-forward a row of its own, ``ar_stack_f32``, its launches those of phase
-6's runs), the last ``{"ok": true, "device": {...}}``.
+The second-last line of standard output is the ``kernels`` JSON (the f32
+recipe's kernels rows of their own: K1's forward ``ar_stack_f32``, its
+launches those of phase 6's runs, and K2's ``masked_conv2d_f32`` and
+``masked_conv2d_bwd_f32``, those of phase 12's; each with the 3xTF32
+bound and the FP32 floor), the last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -195,27 +218,34 @@ def device_kernels(fn, iters: int = 20, warmup: int = 3,
     """Per call of ``fn``: (name, device ms, launches) of each kernel, copy
     and memset it puts on the card, from torch.profiler over ``warmup`` +
     ``iters`` calls after one untraced call. The profiler on the card can
-    start recording late: it has missed the first launches of a window,
-    and now and then a whole short one. So the window opens with a pause,
-    a window that recorded nothing is profiled again (``attempts`` in
-    all), and each name's time is its mean per launch times its launches
-    per call (its count over the calls, rounded). Host gaps between
-    launches do not count."""
+    start recording late: it has missed the first launches of a window
+    (half of 6 calls of 2.6 ms each, in every window of a phase, late in
+    a long run), and now and then a whole short one. So the window opens
+    with a pause, and a window that recorded no kernel once a call is
+    profiled again after a pause four times as long over twice as many
+    calls, so that a missed start is a smaller share of it (``attempts``
+    in all, saying so on standard error); each name's time is its mean
+    per launch times its launches per call (its count over the calls,
+    rounded). Host gaps between launches do not count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    calls = warmup + iters
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        calls = (warmup + iters) * 2 ** attempt
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.05)
+            time.sleep(0.05 * 4 ** attempt)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         events = _device_events(prof)
-        if events:
+        if any(round(count / calls) for _, _, count in events):
             break
+        print(f"[profile] {getattr(fn, '__qualname__', fn)}: a window of "
+              f"{calls} calls recorded {events} on the card ("
+              f"{len(prof.key_averages())} names in all); again",
+              file=sys.stderr)
     out = []
     for key, us, count in events:
         per_call = round(count / calls)
@@ -227,8 +257,10 @@ def device_kernels(fn, iters: int = 20, warmup: int = 3,
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time per call of ``fn`` (``device_kernels`` summed), so a
     call that the host holds back reads what the card did."""
-    total = sum(ms for _, ms, _ in device_kernels(fn, iters, warmup))
-    check(total > 0, "the profiler recorded no device time")
+    found = device_kernels(fn, iters, warmup)
+    total = sum(ms for _, ms, _ in found)
+    check(total > 0, f"the profiler recorded no device time for "
+          f"{getattr(fn, '__qualname__', fn)} ({found})")
     return total
 
 
@@ -241,6 +273,39 @@ def bound_ms(flops: float, dtype: str, nbytes: float):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _f32_bounds(flops: float, moved: float) -> dict:
+    """For ``flops`` f32 FLOP and ``moved`` bytes: the bound (each f32
+    product once at the tensor cores' 495 TFLOP/s, the card's peak for
+    f32 operands), the 3xTF32 design's own floor (three TF32 products per
+    f32 product, ``design_bound_ms``) and the FP32 CUDA-core floor (each
+    product once at 67 TFLOP/s)."""
+    b_ms, b_by = bound_ms(flops, "tf32", moved)
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                design_bound_ms=bound_ms(3 * flops, "tf32", moved)[0],
+                fp32_floor_ms=bound_ms(flops, "float32", moved)[0],
+                gflop=flops / 1e9, mbytes=moved / 1e6)
+
+
+def _tf32(t):
+    """``t`` (f32) rounded to tf32 as ``cvt.rna.tf32.f32`` rounds (10
+    mantissa bits, ties away from zero), in f64: the operands of a kernel
+    that forms each f32 product as one TF32 product, the control that
+    the f32 checks' limits must reject."""
+    import torch
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32).double()
+
+
+def _f32_bound_text(b: dict, dev: float) -> str:
+    """``_f32_bounds``' numbers for a print, ``dev`` (device ms) beside
+    the bound."""
+    return (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: one TF32 "
+            f"product per f32 product, {b['gflop']:.2f} GFLOP at 495 "
+            f"TFLOP/s; {100 * b['bound_ms'] / dev:.0f} % of it), 3xTF32 "
+            f"design floor {b['design_bound_ms']:.4f} ms, FP32 CUDA-core "
+            f"floor {b['fp32_floor_ms']:.4f} ms")
 
 
 def capture_inputs(ops, fn):
@@ -353,9 +418,8 @@ def _k1_f32_shape(ops, ar_mod, label, z, ctx, ws, bs, masks,
     two calls bitwise equal, the heads (and with ``save_pre`` the
     pre-activations) within 1e-5 of each one's max of the twin's in f64;
     device time by kernel, by events and by device time beside the twin
-    (f32, TF32 off) and cuDNN's three f32 convs (TF32 off); the design's
-    bound (three TF32 products per f32 product) and the FP32 CUDA-core
-    floor (each product once at the f32 peak). Returns the numbers."""
+    (f32, TF32 off) and cuDNN's three f32 convs (TF32 off); the bounds of
+    ``_f32_bounds``. Returns the numbers."""
     import torch
     n, hh, ww, cz = z.shape
     route = ar_mod.fwd_route(z.dtype, ww, cz, ws[0].shape[-1],
@@ -387,24 +451,19 @@ def _k1_f32_shape(ops, ar_mod, label, z, ctx, ws, bs, masks,
     flops = 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
     moved = (nbytes(z, ctx, out, *pre, *bs)
              + sum(5 * w[0, 0].numel() * w.element_size() for w in ws))
-    b_ms, b_by = bound_ms(3 * flops, "tf32", moved)
-    floor = bound_ms(flops, "float32", moved)[0]
+    b = _f32_bounds(flops, moved)
     print(f"[K1 f32 {label}] z{tuple(z.shape)} ({route}"
           f"{', with pre-activations' if save_pre else ''}): "
           f"{worst:.3e} of max from the f64 twin (max abs {err:.3e}), two "
           f"calls bitwise equal; by events {ms:.4f} ms, by device time "
           f"{dev:.4f} ms ({per_call} device launches a call), twin "
           f"{plain:.4f} ms; cuDNN f32 (TF32 off) {lib:.4f} ms, by device "
-          f"time {lib_dev:.4f} ms, ratio {dev / lib_dev:.3f}; bound "
-          f"{b_ms:.4f} ms ({b_by}: 3 TF32 products per f32 product, "
-          f"{3 * flops / 1e9:.1f} GFLOP at 495 TFLOP/s), FP32 CUDA-core "
-          f"floor {floor:.4f} ms")
+          f"time {lib_dev:.4f} ms, ratio {dev / lib_dev:.3f}; "
+          f"{_f32_bound_text(b, dev)}")
     return {"max_abs_err": err, "max_rel_err": worst, "ms": ms,
             "device_ms": dev, "plain_ms": plain, "library_ms": lib,
-            "library_device_ms": lib_dev, "bound_ms": b_ms,
-            "bound_by": b_by, "fp32_floor_ms": floor,
-            "device_launches_per_call": per_call, "gflop": flops / 1e9,
-            "mbytes": moved / 1e6}
+            "library_device_ms": lib_dev,
+            "device_launches_per_call": per_call, **b}
 
 
 def k1_f32_phase(ops, cap) -> dict:
@@ -419,11 +478,7 @@ def k1_f32_phase(ops, cap) -> dict:
     import torch
     ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
     z, ctx, ws, bs, masks = cap["ar_stack"]
-    check(z.dtype == torch.float32
-          and all(w.dtype == torch.float32 for w in ws),
-          "K1's captured f32 inputs are not f32")
-    full = [bool((t.view(torch.int32) & 0xFFFF).any()) for t in (z, *ws)]
-    check(all(full), f"K1 f32 inputs without low mantissa bits: {full}")
+    _full_f32("K1 f32", z, *ws)
     with torch.inference_mode():
         want, offsets = ar_mod.pack_fwd_ref(ws)
         for group in (ws, [w.contiguous() for w in ws]):
@@ -906,9 +961,11 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
           f"{t['wgrad_device_ms']:.4f}), cuDNN {lib_dev:.4f}, ratio "
           f"{dev_ms / lib_dev:.3f}; {per_call} device launches a call; bound "
           f"{b_ms:.4f} ms ({b_by})")
+    b32 = _f32_bounds(flops, nbytes(z32, g, *pre32, got32[0], got32[1],
+                                    *got32[3]) + 2 * live_w * 2)
     print(f"[K1 bwd] f32 (FMA): by events {ms32:.4f} ms, by device time "
           f"{dev32:.4f} ms, cuDNN f32 (TF32 off) {lib_dev32:.4f} ms, ratio "
-          f"{dev32 / lib_dev32:.3f}")
+          f"{dev32 / lib_dev32:.3f}; {_f32_bound_text(b32, dev32)}")
     rows.append(dict(
         name="ar_stack_bwd", route="cuda",
         source="iaf_torch/ops/csrc/ar_stack_bwd.cu",
@@ -920,7 +977,11 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
         library_device_ms=lib_dev, device_ms_f32=dev32,
         library_device_ms_f32=lib_dev32, device_launches_per_call=per_call,
         routes=[list(r) for r in routes], gflop=flops / 1e9,
-        mbytes=moved / 1e6, **t))
+        mbytes=moved / 1e6, bound_ms_f32=b32["bound_ms"],
+        bound_by_f32=b32["bound_by"],
+        design_bound_ms_f32=b32["design_bound_ms"],
+        fp32_floor_ms_f32=b32["fp32_floor_ms"],
+        **t))
 
     # K3 backward, the same IAF step's update
     (zz, m, s, lq), (z_new, s_b, gz, glq) = cap["iaf_update"]
@@ -1386,23 +1447,24 @@ def capture_k2(target, name: str, fn) -> dict:
     return seen
 
 
-_K2_MEANS = ("ms", "ms_f32", "plain_ms", "bound_ms", "library_ms",
-             "device_ms", "library_device_ms", "gflop", "mbytes")
+_K2_MEANS = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+             "library_device_ms", "gflop", "mbytes")
 
 
-def _k2_row(name, source, replaces, shapes, extra=()) -> dict:
+def _k2_row(name, source, replaces, shapes, extra=(), **keys) -> dict:
     """One kernels-line row for K2 over the AR net's three conv shapes:
     each time (and each of ``extra``) is the mean per launch on the path
     (the three convs run equally often), the bound the mean of the three
-    bounds, set by what bounds the larger share of them."""
+    bounds, set by what bounds the larger share of them; each error the
+    largest of the three; ``keys`` as given."""
     by_ops = sum(sh["bound_ms"] for sh in shapes
                  if sh["bound_by"] == "operations")
     by_bytes = sum(sh["bound_ms"] for sh in shapes) - by_ops
-    row = dict(
-        name=name, route="cuda", source=source, replaces=replaces,
-        max_abs_err=max(sh["max_abs_err"] for sh in shapes),
-        max_abs_err_f32=max(sh["max_abs_err_f32"] for sh in shapes),
-        bound_by="operations" if by_ops >= by_bytes else "bytes")
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               bound_by="operations" if by_ops >= by_bytes else "bytes",
+               **keys)
+    row.update({k: max(sh[k] for sh in shapes) for k in shapes[0]
+                if k.startswith("max_")})
     row.update({k: statistics.fmean(sh[k] for sh in shapes)
                 for k in _K2_MEANS + tuple(extra)})
     row["per_shape"] = shapes
@@ -1423,9 +1485,10 @@ def _k2_conv_lib(x, w):
 
 def k2_forward_phase(ops, cap: dict) -> dict:
     """K2 on each captured conv: the bf16 input must take the tensor-core
-    kernel (``fwd_route``); bf16 against its twin at 2e-2 and f32 (TF32
-    off) at 1e-5 of the output's max; timed beside the twin, one cuDNN
-    conv (with the ratio) and the bound."""
+    kernel (``fwd_route``); bf16 against its twin at 2e-2 and the same
+    inputs upcast to f32 (TF32 off) at 1e-5 of the output's max; timed
+    beside the twin, one cuDNN conv (with the ratio) and the bound. The
+    f32 record is ``k2_f32_forward_phase``'s, on real f32 inputs."""
     import torch
     from iaf_torch.ops.masked_conv import fwd_route
     shapes = []
@@ -1446,47 +1509,38 @@ def k2_forward_phase(ops, cap: dict) -> dict:
             check(rel32 <= 1e-5, f"K2 {cin}->{cout} f32 {rel32} > 1e-5")
             ms = cuda_ms(lambda: ops.masked_conv2d(x, w, taps))
             dev = device_ms(lambda: ops.masked_conv2d(x, w, taps))
-            ms32 = cuda_ms(lambda: ops.masked_conv2d(x32, w32, taps), 5, 1)
-            dev32 = device_ms(lambda: ops.masked_conv2d(x32, w32, taps), 5, 1)
             plain = cuda_ms(lambda: ops.masked_conv2d_ref(x, w, taps))
             conv, xl, wl = _k2_conv_lib(x, w)
             lib = cuda_ms(lambda: conv(xl, wl))
             lib_dev = device_ms(lambda: conv(xl, wl))
-            _, xl32, wl32 = _k2_conv_lib(x32, w32)
-            lib_dev32 = device_ms(lambda: conv(xl32, wl32), 5, 1)
         print(f"[K2] {cin}->{cout} ({route}): kernel {ms:.4f} ms, cuDNN "
               f"{lib:.4f} ms, ratio {ms / lib:.3f}; by device time "
               f"{dev:.4f} ms against {lib_dev:.4f} ms, ratio "
-              f"{dev / lib_dev:.3f}; f32 (FMA) by device time {dev32:.4f} "
-              f"ms against cuDNN f32 (TF32 off) {lib_dev32:.4f} ms, ratio "
-              f"{dev32 / lib_dev32:.3f}")
+              f"{dev / lib_dev:.3f}")
         n, hh, ww, _ = x.shape
         flops = 2 * n * hh * ww * len(taps) * cin * cout
         moved = nbytes(x, got) + len(taps) * cin * cout * w.element_size()
         b_ms, b_by = bound_ms(flops, "bfloat16", moved)
         shapes.append(dict(cin=cin, cout=cout, max_abs_err=err,
-                           max_abs_err_f32=err32, ms=ms, ms_f32=ms32,
-                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                           bound_by=b_by, device_ms=dev,
-                           library_device_ms=lib_dev, device_ms_f32=dev32,
-                           library_device_ms_f32=lib_dev32,
+                           max_abs_err_f32=err32, ms=ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                           device_ms=dev, library_device_ms=lib_dev,
                            gflop=flops / 1e9, mbytes=moved / 1e6))
     return _k2_row("masked_conv2d", "iaf_torch/ops/csrc/masked_conv.cu",
-                   "iaf_tpu/ops/masked_conv.py:40", shapes,
-                   ("device_ms_f32", "library_device_ms_f32"))
+                   "iaf_tpu/ops/masked_conv.py:40", shapes)
 
 
 def k2_backward_phase(ops, cap: dict) -> dict:
     """K2's backward on each captured conv of a real bf16 step: both dgrad
     and wgrad must take the tensor cores (``bwd_route``); against autograd
     of the twin, dx and dW (live taps; the dead ones must be zero) at 2e-2
-    of each output's max, and in f32 at 1e-4 against the twin in f64 (on
-    these inputs cuDNN's own f32 weight gradient, TF32 off, is ~1e-3 of
-    max away from f64: printed beside); two bf16 calls bitwise equal.
-    Device time per call by kernel; timed by events and by device time,
-    whole and as dgrad and wgrad (with its reduce) apart, dgrad's kernel
-    also alone, beside the twin's backward and autograd of one cuDNN
-    conv."""
+    of each output's max, and upcast to f32 at 1e-4 against the twin in
+    f64 (on these inputs cuDNN's own f32 weight gradient, TF32 off, is
+    ~1e-3 of max away from f64: printed beside); two bf16 calls bitwise
+    equal. Device time per call by kernel; timed by events and by device
+    time, whole and as dgrad and wgrad (with its reduce) apart, dgrad's
+    kernel also alone, beside the twin's backward and autograd of one
+    cuDNN conv. The f32 record is ``k2_f32_backward_phase``'s."""
     import torch
     from iaf_torch.ops import masked_conv as mc
     shapes = []
@@ -1546,10 +1600,6 @@ def k2_backward_phase(ops, cap: dict) -> dict:
         t["dgrad_kernel_device_ms"] = device_ms(lambda: mc._launch_wgmma(
             mc._bwd_lib().masked_conv_dgrad_wgmma, "dgrad", gb, pk, dx_t,
             mirrored, kh, kw))
-        x32, w32 = x.float(), w.float()
-        ms32 = cuda_ms(lambda: ops.masked_conv2d_bwd(x32, w32, g, taps), 5, 1)
-        dev32 = device_ms(lambda: ops.masked_conv2d_bwd(x32, w32, g, taps),
-                          5, 1)
         leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w)]
         plain = _backward_ms(
             lambda a, b: ops.masked_conv2d_ref(a, b, taps), leaves, g)
@@ -1559,9 +1609,6 @@ def k2_backward_phase(ops, cap: dict) -> dict:
                     leaves, g.permute(0, 3, 1, 2).to(x.dtype))
         lib = _backward_ms(*lib_args)
         lib_dev = _backward_ms(*lib_args, timer=device_ms)
-        leaves32 = [t_.detach().clone().requires_grad_() for t_ in (x32, w32)]
-        lib_dev32 = _backward_ms(lib_args[0], leaves32,
-                                 g.permute(0, 3, 1, 2), timer=device_ms)
         n, hh, ww, _ = x.shape
         flops = 2 * 2 * n * hh * ww * len(taps) * cin * cout
         moved = (nbytes(x, g, *outs["bf16"]) + len(taps) * cin * cout
@@ -1576,32 +1623,303 @@ def k2_backward_phase(ops, cap: dict) -> dict:
               f"{t['wgrad_ms']:.4f}), cuDNN {lib:.4f}; by device time "
               f"{t['device_ms']:.4f} ms (dgrad {t['dgrad_device_ms']:.4f}, "
               f"wgrad + reduce {t['wgrad_device_ms']:.4f}), cuDNN "
-              f"{lib_dev:.4f}, ratio {t['device_ms'] / lib_dev:.3f}; f32 "
-              f"(FMA) by device time {dev32:.4f} ms, cuDNN f32 (TF32 off) "
-              f"{lib_dev32:.4f}, ratio {dev32 / lib_dev32:.3f}; dgrad "
+              f"{lib_dev:.4f}, ratio {t['device_ms'] / lib_dev:.3f}; dgrad "
               f"kernel alone {t['dgrad_kernel_device_ms']:.4f} ms; wgrad "
               f"{chunks} chunks, partials {partial_mb:.1f} MB written and "
               f"read; bound {b_ms:.4f} ms ({b_by})")
         shapes.append(dict(cin=cin, cout=cout, max_abs_err=errs["bf16"],
-                           max_abs_err_f32=errs["f32"], ms_f32=ms32,
-                           plain_ms=plain, library_ms=lib,
-                           library_device_ms=lib_dev, bound_ms=b_ms,
-                           bound_by=b_by, gflop=flops / 1e9,
+                           max_abs_err_f32=errs["f32"], plain_ms=plain,
+                           library_ms=lib, library_device_ms=lib_dev,
+                           bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9,
                            mbytes=moved / 1e6, wgrad_chunks=chunks,
-                           partial_mbytes=partial_mb, device_ms_f32=dev32,
-                           library_device_ms_f32=lib_dev32, **t))
+                           partial_mbytes=partial_mb, **t))
     return _k2_row("masked_conv2d_bwd",
                    "iaf_torch/ops/csrc/masked_conv_bwd.cu",
                    "iaf_tpu/ops/masked_conv.py:98", shapes,
                    ("dgrad_ms", "dgrad_device_ms", "wgrad_ms",
                     "wgrad_device_ms", "dgrad_kernel_device_ms",
-                    "partial_mbytes", "device_ms_f32",
-                    "library_device_ms_f32"))
+                    "partial_mbytes"))
 
 
-def five_by_five_phases(ops, device, ds) -> tuple[list, dict, dict, dict]:
-    """The 5x5 config's phases (phase 11 of the module docstring). Returns
-    (K2's two rows, the eval and training launch counts, a summary)."""
+@contextlib.contextmanager
+def k2_routes():
+    """Record the route of every K2 forward (``fwd_route``) and backward
+    (``bwd_route``) launched inside the block, in order."""
+    mc = importlib.import_module("iaf_torch.ops.masked_conv")
+    fwd, bwd = mc._fwd, mc.masked_conv2d_bwd
+    seen = {"fwd": [], "bwd": []}
+
+    def spy_fwd(x, w, taps):
+        seen["fwd"].append(mc.fwd_route(x, w, taps))
+        return fwd(x, w, taps)
+
+    def spy_bwd(x, w, g, taps=None):
+        seen["bwd"].append(mc.bwd_route(x, w, taps))
+        return bwd(x, w, g, taps)
+    mc._fwd, mc.masked_conv2d_bwd = spy_fwd, spy_bwd
+    try:
+        yield seen
+    finally:
+        mc._fwd, mc.masked_conv2d_bwd = fwd, bwd
+
+
+@contextlib.contextmanager
+def k2_fma():
+    """Inside the block every K2 launch takes its FMA kernel (what the
+    f32 recipe ran before the 3xTF32 route: its yardstick in the same
+    run)."""
+    mc = importlib.import_module("iaf_torch.ops.masked_conv")
+    route, wroute = mc._route, mc._wgrad_route
+    mc._route = mc._wgrad_route = lambda *a: "fma"
+    try:
+        yield
+    finally:
+        mc._route, mc._wgrad_route = route, wroute
+
+
+def _full_f32(label: str, *ts) -> None:
+    """Each tensor is f32 with low mantissa bits set somewhere: an upcast
+    from bf16 leaves them zero and would hide a kernel that drops the lo
+    parts of its split operands."""
+    import torch
+    check(all(t.dtype == torch.float32 for t in ts),
+          f"{label}: the captured inputs are not f32")
+    full = [bool((t.view(torch.int32) & 0xFFFF).any()) for t in ts]
+    check(all(full), f"{label}: f32 inputs without low mantissa bits: "
+          f"{full}")
+
+
+def k2_f32_forward_phase(ops, cap: dict) -> dict:
+    """K2 in f32 (the 5x5 config's f32 recipe) on the inputs of one real
+    f32 eval chunk (16 images x 64 samples; full f32 mantissas): each conv
+    must take the 3xTF32 route (``fwd_route`` ``"3xtf32"``), give the same
+    bits on two calls and hold the twin in f64 at 1e-5 of the output's
+    max; device time by kernel; timed by events and by device time beside
+    the FMA kernel it replaces (same inputs, same run), the twin and one
+    cuDNN f32 conv (TF32 off), with the bound, the 3xTF32 design's floor
+    and the FP32 CUDA-core floor (``_f32_bounds``). The control, one TF32
+    product per f32 product on the same inputs (``_tf32``), must miss the
+    1e-5 limit. Returns the kernels-line row."""
+    import torch
+    from iaf_torch.ops import masked_conv as mc
+    shapes = []
+    for (cin, cout), (x, w, taps) in sorted(cap.items()):
+        _full_f32(f"K2 f32 {cin}->{cout}", x, w)
+        route = mc.fwd_route(x, w, taps)
+        check(route == "3xtf32", f"K2 f32 {cin}->{cout} takes the {route} "
+              "kernel, not the 3xTF32 tensor-core one")
+        call = lambda: ops.masked_conv2d(x, w, taps)  # noqa: E731
+        with torch.inference_mode():
+            got = call()
+            check(torch.equal(got, call()),
+                  f"K2 f32 {cin}->{cout}: two calls differ")
+            ref = ops.masked_conv2d_ref(x.double(), w.double(), taps)
+            err, rel = _rel_err(got, ref)
+            check(rel <= 1e-5, f"K2 f32 {cin}->{cout}: {rel:.3e} of max "
+                  "from the f64 twin > 1e-5")
+            one = _rel_err(ops.masked_conv2d_ref(_tf32(x), _tf32(w), taps),
+                           ref)[1]
+            check(one > 1e-5, f"K2 f32 {cin}->{cout}: one TF32 product "
+                  f"per f32 product is {one:.3e} of max from the f64 twin, "
+                  "within the 1e-5 limit")
+            per_call = _by_kernel(f"K2 f32 {cin}->{cout}", call)
+            ms = cuda_ms(call)
+            dev = device_ms(call)
+            with k2_fma():
+                fma_dev = device_ms(call, 5, 1)
+            plain = cuda_ms(lambda: ops.masked_conv2d_ref(x, w, taps), 5, 1)
+            conv, xl, wl = _k2_conv_lib(x, w)
+            lib = cuda_ms(lambda: conv(xl, wl), 5, 1)
+            lib_dev = device_ms(lambda: conv(xl, wl), 5, 1)
+        n, hh, ww, _ = x.shape
+        b = _f32_bounds(2 * n * hh * ww * len(taps) * cin * cout,
+                        nbytes(x, got) + len(taps) * cin * cout * 4)
+        print(f"[K2 f32] {cin}->{cout} x{tuple(x.shape)} ({route}): "
+              f"{rel:.3e} of max from the f64 twin (max abs {err:.3e}; "
+              f"limit 1e-5; one TF32 product per f32 product, the control: "
+              f"{one:.3e}), two calls bitwise equal; by events {ms:.4f} ms, "
+              f"by device time "
+              f"{dev:.4f} ms ({per_call} device launches a call), the FMA "
+              f"kernel {fma_dev:.4f} ms; cuDNN f32 (TF32 off) {lib:.4f} ms, "
+              f"by device time {lib_dev:.4f} ms, ratio {dev / lib_dev:.3f}; "
+              f"{_f32_bound_text(b, dev)}")
+        shapes.append(dict(cin=cin, cout=cout, max_abs_err=err,
+                           max_rel_err=rel, one_tf32_rel_err=one, ms=ms,
+                           device_ms=dev,
+                           fma_device_ms=fma_dev, plain_ms=plain,
+                           library_ms=lib, library_device_ms=lib_dev,
+                           device_launches_per_call=per_call, **b))
+    return _k2_row("masked_conv2d_f32", "iaf_torch/ops/csrc/masked_conv.cu",
+                   "iaf_tpu/ops/masked_conv.py:40", shapes,
+                   ("fma_device_ms", "design_bound_ms", "fp32_floor_ms"),
+                   path="5x5 f32",
+                   counter="masked_conv2d", kernel_route="3xtf32")
+
+
+def k2_f32_backward_phase(ops, cap: dict) -> dict:
+    """K2's backward in f32 on each captured conv of a real 5x5 f32
+    training step (batch 32; full f32 mantissas): dgrad and wgrad must
+    take the 3xTF32 route (``bwd_route``); dx and dW (live taps; the dead
+    ones zero) within 1e-5 of each one's max of the twin in f64 (the
+    values printed), where one TF32 product per f32 product on the same
+    inputs (``_tf32``) must miss that limit in both; two calls bitwise
+    equal. Device time by kernel;
+    timed by events and by device time, whole and as dgrad and wgrad
+    apart, beside the FMA kernels they replace (same run), the twin's
+    backward and autograd of one cuDNN f32 conv (TF32 off), with the
+    bounds of ``_f32_bounds``. Returns the kernels-line row."""
+    import torch
+    from iaf_torch.ops import masked_conv as mc
+    shapes = []
+    for (cin, cout), (x, w, g, taps) in sorted(cap.items()):
+        _full_f32(f"K2 bwd f32 {cin}->{cout}", x, w, g)
+        kh, kw = w.shape[:2]
+        routes = mc.bwd_route(x, w, taps)
+        check(routes == ("3xtf32", "3xtf32"), f"K2 bwd f32 {cin}->{cout} "
+              f"takes dgrad, wgrad on {routes}, not 3xTF32")
+        call = lambda: ops.masked_conv2d_bwd(x, w, g, taps)  # noqa: E731
+        dx_, dw_ = call()
+        again = call()
+        check(torch.equal(dx_, again[0]) and torch.equal(dw_, again[1]),
+              f"K2 bwd f32 {cin}->{cout}: two calls differ")
+        live = torch.zeros(kh, kw, 1, 1, device=x.device)
+        for dy, dx in taps:
+            live[dy, dx] = 1.0
+        check(not bool((dw_ * (1 - live)).any()),
+              f"K2 bwd f32 {cin}->{cout}: dW nonzero at a dead tap")
+        rdx, rdw = ops.masked_conv2d_bwd_ref(x.double(), w.double(),
+                                             g.double(), taps)
+        (ex, rx), (ew, rw) = (_rel_err(dx_, rdx),
+                              _rel_err(dw_ * live, rdw * live))
+        check(max(rx, rw) <= 1e-5, f"K2 bwd f32 {cin}->{cout}: dx {rx:.3e}, "
+              f"dW {rw:.3e} of max from the f64 twin > 1e-5")
+        odx, odw = ops.masked_conv2d_bwd_ref(_tf32(x), _tf32(w), _tf32(g),
+                                             taps)
+        ox, ow = _rel_err(odx, rdx)[1], _rel_err(odw * live, rdw * live)[1]
+        check(min(ox, ow) > 1e-5, f"K2 bwd f32 {cin}->{cout}: one TF32 "
+              f"product per f32 product is dx {ox:.3e}, dW {ow:.3e} of max "
+              "from the f64 twin, within the 1e-5 limit")
+        for key, k_ms, k in sorted(device_kernels(call, 10, 2),
+                                   key=lambda d: -d[1]):
+            print(f"[K2 bwd f32] {cin}->{cout} by kernel, per call: "
+                  f"{k_ms:.4f} ms x{k} {key[:80]}")
+        t = {}
+        for part, fn in (("", call),
+                         ("dgrad_", lambda: mc._dgrad(x, w, g, taps)),
+                         ("wgrad_", lambda: mc._wgrad(x, w, g, taps))):
+            t[part + "ms"] = cuda_ms(fn)
+            t[part + "device_ms"] = device_ms(fn)
+        with k2_fma():
+            fma_dev = device_ms(call, 5, 1)
+        leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w)]
+        plain = _backward_ms(
+            lambda a, b: ops.masked_conv2d_ref(a, b, taps), leaves, g)
+        conv, _, _ = _k2_conv_lib(x, w)
+        lib_args = (lambda a, b: conv(a.permute(0, 3, 1, 2),
+                                      b.permute(3, 2, 0, 1)),
+                    leaves, g.permute(0, 3, 1, 2))
+        lib = _backward_ms(*lib_args)
+        lib_dev = _backward_ms(*lib_args, timer=device_ms)
+        n, hh, ww, _ = x.shape
+        b = _f32_bounds(2 * 2 * n * hh * ww * len(taps) * cin * cout,
+                        nbytes(x, g, dx_, dw_) + len(taps) * cin * cout * 4)
+        _, chunks = mc.wgrad_chunks(n * hh * ww // mc._GT_PIXELS,
+                                    mc.wgrad_m_blocks(len(taps), cin),
+                                    mc._sm_count(x.device))
+        print(f"[K2 bwd f32] {cin}->{cout} (dgrad, wgrad: {routes}): dx "
+              f"{rx:.3e}, dW {rw:.3e} of max from the f64 twin (max abs "
+              f"{max(ex, ew):.3e}; limit 1e-5; one TF32 product per f32 "
+              f"product, the control: dx {ox:.3e}, dW {ow:.3e}), two calls "
+              f"bitwise equal; "
+              f"by events {t['ms']:.4f} ms (dgrad {t['dgrad_ms']:.4f}, "
+              f"wgrad {t['wgrad_ms']:.4f}), by device time "
+              f"{t['device_ms']:.4f} ms (dgrad {t['dgrad_device_ms']:.4f}, "
+              f"wgrad + reduce {t['wgrad_device_ms']:.4f}), the FMA kernels "
+              f"{fma_dev:.4f} ms; cuDNN f32 (TF32 off) {lib:.4f} ms, by "
+              f"device time {lib_dev:.4f} ms, ratio "
+              f"{t['device_ms'] / lib_dev:.3f}; wgrad {chunks} chunks; "
+              f"{_f32_bound_text(b, t['device_ms'])}")
+        shapes.append(dict(cin=cin, cout=cout, max_abs_err=max(ex, ew),
+                           max_rel_err=max(rx, rw),
+                           one_tf32_rel_err=min(ox, ow),
+                           fma_device_ms=fma_dev,
+                           plain_ms=plain, library_ms=lib,
+                           library_device_ms=lib_dev, wgrad_chunks=chunks,
+                           **b, **t))
+    return _k2_row("masked_conv2d_bwd_f32",
+                   "iaf_torch/ops/csrc/masked_conv_bwd.cu",
+                   "iaf_tpu/ops/masked_conv.py:98", shapes,
+                   ("dgrad_ms", "dgrad_device_ms", "wgrad_ms",
+                    "wgrad_device_ms", "fma_device_ms", "design_bound_ms",
+                    "fp32_floor_ms"),
+                   path="5x5 f32", counter="masked_conv2d_bwd",
+                   kernel_route="3xtf32")
+
+
+def five_by_five_f32_phases(ops, device, model, ds):
+    """The 5x5 config's f32 recipe (``compute_dtype=float32``, phase 12 of
+    the module docstring) on the bf16 phases' model. Returns (K2's two f32
+    rows, the eval and training launch counts, a summary)."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.models import cvae
+    from iaf_torch.ops import masked_conv
+    from iaf_torch.parallel import train_step as ts
+    hp = PAPER5 + ",compute_dtype=float32"
+    cfg = Config().parse(hp + f",dataset=synthetic,eval_batch_size="
+                         f"{EVAL_BATCH},eval_k_chunk={EVAL_CHUNK}")
+
+    def one_chunk():
+        with torch.inference_mode():
+            cvae.apply_fn(cfg, model, 1, ds.test_x[:EVAL_BATCH], mode="eval",
+                          k=EVAL_CHUNK)
+    rows = [k2_f32_forward_phase(ops, capture_k2(ops, "masked_conv2d",
+                                                 one_chunk))]
+    chunk = profile_phase(f"5x5 f32: one eval chunk (16 images x "
+                          f"{EVAL_CHUNK} samples)", one_chunk)
+    blocks = len(model.blocks)
+    with k2_routes() as routes:
+        eval_counts, main = eval_phase(
+            ops, device, cfg, model, ds,
+            {"masked_conv2d": blocks * (cfg.depth_ar + 1),
+             "iaf_update": blocks, "disc_logistic_logp": 1})
+    check(len(routes["fwd"]) > eval_counts["masked_conv2d"]
+          and set(routes["fwd"]) == {"3xtf32"},
+          f"5x5 f32 eval: K2 routes {sorted(set(routes['fwd']))}, not all "
+          "3xtf32")
+    main["profile"] = chunk
+
+    tcfg = Config().parse(hp + ",dataset=synthetic")
+    tbatch = ds.train_x[:tcfg.batch_size]
+    tstate = ts.init_train_state(tcfg, 11, tbatch, device)
+    cap = capture_k2(masked_conv, "masked_conv2d_bwd",
+                     lambda: ts.train_step(tcfg, tstate, 3, tbatch))
+    rows.append(k2_f32_backward_phase(ops, cap))
+    del cap, tstate
+    torch.cuda.empty_cache()
+    with k2_routes() as routes:
+        tcfg, tstate, counts, summary = train_phase(
+            ops, device, hp, PER_STEP_5X5, F32_TRAIN_STEPS, 0)
+    check(len(routes["fwd"]) == counts["masked_conv2d"]
+          and set(routes["fwd"]) == {"3xtf32"}
+          and len(routes["bwd"]) == counts["masked_conv2d_bwd"]
+          and set(routes["bwd"]) == {("3xtf32", "3xtf32")},
+          f"5x5 f32 training: K2 routes {sorted(set(routes['fwd']))}, "
+          f"{sorted(set(routes['bwd']))}, not all 3xtf32")
+    print(f"[main] 5x5 f32: every K2 forward and backward of the eval and "
+          f"the training runs took the 3xtf32 route ({counts['masked_conv2d']}"
+          f" forwards and {counts['masked_conv2d_bwd']} backwards in "
+          f"training)")
+    summary["profile"] = profile_phase(
+        f"5x5 f32: one training step (batch {tcfg.batch_size})",
+        lambda: ts.train_step(tcfg, tstate, 99, tbatch))
+    return rows, eval_counts, counts, {"main": main, "train": summary}
+
+
+def five_by_five_phases(ops, device, ds):
+    """The 5x5 config's phases (phases 11 and 12 of the module docstring).
+    Returns (K2's two bf16 rows, the eval and training launch counts, a
+    summary, and ``five_by_five_f32_phases``'s four results)."""
     import torch
     from iaf_torch.core.config import Config
     from iaf_torch.models import cvae
@@ -1632,6 +1950,7 @@ def five_by_five_phases(ops, device, ds) -> tuple[list, dict, dict, dict]:
         ops, device, cfg, model, ds,
         {"masked_conv2d": convs, "iaf_update": len(model.blocks),
          "disc_logistic_logp": 1})
+    f32 = five_by_five_f32_phases(ops, device, model, ds)
     del model
     torch.cuda.empty_cache()
 
@@ -1649,7 +1968,7 @@ def five_by_five_phases(ops, device, ds) -> tuple[list, dict, dict, dict]:
     summary["profile"] = profile_phase(
         f"5x5: one training step (batch {tcfg.batch_size})",
         lambda: ts.train_step(tcfg, tstate, 99, tbatch))
-    return rows, eval_counts, counts, {"main": main, "train": summary}
+    return rows, eval_counts, counts, {"main": main, "train": summary}, f32
 
 
 def run() -> dict:
@@ -1750,14 +2069,17 @@ def run() -> dict:
     # phase 10: K1 at the deepest chain it holds
     k1_depth_phase(ops, device)
 
-    # phase 11: the 5x5 config through K2
-    k2_rows, eval5, counts5, summary5 = five_by_five_phases(ops, device, ds)
-    rows += k2_rows
+    # phases 11 and 12: the 5x5 config through K2, bf16 and f32
+    k2_rows, eval5, counts5, summary5, f32_5 = five_by_five_phases(
+        ops, device, ds)
+    k2_rows32, eval5_32, counts5_32, summary5_32 = f32_5
+    rows += k2_rows + k2_rows32
 
-    # phase 12: a 3x3 chain deeper than K1 holds, through K2
+    # phase 13: a 3x3 chain deeper than K1 holds, through K2
     deep_chain_phase(ops, device)
     paths = {"paper": (eval_counts, counts), "5x5": (eval5, counts5),
-             "paper f32": (eval32, counts32)}
+             "paper f32": (eval32, counts32),
+             "5x5 f32": (eval5_32, counts5_32)}
     for r in rows:     # each kernel's launches on the main path it is on
         ev, tr = paths[r.setdefault(
             "path", "5x5" if r["name"] in K2_NAMES else "paper")]
@@ -1777,7 +2099,9 @@ def run() -> dict:
                       "main_f32": summary32["main"],
                       "train_f32": summary32["train"],
                       "main_5x5": summary5["main"],
-                      "train_5x5": summary5["train"]}))
+                      "train_5x5": summary5["train"],
+                      "main_5x5_f32": summary5_32["main"],
+                      "train_5x5_f32": summary5_32["train"]}))
     print(json.dumps({"kernels": rows}))
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}
@@ -1809,19 +2133,80 @@ def _ab_k1_fwd(ops, k1, f32: bool = False) -> dict:
     return out
 
 
-def _ab_f32_chunk(ops, k1, device="cuda") -> dict:
+def _k2_f32_convs(n: int, seed: int) -> dict:
+    """The three 5x5 AR convs at the paper widths in f32, from a seed: per
+    label (x [n,16,16,cin] on the card, the folded masked weights, the
+    live taps), full f32 mantissas."""
+    import numpy as np
+    import torch
+    from iaf_torch.nn.masks import get_conv_ar_mask, nonzero_taps
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for cin, cout, zd in ((32, 160, True), (160, 64, False),
+                          (160, 160, False)):
+        m = (get_conv_ar_mask(5, 5, cin, cout, zd) if cout % cin == 0
+             or cin % cout == 0 else np.concatenate(
+                 [get_conv_ar_mask(5, 5, cin, cout // 2, zd)] * 2, -1))
+        w = (torch.randn(5, 5, cin, cout, generator=gen)
+             / math.sqrt(13 * cin) * torch.from_numpy(m))
+        x = torch.randn(n, 16, 16, cin, generator=gen)
+        out[f"{cin}->{cout}"] = (x.cuda(), w.cuda(), nonzero_taps(m))
+    return out
+
+
+def _ab_k2_fwd(ops, k1, f32: bool = True) -> dict:
+    """A/B case ``k2_fwd_f32``: K2's forward in f32 at the eval shape (N =
+    1024) for the three 5x5 AR convs, inputs from a seed, the error
+    against the twin in f64; whatever kernel the tree routes f32 to runs
+    (before the 3xTF32 route: the FMA kernel). ``k2_fwd``: the same
+    inputs in bf16, against the twin."""
+    out = {}
+    for label, (x, w, taps) in _k2_f32_convs(1024, 6).items():
+        if not f32:
+            x, w = x.bfloat16(), w.bfloat16()
+        ref = ops.masked_conv2d_ref(*((x.double(), w.double()) if f32
+                                      else (x, w)), taps)
+        err = _rel_err(ops.masked_conv2d(x, w, taps), ref)[1]
+        out[label] = (lambda x=x, w=w, taps=taps:  # noqa: E731
+                      ops.masked_conv2d(x, w, taps), err, 10)
+    return out
+
+
+def _ab_k2_bwd_f32(ops, k1) -> dict:
+    """A/B case ``k2_bwd_f32``: K2's backward in f32 at the training
+    shape (batch 32) for the three 5x5 AR convs, inputs and output
+    gradient from a seed, the error (dx and dW, the larger) against the
+    twin in f64."""
+    import torch
+    out = {}
+    for label, (x, w, taps) in _k2_f32_convs(32, 7).items():
+        g = torch.randn(*x.shape[:3], w.shape[3],
+                        generator=torch.Generator().manual_seed(8)).cuda()
+        got = ops.masked_conv2d_bwd(x, w, g, taps)
+        ref = ops.masked_conv2d_bwd_ref(x.double(), w.double(), g.double(),
+                                        taps)
+        err = max(_rel_err(a, b)[1] for a, b in zip(got, ref))
+        out[label] = (lambda x=x, w=w, g=g, taps=taps:  # noqa: E731
+                      ops.masked_conv2d_bwd(x, w, g, taps), err)
+    return out
+
+
+def _ab_f32_chunk(ops, k1, device="cuda", hp=PAPER,
+                  kernel="ar_stack") -> dict:
     """A/B case ``f32_chunk``: one eval chunk of the paper config in f32
     (16 images x 64 samples; random weights from a data-dependent init on
     synthetic data; TF32 off, as ``train_lib`` sets it for the f32
     recipe), timed over 5 calls; the error is the chunk's log-weights
-    against the same chunk with K1's twin in place of its kernel."""
+    against the same chunk with the twin of ``ops.kernel`` (K1's) in
+    place of its kernel. ``f32_chunk_5x5``: the same for the 5x5 config
+    and K2."""
     import torch
     from iaf_torch.core.config import Config
     from iaf_torch.data.datasets import synthetic_dataset
     from iaf_torch.models import cvae
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = Config().parse(PAPER + f",compute_dtype=float32,dataset=synthetic,"
+    cfg = Config().parse(hp + f",compute_dtype=float32,dataset=synthetic,"
                          f"eval_batch_size={EVAL_BATCH},eval_k_chunk="
                          f"{EVAL_CHUNK}")
     ds = synthetic_dataset(cfg.image_size, cfg.channels)
@@ -1834,12 +2219,14 @@ def _ab_f32_chunk(ops, k1, device="cuda") -> dict:
             return cvae.apply_fn(cfg, model, 1, x, mode="eval",
                                  k=EVAL_CHUNK).log_w
     got = chunk()
-    kernel = ops.ar_stack
-    ops.ar_stack = lambda z, c, ws, bs, masks: ops.ar_stack_ref(z, c, ws, bs)
+    original = getattr(ops, kernel)
+    setattr(ops, kernel, (
+        lambda z, c, ws, bs, masks: ops.ar_stack_ref(z, c, ws, bs))
+        if kernel == "ar_stack" else ops.masked_conv2d_ref)
     try:
         ref = chunk()
     finally:
-        ops.ar_stack = kernel
+        setattr(ops, kernel, original)
     return {"chunk": (chunk, _rel_err(got, ref)[1], 5)}
 
 
@@ -1849,7 +2236,12 @@ def _ab_f32_chunk(ops, k1, device="cuda") -> dict:
 # not given])}; ``ab`` times every call by device time and events.
 AB_CASES = {"k1_fwd": _ab_k1_fwd,
             "k1_fwd_f32": lambda ops, k1: _ab_k1_fwd(ops, k1, f32=True),
-            "f32_chunk": _ab_f32_chunk}
+            "f32_chunk": _ab_f32_chunk,
+            "k2_fwd_f32": _ab_k2_fwd,
+            "k2_fwd": lambda ops, k1: _ab_k2_fwd(ops, k1, f32=False),
+            "k2_bwd_f32": _ab_k2_bwd_f32,
+            "f32_chunk_5x5": lambda ops, k1: _ab_f32_chunk(
+                ops, k1, hp=PAPER5, kernel="masked_conv2d")}
 
 # One process per tree for ``ab``: the iaf_torch beside argv[1], timed
 # with this script's helpers (argv[2]) on case argv[3].

@@ -265,10 +265,6 @@ static int launch(const StackArgs& a, int n_images, int threads,
 #define SCOL 18      // staged columns: pixel x at column x + 1
 #define KF 8         // f32: K depth of one weight slice (one k8 step)
 #define FLUSH 4      // f32: slices summed on the tensor cores per flush
-#define SPLIT_WARPS 3                // f32: the slice splitters, and
-#define TF_THREADS (WG_CONSUMERS + 128)  // the producer: one warpgroup
-#define TF_CONSUMER_REGS 224         // f32: registers a consumer thread
-#define TF_PRODUCER_REGS 56          // takes, and a producer-group one
 
 // What the two instantiations differ in: the activations' element size,
 // a slice's K depth, the channel padding (16 bytes, so the 8 rows of an
@@ -322,26 +318,6 @@ __host__ __device__ static inline WgLayout wg_layout(int n_convs, int cz,
                                                 : wg_width(cout);
   L.slice = f32 ? 2 * KF * np * 4 : KC * np * 2;
   return L;
-}
-
-// One f32 slice split in place by the splitter lane ``sl`` of 32 *
-// SPLIT_WARPS: each element of the landed [KF x N] slice becomes its tf32
-// hi part there and its lo part at the same place KF * N floats on.
-__device__ __forceinline__ void split_slice(unsigned char* stage, int n,
-                                            int sl) {
-  float4* hi = reinterpret_cast<float4*>(stage);
-  float4* lo = hi + KF * n / 4;
-  for (int i = sl; i < KF * n / 4; i += 32 * SPLIT_WARPS) {
-    const float4 v = hi[i];
-    const float x[4] = {v.x, v.y, v.z, v.w};
-    uint32_t h[4], l[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) tf32_split(__float_as_uint(x[k]), h[k], l[k]);
-    hi[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                        __uint_as_float(h[2]), __uint_as_float(h[3]));
-    lo[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
-                        __uint_as_float(l[2]), __uint_as_float(l[3]));
-  }
 }
 
 // One conv of one tile by one consumer warp, N its wgmma width: the
@@ -609,7 +585,7 @@ __global__ void __launch_bounds__(WgPath<F32>::THREADS, 1)
                          &full[stage]);
               } else if constexpr (F32) {
                 mbar_wait(&full[stage], phase);
-                split_slice(dst, np, sl);
+                tf32_split_slice(dst, KF * np, sl, 32 * SPLIT_WARPS);
                 fence_proxy_async();
                 mbar_arrive(&ready[stage]);
               }

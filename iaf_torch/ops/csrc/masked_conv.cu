@@ -18,13 +18,20 @@
 // and 160->64 69.8 GFLOP against 151.0 MB (operations, 176 us and 71 us at
 // 989 TFLOP/s).
 //
-// Design: conv_wgmma_kernel<N, float> (masked_conv.cuh; bf16 on the tensor
-// cores, 128-pixel tiles) and conv_fma_kernel for f32 and the shapes the
-// tensor-core kernel does not tile.
+// In f32 (the f32 recipe) the same convs are three TF32 products per f32
+// product: 3 x 174.5 GFLOP for 160->160 at 495 TFLOP/s, 1.06 ms; 0.21 ms
+// for 32->160 and 0.42 ms for 160->64 (bound by operations; any kernel with
+// exact f32 products on the CUDA cores has a third of those FLOP at 67
+// TFLOP/s, 2.6, 0.52 and 1.04 ms, as its floor).
+//
+// Design: conv_wgmma_kernel<N, float> (masked_conv.cuh; bf16 on the
+// tensor cores, 128-pixel tiles), conv_tf32_kernel<N> (f32 by 3xTF32 on
+// the tensor cores, the same tiles) and conv_fma_kernel for the shapes the
+// tensor-core kernels do not tile.
 //
 // Entry points (plain C, loaded with ctypes): masked_conv_smem_bytes and
-// masked_conv_fwd (FMA path), masked_conv_wgmma_stages and
-// masked_conv_fwd_wgmma (tensor-core path).
+// masked_conv_fwd (FMA path), masked_conv_wgmma_stages,
+// masked_conv_fwd_wgmma and masked_conv_fwd_tf32 (tensor-core paths).
 
 #include "masked_conv.cuh"
 
@@ -37,13 +44,15 @@ size_t masked_conv_smem_bytes(int tr, int W, int cin, int kw, int span) {
   return conv_smem_bytes(tr, W, cin, kw, span);
 }
 
-// Ring stages the tensor-core kernel gets within ``limit`` bytes at this
-// shape (npad: cout rounded up to an instantiated width); it takes the
-// shape when this is at least 2.
+// Ring stages the tensor-core kernel (bf16, or with f32 = 1 the 3xTF32
+// instantiation) gets within ``limit`` bytes at this shape (npad: cout
+// rounded up to an instantiated width); it takes the shape when this is
+// at least 2.
 int masked_conv_wgmma_stages(int W, int cin, int kw, int span, int npad,
-                             int ntaps, size_t limit) {
+                             int ntaps, size_t limit, int f32) {
   const int tr = wg_tile_rows(W);
-  return tr ? wg_stages(tr, W, cin, kw, span, npad, ntaps, limit) : 0;
+  return tr ? wg_plan(tr, W, cin, kw, span, npad, ntaps, limit, f32).stages
+            : 0;
 }
 
 // out [N,H,W,cout] f32 = the conv of x [N,H,W,cin] (T) with the weights
@@ -73,9 +82,21 @@ int masked_conv_fwd_wgmma(const void* x, const void* w, void* out,
                           const int* taps, int ntaps, int n_images, int H,
                           int W, int cin, int cout, int npad, int kh, int kw,
                           size_t limit, void* stream) {
-  return wgmma_conv<float>(x, w, out, taps, ntaps, n_images, H, W, cin, cout,
-                           npad, kh, kw, limit,
-                           static_cast<cudaStream_t>(stream));
+  return wgmma_conv<float, false>(x, w, out, taps, ntaps, n_images, H, W,
+                                  cin, cout, npad, kh, kw, limit,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// The same conv in f32 on the tensor cores by 3xTF32: x f32 (16-byte
+// aligned), the f32 weights packed in the tf32 K-major order
+// ([taps][cin/8][npad/8][2][8][4]), cin % 16 == 0, npad at most 160.
+int masked_conv_fwd_tf32(const void* x, const void* w, void* out,
+                         const int* taps, int ntaps, int n_images, int H,
+                         int W, int cin, int cout, int npad, int kh, int kw,
+                         size_t limit, void* stream) {
+  return wgmma_conv<float, true>(x, w, out, taps, ntaps, n_images, H, W,
+                                 cin, cout, npad, kh, kw, limit,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

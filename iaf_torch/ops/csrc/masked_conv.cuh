@@ -8,7 +8,7 @@
 //     in[n, y + dy_t - ph, x + dx_t - pw, ci] * W[t][ci][co]
 // with ph = (kh - 1) / 2, pw = (kw - 1) / 2 and zeros outside the image.
 //
-// Two kernels compute it:
+// Three kernels compute it:
 //
 // * conv_wgmma_kernel<N, Tout>, bf16 on the tensor cores: persistent
 //   blocks, one per SM, each walking 128-pixel tiles (8 row segments of
@@ -37,9 +37,29 @@
 //     segment, each warpgroup 64 pixels. The accumulators go straight
 //     from registers to the output, f32 (forward) or rounded once to bf16
 //     (dgrad's dx).
-// * conv_fma_kernel, FP32 FMA on the CUDA cores (f32, whose tolerance TF32
-//   would break, and shapes the tensor-core kernel does not tile): a block
-//   owns `tr` output rows of one image and stages the input rows they read
+// * conv_tf32_kernel<N>, f32 on the tensor cores by 3xTF32 (the forward
+//   and dgrad of the f32 recipe), on the same tiles, ring and warp roles
+//   (the producer warp grown to a warpgroup): Hopper has no f32 tensor-core
+//   product and one TF32 product keeps ~11 bits, so each f32 operand x is
+//   split into hi = tf32(x) and lo = tf32(x - hi) and every product is
+//   lo*hi + hi*lo + hi*hi, small terms first, as K1's f32 forward does.
+//   - Activations: staged as f32 rows with a 16-byte channel pad; the
+//     ldmatrix.x4 of f32 rows gives the tf32 A fragment directly (each
+//     32-bit word one element), split in registers. At cin = 160 one staged
+//     buffer is 131 KB, so two do not fit: the kernel stages the next tile
+//     into its one buffer after the mainloop, behind the epilogue (at cin
+//     = 32 and 64, where two would fit, one is as fast, measured).
+//   - Weights: streamed as f32 (4 bytes, not a pre-split 8: the L2 stream
+//     of a tile pass is already 1.3 MB at 160->160) in TK = 16-deep slices
+//     (two k8 steps) in the tf32 K-major layout, and three splitter warps
+//     split each landed slice in place (hi over it, lo after it) before the
+//     consumers may read it (a third mbarrier per stage, ready).
+//   - Sums: the tensor cores' own sums lose ~1/3 ulp of the running sum per
+//     wgmma, so each TK_FLUSH slices' sum (12 wgmmas) is added into f32
+//     totals; the producer warpgroup hands registers to the consumers
+//     (setmaxnreg) for the doubled accumulators. N <= 160.
+// * conv_fma_kernel, FP32 FMA on the CUDA cores (the shapes the tensor-core
+//   kernels do not tile, bf16 or f32): a block owns `tr` output rows of one image and stages the input rows they read
 //   once, as f32 after rounding to the weights' type; one thread item is
 //   one output channel of PX neighbouring pixels, activations broadcast
 //   from shared memory, weights ([taps][cin][cout]) coalesced across
@@ -64,6 +84,14 @@
 #define KC 32                    // K depth of one weight slice
 #define MAX_STAGES 32            // weight ring stages, at most
 #define BAR_BYTES (2 * MAX_STAGES * 8)
+#define TF_BAR_BYTES (3 * MAX_STAGES * 8)  // f32: full, empty and ready
+#define TK 16                    // f32 (3xTF32): K depth of one weight slice
+#define TK_FLUSH 2               // f32: slices summed on the tensor cores
+                                 // between flushes into f32 totals
+#define SPLIT_WARPS 3                    // f32: the slice splitters, and
+#define TF_THREADS (WG_CONSUMERS + 128)  // the producer: one warpgroup
+#define TF_CONSUMER_REGS 224             // f32: registers a consumer thread
+#define TF_PRODUCER_REGS 56              // takes, and a producer-group one
 
 struct ConvArgs {
   const void* in;    // [N,H,W,cin] Tin
@@ -561,6 +589,28 @@ __device__ __forceinline__ void tf32_split(uint32_t x, uint32_t& hi,
   lo = tf32_rna(__uint_as_float(x) - __uint_as_float(hi));
 }
 
+// A landed f32 slice of ``elems`` elements split in place, thread ``sl``
+// of ``nthreads`` taking every nthreads-th float4: each element becomes
+// its tf32 hi part there and its lo part at the same place ``elems``
+// floats on.
+__device__ __forceinline__ void tf32_split_slice(unsigned char* stage,
+                                                 int elems, int sl,
+                                                 int nthreads) {
+  float4* hi = reinterpret_cast<float4*>(stage);
+  float4* lo = hi + elems / 4;
+  for (int i = sl; i < elems / 4; i += nthreads) {
+    const float4 v = hi[i];
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) tf32_split(__float_as_uint(x[k]), h[k], l[k]);
+    hi[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                        __uint_as_float(h[2]), __uint_as_float(h[3]));
+    lo[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                        __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
 // Hand registers between warpgroups (all 128 threads of one execute it):
 // a producer warpgroup gives up to R, consumers take up to R.
 template <int R>
@@ -597,10 +647,12 @@ __host__ __device__ static inline int round128(int b) {
 }
 
 // Bytes of one staged activation buffer: (tr + span) rows of W + kw - 1
-// columns, cin + CPAD channels, bf16.
+// columns, cin channels and 16 bytes of padding, of ``e``-byte elements
+// (bf16: CPAD channels; f32: 4).
 __host__ __device__ static inline int wg_a_bytes(int tr, int W, int cin,
-                                                 int kw, int span) {
-  return round128((tr + span) * staged_cols(W, kw, 1) * (cin + CPAD) * 2);
+                                                 int kw, int span,
+                                                 int e = 2) {
+  return round128((tr + span) * staged_cols(W, kw, 1) * (cin + 16 / e) * e);
 }
 
 // Zeros the column halo of one staged buffer of SR rows (never
@@ -804,17 +856,203 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-// Weight ring stages for the tensor-core path within ``limit`` bytes of
-// dynamic shared memory, capped at the slices a tile streams (all of them
-// resident) and MAX_STAGES; below 2 the shape does not fit.
-static int wg_stages(int tr, int W, int cin, int kw, int span, int npad,
-                     int ntaps, size_t limit) {
-  const long fixed = BAR_BYTES + 2L * wg_a_bytes(tr, W, cin, kw, span);
-  const long slice = (long)KC * npad * 2;
-  const long fit = ((long)limit - fixed) / slice;
+// The same conv in f32 by 3xTF32 (f32 in and out), on conv_wgmma_kernel's
+// tiles and ring: the weights packed [taps][cin/8][N/8][2][8][4] (f32, the
+// tf32 K-major layout), one (tap, TK-deep chunk) slice contiguous and
+// split in place by the producer warpgroup's three splitter warps; f32
+// rows staged in one buffer (the next tile's copy is issued once every
+// warp has read the tile, behind the stores). Kept apart from the bf16
+// kernel: sharing one body cost the bf16 kernel registers and ~1.5 % of
+// its time.
+template <int N>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+    conv_tf32_kernel(ConvArgs a, int n_tiles, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + MAX_STAGES;
+  uint64_t* ready = empty + MAX_STAGES;   // the split slice, for consumers
+  const int H = a.H, W = a.W, cin = a.cin, cs = cin + 4;
+  const int SC = staged_cols(W, 2 * a.pw + 1, 1);
+  const int SR = a.tr + a.dy_hi - a.dy_lo;
+  unsigned char* abuf = smem + TF_BAR_BYTES;
+  unsigned char* ring =
+      abuf + wg_a_bytes(a.tr, W, cin, 2 * a.pw + 1, a.dy_hi - a.dy_lo, 4);
+  const int nchunks = cin / TK;
+  const int slice_bytes = 2 * TK * N * 4;   // the landed slice, then lo
+  const int tiles_y = (H + a.tr - 1) / a.tr;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_CONSUMERS / 32);
+      mbar_init(&ready[s], 32 * SPLIT_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the rows are staged as 2-byte units (an f32 channel is two)
+  zero_halo(abuf, SR, SC, W, cs * 2, a.pw, tid, blockDim.x);
+  __syncthreads();
+
+  if (warp >= WG_CONSUMERS / 32) {
+    // the producer (one thread) streams the weight slices through the
+    // ring; the splitters (the warpgroup's other warps) walk the same
+    // order and split each slice as it lands; the warpgroup hands
+    // registers to the consumers
+    reg_dealloc<TF_PRODUCER_REGS>();
+    const bool producer = warp == WG_CONSUMERS / 32;
+    if (producer && lane != 0) return;
+    const int sl = (warp - WG_CONSUMERS / 32 - 1) * 32 + lane;
+    const float* __restrict__ wp = static_cast<const float*>(a.w);
+    int stage = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      for (int t = 0; t < a.ntaps; ++t) {
+        for (int c = 0; c < nchunks; ++c) {
+          unsigned char* dst = ring + stage * slice_bytes;
+          if (producer) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], TK * N * 4);
+            bulk_g2s(dst, wp + ((size_t)t * cin + c * TK) * N, TK * N * 4,
+                     &full[stage]);
+          } else {
+            mbar_wait(&full[stage], phase);
+            tf32_split_slice(dst, TK * N, sl, 32 * SPLIT_WARPS);
+            fence_proxy_async();
+            mbar_arrive(&ready[stage]);
+          }
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warp w computes row segment w of the tile, as in
+  // conv_wgmma_kernel
+  reg_alloc<TF_CONSUMER_REGS>();
+  const int segs = W / 16;
+  const int ry = warp / segs, sx = (warp - ry * segs) * 16;
+  const int g = lane >> 2, tig = lane & 3;
+  // ldmatrix.x4 on f32 rows: lanes 0-15 give pixel rows 0-15 at k 0-3 of
+  // a k8 step, lanes 16-31 the same rows at k 4-7; each 32-bit word is one
+  // element, so the four matrices are the tf32 A fragment
+  const int lane_off = ((ry * SC + sx + (lane & 15)) * cs + (lane >> 4) * 4)
+                       * 4;
+  const RowCopy copy(tid, WG_CONSUMERS, cin * 2, W);
+  const __nv_bfloat16* __restrict__ in =
+      static_cast<const __nv_bfloat16*>(a.in);
+
+  auto stage_tile = [&](int tile) {
+    const int n = tile / tiles_y, y0 = (tile - n * tiles_y) * a.tr;
+    copy.rows(smem_u32(abuf), in + (size_t)n * H * W * cin * 2, cin * 2,
+              y0 + a.dy_lo - a.ph, SR, H, W, SC, cs * 2, a.pw);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  // acc sums TK_FLUSH slices on the tensor cores (their own sums lose ~1/3
+  // ulp of the running sum per wgmma), then goes into tot in f32
+  float acc[N / 2], tot[N / 2];
+  int stage = 0, phase = 0;
+  if (blockIdx.x < n_tiles) stage_tile(blockIdx.x);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    consumers_sync();   // the tile has landed
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) tot[i] = 0.f;
+    int run = 0;
+    const uint32_t abase = smem_u32(abuf) + lane_off;
+    for (int t = 0; t < a.ntaps; ++t) {
+      const uint32_t atap =
+          abase + ((a.tap_dy[t] - a.dy_lo) * SC + a.tap_dx[t]) * cs * 4;
+      for (int c = 0; c < nchunks; ++c) {
+        // two k8 steps: lo*hi + hi*lo + hi*hi, small terms first
+        uint32_t hi[TK / 8][4], lo[TK / 8][4];
+#pragma unroll
+        for (int s = 0; s < TK / 8; ++s) {
+          ldmatrix_x4(hi[s], atap + (c * TK + 8 * s) * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tf32_split(hi[s][i], hi[s][i], lo[s][i]);
+        }
+        mbar_wait(&ready[stage], phase);
+        __syncwarp();
+        const uint32_t base = smem_u32(ring + stage * slice_bytes);
+        const uint64_t dhi = b_desc(base), dlo = b_desc(base + TK * N * 4);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < TK / 8; ++s) {
+          const uint64_t step = (8 * N * 4 * s) >> 4;
+          wgmma_tf32_rs<N>(acc, lo[s], dhi + step, run != 0 || s != 0);
+          wgmma_tf32_rs<N>(acc, hi[s], dlo + step, 1);
+          wgmma_tf32_rs<N>(acc, hi[s], dhi + step, 1);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        if (++run == TK_FLUSH || (t == a.ntaps - 1 && c == nchunks - 1)) {
+#pragma unroll
+          for (int i = 0; i < N / 2; ++i) tot[i] += acc[i];
+          run = 0;
+        }
+      }
+    }
+    // every warp has read the buffer; the next tile's copy runs behind
+    // this tile's stores
+    consumers_sync();
+    if (next < n_tiles) stage_tile(next);
+
+    const int n = tile / tiles_y, y = (tile - n * tiles_y) * a.tr + ry;
+    if (y < H) {
+      float* out = static_cast<float*>(a.out) +
+                   (((size_t)n * H + y) * W + sx + g) * a.cout;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int co = j * 8 + 2 * tig;
+        if (co < a.cout) {
+          *reinterpret_cast<float2*>(out + co) =
+              make_float2(tot[4 * j], tot[4 * j + 1]);
+          *reinterpret_cast<float2*>(out + 8 * a.cout + co) =
+              make_float2(tot[4 * j + 2], tot[4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+// The tensor-core conv's shared memory at one shape within ``limit``
+// bytes: the barriers, the staged activation buffers of ``a_bytes`` (bf16
+// two, f32 one), then ``stages`` weight ring stages of ``slice`` bytes
+// (bf16: one KC-deep slice; f32: one TK-deep slice and its lo part),
+// ``smem`` in all. bf16 caps the stages at the slices a tile streams (all
+// of them resident). Stages cap at MAX_STAGES; below 2 the shape does not
+// fit.
+struct WgPlan {
+  int a_bytes, slice, stages;
+  size_t smem;
+};
+
+static WgPlan wg_plan(int tr, int W, int cin, int kw, int span, int npad,
+                      int ntaps, size_t limit, bool f32) {
+  WgPlan p;
+  const long bars = f32 ? TF_BAR_BYTES : BAR_BYTES;
+  p.a_bytes = wg_a_bytes(tr, W, cin, kw, span, f32 ? 4 : 2);
+  p.slice = f32 ? 2 * TK * npad * 4 : KC * npad * 2;
+  const long abytes = (f32 ? 1L : 2L) * p.a_bytes;
+  long s = ((long)limit - bars - abytes) / p.slice;
+  if (s > MAX_STAGES) s = MAX_STAGES;
   const long slices = (long)ntaps * ((cin + KC - 1) / KC);
-  long s = fit < slices ? fit : slices;
-  return (int)(s < MAX_STAGES ? s : MAX_STAGES);
+  if (!f32 && s > slices) s = slices;
+  p.stages = (int)s;
+  p.smem = bars + (size_t)abytes + (size_t)(s > 0 ? s : 0) * p.slice;
+  return p;
 }
 
 // Rows of a 128-pixel tile at width W, or 0 where the tile is not whole
@@ -824,48 +1062,68 @@ __host__ __device__ static inline int wg_tile_rows(int W) {
   return WG_TILE_SEGS / (W / 16);
 }
 
-// Launches conv_wgmma_kernel<N, Tout> on ``a`` (its tr already the tile's
-// rows): one persistent block per SM, at most one per tile.
-template <int N, typename Tout>
-static int wgmma_launch(const ConvArgs& a, int n_images, int kw,
-                        size_t limit, cudaStream_t stream) {
-  const int span = a.dy_hi - a.dy_lo;
-  const int stages = wg_stages(a.tr, a.W, a.cin, kw, span, N, a.ntaps, limit);
-  if (stages < 2) return (int)cudaErrorInvalidValue;
-  const int slices = a.ntaps * ((a.cin + KC - 1) / KC);
-  const size_t smem = BAR_BYTES + 2 * (size_t)wg_a_bytes(a.tr, a.W, a.cin,
-                                                         kw, span) +
-                      (size_t)stages * KC * N * 2;
-  auto kernel = conv_wgmma_kernel<N, Tout>;
+// Blocks of ``kernel`` (``threads`` a block, ``smem`` dynamic bytes) for
+// ``n_tiles`` persistent tiles: as many as are resident on the card, at
+// most one per tile; 0 or the CUDA error.
+template <typename K>
+static int persistent_blocks(K kernel, int threads, size_t smem, int n_tiles,
+                             int* blocks) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    WG_THREADS, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *blocks = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  return 0;
+}
+
+// Launches conv_wgmma_kernel<N, Tout> (bf16) or with F32
+// conv_tf32_kernel<N> on ``a`` (its tr already the tile's rows): one
+// persistent block per SM, at most one per tile.
+template <int N, typename Tout, bool F32>
+static int wgmma_launch(const ConvArgs& a, int n_images, int kw,
+                        size_t limit, cudaStream_t stream) {
+  const WgPlan p = wg_plan(a.tr, a.W, a.cin, kw, a.dy_hi - a.dy_lo, N,
+                           a.ntaps, limit, F32);
+  if (p.stages < 2) return (int)cudaErrorInvalidValue;
   const int n_tiles = n_images * ((a.H + a.tr - 1) / a.tr);
-  const int blocks = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
-  kernel<<<blocks, WG_THREADS, smem, stream>>>(a, n_tiles, stages,
-                                               stages >= slices);
+  int blocks = 0, e;
+  if constexpr (F32) {
+    e = persistent_blocks(conv_tf32_kernel<N>, TF_THREADS, p.smem, n_tiles,
+                          &blocks);
+    if (e) return e;
+    conv_tf32_kernel<N><<<blocks, TF_THREADS, p.smem, stream>>>(a, n_tiles,
+                                                                 p.stages);
+  } else {
+    e = persistent_blocks(conv_wgmma_kernel<N, Tout>, WG_THREADS, p.smem,
+                          n_tiles, &blocks);
+    if (e) return e;
+    // the last argument: whether every slice stays resident
+    const int slices = a.ntaps * ((a.cin + KC - 1) / KC);
+    conv_wgmma_kernel<N, Tout><<<blocks, WG_THREADS, p.smem, stream>>>(
+        a, n_tiles, p.stages, p.stages >= slices);
+  }
   return (int)cudaGetLastError();
 }
 
-// The tensor-core conv of ``in`` (bf16, 16-byte aligned) with the packed
-// weights (their columns zero-padded to npad, one of 32, 64, 128, 160,
-// 256) into ``out`` (Tout) over the ntaps (dy, dx) pairs of ``taps``;
-// cin % 16 == 0, cout even and <= npad; ``limit``: dynamic shared memory
-// allowed.
-template <typename Tout>
+// The tensor-core conv of ``in`` (16-byte aligned) with the packed weights
+// (their columns zero-padded to npad, one of 32, 64, 128, 160, 256; f32 at
+// most 160) into ``out`` (Tout) over the ntaps (dy, dx) pairs of ``taps``:
+// bf16 in and weights with cin % 16 == 0, or with F32 f32 in, weights and
+// out by 3xTF32 with cin % TK == 0; cout even and <= npad; ``limit``:
+// dynamic shared memory allowed.
+template <typename Tout, bool F32>
 static int wgmma_conv(const void* in, const void* w, void* out,
                       const int* taps, int ntaps, int n_images, int H, int W,
                       int cin, int cout, int npad, int kh, int kw,
                       size_t limit, cudaStream_t s) {
   const int tr = wg_tile_rows(W);
-  if (!tr || cin % 16 || cout % 2 || cout > npad ||
+  if (!tr || cin % (F32 ? TK : 16) || cout % 2 || cout > npad ||
       reinterpret_cast<uintptr_t>(in) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorInvalidValue;
@@ -874,11 +1132,15 @@ static int wgmma_conv(const void* in, const void* w, void* out,
                        tr);
   if (e) return e;
   switch (npad) {
-    case 32: return wgmma_launch<32, Tout>(a, n_images, kw, limit, s);
-    case 64: return wgmma_launch<64, Tout>(a, n_images, kw, limit, s);
-    case 128: return wgmma_launch<128, Tout>(a, n_images, kw, limit, s);
-    case 160: return wgmma_launch<160, Tout>(a, n_images, kw, limit, s);
-    case 256: return wgmma_launch<256, Tout>(a, n_images, kw, limit, s);
+    case 32: return wgmma_launch<32, Tout, F32>(a, n_images, kw, limit, s);
+    case 64: return wgmma_launch<64, Tout, F32>(a, n_images, kw, limit, s);
+    case 128: return wgmma_launch<128, Tout, F32>(a, n_images, kw, limit, s);
+    case 160: return wgmma_launch<160, Tout, F32>(a, n_images, kw, limit, s);
+    case 256:
+      // f32 at N = 256 would need 256 accumulator registers a thread
+      if constexpr (!F32)
+        return wgmma_launch<256, Tout, false>(a, n_images, kw, limit, s);
+      break;
   }
   return (int)cudaErrorInvalidValue;
 }

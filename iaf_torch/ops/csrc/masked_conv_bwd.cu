@@ -48,7 +48,28 @@
 // partials in chunk order. The same inputs give the same bits. The wrapper
 // picks the chunk count so that chunks x M blocks fill the SMs once.
 //
-// f32 and the shapes the tensor-core kernels do not tile: dgrad on
+// Design, f32 (the f32 recipe), on the tensor cores by 3xTF32 (each f32
+// product lo*hi + hi*lo + hi*hi of tf32 parts, as in masked_conv.cuh):
+// * dgrad runs the forward's conv_tf32_kernel<N> on G in f32 with the
+//   mirrored taps, the transposed weights packed in the tf32
+//   K-major order; dx comes out in f32.
+// * wgrad is the same GEMM (conv_wgrad_tf32_kernel). wgmma takes tf32
+//   operands K-major only, and K is the pixels: ldmatrix.trans moves
+//   16-bit elements and would split f32 words. So B, G, gets its pixels
+//   contiguous from the wrapper's one packing copy (the tf32 K-major layout
+//   with pixels as K) and is split on chip (each block splits its landed
+//   slice in place, hi over it, lo after it); A, the input's staged rows,
+//   keeps channels contiguous and each lane reads its fragment's four
+//   floats itself, bank-conflict free with a channel stride of GW_CB + 8
+//   floats, and splits them in registers. f32 halves the pixels a stage
+//   holds (64-pixel sub-tiles, G's hi and lo: two stages are 202 KB at
+//   cout = 160); every GT_GROUP k8 steps (12 wgmmas) the tensor cores' sum
+//   goes into f32 totals (K per chunk is ~1400 pixels at batch 32).
+// Bound, f32, per 5x5 AR layer at batch 32: 3 x 17.4 GFLOP of TF32
+// products, 0.105 ms at 495 TFLOP/s (any exact-f32 CUDA-core kernel: 0.26
+// ms at 67 TFLOP/s).
+//
+// Shapes the tensor-core kernels do not tile, bf16 or f32: dgrad on
 // conv_fma_kernel, wgrad on conv_wgrad_kernel (FP32 FMA: each block owns a
 // chunk of image rows, a 32 x 32 (ci x co) tile and a group of TG taps,
 // keeps its sums in registers, a warp's lanes being 32 output channels,
@@ -56,8 +77,10 @@
 // and reduce.
 //
 // Entry points (plain C, loaded with ctypes): masked_conv_dgrad,
-// masked_conv_dgrad_wgmma, masked_conv_wgrad, masked_conv_wgrad_wgmma_smem,
-// masked_conv_wgrad_wgmma, masked_conv_wreduce.
+// masked_conv_dgrad_wgmma, masked_conv_dgrad_tf32, masked_conv_wgrad,
+// masked_conv_wgrad_wgmma_smem, masked_conv_wgrad_wgmma,
+// masked_conv_wgrad_tf32_smem, masked_conv_wgrad_tf32 (also the way onto
+// the tensor cores for K1's f32 backward), masked_conv_wreduce.
 
 #include "masked_conv.cuh"
 
@@ -190,9 +213,15 @@ __global__ void __launch_bounds__(RD_THREADS)
 #define GW_CB 32        // wgmma wgrad: input channels per block
 #define GW_TG 4         // wgmma wgrad: taps per block (two warps a tap)
 
+#define GT_PIXELS 64    // 3xTF32 wgrad: pixels per sub-tile (8 k8 steps)
+#define GT_KSTEPS (GT_PIXELS / 8)
+#define GT_GROUP 4      // 3xTF32 wgrad: k8 steps per flush (12 wgmmas)
+#define GT_CS (GW_CB + 8)   // 3xTF32 wgrad: staged channel stride, floats
+
 struct WgradWgArgs {
-  const __nv_bfloat16* x;   // [N,H,W,cin] conv input
+  const void* x;            // [N,H,W,cin] conv input (bf16; f32)
   const void* gp;           // G packed: [N*H*W/16][npad/8][2][8][8] bf16
+                            // (f32: [N*H*W/8][npad/8][2][8][4])
   float* part;              // [chunks][ntaps * cin][cout] f32 partials
   int H, W, cin, cout, ph, pw, ntaps, dy_lo, dy_hi, tr;
   int n_sub, sub_per_chunk;
@@ -252,8 +281,10 @@ __global__ void __launch_bounds__(WG_CONSUMERS, 1)
   auto stage = [&](int s, int buf) {
     unsigned char* b = smem + buf * st_bytes;
     const int n = s / tiles_y, y0 = (s - n * tiles_y) * a.tr;
-    copy.rows(smem_u32(b), a.x + (size_t)n * H * W * cin + cb * GW_CB, cin,
-              y0 + a.dy_lo - a.ph, SR, H, W, SC, cs, a.pw);
+    copy.rows(smem_u32(b),
+              static_cast<const __nv_bfloat16*>(a.x) + (size_t)n * H * W * cin
+                  + cb * GW_CB, cin, y0 + a.dy_lo - a.ph, SR, H, W, SC, cs,
+              a.pw);
     const uint32_t gdst = smem_u32(b + a_bytes);
     const unsigned char* gsrc = static_cast<const unsigned char*>(a.gp) +
                                 (size_t)s * GW_PIXELS * N * 2;
@@ -303,10 +334,154 @@ __global__ void __launch_bounds__(WG_CONSUMERS, 1)
   }
 }
 
+// Bytes of the 3xTF32 wgrad's staged input rows (the block's GW_CB
+// channels, f32, GT_CS apart) and of one stage: the rows, then G's
+// 64-pixel slice as it lands (its hi part written over it) and its lo part.
+__host__ __device__ static inline int gt_x_bytes(int tr, int W, int kw,
+                                                 int span) {
+  return round128((tr + span) * staged_cols(W, kw, 1) * GT_CS * 4);
+}
+__host__ __device__ static inline int gt_stage_bytes(int tr, int W, int kw,
+                                                     int span, int npad) {
+  return gt_x_bytes(tr, W, kw, span) + 2 * GT_PIXELS * npad * 4;
+}
+
+// Rows of a 64-pixel sub-tile at width W, or 0 where it is not whole rows
+// (W of 16, 32 or 64).
+__host__ __device__ static inline int gt_tile_rows(int W) {
+  if (W < 16 || W % 16 || GT_PIXELS % W) return 0;
+  return GT_PIXELS / W;
+}
+
+// The wgrad GEMM in f32 by 3xTF32, blocks as conv_wgrad_wgmma_kernel's
+// (GW_TG taps x GW_CB channels of M, a chunk of sub-tiles), with 64-pixel
+// sub-tiles: sub-tile s is rows tr*(s % (H/tr)) .. + tr - 1 of image
+// s / (H/tr), k8 steps 8s .. 8s + 7 of the packed G.
 template <int N>
-static int wgrad_wgmma_launch(const WgradWgArgs& a, int chunks, size_t smem,
-                              cudaStream_t s) {
-  auto kernel = conv_wgrad_wgmma_kernel<N>;
+__global__ void __launch_bounds__(WG_CONSUMERS, 1)
+    conv_wgrad_tf32_kernel(WgradWgArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int H = a.H, W = a.W, cin = a.cin;
+  const int kw = 2 * a.pw + 1, span = a.dy_hi - a.dy_lo;
+  const int SC = staged_cols(W, kw, 1);
+  const int SR = a.tr + span;
+  const int x_bytes = gt_x_bytes(a.tr, W, kw, span);
+  const int st_bytes = gt_stage_bytes(a.tr, W, kw, span, N);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int M = a.ntaps * cin;
+  const int s0 = blockIdx.x * a.sub_per_chunk;
+  const int s1 = min(s0 + a.sub_per_chunk, a.n_sub);
+
+  // the rows are staged as 2-byte units (an f32 channel is two)
+  zero_halo(smem, SR, SC, W, GT_CS * 2, a.pw, tid, WG_CONSUMERS);
+  zero_halo(smem + st_bytes, SR, SC, W, GT_CS * 2, a.pw, tid, WG_CONSUMERS);
+  __syncthreads();
+
+  // this warp's 16 rows of M: tap t, channels ci .. ci + 15, staged
+  // channels c0 .. c0 + 15 (a tap past ntaps reads tap 0 and is not
+  // stored)
+  const int tgroups = (a.ntaps + GW_TG - 1) / GW_TG;
+  const int cb = blockIdx.y / tgroups;
+  const int t_w = (blockIdx.y - cb * tgroups) * GW_TG + warp / 2;
+  const bool live = t_w < a.ntaps;
+  const int t = live ? t_w : 0, c0 = (warp & 1) * 16, ci = cb * GW_CB + c0;
+  const int g = lane >> 2, tig = lane & 3;
+  // the m16n8k8 tf32 A fragment of a k8 step at pixel p: a0 channel c0 + g
+  // at pixel p + tig, a1 channel + 8, a2 and a3 the same at pixel + 4, each
+  // read from the staged rows shifted by tap t (staged row dy_t - dy_lo,
+  // column dx_t); with channels GT_CS = 40 floats apart the 32 lanes' reads
+  // fall in 32 distinct banks
+  const int lane_off =
+      ((a.tap_dy[t] - a.dy_lo) * SC + a.tap_dx[t] + tig) * GT_CS + c0 + g;
+  const int tiles_y = H / a.tr;
+  const RowCopy copy(tid, WG_CONSUMERS, GW_CB * 2, W);
+  const int g_chunks = GT_PIXELS * N * 4 / 16;
+  const __nv_bfloat16* __restrict__ x =
+      static_cast<const __nv_bfloat16*>(a.x);
+
+  auto stage = [&](int s, int buf) {
+    unsigned char* b = smem + buf * st_bytes;
+    const int n = s / tiles_y, y0 = (s - n * tiles_y) * a.tr;
+    copy.rows(smem_u32(b), x + ((size_t)n * H * W * cin + cb * GW_CB) * 2,
+              cin * 2, y0 + a.dy_lo - a.ph, SR, H, W, SC, GT_CS * 2, a.pw);
+    const uint32_t gdst = smem_u32(b + x_bytes);
+    const unsigned char* gsrc = static_cast<const unsigned char*>(a.gp) +
+                                (size_t)s * GT_PIXELS * N * 4;
+    for (int i = tid; i < g_chunks; i += WG_CONSUMERS)
+      cp_async16(gdst + i * 16, gsrc + i * 16, 16);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float acc[N / 2], tot[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) tot[i] = 0.f;
+  if (s0 < s1) stage(s0, 0);
+  int buf = 0;
+  for (int s = s0; s < s1; ++s, buf ^= 1) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();   // the sub-tile has landed; the other stage is free
+    unsigned char* b = smem + buf * st_bytes;
+    // G's slice into tf32 parts: hi in place, lo after it
+    tf32_split_slice(b + x_bytes, GT_PIXELS * N, tid, WG_CONSUMERS);
+    fence_proxy_async();
+    __syncthreads();   // the split slice is ready for the tensor cores
+    if (s + 1 < s1) stage(s + 1, buf ^ 1);
+    const float* xs = reinterpret_cast<const float*>(b) + lane_off;
+    const uint32_t gbase = smem_u32(b + x_bytes);
+#pragma unroll 1
+    for (int q = 0; q < GT_KSTEPS / GT_GROUP; ++q) {
+      uint32_t ah[GT_GROUP][4], al[GT_GROUP][4];
+#pragma unroll
+      for (int j = 0; j < GT_GROUP; ++j) {
+        const int p = (q * GT_GROUP + j) * 8;   // the k-step's first pixel
+        const int ry = p / W, px = p - ry * W;
+        const float* src = xs + (ry * SC + px) * GT_CS;
+        const float v[4] = {src[0], src[8], src[4 * GT_CS],
+                            src[4 * GT_CS + 8]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tf32_split(__float_as_uint(v[i]), ah[j][i], al[j][i]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < GT_GROUP; ++j) {
+        // 3xTF32: lo*hi + hi*lo + hi*hi, small terms first; the group's
+        // first product starts the sum anew
+        const uint32_t kb = gbase + (q * GT_GROUP + j) * 8 * N * 4;
+        wgmma_tf32_rs<N>(acc, al[j], b_desc(kb), j != 0);
+        wgmma_tf32_rs<N>(acc, ah[j], b_desc(kb + GT_PIXELS * N * 4), 1);
+        wgmma_tf32_rs<N>(acc, ah[j], b_desc(kb), 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) tot[i] += acc[i];
+    }
+  }
+
+  if (!live) return;
+  float* out =
+      a.part + ((size_t)blockIdx.x * M + (size_t)t * cin + ci + g) * a.cout;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int co = j * 8 + 2 * tig;
+    if (co < a.cout) {
+      *reinterpret_cast<float2*>(out + co) =
+          make_float2(tot[4 * j], tot[4 * j + 1]);
+      *reinterpret_cast<float2*>(out + 8 * a.cout + co) =
+          make_float2(tot[4 * j + 2], tot[4 * j + 3]);
+    }
+  }
+}
+
+template <int N, bool F32>
+static int wgrad_launch(const WgradWgArgs& a, int chunks, size_t smem,
+                        cudaStream_t s) {
+  void (*kernel)(WgradWgArgs);
+  if constexpr (F32)
+    kernel = conv_wgrad_tf32_kernel<N>;
+  else
+    kernel = conv_wgrad_wgmma_kernel<N>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -345,9 +520,21 @@ int masked_conv_dgrad_wgmma(const void* g, const void* wt, void* dx,
                             const int* taps, int ntaps, int n_images, int H,
                             int W, int cg, int cdx, int npad, int kh, int kw,
                             size_t limit, void* stream) {
-  return wgmma_conv<__nv_bfloat16>(g, wt, dx, taps, ntaps, n_images, H, W,
-                                   cg, cdx, npad, kh, kw, limit,
-                                   static_cast<cudaStream_t>(stream));
+  return wgmma_conv<__nv_bfloat16, false>(g, wt, dx, taps, ntaps, n_images,
+                                          H, W, cg, cdx, npad, kh, kw, limit,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+// The same in f32 by 3xTF32, dx f32: g f32 (16-byte aligned), the
+// transposed f32 weights in the tf32 K-major order; cg % 16 == 0, npad at
+// most 160.
+int masked_conv_dgrad_tf32(const void* g, const void* wt, void* dx,
+                           const int* taps, int ntaps, int n_images, int H,
+                           int W, int cg, int cdx, int npad, int kh, int kw,
+                           size_t limit, void* stream) {
+  return wgmma_conv<float, true>(g, wt, dx, taps, ntaps, n_images, H, W, cg,
+                                 cdx, npad, kh, kw, limit,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // Per-chunk weight-gradient partials [chunks][ntaps][cin][cout] f32 over
@@ -399,26 +586,16 @@ int masked_conv_wgrad(const void* x, const void* g, void* part,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of the tensor-core wgrad at this shape (two
-// stages), or 0 where it does not tile it: W of 16, 32, 64 or 128 with
-// H a multiple of the sub-tile's 128 / W rows, cin a multiple of GW_CB.
-size_t masked_conv_wgrad_wgmma_smem(int H, int W, int cin, int kw, int span,
-                                    int npad) {
-  const int tr = wg_tile_rows(W);
-  if (!tr || H % tr || cin % GW_CB) return 0;
-  return 2 * (size_t)gw_stage_bytes(tr, W, kw, span, npad);
-}
+}  // extern "C"
 
-// Weight-gradient partials [chunks][ntaps][cin][cout] f32 on the tensor
-// cores, chunks = ceil(N*H*W / 128 / sub_per_chunk): x [N,H,W,cin] bf16
-// and G packed [N*H*W/16][npad/8][2][8][8] bf16 (both 16-byte aligned),
-// cin % GW_CB == 0, cout even and <= npad, at the ntaps (dy, dx) pairs of
-// ``taps``.
-int masked_conv_wgrad_wgmma(const void* x, const void* gp, void* part,
-                            const int* taps, int ntaps, int n_images, int H,
-                            int W, int cin, int cout, int npad, int kh,
-                            int kw, int sub_per_chunk, void* stream) {
-  const int tr = wg_tile_rows(W);
+// The tensor-core wgrad GEMM (bf16, or with F32 by 3xTF32) into per-chunk
+// partials; see masked_conv_wgrad_wgmma and masked_conv_wgrad_tf32.
+template <bool F32>
+static int wgrad_gemm(const void* x, const void* gp, void* part,
+                      const int* taps, int ntaps, int n_images, int H, int W,
+                      int cin, int cout, int npad, int kh, int kw,
+                      int sub_per_chunk, cudaStream_t s) {
+  const int tr = F32 ? gt_tile_rows(W) : wg_tile_rows(W);
   if (!tr || H % tr || cin % GW_CB || cout % 2 || cout > npad ||
       sub_per_chunk < 1 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(gp) % 16)
@@ -428,7 +605,7 @@ int masked_conv_wgrad_wgmma(const void* x, const void* gp, void* part,
                        tr);
   if (e) return e;
   WgradWgArgs a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.x = x;
   a.gp = gp;
   a.part = static_cast<float*>(part);
   a.H = H;
@@ -448,17 +625,70 @@ int masked_conv_wgrad_wgmma(const void* x, const void* gp, void* part,
     a.tap_dx[t] = c.tap_dx[t];
   }
   const int chunks = (a.n_sub + sub_per_chunk - 1) / sub_per_chunk;
-  const size_t smem =
-      2 * (size_t)gw_stage_bytes(tr, W, kw, c.dy_hi - c.dy_lo, npad);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int span = c.dy_hi - c.dy_lo;
+  const size_t smem = 2 * (size_t)(F32 ? gt_stage_bytes(tr, W, kw, span, npad)
+                                       : gw_stage_bytes(tr, W, kw, span, npad));
   switch (npad) {
-    case 32: return wgrad_wgmma_launch<32>(a, chunks, smem, s);
-    case 64: return wgrad_wgmma_launch<64>(a, chunks, smem, s);
-    case 128: return wgrad_wgmma_launch<128>(a, chunks, smem, s);
-    case 160: return wgrad_wgmma_launch<160>(a, chunks, smem, s);
-    case 256: return wgrad_wgmma_launch<256>(a, chunks, smem, s);
+    case 32: return wgrad_launch<32, F32>(a, chunks, smem, s);
+    case 64: return wgrad_launch<64, F32>(a, chunks, smem, s);
+    case 128: return wgrad_launch<128, F32>(a, chunks, smem, s);
+    case 160: return wgrad_launch<160, F32>(a, chunks, smem, s);
+    case 256:
+      // f32 at N = 256 would need 256 accumulator registers a thread
+      if constexpr (!F32) return wgrad_launch<256, false>(a, chunks, smem, s);
+      break;
   }
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" {
+
+// Dynamic shared memory of the tensor-core wgrad at this shape (two
+// stages), or 0 where it does not tile it: W of 16, 32, 64 or 128 with
+// H a multiple of the sub-tile's 128 / W rows, cin a multiple of GW_CB.
+size_t masked_conv_wgrad_wgmma_smem(int H, int W, int cin, int kw, int span,
+                                    int npad) {
+  const int tr = wg_tile_rows(W);
+  if (!tr || H % tr || cin % GW_CB) return 0;
+  return 2 * (size_t)gw_stage_bytes(tr, W, kw, span, npad);
+}
+
+// Weight-gradient partials [chunks][ntaps][cin][cout] f32 on the tensor
+// cores, chunks = ceil(N*H*W / 128 / sub_per_chunk): x [N,H,W,cin] bf16
+// and G packed [N*H*W/16][npad/8][2][8][8] bf16 (both 16-byte aligned),
+// cin % GW_CB == 0, cout even and <= npad, at the ntaps (dy, dx) pairs of
+// ``taps``.
+int masked_conv_wgrad_wgmma(const void* x, const void* gp, void* part,
+                            const int* taps, int ntaps, int n_images, int H,
+                            int W, int cin, int cout, int npad, int kh,
+                            int kw, int sub_per_chunk, void* stream) {
+  return wgrad_gemm<false>(x, gp, part, taps, ntaps, n_images, H, W, cin,
+                           cout, npad, kh, kw, sub_per_chunk,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The 3xTF32 wgrad's dynamic shared memory at this shape (two stages), or
+// 0 where it does not tile it: W of 16, 32 or 64 with H a multiple of the
+// 64-pixel sub-tile's 64 / W rows, cin a multiple of GW_CB.
+size_t masked_conv_wgrad_tf32_smem(int H, int W, int cin, int kw, int span,
+                                   int npad) {
+  const int tr = gt_tile_rows(W);
+  if (!tr || H % tr || cin % GW_CB) return 0;
+  return 2 * (size_t)gt_stage_bytes(tr, W, kw, span, npad);
+}
+
+// The same partials in f32 by 3xTF32, chunks = ceil(N*H*W / 64 /
+// sub_per_chunk): x [N,H,W,cin] f32 and G packed [N*H*W/8][npad/8][2][8][4]
+// f32 (the tf32 K-major layout with the NHWC pixels as K), npad at most
+// 160. K1's f32 backward can run its wgrad on this entry as its bf16
+// backward runs on masked_conv_wgrad_wgmma.
+int masked_conv_wgrad_tf32(const void* x, const void* gp, void* part,
+                           const int* taps, int ntaps, int n_images, int H,
+                           int W, int cin, int cout, int npad, int kh, int kw,
+                           int sub_per_chunk, void* stream) {
+  return wgrad_gemm<true>(x, gp, part, taps, ntaps, n_images, H, W, cin,
+                          cout, npad, kh, kw, sub_per_chunk,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The partials' sum, in chunk order, into dW [kh][kw][cin][cout] (T):

@@ -5,13 +5,14 @@ Replaces ``iaf_tpu/ops/masked_conv.py:_conv_kernel`` and its ``_bwd``: the
 conv-by-conv route of an IAF step's AR net, taken wherever K1's fused
 chain does not apply (a kernel size other than 3, or on the card a 3x3
 chain deeper than K1's shared memory holds). ``masked_conv2d`` launches
-a CUDA kernel for CUDA tensors (the tensor-core kernel or the FMA one,
-as ``fwd_route`` decides from the shapes) and runs ``masked_conv2d_ref``,
-its plain PyTorch twin (the counterpart of ``xla_conv2d_same``), for CPU
-tensors only. Under autograd on CUDA it is a ``torch.autograd.Function``
-whose backward, ``masked_conv2d_bwd``, runs the dgrad and wgrad kernels
-(tensor cores or FMA, as ``bwd_route`` decides); on the CPU autograd
-differentiates the twin (``masked_conv2d_bwd_ref``).
+a CUDA kernel for CUDA tensors (the tensor-core kernel, bf16 or f32 by
+3xTF32, or the FMA one, as ``fwd_route`` decides from the shapes) and
+runs ``masked_conv2d_ref``, its plain PyTorch twin (the counterpart of
+``xla_conv2d_same``), for CPU tensors only. Under autograd on CUDA it is
+a ``torch.autograd.Function`` whose backward, ``masked_conv2d_bwd``, runs
+the dgrad and wgrad kernels (tensor cores in bf16 or by 3xTF32, or FMA,
+as ``bwd_route`` decides); on the CPU autograd differentiates the twin
+(``masked_conv2d_bwd_ref``).
 Layouts are the JAX ones: activations NHWC, weights HWIO.
 
 ``taps`` names the (dy, dx) kernel positions that may hold nonzero
@@ -36,12 +37,16 @@ Taps = tuple[tuple[int, int], ...]
 
 _MAX_TAPS = 64          # masked_conv.cuh MAX_TAPS: taps per conv
 WGMMA_WIDTHS = (32, 64, 128, 160, 256)   # the tensor-core kernels' N
+_TF32_MAX_N = 160       # the 3xTF32 kernels' widest N (accumulators and
+                        # f32 totals in registers)
+_TK = 16                # masked_conv.cuh TK: K depth of an f32 weight slice
 _FMA_ROWS = 8           # FMA path: output rows per block, at most
 _FMA_THREADS = 256      # masked_conv.cuh FMA_THREADS
 _WGRAD_CHUNKS = 32      # FMA wgrad partials: pixel-row chunks per conv
 _GW_PIXELS = 128        # masked_conv_bwd.cu GW_PIXELS: wgrad sub-tile
 _GW_CB = 32             # masked_conv_bwd.cu GW_CB: wgrad channels per block
 _GW_TG = 4              # masked_conv_bwd.cu GW_TG: wgrad taps per block
+_GT_PIXELS = 64         # masked_conv_bwd.cu GT_PIXELS: 3xTF32 wgrad sub-tile
 
 launches = {"masked_conv2d": 0, "masked_conv2d_bwd": 0}  # since the reset
 
@@ -110,6 +115,28 @@ def wgrad_wgmma_path(dtype: torch.dtype, h: int, w: int, cin: int,
             and cout % 8 == 0 and cout <= WGMMA_WIDTHS[-1])
 
 
+def tf32_path(dtype: torch.dtype, w: int, cin: int, cout: int) -> bool:
+    """Whether a conv's shape (the forward's, or dgrad's with cin and cout
+    swapped) is one the 3xTF32 tensor-core kernel tiles: f32, the bf16
+    kernel's 128-pixel tiles, whole 16-deep K slices in, and at most 160
+    outputs in whole 8-wide groups. The launch also needs two weight
+    stages beside one staged buffer in shared memory (``_route``)."""
+    return (dtype == torch.float32 and w in (16, 32, 64, 128)
+            and cin % _TK == 0 and cout % 8 == 0 and cout <= _TF32_MAX_N)
+
+
+def wgrad_tf32_path(dtype: torch.dtype, h: int, w: int, cin: int,
+                    cout: int) -> bool:
+    """Whether wgrad's shape is one the 3xTF32 wgrad tiles: f32, 64-pixel
+    sub-tiles of whole rows of one image (W of 16, 32 or 64, H a multiple
+    of 64 / W), input channels in whole blocks of 32, and at most 160
+    outputs in whole 8-wide groups. Its two stages must also fit one
+    block's shared memory (``_wgrad_route``)."""
+    return (dtype == torch.float32 and w in (16, 32, 64)
+            and h % (_GT_PIXELS // w) == 0 and cin % _GW_CB == 0
+            and cout % 8 == 0 and cout <= _TF32_MAX_N)
+
+
 def wgmma_width(cout: int) -> int:
     """The kernel's N for ``cout`` outputs: the narrowest instantiated
     width that holds them (the packed weights' extra columns are zero)."""
@@ -120,16 +147,17 @@ def wgmma_pack(t: torch.Tensor, npad: int,
                dtype: torch.dtype | None = None, e: int = 8) -> torch.Tensor:
     """[taps, K, cout] -> the tensor-core kernels' B order, [taps, K/2e,
     npad/8, 2, 8, e] in ``dtype`` (default t's), e the K elements of a
-    16-byte core-matrix row (8 in bf16; 4 for K1's f32 forward, whose
-    tf32 k8 steps span 32 bytes as bf16 k16 steps do): element [t, s, j,
-    h, n, k] is ``t[t, 2e s + e h + k, 8 j + n]`` (zero for 8 j + n >=
-    cout). Each k-step is one wgmma B operand in the canonical K-major
+    16-byte core-matrix row (8 in bf16; 4 in f32, the 3xTF32 kernels',
+    whose tf32 k8 steps span 32 bytes as bf16 k16 steps do): element [t,
+    s, j, h, n, k] is ``t[t, 2e s + e h + k, 8 j + n]`` (zero for 8 j + n
+    >= cout). Each k-step is one wgmma B operand in the canonical K-major
     layout without swizzle (core matrices of 128 bytes, the two k halves
     128 bytes apart, column groups 256 bytes apart) and each (tap, K
     chunk) slice that a kernel streams is contiguous. K is cin for the
     forward's weights, cout for dgrad's (``t`` the transposed view; the
     copy transposes) and the pixels for wgrad's G (``wgrad_pack``). One
-    copy (two where cout is padded)."""
+    copy (two where cout is padded). f32 is packed as it is: the kernels
+    split it into tf32 parts on chip."""
     taps, k, cout = t.shape
     if npad != cout:
         t = F.pad(t, (0, npad - cout))
@@ -139,25 +167,38 @@ def wgmma_pack(t: torch.Tensor, npad: int,
                        device=t.device).copy_(t)
 
 
-def dgrad_pack(w: torch.Tensor, taps: Taps) -> torch.Tensor:
+def fwd_pack(w: torch.Tensor, taps: Taps, f32: bool = False) -> torch.Tensor:
+    """The forward's weights on the tensor cores: the live taps, [taps,
+    cin, cout], in ``wgmma_pack`` order in w's dtype; with ``f32`` in the
+    3xTF32 kernel's tf32 order, [taps, cin/8, npad/8, 2, 8, 4]."""
+    return wgmma_pack(_live(w, taps), wgmma_width(w.shape[3]),
+                      e=4 if f32 else 8)
+
+
+def dgrad_pack(w: torch.Tensor, taps: Taps, f32: bool = False
+               ) -> torch.Tensor:
     """dgrad's weights on the tensor cores: the live taps transposed per
-    tap, [taps, cout, cin], in ``wgmma_pack`` order with N = cin (one
-    gather, then one copy that transposes and packs)."""
+    tap, [taps, cout, cin], in ``wgmma_pack`` order with N = cin, in w's
+    dtype (with ``f32`` in the 3xTF32 kernel's tf32 order; one gather,
+    then one copy that transposes and packs)."""
     return wgmma_pack(_live(w, taps).transpose(1, 2),
-                      wgmma_width(w.shape[2]))
+                      wgmma_width(w.shape[2]), e=4 if f32 else 8)
 
 
-def wgrad_pack(g: torch.Tensor) -> torch.Tensor:
+def wgrad_pack(g: torch.Tensor, f32: bool = False) -> torch.Tensor:
     """wgrad's B on the tensor cores: the output gradient g [N,H,W,cout]
-    (f32) rounded to bf16 as [1, N*H*W/16, npad/8, 2, 8, 8] in
-    ``wgmma_pack`` order with the pixels (NHWC order) as K: one copy."""
+    (f32) with the pixels (NHWC order) as K, in ``wgmma_pack`` order:
+    rounded to bf16 as [1, N*H*W/16, npad/8, 2, 8, 8], or with ``f32``
+    for the 3xTF32 wgrad as it is, [1, N*H*W/8, npad/8, 2, 8, 4] (the
+    kernel splits it on chip). One copy: the pixels become contiguous,
+    which wgmma's K-major tf32 B needs."""
     n, h, w_, cout = g.shape
     return wgmma_pack(g.reshape(1, n * h * w_, cout), wgmma_width(cout),
-                      torch.bfloat16)
+                      None if f32 else torch.bfloat16, 4 if f32 else 8)
 
 
-# the tensor-core conv entries (forward and dgrad): 4 pointers, 9 ints,
-# the shared-memory limit and the stream
+# the tensor-core conv entries (forward and dgrad, bf16 and 3xTF32): 4
+# pointers, 9 ints, the shared-memory limit and the stream
 _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_size_t, ctypes.c_void_p])
 
@@ -170,10 +211,11 @@ def _lib():
         lib.masked_conv_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.masked_conv_smem_bytes.restype = ctypes.c_size_t
         lib.masked_conv_wgmma_stages.argtypes = (
-            [ctypes.c_int] * 6 + [ctypes.c_size_t])
+            [ctypes.c_int] * 6 + [ctypes.c_size_t, ctypes.c_int])
         lib.masked_conv_fwd_wgmma.argtypes = _WGMMA_ARGTYPES
+        lib.masked_conv_fwd_tf32.argtypes = _WGMMA_ARGTYPES
         for fn in (lib.masked_conv_fwd, lib.masked_conv_wgmma_stages,
-                   lib.masked_conv_fwd_wgmma):
+                   lib.masked_conv_fwd_wgmma, lib.masked_conv_fwd_tf32):
             fn.restype = ctypes.c_int
         lib._iaf_typed = True
     return lib
@@ -185,16 +227,21 @@ def _bwd_lib():
         lib.masked_conv_dgrad.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.masked_conv_dgrad_wgmma.argtypes = _WGMMA_ARGTYPES
+        lib.masked_conv_dgrad_tf32.argtypes = _WGMMA_ARGTYPES
         lib.masked_conv_wgrad.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-        lib.masked_conv_wgrad_wgmma_smem.argtypes = [ctypes.c_int] * 6
-        lib.masked_conv_wgrad_wgmma_smem.restype = ctypes.c_size_t
-        lib.masked_conv_wgrad_wgmma.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        gemm = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        for fn in (lib.masked_conv_wgrad_wgmma_smem,
+                   lib.masked_conv_wgrad_tf32_smem):
+            fn.argtypes = [ctypes.c_int] * 6
+            fn.restype = ctypes.c_size_t
+        lib.masked_conv_wgrad_wgmma.argtypes = gemm
+        lib.masked_conv_wgrad_tf32.argtypes = gemm
         lib.masked_conv_wreduce.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         for fn in (lib.masked_conv_dgrad, lib.masked_conv_dgrad_wgmma,
-                   lib.masked_conv_wgrad, lib.masked_conv_wgrad_wgmma,
+                   lib.masked_conv_dgrad_tf32, lib.masked_conv_wgrad,
+                   lib.masked_conv_wgrad_wgmma, lib.masked_conv_wgrad_tf32,
                    lib.masked_conv_wreduce):
             fn.restype = ctypes.c_int
         lib._iaf_typed = True
@@ -257,9 +304,9 @@ def _launch_conv(fn, what: str, inp, packed, out, taps: Taps, kh: int,
 
 def _launch_wgmma(fn, what: str, inp, packed, out, taps: Taps, kh: int,
                   kw: int) -> None:
-    """Launch the tensor-core conv (``fn``: the forward or dgrad entry) on
-    ``inp`` [N,H,W,c_in] bf16 with ``packed`` (``wgmma_pack`` order) into
-    ``out`` [N,H,W,c_out]."""
+    """Launch the tensor-core conv (``fn``: the forward or dgrad entry,
+    bf16 or 3xTF32) on ``inp`` [N,H,W,c_in] with ``packed``
+    (``wgmma_pack`` order) into ``out`` [N,H,W,c_out]."""
     n, h, w_, c_in = inp.shape
     c_out = out.shape[-1]
     _aligned(what, inp, packed)
@@ -307,10 +354,12 @@ def _mirrored(taps: Taps, kh: int, kw: int) -> Taps:
 def fwd_route(x: torch.Tensor, w: torch.Tensor, taps: Iterable | None
               = None) -> str:
     """The kernel the forward launches for CUDA inputs ``x``, ``w``:
-    ``"wgmma"`` (tensor cores) where ``wgmma_path`` holds and the staged
-    rows and two weight stages fit one block's shared memory, else
-    ``"fma"``. Decided from the shapes before any launch (builds the
-    library on first use)."""
+    ``"wgmma"`` (bf16 tensor cores) where ``wgmma_path`` holds,
+    ``"3xtf32"`` (f32 on the tensor cores, three TF32 products per f32
+    product) where ``tf32_path`` holds, each where its staged rows and two
+    weight stages fit one block's shared memory, else ``"fma"``. Decided
+    from the shapes before any launch (builds the library on first
+    use)."""
     return _route(x.dtype, x.shape[2], x.shape[3], w.shape[3], w.shape[1],
                   _taps(w, taps))
 
@@ -318,11 +367,12 @@ def fwd_route(x: torch.Tensor, w: torch.Tensor, taps: Iterable | None
 def bwd_route(x: torch.Tensor, w: torch.Tensor, taps: Iterable | None
               = None) -> tuple[str, str]:
     """The kernels the backward launches for CUDA inputs ``x``, ``w``:
-    (dgrad's, wgrad's), each ``"wgmma"`` (tensor cores) or ``"fma"``.
-    dgrad is the conv of g (cout channels in, cin out) over the mirrored
-    taps, routed as the forward's; wgrad takes the tensor cores where
-    ``wgrad_wgmma_path`` holds and its two stages fit one block's shared
-    memory. Decided from the shapes before any launch."""
+    (dgrad's, wgrad's), each ``"wgmma"`` (bf16 tensor cores),
+    ``"3xtf32"`` (f32 on the tensor cores) or ``"fma"``. dgrad is the conv
+    of g (cout channels in, cin out) over the mirrored taps, routed as the
+    forward's; wgrad takes the tensor cores where ``wgrad_wgmma_path``
+    (bf16) or ``wgrad_tf32_path`` (f32) holds and its two stages fit one
+    block's shared memory. Decided from the shapes before any launch."""
     taps = _taps(w, taps)
     kh, kw, cin, cout = w.shape
     _, h, w_, _ = x.shape
@@ -333,23 +383,29 @@ def bwd_route(x: torch.Tensor, w: torch.Tensor, taps: Iterable | None
 @functools.lru_cache(maxsize=None)
 def _route(dtype: torch.dtype, w_: int, cin: int, cout: int, kw: int,
            taps: Taps) -> str:
-    """The conv's kernel: the tensor cores where ``wgmma_path`` holds and
-    the staged rows and two weight stages fit one block's shared memory
-    (the kernel's own count), else FMA."""
-    if wgmma_path(dtype, w_, cin, cout) and _lib().masked_conv_wgmma_stages(
-            w_, cin, kw, _span(taps), wgmma_width(cout), len(taps),
-            _SMEM_LIMIT) >= 2:
-        return "wgmma"
+    """The conv's kernel: the tensor cores where ``wgmma_path`` (bf16) or
+    ``tf32_path`` (f32, 3xTF32) holds and the staged rows and two weight
+    stages fit one block's shared memory (the kernel's own count), else
+    FMA."""
+    for route, path, f32 in (("wgmma", wgmma_path, 0),
+                             ("3xtf32", tf32_path, 1)):
+        if path(dtype, w_, cin, cout) and _lib().masked_conv_wgmma_stages(
+                w_, cin, kw, _span(taps), wgmma_width(cout), len(taps),
+                _SMEM_LIMIT, f32) >= 2:
+            return route
     return "fma"
 
 
 @functools.lru_cache(maxsize=None)
 def _wgrad_route(dtype: torch.dtype, h: int, w_: int, cin: int, cout: int,
                  kw: int, span: int) -> str:
-    if wgrad_wgmma_path(dtype, h, w_, cin, cout) and 0 < (
-            _bwd_lib().masked_conv_wgrad_wgmma_smem(
-                h, w_, cin, kw, span, wgmma_width(cout)) <= _SMEM_LIMIT):
-        return "wgmma"
+    lib = _bwd_lib()
+    for route, path, smem in (
+            ("wgmma", wgrad_wgmma_path, lib.masked_conv_wgrad_wgmma_smem),
+            ("3xtf32", wgrad_tf32_path, lib.masked_conv_wgrad_tf32_smem)):
+        if path(dtype, h, w_, cin, cout) and 0 < smem(
+                h, w_, cin, kw, span, wgmma_width(cout)) <= _SMEM_LIMIT:
+            return route
     return "fma"
 
 
@@ -363,10 +419,12 @@ def _fwd(x: torch.Tensor, w: torch.Tensor, taps: Taps) -> torch.Tensor:
     kh, kw, _, cout = w.shape
     lib = _lib()
     out = torch.empty((n, h, w_, cout), device=x.device, dtype=torch.float32)
-    if _route(x.dtype, w_, cin, cout, kw, taps) == "wgmma":
-        _launch_wgmma(lib.masked_conv_fwd_wgmma, "masked_conv2d", x,
-                      wgmma_pack(_live(w, taps), wgmma_width(cout)), out,
-                      taps, kh, kw)
+    route = _route(x.dtype, w_, cin, cout, kw, taps)
+    if route != "fma":
+        _launch_wgmma(lib.masked_conv_fwd_wgmma if route == "wgmma"
+                      else lib.masked_conv_fwd_tf32, "masked_conv2d", x,
+                      fwd_pack(w, taps, route == "3xtf32"), out, taps, kh,
+                      kw)
     else:
         _launch_conv(lib.masked_conv_fwd, "masked_conv2d", x, _live(w, taps),
                      out, taps, kh, kw)
@@ -397,16 +455,21 @@ def _dgrad(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
            taps: Taps) -> torch.Tensor:
     """dx in x's dtype: the conv of ``g`` (f32) with the mirrored taps and
     the weights transposed per tap, on the kernel ``bwd_route`` names
-    (the tensor cores take g rounded to bf16 once, as the twin does)."""
+    (the bf16 tensor cores take g rounded to bf16 once, as the twin does;
+    3xTF32 takes it as it is)."""
     n, h, w_, cin = x.shape
     kh, kw, _, cout = w.shape
     mirrored = _mirrored(taps, kh, kw)
     dx = torch.empty(x.shape, device=x.device, dtype=x.dtype)
     lib = _bwd_lib()
-    if _route(x.dtype, w_, cout, cin, kw, mirrored) == "wgmma":
+    route = _route(x.dtype, w_, cout, cin, kw, mirrored)
+    if route == "wgmma":
         _launch_wgmma(lib.masked_conv_dgrad_wgmma, "masked_conv2d dgrad",
                       g.to(torch.bfloat16), dgrad_pack(w, taps), dx, mirrored,
                       kh, kw)
+    elif route == "3xtf32":
+        _launch_wgmma(lib.masked_conv_dgrad_tf32, "masked_conv2d dgrad", g,
+                      dgrad_pack(w, taps, f32=True), dx, mirrored, kh, kw)
     else:
         _launch_conv(lib.masked_conv_dgrad, "masked_conv2d dgrad", g,
                      _live(w, taps).transpose(1, 2).contiguous(), dx,
@@ -424,20 +487,22 @@ def _wgrad(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     dev = x.device
     lib = _bwd_lib()
     c_taps = _c_taps(taps)
+    route = _wgrad_route(x.dtype, h, w_, cin, cout, kw, _span(taps))
     with torch.cuda.device(dev):
-        if _wgrad_route(x.dtype, h, w_, cin, cout, kw,
-                        _span(taps)) == "wgmma":
-            gp = wgrad_pack(g)
+        if route != "fma":
+            f32 = route == "3xtf32"
+            gp = wgrad_pack(g, f32)
             _aligned("masked_conv2d wgrad", x, gp)
-            per, chunks = wgrad_chunks(n * h * w_ // _GW_PIXELS,
-                                       wgrad_m_blocks(len(taps), cin),
-                                       _sm_count(dev))
+            per, chunks = wgrad_chunks(
+                n * h * w_ // (_GT_PIXELS if f32 else _GW_PIXELS),
+                wgrad_m_blocks(len(taps), cin), _sm_count(dev))
             part = torch.empty((chunks, len(taps), cin, cout), device=dev,
                                dtype=torch.float32)
-            err = lib.masked_conv_wgrad_wgmma(
-                x.data_ptr(), gp.data_ptr(), part.data_ptr(), c_taps,
-                len(taps), n, h, w_, cin, cout, gp.shape[-4] * 8, kh, kw,
-                per, _stream(dev))
+            fn = (lib.masked_conv_wgrad_tf32 if f32
+                  else lib.masked_conv_wgrad_wgmma)
+            err = fn(x.data_ptr(), gp.data_ptr(), part.data_ptr(), c_taps,
+                     len(taps), n, h, w_, cin, cout, gp.shape[-4] * 8, kh,
+                     kw, per, _stream(dev))
         else:
             rows = n * h
             per = -(-rows // _WGRAD_CHUNKS)
