@@ -6,6 +6,7 @@
                                             # against this one's, A B B A
                                             # (``ab``; CASE in AB_CASES:
                                             # k1_fwd, k1_fwd_f32,
+                                            # k1_bwd_f32, f32_step,
                                             # f32_chunk, k2_fwd_f32,
                                             # k2_bwd_f32, f32_chunk_5x5,
                                             # k2_fwd)
@@ -57,23 +58,35 @@ Phases, any failure exits non-zero:
    K1 = K3 = 160, K4 = 8 with every K1 forward on ``"3xtf32"`` (steady
    seconds per batch as in phase 5); ``train`` at batch 32 for 6 steps
    exactly the per-step counts of phase 9, every K1 forward on
-   ``"3xtf32"`` and every loss finite (steady step: median of steps 3-6);
-   one f32 step is profiled.
+   ``"3xtf32"``, every K1 backward on ("3xtf32", "3xtf32") for every conv
+   and every loss finite (steady step: median of steps 3-6). Then K1's
+   backward on the inputs of one more real f32 step (batch 32; z, the
+   weights, the pre-activations and the output gradient with full f32
+   mantissas): every conv's dgrad and wgrad on ``"3xtf32"`` (K2's 3xTF32
+   kernels), dz, dcontext, dW (live taps; the dead ones zero) and db
+   within 1e-5 of each one's max of the twin in f64 (values printed),
+   where one TF32 product per f32 product on the same inputs (the
+   control, printed) must miss that limit; two calls bitwise equal; the
+   f32 glue kernel against its twin and the f32 weight pack kernel
+   bitwise; device time by kernel; timed by events and by device time,
+   whole and as the dgrad chain and wgrad apart, beside the FMA kernels
+   it replaces (same inputs, same run), the twin and autograd of cuDNN's
+   three f32 convs (TF32 off), with the bounds. One f32 step is
+   profiled.
 7. Backward kernels against their twins on the card: the inputs and
    upstream gradients of K1's, K3's and K4's backward are captured from the
    first launches of one real training step (paper config, bf16, batch
    32; K1's forward there must take the tensor-core kernel); each
-   backward is held to autograd of its twin (K1 bf16 at 2e-2 of
-   each output's max and f32 with TF32 off at 1e-4, K3 at 1e-6 (1 + |ref|),
-   K4 at 1e-5) and K5 to its twin bitwise on that step's parameters and
-   gradients; each is timed beside its twin and its bound, K1's backward
-   also beside autograd through three full cuDNN convs (bf16, and f32 with
-   TF32 off beside its f32 FMA route). K1's bf16 backward must take the
-   tensor cores for dgrad and wgrad on every conv (``bwd_route``), give
-   the same bits on two calls and list its device time per call by
-   kernel; its dgrad chain (with the weight pack and the glue passes)
-   and its wgrad (with the reduce) are timed apart, and the glue and pack
-   kernels are held to their twins.
+   backward is held to autograd of its twin (K1 bf16 at 2e-2 of each
+   output's max, K3 at 1e-6 (1 + |ref|), K4 at 1e-5) and K5 to its twin
+   bitwise on that step's parameters and gradients; each is timed beside
+   its twin and its bound, K1's backward also beside autograd through
+   three full cuDNN convs (K1's f32 backward is phase 6's). K1's bf16
+   backward must take the tensor cores for dgrad and wgrad on every conv
+   (``bwd_route``), give the same bits on two calls and list its device
+   time per call by kernel; its dgrad chain (with the weight pack and the
+   glue passes) and its wgrad (with the reduce) are timed apart, and the
+   glue and pack kernels are held to their twins.
 8. One f32 training step of the paper config at batch 4, card (kernels)
    against CPU (twins), same params, batch and noise: the loss, every
    gradient leaf and every updated parameter and EMA leaf are compared.
@@ -140,10 +153,11 @@ calls, host gaps left out, which ranks a kernel against its library
 call.
 
 The second-last line of standard output is the ``kernels`` JSON (the f32
-recipe's kernels rows of their own: K1's forward ``ar_stack_f32``, its
-launches those of phase 6's runs, and K2's ``masked_conv2d_f32`` and
-``masked_conv2d_bwd_f32``, those of phase 12's; each with the 3xTF32
-bound and the FP32 floor), the last ``{"ok": true, "device": {...}}``.
+recipe's kernels rows of their own: K1's forward ``ar_stack_f32`` and
+backward ``ar_stack_bwd_f32``, their launches those of phase 6's runs,
+and K2's ``masked_conv2d_f32`` and ``masked_conv2d_bwd_f32``, those of
+phase 12's; each with the 3xTF32 bound and the FP32 floor), the last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -501,21 +515,40 @@ def k1_f32_phase(ops, cap) -> dict:
 
 @contextlib.contextmanager
 def k1_routes():
-    """Record the route (``fwd_route``) of every K1 forward launched
-    inside the block, in order."""
+    """Record the route of every K1 forward (``fwd_route``) and backward
+    (``bwd_route``) launched inside the block, in order."""
     ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
-    original, seen = ar_mod._fwd, []
+    fwd, bwd = ar_mod._fwd, ar_mod.ar_stack_bwd
+    seen = {"fwd": [], "bwd": []}
 
-    def spy(z, context, weights, biases, save_pre):
-        seen.append(ar_mod.fwd_route(z.dtype, z.shape[2], z.shape[3],
-                                     weights[0].shape[-1],
-                                     weights[-1].shape[-1]))
-        return original(z, context, weights, biases, save_pre)
-    ar_mod._fwd = spy
+    def spy_fwd(z, context, weights, biases, save_pre):
+        seen["fwd"].append(ar_mod.fwd_route(
+            z.dtype, z.shape[2], z.shape[3], weights[0].shape[-1],
+            weights[-1].shape[-1]))
+        return fwd(z, context, weights, biases, save_pre)
+
+    def spy_bwd(z, weights, pre, g):
+        seen["bwd"].append(ar_mod.bwd_route(z, weights))
+        return bwd(z, weights, pre, g)
+    ar_mod._fwd, ar_mod.ar_stack_bwd = spy_fwd, spy_bwd
     try:
         yield seen
     finally:
-        ar_mod._fwd = original
+        ar_mod._fwd, ar_mod.ar_stack_bwd = fwd, bwd
+
+
+@contextlib.contextmanager
+def k1_bwd_fma():
+    """Inside the block K1's backward takes its FMA kernels (what the f32
+    recipe ran before the 3xTF32 route: its yardstick in the same run)."""
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    original = ar_mod._bwd_route
+    ar_mod._bwd_route = lambda dtype, h, w_, shapes: (("fma", "fma"),) * len(
+        shapes)
+    try:
+        yield
+    finally:
+        ar_mod._bwd_route = original
 
 
 def kernel_phase(ops, cap, device) -> list[dict]:
@@ -823,24 +856,37 @@ def _backward_ms(fn, leaves, g, timer=cuda_ms) -> float:
                                                  retain_graph=True))
 
 
+def _k1_live(device):
+    """1 at the 5 live taps of a 3x3 AR conv, 0 at the 4 dead ones."""
+    import torch
+    live = torch.zeros(3, 3, 1, 1, device=device)
+    live[0], live[1, :2] = 1.0, 1.0
+    return live
+
+
+def _k1_bwd_errs(got, want) -> list[tuple[str, float, float]]:
+    """(name, max abs error, that over the reference's max) of dz,
+    dcontext, each dW at the live taps and each db of K1's backward."""
+    dz, dctx, dws, dbs = got
+    rz, rctx, rws, rbs = want
+    live = _k1_live(dz.device)
+    pairs = [("dz", dz, rz), ("dcontext", dctx, rctx)]
+    pairs += [(f"dW{i}", a.float() * live, b.float() * live)
+              for i, (a, b) in enumerate(zip(dws, rws))]
+    pairs += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, rbs))]
+    return [(name, *_rel_err(a, b)) for name, a, b in pairs]
+
+
 def _k1_grads_close(ops, got, want, tol, label) -> float:
     """Each of dz, dcontext, dW (at the live taps; the kernel's dead taps
     must be zero) and db within ``tol`` of its reference's max. Returns
     the largest absolute error."""
-    import torch
-    dz, dctx, dws, dbs = got
-    rz, rctx, rws, rbs = want
-    live = torch.zeros(3, 3, 1, 1, device=dz.device)
-    live[0], live[1, :2] = 1.0, 1.0
-    worst_abs, worst_rel = 0.0, 0.0
-    pairs = [("dz", dz, rz), ("dcontext", dctx, rctx)]
-    for i, (a, b) in enumerate(zip(dws, rws)):
+    live = _k1_live(got[0].device)
+    for i, a in enumerate(got[2]):
         check(not bool((a.float() * (1 - live)).any()),
               f"K1 bwd {label}: dW{i} nonzero at a dead tap")
-        pairs.append((f"dW{i}", a.float() * live, b.float() * live))
-    pairs += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, rbs))]
-    for name, a, b in pairs:
-        err, rel = _rel_err(a, b)
+    worst_abs, worst_rel = 0.0, 0.0
+    for name, err, rel in _k1_bwd_errs(got, want):
         check(rel <= tol, f"K1 bwd {label} {name}: {rel:.3e} of max > {tol}")
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
     print(f"[K1 bwd] {label}: max abs err {worst_abs:.3e}, worst "
@@ -848,33 +894,158 @@ def _k1_grads_close(ops, got, want, tol, label) -> float:
     return worst_abs
 
 
-def _glue_check(ar_mod, g, pre) -> None:
+def _glue_check(ar_mod, g, pre, f32: bool = False) -> None:
     """The glue kernel against its twin at the main path's shapes: the
-    head pass on the step's f32 G and a hidden pass on a bf16 dX from a
-    seed with the step's pre-activation. G in f32 within 1e-6 of its max
-    (expf against torch.exp), G in bf16 (NHWC and packed) within one bf16
-    rounding of each element, bf16(ELU(pre)) too, give or take 4e-7 (the
-    forward's fast exponential against expm1 near 0), the db sums within
-    1e-5 of max."""
+    head pass on the step's f32 G and a hidden pass on a dX from a seed
+    (bf16, or with ``f32`` f32) with the step's pre-activation. G in f32
+    within 1e-6 of its max (expf against torch.exp); in bf16 G (NHWC and
+    packed) within one bf16 rounding of each element, bf16(ELU(pre)) too,
+    give or take 4e-7 (the forward's fast exponential against expm1 near
+    0); in f32 G NHWC and packed within 1e-6 of max and ELU(pre) within
+    4e-7; the db sums within 1e-5 of max."""
     import torch
     gen = torch.Generator(device=g.device).manual_seed(21)
-    dx = torch.randn(pre.shape, generator=gen, device=g.device).bfloat16()
+    dx = torch.randn(pre.shape, generator=gen, device=g.device)
+    if not f32:
+        dx = dx.bfloat16()
+    tag = "f32 " if f32 else ""
     for label, src, p in (("head", g, None), ("hidden", dx, pre)):
-        gb, gp, g32, x, dbp = ar_mod.glue(src, p, with_f32=True)
-        rb, rp, r32, rx, rdb = ar_mod.glue_ref(src, p)
-        errs = {"g32": _rel_err(g32, r32)[0] / max(1.0, float(
-            r32.abs().max())), "db": _rel_err(dbp.sum(0), rdb)[1]}
-        for nm, a, b, slack in (("gb", gb, rb, 0.0), ("gp", gp, rp, 0.0)) + (
+        gt, gp, g32, x, dbp = ar_mod.glue(src, p, True, f32)
+        rt, rp, r32, rx, rdb = ar_mod.glue_ref(src, p, f32)
+        scale = max(1.0, float(r32.abs().max()))
+        errs = {"g32": _rel_err(g32, r32)[0] / scale,
+                "db": _rel_err(dbp.sum(0), rdb)[1]}
+        for nm, a, b, slack in (("gt", gt, rt, 0.0), ("gp", gp, rp, 0.0)) + (
                 (("x", x, rx, 4e-7),) if p is not None else ()):
             d = (a.float() - b.float()).abs()
             errs[nm] = float(d.max())
-            check(bool((d <= 2 ** -7 * b.float().abs() + slack).all()),
-                  f"glue {label} {nm}: beyond one bf16 rounding")
-        check(errs["g32"] <= 1e-6, f"glue {label} g32 {errs['g32']}")
-        check(errs["db"] <= 1e-5, f"glue {label} db {errs['db']}")
-        print(f"[K1 bwd] glue kernel, {label} {tuple(src.shape)}: against "
-              f"its twin " + ", ".join(f"{k} {v:.3e}" for k, v in
-                                       errs.items()))
+            if f32:
+                ok = errs[nm] <= (4e-7 if nm == "x" else 1e-6 * scale)
+            else:
+                ok = bool((d <= 2 ** -7 * b.float().abs() + slack).all())
+            check(ok, f"glue {tag}{label} {nm}: {errs[nm]:.3e} beyond its "
+                  "limit")
+        check(errs["g32"] <= 1e-6, f"glue {tag}{label} g32 {errs['g32']}")
+        check(errs["db"] <= 1e-5, f"glue {tag}{label} db {errs['db']}")
+        print(f"[K1 bwd] {tag}glue kernel, {label} {tuple(src.shape)}: "
+              f"against its twin " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                               errs.items()))
+
+
+def _k1_bwd_yardsticks(ops, z, ctx, ws, bs, g):
+    """The backward alone of K1's twin and of its yardstick (three full
+    cuDNN convs, ``k1_yardstick``) on the same leaves, in their dtype:
+    (the twin's ms, cuDNN's ms, cuDNN's device ms)."""
+    leaves = [t_.detach().clone().requires_grad_()
+              for t_ in (z, ctx, *ws, *bs)]
+    nw = len(ws)
+
+    def twin(z_, c_, *wb):
+        return ops.ar_stack_ref(z_, c_, list(wb[:nw]), list(wb[nw:]))
+
+    def yard(z_, c_, *wb):
+        return k1_yardstick(z_, c_, list(wb[:nw]), list(wb[nw:]))
+
+    gl = g.permute(0, 3, 1, 2)
+    return (_backward_ms(twin, leaves, g), _backward_ms(yard, leaves, gl),
+            _backward_ms(yard, leaves, gl, device_ms))
+
+
+def k1_f32_backward_phase(ops, cap) -> dict:
+    """K1's backward in f32 (the f32 recipe) on the inputs of one real
+    paper f32 training step (batch 32: z, the folded weights, the
+    pre-activations and the output gradient carry full f32 mantissas,
+    where an upcast from bf16 would hide a dropped lo part): every conv's
+    dgrad and wgrad on ``"3xtf32"`` (K2's 3xTF32 kernels); dz, dcontext,
+    dW at the live taps (the dead ones zero) and db within 1e-5 of each
+    one's max of autograd of the twin in f64, where one TF32 product per
+    f32 product on the same inputs (``_tf32``, the control) must miss that
+    limit; two calls bitwise equal; the glue kernel against its twin and
+    the f32 weight pack kernel bitwise. Device time by kernel; timed by
+    events and by device time, whole and as the dgrad chain and wgrad
+    apart, beside the FMA kernels it replaces (same run), the twin's
+    backward and autograd of three cuDNN f32 convs (TF32 off), with the
+    bounds of ``_f32_bounds``. Returns the kernels-line row."""
+    import torch
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    (z, ctx, ws, bs, _), (bz, bws, pre, g) = cap
+    _full_f32("K1 bwd f32", bz, *bws, *pre, g)
+    routes = ar_mod.bwd_route(bz, bws)
+    print(f"[K1 bwd f32] z{tuple(bz.shape)}, convs "
+          f"{[tuple(w.shape[2:]) for w in bws]}: (dgrad, wgrad) per conv "
+          f"{routes}")
+    check(routes == (("3xtf32", "3xtf32"),) * len(bws),
+          f"K1 bwd f32 takes {routes}, not 3xTF32 on every conv")
+    call = lambda: ops.ar_stack_bwd(bz, bws, pre, g)  # noqa: E731
+    got, again = call(), call()
+    check(all(torch.equal(a, b) for a, b in zip(
+        [got[0], got[1], *got[2], *got[3]],
+        [again[0], again[1], *again[2], *again[3]])),
+        "K1 bwd f32: two calls differ")
+    want = ops.ar_stack_bwd_ref(*_f64(z, ctx, ws, bs), g.double())
+    err = _k1_grads_close(ops, got, want, 1e-5,
+                          "f32 3xtf32 against the f64 twin (two calls "
+                          "bitwise equal)")
+    errs = _k1_bwd_errs(got, want)
+    control = _k1_bwd_errs(ops.ar_stack_bwd_ref(
+        _tf32(z), ctx.double(), [_tf32(w) for w in ws],
+        [b.double() for b in bs], _tf32(g)), want)
+    products = [rel for name, _, rel in control if not name.startswith("db")]
+    print("[K1 bwd f32] of each one's max from the f64 twin: " + ", ".join(
+        f"{name} {rel:.3e}" for name, _, rel in errs) + "; one TF32 "
+        "product per f32 product, the control: " + ", ".join(
+            f"{name} {rel:.3e}" for name, _, rel in control))
+    check(min(products) > 1e-5, f"K1 bwd f32: one TF32 product per f32 "
+          f"product is {min(products):.3e} of max from the f64 twin, within "
+          "the 1e-5 limit")
+    _glue_check(ar_mod, g, pre[-1], f32=True)
+    with torch.inference_mode():
+        for group in (bws, [w.contiguous() for w in bws]):
+            check(all(torch.equal(a, b) for a, b in zip(
+                ar_mod.pack_dgrad(group), ar_mod.pack_dgrad_ref(bws, True))),
+                "K1 bwd f32: the weight pack kernel differs from its twin")
+    print(f"[K1 bwd f32] weight pack kernel, all convs (the step's weights, "
+          f"contiguous: {bws[0].is_contiguous()}, and contiguous copies): "
+          "bitwise equal to its twin")
+    per_call = _by_kernel("K1 bwd f32", call)
+    feeds = ar_mod._dgrad_wgmma(bz, bws, pre, g)[2]
+    t = {}
+    for part, fn in (("", call),
+                     ("dgrad_", lambda: ar_mod._dgrad_wgmma(bz, bws, pre, g)),
+                     ("wgrad_", lambda: ar_mod._wgrad_wgmma(bws, feeds))):
+        t[part + "ms"] = cuda_ms(fn)
+        t[part + "device_ms"] = device_ms(fn)
+    with k1_bwd_fma():
+        check(ar_mod.bwd_route(bz, bws)[0] == ("fma", "fma"),
+              "K1 bwd f32: the FMA yardstick did not take the FMA kernels")
+        fma_dev = device_ms(call, 5, 1)
+    plain, lib, lib_dev = _k1_bwd_yardsticks(ops, z, ctx, ws, bs, g)
+    n, hh, ww, _ = z.shape
+    flops = 2 * 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
+    live_w = sum(5 * w.shape[2] * w.shape[3] * w.element_size() for w in ws)
+    b = _f32_bounds(flops, nbytes(bz, g, *pre, got[0], got[1], *got[3])
+                    + 2 * live_w)
+    dev = t["device_ms"]
+    print(f"[K1 bwd f32] 3xtf32: by events {t['ms']:.4f} ms (dgrad chain "
+          f"{t['dgrad_ms']:.4f}, wgrad + reduce {t['wgrad_ms']:.4f}), by "
+          f"device time {dev:.4f} ms (dgrad chain {t['dgrad_device_ms']:.4f},"
+          f" wgrad + reduce {t['wgrad_device_ms']:.4f}), {per_call} device "
+          f"launches a call; the FMA kernels {fma_dev:.4f} ms; twin "
+          f"{plain:.4f} ms; cuDNN f32 (TF32 off) {lib:.4f} ms, by device "
+          f"time {lib_dev:.4f} ms, ratio {dev / lib_dev:.3f}; "
+          f"{_f32_bound_text(b, dev)}")
+    return dict(
+        name="ar_stack_bwd_f32", route="cuda",
+        source="iaf_torch/ops/csrc/ar_stack_bwd.cu",
+        sources=["iaf_torch/ops/csrc/ar_stack_bwd.cu",
+                 "iaf_torch/ops/csrc/masked_conv_bwd.cu"],
+        replaces="iaf_tpu/ops/ar_stack.py:251", path="paper f32",
+        counter="ar_stack_bwd", kernel_route="3xtf32", max_abs_err=err,
+        max_rel_err=max(rel for _, _, rel in errs),
+        one_tf32_rel_err=min(products), plain_ms=plain, library_ms=lib,
+        library_device_ms=lib_dev, fma_device_ms=fma_dev,
+        device_launches_per_call=per_call,
+        routes=[list(r) for r in routes], **b, **t)
 
 
 def backward_kernel_phase(ops, cap) -> list[dict]:
@@ -910,16 +1081,6 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
         ar_mod.pack_dgrad(bws), ar_mod.pack_dgrad_ref(bws))),
         "K1 bwd: the weight pack kernel differs from its twin")
     print("[K1 bwd] weight pack kernel, all convs: bitwise equal to its twin")
-    z32 = z.float()
-    ws32 = [w.float() for w in ws]
-    check(ar_mod.bwd_route(z32, ws32) == (("fma", "fma"),) * len(ws),
-          "K1 bwd f32 does not take the FMA kernels")
-    with torch.no_grad():
-        pre32 = ar_mod._fwd(z32, ctx, ws32, bs, save_pre=True)[1]
-    got32 = ops.ar_stack_bwd(z32, ws32, pre32, g)
-    err32 = _k1_grads_close(ops, got32,
-                            ops.ar_stack_bwd_ref(z32, ctx, ws32, bs, g),
-                            1e-4, "f32")
     call = lambda: ops.ar_stack_bwd(bz, bws, pre, g)  # noqa: E731
     per_call = _by_kernel("K1 bwd", call)
     ms = cuda_ms(call)
@@ -930,25 +1091,7 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
                      ("wgrad_", lambda: ar_mod._wgrad_wgmma(bws, feeds))):
         t[part + "ms"] = cuda_ms(fn)
         t[part + "device_ms"] = device_ms(fn)
-    ms32 = cuda_ms(lambda: ops.ar_stack_bwd(z32, ws32, pre32, g))
-    dev32 = device_ms(lambda: ops.ar_stack_bwd(z32, ws32, pre32, g))
-    leaves = [t_.detach().clone().requires_grad_()
-              for t_ in (z, ctx, *ws, *bs)]
-    leaves32 = [t_.detach().clone().requires_grad_()
-                for t_ in (z32, ctx, *ws32, *bs)]
-    nw = len(ws)
-
-    def twin(z_, c_, *wb):
-        return ops.ar_stack_ref(z_, c_, list(wb[:nw]), list(wb[nw:]))
-
-    def yard(z_, c_, *wb):
-        return k1_yardstick(z_, c_, list(wb[:nw]), list(wb[nw:]))
-
-    plain = _backward_ms(twin, leaves, g)
-    lib = _backward_ms(yard, leaves, g.permute(0, 3, 1, 2))
-    lib_dev = _backward_ms(yard, leaves, g.permute(0, 3, 1, 2), device_ms)
-    lib_dev32 = _backward_ms(yard, leaves32, g.permute(0, 3, 1, 2),
-                             device_ms)
+    plain, lib, lib_dev = _k1_bwd_yardsticks(ops, z, ctx, ws, bs, g)
     n, hh, ww, _ = z.shape
     flops = 2 * 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
     live_w = sum(5 * w.shape[2] * w.shape[3] * w.element_size() for w in ws)
@@ -961,27 +1104,17 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
           f"{t['wgrad_device_ms']:.4f}), cuDNN {lib_dev:.4f}, ratio "
           f"{dev_ms / lib_dev:.3f}; {per_call} device launches a call; bound "
           f"{b_ms:.4f} ms ({b_by})")
-    b32 = _f32_bounds(flops, nbytes(z32, g, *pre32, got32[0], got32[1],
-                                    *got32[3]) + 2 * live_w * 2)
-    print(f"[K1 bwd] f32 (FMA): by events {ms32:.4f} ms, by device time "
-          f"{dev32:.4f} ms, cuDNN f32 (TF32 off) {lib_dev32:.4f} ms, ratio "
-          f"{dev32 / lib_dev32:.3f}; {_f32_bound_text(b32, dev32)}")
     rows.append(dict(
         name="ar_stack_bwd", route="cuda",
         source="iaf_torch/ops/csrc/ar_stack_bwd.cu",
         sources=["iaf_torch/ops/csrc/ar_stack_bwd.cu",
                  "iaf_torch/ops/csrc/masked_conv_bwd.cu"],
-        replaces="iaf_tpu/ops/ar_stack.py:251", max_abs_err=err,
-        max_abs_err_f32=err32, ms=ms, ms_f32=ms32, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib, device_ms=dev_ms,
-        library_device_ms=lib_dev, device_ms_f32=dev32,
-        library_device_ms_f32=lib_dev32, device_launches_per_call=per_call,
+        replaces="iaf_tpu/ops/ar_stack.py:251", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        device_ms=dev_ms, library_device_ms=lib_dev,
+        device_launches_per_call=per_call,
         routes=[list(r) for r in routes], gflop=flops / 1e9,
-        mbytes=moved / 1e6, bound_ms_f32=b32["bound_ms"],
-        bound_by_f32=b32["bound_by"],
-        design_bound_ms_f32=b32["design_bound_ms"],
-        fp32_floor_ms_f32=b32["fp32_floor_ms"],
-        **t))
+        mbytes=moved / 1e6, **t))
 
     # K3 backward, the same IAF step's update
     (zz, m, s, lq), (z_new, s_b, gz, glq) = cap["iaf_update"]
@@ -1279,7 +1412,8 @@ def eval_phase(ops, device, cfg, model, ds, per_chunk: dict):
 def f32_phases(ops, device, model, ds):
     """The paper config's f32 recipe (``compute_dtype=float32``, phase 6
     of the module docstring) on the bf16 phases' model. Returns (K1's f32
-    row, the eval and training launch counts, a summary)."""
+    forward and backward rows, the eval and training launch counts, a
+    summary)."""
     import torch
     from iaf_torch.core.config import Config
     from iaf_torch.models import cvae
@@ -1301,22 +1435,37 @@ def f32_phases(ops, device, model, ds):
             ops, device, cfg, model, ds,
             {"ar_stack": blocks, "iaf_update": blocks,
              "disc_logistic_logp": 1})
-    check(len(routes) > eval_counts["ar_stack"]
-          and set(routes) == {"3xtf32"},
-          f"f32 eval: K1 routes {sorted(set(routes))}, not all 3xtf32")
+    check(len(routes["fwd"]) > eval_counts["ar_stack"]
+          and set(routes["fwd"]) == {"3xtf32"},
+          f"f32 eval: K1 routes {sorted(set(routes['fwd']))}, not all "
+          "3xtf32")
     main["profile"] = chunk
     with k1_routes() as routes:
         tcfg, tstate, counts, summary = train_phase(
             ops, device, hp, PER_STEP, F32_TRAIN_STEPS, 0)
-    check(len(routes) == counts["ar_stack"] and set(routes) == {"3xtf32"},
-          f"f32 training: K1 routes {sorted(set(routes))}, not all 3xtf32")
+    tc = (("3xtf32", "3xtf32"),) * 3
+    check(len(routes["fwd"]) == counts["ar_stack"]
+          and set(routes["fwd"]) == {"3xtf32"},
+          f"f32 training: K1 routes {sorted(set(routes['fwd']))}, not all "
+          "3xtf32")
+    check(len(routes["bwd"]) == counts["ar_stack_bwd"]
+          and set(routes["bwd"]) == {tc},
+          f"f32 training: K1 backward routes {sorted(set(routes['bwd']))}, "
+          "not all 3xtf32")
     print(f"[main] paper f32: every K1 forward of the eval and the training "
-          f"runs took the 3xtf32 route ({counts['ar_stack']} in training)")
+          f"runs took the 3xtf32 route ({counts['ar_stack']} in training), "
+          f"and every K1 backward ({counts['ar_stack_bwd']}) took 3xtf32 for "
+          "dgrad and wgrad on every conv")
     tbatch = ds.train_x[:tcfg.batch_size]
+    cap = capture_train_step(
+        ops, lambda: ts.train_step(tcfg, tstate, 98, tbatch))
+    bwd_row = k1_f32_backward_phase(ops, cap["ar_stack"])
+    del cap
     summary["profile"] = profile_phase(
         f"paper f32: one training step (batch {tcfg.batch_size})",
         lambda: ts.train_step(tcfg, tstate, 99, tbatch))
-    return row, eval_counts, counts, {"main": main, "train": summary}
+    return [row, bwd_row], eval_counts, counts, {"main": main,
+                                                 "train": summary}
 
 
 def _paper_chain(depth_ar: int, gen):
@@ -2036,9 +2185,9 @@ def run() -> dict:
         {"ar_stack": len(model.blocks), "iaf_update": len(model.blocks),
          "disc_logistic_logp": 1})
 
-    # phase 6: the f32 recipe: K1's f32 kernel, eval and training, counted
-    row32, eval32, counts32, summary32 = f32_phases(ops, device, model, ds)
-    rows.append(row32)
+    # phase 6: the f32 recipe: K1's f32 kernels, eval and training, counted
+    rows32, eval32, counts32, summary32 = f32_phases(ops, device, model, ds)
+    rows += rows32
     del model
     torch.cuda.empty_cache()
 
@@ -2131,6 +2280,28 @@ def _ab_k1_fwd(ops, k1, f32: bool = False) -> dict:
             out[label] = (lambda z=z, c=c, pre=pre:  # noqa: E731
                           k1._fwd(z, c, ws, bs, pre), err)
     return out
+
+
+def _ab_k1_bwd_f32(ops, k1) -> dict:
+    """A/B case ``k1_bwd_f32``: K1's f32 backward at batch 32, paper
+    widths, the inputs and output gradient from a seed (full f32
+    mantissas), the pre-activations from the tree's own f32 forward; the
+    error (the largest of dz, dcontext, dW at the live taps and db, each
+    over its max) against the twin in f64; whatever kernels the tree
+    routes f32 to run (before the 3xTF32 route: the FMA kernels)."""
+    import torch
+    gen = torch.Generator().manual_seed(9)
+    ws, bs, _ = _paper_chain(2, gen)
+    ws = [w.float().cuda() for w in ws]
+    bs = [b.float().cuda() for b in bs]
+    z, c, g = (torch.randn(32, 16, 16, ch, generator=gen).cuda()
+               for ch in (32, 160, 64))
+    with torch.no_grad():
+        pre = k1._fwd(z, c, ws, bs, True)[1]
+    want = ops.ar_stack_bwd_ref(*_f64(z, c, ws, bs), g.double())
+    err = max(rel for _, _, rel in _k1_bwd_errs(
+        ops.ar_stack_bwd(z, ws, pre, g), want))
+    return {"b32": (lambda: ops.ar_stack_bwd(z, ws, pre, g), err)}
 
 
 def _k2_f32_convs(n: int, seed: int) -> dict:
@@ -2230,12 +2401,49 @@ def _ab_f32_chunk(ops, k1, device="cuda", hp=PAPER,
     return {"chunk": (chunk, _rel_err(got, ref)[1], 5)}
 
 
+def _ab_f32_step(ops, k1) -> dict:
+    """A/B case ``f32_step``: the forward and backward of one training
+    step of the paper config in f32 at batch 32 (init from a seed on
+    synthetic data; TF32 off, as ``train_lib`` sets it for the f32 recipe;
+    the optimizer left out), timed over 3 calls: its device time is the
+    step's busy time less K5's. The error is the worst gradient leaf's,
+    over its max, against the same step with K1's twin in place of its
+    kernels (autograd of the twin as its backward)."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.parallel import train_step as ts
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config().parse(PAPER + ",compute_dtype=float32,dataset=synthetic")
+    ds = synthetic_dataset(cfg.image_size, cfg.channels)
+    batch = ds.train_x[:cfg.batch_size]
+    model = ts.init_train_state(cfg, 11, batch, "cuda").params
+    batch = ts._device_batch(batch, model.h_top.device)
+
+    def grads():
+        g = ts._grads_and_metrics(cfg, model, 3, batch)[0]
+        return {k: v.clone() for k, v in g.items() if v is not None}
+    got = grads()
+    original = ops.ar_stack
+    ops.ar_stack = lambda z, c, ws, bs, masks: ops.ar_stack_ref(z, c, ws, bs)
+    try:
+        ref = grads()
+    finally:
+        ops.ar_stack = original
+    err = max(_rel_err(got[k], ref[k])[1] for k in ref)
+    return {"step": (lambda: ts._grads_and_metrics(cfg, model, 3, batch),
+                     err, 3)}
+
+
 # The A/B cases: each takes (ops, the K1 module) of the tree under test
 # and returns {label: (a call of the kernel's wrapper or of the path
 # around it, its relative error against the twin[, calls to time, 20 if
 # not given])}; ``ab`` times every call by device time and events.
 AB_CASES = {"k1_fwd": _ab_k1_fwd,
             "k1_fwd_f32": lambda ops, k1: _ab_k1_fwd(ops, k1, f32=True),
+            "k1_bwd_f32": _ab_k1_bwd_f32,
+            "f32_step": _ab_f32_step,
             "f32_chunk": _ab_f32_chunk,
             "k2_fwd_f32": _ab_k2_fwd,
             "k2_fwd": lambda ops, k1: _ab_k2_fwd(ops, k1, f32=False),

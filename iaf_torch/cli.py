@@ -8,24 +8,54 @@
 eval_test|eval_train`` runs the importance-weighted eval on the EMA
 weights of the newest checkpoint. Both run on the card unless ``--device
 cpu`` asks for the plain twins. The other modes are not ported yet and
-raise, naming the ROADMAP item that brings them.
+raise, naming the ROADMAP item that brings them. ``--profile_dir D``
+traces whichever mode runs with ``torch.profiler`` (host activity, and
+the card's kernels when it runs there) and writes the trace into D as
+``*.pt.trace.json``, as the JAX package's CLI traces into its profile
+directory.
 ``--num_gpus`` is accepted for command-line parity and ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 from iaf_torch import train_lib
 from iaf_torch.core.config import resolve_config
 
 _NOT_YET = {
-    "eval_loop": "ROADMAP queue 1, item 7 (eval_loop)",
-    "sample": "ROADMAP queue 1, item 9 (sampling)",
-    "recon": "ROADMAP queue 1, item 9 (reconstruction)",
-    "invert_check": "ROADMAP queue 1, item 9 (inversion)",
-    "export": "ROADMAP queue 1, item 11 (export)",
+    "eval_loop": "ROADMAP queue 1, item 1 (eval_loop)",
+    "sample": "ROADMAP queue 1, item 5 (sampling)",
+    "recon": "ROADMAP queue 1, item 5 (reconstruction)",
+    "invert_check": "ROADMAP queue 1, item 5 (inversion)",
+    "export": "ROADMAP queue 1, item 7 (export)",
 }
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str, device: str):
+    """A ``torch.profiler`` trace of the block into ``profile_dir`` (none
+    for ""): host activity always, the card's too when ``device`` is a
+    CUDA device; the trace is written when the block ends, by an
+    exception too."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        print(f"[profile] trace written to {profile_dir}")
 
 
 def main(argv=None) -> None:
@@ -43,7 +73,8 @@ def main(argv=None) -> None:
     p.add_argument("--max_batches", type=int, default=None,
                    help="cap eval batches (eval_* modes)")
     p.add_argument("--temperature", type=str, default="1.0")
-    p.add_argument("--profile_dir", type=str, default="")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler trace of the run here")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (the plain twins)")
     args = p.parse_args(argv)
@@ -58,11 +89,13 @@ def main(argv=None) -> None:
         found = real_data_available(cfg.dataset, cfg.data_dir)
         print(f"[data] real cifar10 found at {found}" if found else
               "[data] no real cifar10 on disk -> synthetic fallback")
-    if args.mode == "train":
-        train_lib.train(cfg, device=args.device)
-        return
-    train_lib.evaluate(cfg, mode=args.mode, max_batches=args.max_batches,
-                       device=args.device)
+    with _profiled(args.profile_dir, args.device):
+        if args.mode == "train":
+            train_lib.train(cfg, device=args.device)
+        else:
+            train_lib.evaluate(cfg, mode=args.mode,
+                               max_batches=args.max_batches,
+                               device=args.device)
 
 
 if __name__ == "__main__":

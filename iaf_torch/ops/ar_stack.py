@@ -9,10 +9,10 @@ from the dtype and the shapes) and runs
 ``ar_stack_xla``), for CPU tensors only. Under autograd on CUDA it is a
 ``torch.autograd.Function``: the forward kernel also writes the hidden
 convs' pre-activations, and ``ar_stack_bwd`` runs the dgrad and wgrad
-kernels over them (in bf16 K2's tensor-core kernels, with this file's
-glue, pack and reduce kernels between them); on the CPU autograd
-differentiates the twin (``ar_stack_bwd_ref``). Layouts are the JAX ones:
-activations NHWC, weights HWIO.
+kernels over them (K2's tensor-core kernels, bf16 or f32 by 3xTF32, with
+this file's glue, pack and reduce kernels between them); on the CPU
+autograd differentiates the twin (``ar_stack_bwd_ref``). Layouts are the
+JAX ones: activations NHWC, weights HWIO.
 """
 
 from __future__ import annotations
@@ -277,9 +277,9 @@ def _bwd_lib():
             [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] * 2
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.ar_stack_glue.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.ar_stack_pack_wt.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         for fn in (lib.ar_stack_dgrad, lib.ar_stack_wgrad,
                    lib.ar_stack_wreduce, lib.ar_stack_glue,
                    lib.ar_stack_pack_wt):
@@ -400,14 +400,29 @@ def bwd_wgmma_path(dtype: torch.dtype, h: int, w: int,
                for ci, co in shapes)
 
 
+def bwd_tf32_path(dtype: torch.dtype, h: int, w: int,
+                  shapes: Sequence[tuple[int, int]]) -> bool:
+    """Whether every conv (cin, cout) of the chain has a shape that K2's
+    3xTF32 kernels tile in the backward: dgrad on ``tf32_path`` with cin
+    and cout swapped, wgrad on ``wgrad_tf32_path`` (f32, W of 16-64 with H
+    whole 64-pixel sub-tiles, input channels in whole blocks of 32, at
+    most 160 outputs). Needs no built library."""
+    from iaf_torch.ops import masked_conv as mc
+    return all(mc.tf32_path(dtype, w, co, ci)
+               and mc.wgrad_tf32_path(dtype, h, w, ci, co)
+               for ci, co in shapes)
+
+
 def bwd_route(z: torch.Tensor, weights: Sequence[torch.Tensor]
               ) -> tuple[tuple[str, str], ...]:
     """The kernels K1's backward launches for CUDA inputs: per conv
-    (dgrad's, wgrad's), each ``"wgmma"`` (tensor cores) or ``"fma"``. The
-    chain takes the tensor cores where ``bwd_wgmma_path`` holds and every
-    conv's kernels fit shared memory (K2's own checks, ``masked_conv``'s
-    ``_route`` and ``_wgrad_route``), else FMA throughout. Decided from
-    the shapes before any launch (builds K2's libraries on first use)."""
+    (dgrad's, wgrad's), each ``"wgmma"`` (bf16 tensor cores), ``"3xtf32"``
+    (f32 on the tensor cores) or ``"fma"``. The chain takes the tensor
+    cores where ``bwd_wgmma_path`` (bf16) or ``bwd_tf32_path`` (f32) holds
+    and every conv's kernels fit shared memory (K2's own checks,
+    ``masked_conv``'s ``_route`` and ``_wgrad_route``), else FMA
+    throughout. Decided from the shapes before any launch (builds K2's
+    libraries on first use); a launch that fails raises."""
     _, h, w_, _ = z.shape
     return _bwd_route(z.dtype, h, w_, tuple((int(w.shape[2]), int(w.shape[3]))
                                             for w in weights))
@@ -416,43 +431,50 @@ def bwd_route(z: torch.Tensor, weights: Sequence[torch.Tensor]
 @functools.lru_cache(maxsize=None)
 def _bwd_route(dtype, h, w_, shapes):
     from iaf_torch.ops import masked_conv as mc
-    if bwd_wgmma_path(dtype, h, w_, shapes):
-        routes = tuple((mc._route(dtype, w_, co, ci, 3, MIRRORED_TAPS),
-                        mc._wgrad_route(dtype, h, w_, ci, co, 3, 1))
-                       for ci, co in shapes)
-        if all(r == ("wgmma", "wgmma") for r in routes):
-            return routes
+    for route, path in (("wgmma", bwd_wgmma_path),
+                        ("3xtf32", bwd_tf32_path)):
+        if path(dtype, h, w_, shapes):
+            routes = tuple((mc._route(dtype, w_, co, ci, 3, MIRRORED_TAPS),
+                            mc._wgrad_route(dtype, h, w_, ci, co, 3, 1))
+                           for ci, co in shapes)
+            if all(r == (route, route) for r in routes):
+                return routes
     return (("fma", "fma"),) * len(shapes)
 
 
-def glue_ref(src: torch.Tensor, pre: torch.Tensor | None = None):
+def glue_ref(src: torch.Tensor, pre: torch.Tensor | None = None,
+             f32: bool = False):
     """The glue pass in plain ops. ``src`` [N,H,W,C] is the head's f32 G,
     or, with ``pre`` (the f32 pre-activation of a hidden conv's input),
-    that conv's bf16 dX. G = f32(src), times ELU'(pre) = (pre > 0 ? 1 :
-    exp(pre)) with ``pre``, as autograd of the twin's ELU step computes
-    it. Returns (G in bf16, G in wgrad's packed B order [1, P/16, npad/8,
-    2, 8, 8] bf16 as the kernel's stores place it, G in f32, bf16(ELU(pre))
-    or None, db = G summed over the pixels)."""
+    that conv's dX (bf16; with ``f32``, the 3xTF32 chain, f32). G =
+    f32(src), times ELU'(pre) = (pre > 0 ? 1 : exp(pre)) with ``pre``, as
+    autograd of the twin's ELU step computes it. Returns (G in T, G in
+    wgrad's packed B order as the kernel's stores place it, G in f32,
+    T(ELU(pre)) or None, db = G summed over the pixels), T bf16 with the
+    packed G [1, P/16, npad/8, 2, 8, 8], or with ``f32`` T f32 and the
+    3xTF32 wgrad's tf32 order [1, P/8, npad/8, 2, 8, 4]."""
     from iaf_torch.ops.masked_conv import wgmma_width
     c = src.shape[-1]
     p = src.numel() // c
     npad = wgmma_width(c)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    e = 4 if f32 else 8         # pixels of one column a 16-byte row
     g = src.float()
     x = None
     if pre is not None:
         g = torch.where(pre > 0, g, g * torch.exp(pre))
-        x = F.elu(pre).to(torch.bfloat16)
-    gb = g.to(torch.bfloat16)
-    # pixel 8 q + k, channel 8 j + n -> ((((q / 2) npad/8 + j) 2 + q % 2)
-    # 8 + n) 8 + k: the kernel's 16-byte store of the 8 k of one column
+        x = F.elu(pre).to(dtype)
+    gt = g.to(dtype)
+    # pixel P, channel 8 j + n -> ((((P / 2e) npad/8 + j) 2 + P / e % 2) 8
+    # + n) e + P % e: the kernel's 16-byte stores of e pixels of a column
     dev = src.device
-    q, k = (torch.arange(p, device=dev) // 8)[:, None], \
-        (torch.arange(p, device=dev) % 8)[:, None]
+    px = torch.arange(p, device=dev)[:, None]
     j, n = torch.arange(c, device=dev) // 8, torch.arange(c, device=dev) % 8
-    off = ((((q // 2) * (npad // 8) + j) * 2 + q % 2) * 8 + n) * 8 + k
-    gp = torch.zeros(p * npad, dtype=torch.bfloat16, device=dev)
-    gp[off.reshape(-1)] = gb.reshape(-1)
-    return (gb, gp.reshape(1, p // 16, npad // 8, 2, 8, 8), g, x,
+    off = (((((px // (2 * e)) * (npad // 8) + j) * 2 + px // e % 2) * 8 + n)
+           * e + px % e)
+    gp = torch.zeros(p * npad, dtype=dtype, device=dev)
+    gp[off.reshape(-1)] = gt.reshape(-1)
+    return (gt, gp.reshape(1, p // (2 * e), npad // 8, 2, 8, e), g, x,
             g.reshape(p, c).sum(0))
 
 
@@ -465,10 +487,12 @@ def glue_blocks(pixels: int, npad: int) -> tuple[int, int]:
 
 
 def glue(src: torch.Tensor, pre: torch.Tensor | None = None,
-         with_f32: bool = False):
+         with_f32: bool = False, f32: bool = False):
     """The glue kernel (``ar_glue_kernel``) on CUDA tensors: as
     ``glue_ref`` (G in f32 only ``with_f32``, else None), with db as the
-    per-block sums [blocks, C] f32 that the reduce adds in order."""
+    per-block sums [blocks, C] f32 that the reduce adds in order. With
+    ``f32`` G in T is G in f32: the head's ``src`` itself (nothing is
+    copied), a hidden conv's one tensor."""
     if src.device.type != "cuda":
         raise RuntimeError(f"ar_stack glue: no kernel for device "
                            f"{src.device}")
@@ -478,91 +502,106 @@ def glue(src: torch.Tensor, pre: torch.Tensor | None = None,
     npad = wgmma_width(c)
     per, blocks = glue_blocks(p, npad)
     dev = src.device
+    dtype = torch.float32 if f32 else torch.bfloat16
+    e = 4 if f32 else 8
 
     def new(dtype):
         return torch.empty(src.shape, device=dev, dtype=dtype)
 
-    gb = new(torch.bfloat16)
-    gp = torch.empty((1, p // 16, npad // 8, 2, 8, 8), device=dev,
-                     dtype=torch.bfloat16)
-    g32 = new(torch.float32) if with_f32 else None
-    x = new(torch.bfloat16) if pre is not None else None
+    gt = src if f32 and pre is None else new(dtype)
+    gp = torch.empty((1, p // (2 * e), npad // 8, 2, 8, e), device=dev,
+                     dtype=dtype)
+    g32 = (gt if f32 else new(torch.float32)) if with_f32 else None
+    x = new(dtype) if pre is not None else None
     dbp = torch.empty((blocks, c), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         err = _bwd_lib().ar_stack_glue(
             src.data_ptr(), None if pre is None else pre.data_ptr(),
-            gb.data_ptr(), gp.data_ptr(),
-            None if g32 is None else g32.data_ptr(),
+            None if gt is src else gt.data_ptr(), gp.data_ptr(),
+            None if g32 is None or f32 else g32.data_ptr(),
             None if x is None else x.data_ptr(), dbp.data_ptr(), p, c, npad,
-            per, torch.cuda.current_stream(dev).cuda_stream)
+            per, int(f32), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "ar_stack glue")
-    return gb, gp, g32, x, dbp
+    return gt, gp, g32, x, dbp
 
 
-def pack_dgrad_ref(weights: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+def pack_dgrad_ref(weights: Sequence[torch.Tensor], f32: bool = False
+                   ) -> list[torch.Tensor]:
     """dgrad's weights on the tensor cores, in plain ops: per conv the live
-    taps transposed per tap, [5, cout/16, npad/8, 2, 8, 8] in
-    ``masked_conv.wgmma_pack`` order with K = cout and N = cin (npad =
-    ``wgmma_width(cin)``, zero columns past cin)."""
+    taps transposed per tap in ``masked_conv.wgmma_pack`` order with K =
+    cout and N = cin (npad = ``wgmma_width(cin)``, zero columns past cin):
+    [5, cout/16, npad/8, 2, 8, 8], or with ``f32`` the 3xTF32 dgrad's tf32
+    order [5, cout/8, npad/8, 2, 8, 4] (``masked_conv.dgrad_pack(w,
+    LIVE_TAPS, f32=True)``)."""
     from iaf_torch.ops import masked_conv as mc
     return [mc.wgmma_pack(_live_taps(w).transpose(1, 2),
-                          mc.wgmma_width(w.shape[2])) for w in weights]
+                          mc.wgmma_width(w.shape[2]), e=4 if f32 else 8)
+            for w in weights]
 
 
 def pack_dgrad(weights: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """``pack_dgrad_ref`` for every conv in one launch of
-    ``ar_pack_wt_kernel`` (bf16 CUDA weights of any strides)."""
+    ``ar_pack_wt_kernel`` (bf16 CUDA weights of any strides, or f32 ones
+    in the tf32 order, ``f32=True``)."""
     from iaf_torch.ops import masked_conv as mc
     w0 = weights[0]
     if w0.device.type != "cuda":
         raise RuntimeError(f"ar_stack pack: no kernel for device "
                            f"{w0.device}")
-    if any(w.dtype != torch.bfloat16 for w in weights):
-        raise ValueError("ar_stack pack: weights must be bf16")
+    if (w0.dtype not in (torch.bfloat16, torch.float32)
+            or any(w.dtype != w0.dtype for w in weights)):
+        raise ValueError("ar_stack pack: weights must be all bf16 or all "
+                         "f32")
+    f32 = w0.dtype == torch.float32
+    e = 4 if f32 else 8
     dims, strides, out = [], [], []
     for w in weights:
         cin, cout = w.shape[2], w.shape[3]
         npad = mc.wgmma_width(cin)
         dims += [cin, cout, npad]
         strides += list(w.stride())
-        out.append(torch.empty((5, cout // 16, npad // 8, 2, 8, 8),
-                               device=w0.device, dtype=torch.bfloat16))
+        out.append(torch.empty((5, cout // (2 * e), npad // 8, 2, 8, e),
+                               device=w0.device, dtype=w0.dtype))
     with torch.cuda.device(w0.device):
         err = _bwd_lib().ar_stack_pack_wt(
             _ptrs(weights), _ptrs(out), (ctypes.c_int * len(dims))(*dims),
             (ctypes.c_longlong * len(strides))(*strides), len(weights),
-            torch.cuda.current_stream(w0.device).cuda_stream)
+            int(f32), torch.cuda.current_stream(w0.device).cuda_stream)
     _raise_on(err, "ar_stack pack")
     return out
 
 
 def _dgrad_wgmma(z, weights, pre, g):
-    """The dgrad chain on the tensor cores, head first: every conv's
-    weights transposed and packed (``pack_dgrad``, one launch), the head's
-    G through the glue kernel (cast, pack, db sums), then per conv dgrad on
-    ``conv_wgmma_kernel`` (bf16 out) and, for a hidden conv, the glue
-    pass. Returns (dz, dcontext, per conv (its wgrad input X, its packed
-    G, its G's db sums))."""
+    """The dgrad chain on the tensor cores, head first, in z's dtype (bf16
+    on ``conv_wgmma_kernel``, f32 by 3xTF32 on ``conv_tf32_kernel``):
+    every conv's weights transposed and packed (``pack_dgrad``, one
+    launch), the head's G through the glue kernel (cast in bf16, pack, db
+    sums), then per conv dgrad (dX in z's dtype) and, for a hidden conv,
+    the glue pass. Returns (dz, dcontext, per conv (its wgrad input X, its
+    packed G, its G's db sums))."""
     from iaf_torch.ops import masked_conv as mc
+    f32 = z.dtype == torch.float32
     klib = mc._bwd_lib()
+    dgrad = (klib.masked_conv_dgrad_tf32 if f32
+             else klib.masked_conv_dgrad_wgmma)
     n_convs = len(weights)
     feeds = [None] * n_convs
     packed = pack_dgrad(weights)
-    gb, gp, _, _, dbp = glue(g)
+    gt, gp, _, _, dbp = glue(g, f32=f32)
     dctx = None
     for c in reversed(range(n_convs)):
-        w = weights[c]
-        cin = w.shape[2]
+        cin = weights[c].shape[2]
         dx = torch.empty(z.shape[:3] + (cin,), device=z.device,
-                         dtype=torch.bfloat16)
-        mc._launch_wgmma(klib.masked_conv_dgrad_wgmma, "ar_stack dgrad", gb,
-                         packed[c], dx, MIRRORED_TAPS, 3, 3)
+                         dtype=z.dtype)
+        mc._launch_wgmma(dgrad, "ar_stack dgrad", gt, packed[c], dx,
+                         MIRRORED_TAPS, 3, 3)
         if c == 0:
             feeds[0] = (z, gp, dbp)
             return dx, dctx, feeds
-        gb_next, gp_next, g32, x, dbp_next = glue(dx, pre[c - 1], c == 1)
+        gt_next, gp_next, g32, x, dbp_next = glue(dx, pre[c - 1], c == 1,
+                                                  f32)
         feeds[c] = (x, gp, dbp)
-        gb, gp, dbp = gb_next, gp_next, dbp_next
+        gt, gp, dbp = gt_next, gp_next, dbp_next
         if c == 1:
             dctx = g32      # conv 0's output gradient is the context's
 
@@ -583,25 +622,31 @@ def _reduce(part, pstride, chunks, dbp, dbstride, dbchunks, w):
 
 
 def _wgrad_wgmma(weights, feeds):
-    """Per conv, wgrad on ``conv_wgrad_wgmma_kernel`` (X and the packed G
-    of ``feeds``, per-chunk partials) and the in-order reduce of those
-    partials and the glue's db sums. Returns ([dW], [db])."""
+    """Per conv, wgrad on the tensor cores (X and the packed G of
+    ``feeds``, per-chunk partials: bf16 ``conv_wgrad_wgmma_kernel`` over
+    128-pixel sub-tiles, f32 ``conv_wgrad_tf32_kernel`` over 64-pixel
+    ones) and the in-order reduce of those partials and the glue's db
+    sums. Returns ([dW], [db])."""
     from iaf_torch.ops import masked_conv as mc
     klib = mc._bwd_lib()
     x0 = feeds[0][0]
     dev = x0.device
     n, h, w_, _ = x0.shape
+    f32 = x0.dtype == torch.float32
+    wgrad = (klib.masked_conv_wgrad_tf32 if f32
+             else klib.masked_conv_wgrad_wgmma)
+    sub = mc._GT_PIXELS if f32 else mc._GW_PIXELS
     c_taps = mc._c_taps(LIVE_TAPS)
     dws, dbs = [], []
     for w, (x, gp, dbp) in zip(weights, feeds):
         cin, cout = w.shape[2], w.shape[3]
         mc._aligned("ar_stack wgrad", x, gp)
-        per, chunks = mc.wgrad_chunks(n * h * w_ // mc._GW_PIXELS,
+        per, chunks = mc.wgrad_chunks(n * h * w_ // sub,
                                       mc.wgrad_m_blocks(5, cin),
                                       mc._sm_count(dev))
         part = torch.empty((chunks, 5, cin, cout), device=dev,
                            dtype=torch.float32)
-        _raise_on(klib.masked_conv_wgrad_wgmma(
+        _raise_on(wgrad(
             x.data_ptr(), gp.data_ptr(), part.data_ptr(), c_taps, 5, n, h, w_,
             cin, cout, gp.shape[-4] * 8, 3, 3, per, mc._stream(dev)),
             "ar_stack wgrad")
@@ -613,7 +658,7 @@ def _wgrad_wgmma(weights, feeds):
 
 
 def _bwd_fma(z, weights, pre, g):
-    """f32 and untiled shapes, per conv head first: the FMA wgrad kernel's
+    """Untiled shapes, per conv head first: the FMA wgrad kernel's
     chunk partials (db folded in), their in-order sum, then the FMA dgrad
     kernel (times ELU' of the conv's input)."""
     n, h, w_, _ = z.shape
@@ -662,17 +707,22 @@ def ar_stack_bwd(z, weights, pre, g):
     the weights' dtype, zero at the dead taps], [db per conv, f32]); one
     launch in the count. Replaces ``iaf_tpu/ops/ar_stack.py:251 _bwd``.
     Bound by operations: 6.7 GFLOP per call at batch 32 and the paper
-    widths (dgrad and wgrad over the 5 live taps).
+    widths (dgrad and wgrad over the 5 live taps), 6.7 us on the bf16
+    tensor cores, 13.6 us in f32 at one TF32 product per f32 product
+    (40.7 us at 3xTF32's three).
 
-    bf16 at shapes the tensor cores tile (``bwd_route``): the dgrad chain
-    (``_dgrad_wgmma``: K2's ``conv_wgmma_kernel`` per conv, with the glue
-    kernel between convs applying ELU' and writing G in bf16, in wgrad's
-    packed order and the db sums, and each conv's wgrad input bf16(ELU(a))
-    as the forward computed it), then per conv wgrad on K2's
-    ``conv_wgrad_wgmma_kernel`` and the in-order reduce of its partials
-    and of the db sums (``_wgrad_wgmma``): 13 launches for 3 convs, no
-    atomics, so two calls give the same bits. f32 and other shapes stay on
-    the FMA kernels (``_bwd_fma``), deterministic the same way."""
+    At shapes the tensor cores tile (``bwd_route``; the paper widths), in
+    bf16 (``"wgmma"``) or f32 (``"3xtf32"``, each f32 product three TF32
+    products of split operands): the dgrad chain (``_dgrad_wgmma``: K2's
+    ``conv_wgmma_kernel`` or ``conv_tf32_kernel`` per conv, with the glue
+    kernel between convs applying ELU' and writing G in z's dtype, in
+    wgrad's packed order and the db sums, and each conv's wgrad input
+    T(ELU(a)) as the forward computed it), then per conv wgrad on K2's
+    ``conv_wgrad_wgmma_kernel`` or ``conv_wgrad_tf32_kernel`` and the
+    in-order reduce of its partials and of the db sums (``_wgrad_wgmma``):
+    13 launches for 3 convs, no atomics, so two calls give the same bits.
+    Other shapes take the FMA kernels (``_bwd_fma``), deterministic the
+    same way."""
     if z.device.type != "cuda":
         raise RuntimeError(f"ar_stack_bwd: no kernel for device {z.device}")
     n, h, w_, _ = z.shape
@@ -691,7 +741,7 @@ def ar_stack_bwd(z, weights, pre, g):
         raise ValueError("ar_stack_bwd: z must be contiguous and the "
                          "weights in its dtype")
     with torch.cuda.device(z.device):
-        if bwd_route(z, weights)[0][0] == "wgmma":
+        if bwd_route(z, weights)[0][0] != "fma":
             dz, dctx, feeds = _dgrad_wgmma(z, weights, pre, g)
             dws, dbs = _wgrad_wgmma(weights, feeds)
         else:

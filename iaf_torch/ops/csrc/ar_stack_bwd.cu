@@ -17,27 +17,40 @@
 // Bound on the H100 per call at batch 32, paper widths (cz=32, ch=160,
 // cout=64): 2 x 3.36 GFLOP over the live taps (dgrad and wgrad), 6.7 us at
 // the bf16 tensor-core rate (989 TFLOP/s), against ~20 MB of compulsory
-// traffic (~6 us at 3.35 TB/s): bound by operations, just.
+// traffic (~6 us at 3.35 TB/s): bound by operations, just. In f32 the
+// same products take 13.6 us at one TF32 product per f32 product (495
+// TFLOP/s, the card's peak for f32 operands), 40.7 us at the three of
+// 3xTF32 and 100 us on the FP32 CUDA cores (67 TFLOP/s).
 //
-// Design, bf16 (ar_stack.py _bwd_wgmma): both products run on K2's
-// tensor-core kernels (masked_conv.cuh, masked_conv_bwd.cu), which take
-// any list of live taps: the 3x3 raster mask is 5 of them.
-// * dgrad is conv_wgmma_kernel<N, bf16> on G in bf16 over the mirrored
-//   taps, the weights transposed per tap and packed for every conv in one
-//   launch (ar_pack_wt_kernel, from the weights' own strides: the model
-//   hands K1 permuted views). dX comes out in bf16, where the twin's
-//   autograd rounds it (the bf16 conv's input gradient).
+// Design, on the tensor cores (ar_stack.py _dgrad_wgmma, _wgrad_wgmma):
+// both products run on K2's kernels (masked_conv.cuh, masked_conv_bwd.cu)
+// through their C entries, which take any list of live taps: the 3x3
+// raster mask is 5 of them. bf16 runs K2's bf16 wgmma kernels; f32 (the
+// f32 recipe) K2's 3xTF32 ones, each f32 product lo*hi + hi*lo + hi*hi
+// of tf32 parts split on chip, so it holds the f64 twin at ~1e-6 of max
+// where one TF32 product per f32 product misses 1e-5.
+// * dgrad is conv_wgmma_kernel<N, bf16> on G in bf16, or
+//   conv_tf32_kernel<N> on G in f32, over the mirrored taps, the weights
+//   transposed per tap and packed for every conv in one launch
+//   (ar_pack_wt_kernel<T>, from the weights' own strides: the model hands
+//   K1 permuted views; in f32 in the tf32 K-major order, 4 K values a
+//   16-byte row). dX comes out in T: bf16 where the twin's autograd
+//   rounds it (the bf16 conv's input gradient), f32 as it is.
 // * The glue between convs is one pass per hidden conv here,
-//   ar_glue_kernel: from dX (bf16) and a_{c-1} (f32) it writes the next G
-//   = f32(dX) * ELU'(a) in bf16 NHWC (the next dgrad's input), in wgrad's
-//   packed B order (the next wgrad's operand), in f32 where dcontext needs
-//   it (c = 1), the per-block sums of G for db, and X_c = T(ELU(a_{c-1})),
-//   this conv's wgrad input, bit for bit what the forward fed it (elu() is
-//   the forward's own, common.cuh). The head's G (f32, from K3's and K4's
-//   backward) goes through the same kernel without the ELU: cast, pack
-//   and db sums in one launch.
-// * wgrad is conv_wgrad_wgmma_kernel (a GEMM over the pixels, A gathered
-//   from X's staged rows, B the packed G) writing per-chunk f32 partials.
+//   ar_glue_kernel<T>: from dX (T) and a_{c-1} (f32) it writes the next G
+//   = f32(dX) * ELU'(a) in T NHWC (the next dgrad's input), in wgrad's
+//   packed B order (the next wgrad's operand: bf16 8 pixels a 16-byte
+//   row, f32 4), in f32 where dcontext needs it (c = 1; in f32 the NHWC G
+//   itself), the per-block sums of G for db, and X_c = T(ELU(a_{c-1})),
+//   this conv's wgrad input, bit for bit what the forward fed it (elu()
+//   is the forward's own, common.cuh). The head's G (f32, from K3's and
+//   K4's backward) goes through the same kernel without the ELU: cast
+//   (bf16), pack and db sums in one launch; in f32 it is the first
+//   dgrad's input as it is.
+// * wgrad is conv_wgrad_wgmma_kernel (bf16, 128-pixel sub-tiles) or
+//   conv_wgrad_tf32_kernel (f32, 64-pixel sub-tiles, G's slice split on
+//   chip), a GEMM over the pixels (A gathered from X's staged rows, B the
+//   packed G) writing per-chunk f32 partials.
 // * ar_wreduce_kernel sums the partials in chunk order into dW (zeros at
 //   the 4 dead taps) and the glue's per-block db sums in block order into
 //   db (a warp per channel, lanes over blocks, then a fixed shuffle tree).
@@ -45,8 +58,9 @@
 // launches per call of 3 convs: the weight pack, the head pass, then per
 // conv dgrad, glue (hidden convs), wgrad and reduce.
 //
-// f32 and the shapes those kernels do not tile stay on FP32 FMA, on the
-// CUDA cores (bf16 operands widened on load):
+// The shapes those kernels do not tile (widths or heights that are not
+// whole tiles, channels not in whole blocks) stay on FP32 FMA, on the CUDA cores (bf16
+// operands widened on load):
 // * ar_dgrad_kernel gives each block one image row and stages the two
 //   gradient rows it reads (the transpose of a row-causal conv is
 //   anti-causal: rows y and y+1, taps mirrored), one thread per input
@@ -58,6 +72,8 @@
 //
 // Types: T = float or __nv_bfloat16 for z, the weights and dz/dW; the
 // pre-activations, db and the FMA path's gradients between convs are f32.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -269,26 +285,30 @@ __global__ void __launch_bounds__(RD_THREADS)
 #define GL_THREADS 512   // glue: threads per block, at most
 
 struct GlueArgs {
-  const void* src;     // [P][C] the head's G (f32) or dgrad's dX (bf16)
+  const void* src;     // [P][C] the head's G (f32) or dgrad's dX (T)
   const float* pre;    // [P][C] f32 pre-activation a (hidden), or null
-  __nv_bfloat16* gb;   // [P][C] bf16 G: the next dgrad's input
-  __nv_bfloat16* gp;   // G packed: [P/16][npad/8][2][8][8] bf16
+  void* gt;            // [P][C] T G: the next dgrad's input, or null
+  void* gp;            // G packed in wgmma_pack order, T
   float* g32;          // [P][C] f32 G (dcontext), or null
-  __nv_bfloat16* x;    // [P][C] bf16 ELU(a): this conv's wgrad input
+  void* x;             // [P][C] T ELU(a): this conv's wgrad input
   float* dbpart;       // [gridDim.x][C] f32 sums of G per block
   int P, C, npad, groups_per_block;
 };
 
 // One thread per channel (threadIdx.x < npad; those past C write the
 // packed G's zero columns) and group of 8 consecutive pixels (threadIdx.y
-// strides over the block's groups; the wrapper gives each thread one). Group q is pixels 8q .. 8q + 7: half
-// q & 1 of k-step q / 2 of the packed G, whose 8 k values for one column
-// are one 16-byte store (wgmma_pack's layout: element [s][j][h][n][k] =
-// G[16 s + 8 h + k][8 j + n]). G (and the block's db sum) follows the
-// twin's autograd: f32(dX) times ELU'(a) in f32, rounded to bf16 where
-// the next products read it.
-template <typename Tin, bool kHidden>
+// strides over the block's groups; the wrapper gives each thread one).
+// The packed G is wgmma_pack's layout with the pixels as K, E = 16 /
+// sizeof(T) pixels of one column a 16-byte row: element [s][j][h][n][k] =
+// G[2E s + E h + k][8 j + n]. In bf16 (E = 8) group q is half q & 1 of
+// k-step q / 2, one store; in f32 (E = 4, the 3xTF32 wgrad's tf32 order)
+// it is both halves of k-step q, two stores. G (and the block's db sum)
+// follows the twin's autograd: f32(dX) times ELU'(a) in f32, rounded to
+// T where the next products read it (bf16), or kept (f32).
+template <typename T, bool kHidden>
 __global__ void __launch_bounds__(GL_THREADS) ar_glue_kernel(GlueArgs a) {
+  constexpr int E = 16 / sizeof(T);
+  using Tin = std::conditional_t<kHidden, T, float>;
   __shared__ float red[GL_THREADS];
   const int co = threadIdx.x, C = a.C;
   const bool live = co < C;
@@ -296,31 +316,40 @@ __global__ void __launch_bounds__(GL_THREADS) ar_glue_kernel(GlueArgs a) {
   const int q0 = blockIdx.x * a.groups_per_block;
   const int q1 = min(q0 + a.groups_per_block, a.P / 8);
   const Tin* __restrict__ src = static_cast<const Tin*>(a.src);
+  T* gt = static_cast<T*>(a.gt);
+  T* x = static_cast<T*>(a.x);
+  T* gp = static_cast<T*>(a.gp);
   float db = 0.f;
   for (int q = q0 + threadIdx.y; q < q1; q += blockDim.y) {
-    uint32_t packed[4] = {0u, 0u, 0u, 0u};   // the 8 k values, bf16
+    uint32_t words[2 * sizeof(T)] = {};   // the group's 8 values, as T
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      __nv_bfloat16 vb = __float2bfloat16(0.f);
-      if (live) {
-        const size_t idx = ((size_t)q * 8 + k) * C + co;
-        float v = to_f(src[idx]);
-        if constexpr (kHidden) {
-          const float p = a.pre[idx];
-          v = p > 0.f ? v : v * expf(p);
-          a.x[idx] = __float2bfloat16(elu(p));
-        }
-        vb = __float2bfloat16(v);
-        a.gb[idx] = vb;
-        if (a.g32 != nullptr) a.g32[idx] = v;
-        db += v;
+      if (!live) continue;
+      const size_t idx = ((size_t)q * 8 + k) * C + co;
+      float v = to_f(src[idx]);
+      if constexpr (kHidden) {
+        const float p = a.pre[idx];
+        v = p > 0.f ? v : v * expf(p);
+        x[idx] = from_f<T>(elu(p));
       }
-      packed[k >> 1] |= (uint32_t)__bfloat16_as_ushort(vb) << (16 * (k & 1));
+      const T vt = from_f<T>(v);
+      if (gt != nullptr) gt[idx] = vt;
+      if (a.g32 != nullptr) a.g32[idx] = v;
+      db += v;
+      if constexpr (E == 8)
+        words[k >> 1] |= (uint32_t)__bfloat16_as_ushort(vt) << (16 * (k & 1));
+      else
+        words[k] = __float_as_uint(v);
     }
-    const int s = q >> 1, h = q & 1;
-    *reinterpret_cast<uint4*>(
-        a.gp + ((((size_t)s * (a.npad / 8) + j) * 2 + h) * 8 + n) * 8) =
-        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+#pragma unroll
+    for (int u = 0; u < 8 / E; ++u) {
+      const int p0 = 8 * q + E * u;   // the row's first pixel
+      const int s = p0 / (2 * E), h = (p0 / E) & 1;
+      *reinterpret_cast<uint4*>(
+          gp + ((((size_t)s * (a.npad / 8) + j) * 2 + h) * 8 + n) * E) =
+          make_uint4(words[4 * u], words[4 * u + 1], words[4 * u + 2],
+                     words[4 * u + 3]);
+    }
   }
   red[threadIdx.y * blockDim.x + co] = db;
   __syncthreads();
@@ -335,9 +364,9 @@ __global__ void __launch_bounds__(GL_THREADS) ar_glue_kernel(GlueArgs a) {
 #define PK_THREADS 256
 
 struct PackArgs {
-  const __nv_bfloat16* w[MAX_PACK];  // [3][3][cin][cout], any strides
+  const void* w[MAX_PACK];           // [3][3][cin][cout] T, any strides
   long long st[MAX_PACK][4];         // its strides in elements
-  uint4* out[MAX_PACK];    // [5][cout/16][npad/8][2][8][8] bf16
+  uint4* out[MAX_PACK];    // [5][cout/2E][npad/8][2][8][E] T
   int cin[MAX_PACK], cout[MAX_PACK], npad[MAX_PACK];
   int start[MAX_PACK + 1];           // each conv's first item
   int n;
@@ -345,11 +374,15 @@ struct PackArgs {
 
 // dgrad's weights of every conv in one launch: conv c's 5 live taps
 // ((dy, dx) = (t / 3, t % 3), the first 5 in raster order) transposed per
-// tap in wgmma_pack order with K = cout and N = cin padded to npad
-// (element [t][s][j][h][n][k] = W[t][8 j + n][16 s + 8 h + k], zero for
-// 8 j + n >= cin). One item is one (t, s, j, h, n): 8 loads of the
-// strided weights (the model's are permuted views), one 16-byte store.
+// tap in wgmma_pack order with K = cout and N = cin padded to npad, E =
+// 16 / sizeof(T) K values a 16-byte row (8 in bf16; 4 in f32, the 3xTF32
+// dgrad's tf32 order): element [t][s][j][h][n][k] = W[t][8 j + n][2E s +
+// E h + k], zero for 8 j + n >= cin. One item is one (t, s, j, h, n): E
+// loads of the strided weights (the model's are permuted views), one
+// 16-byte store.
+template <typename T>
 __global__ void __launch_bounds__(PK_THREADS) ar_pack_wt_kernel(PackArgs a) {
+  constexpr int E = 16 / sizeof(T);
   const int i = blockIdx.x * PK_THREADS + threadIdx.x;
   if (i >= a.start[a.n]) return;
   int c = 0;
@@ -363,17 +396,21 @@ __global__ void __launch_bounds__(PK_THREADS) ar_pack_wt_kernel(PackArgs a) {
   r >>= 1;
   const int j = r % jn;
   r /= jn;
-  const int s = r % (cout / 16), t = r / (cout / 16);
+  const int s = r % (cout / (2 * E)), t = r / (cout / (2 * E));
   const int ci = 8 * j + n;
   uint32_t v[4] = {0u, 0u, 0u, 0u};
   if (ci < cin) {
     const long long* st = a.st[c];
-    const __nv_bfloat16* src = a.w[c] + (t / 3) * st[0] + (t % 3) * st[1] +
-                               ci * st[2] + (16 * s + 8 * h) * st[3];
+    const T* src = static_cast<const T*>(a.w[c]) + (t / 3) * st[0] +
+                   (t % 3) * st[1] + ci * st[2] + (2 * E * s + E * h) * st[3];
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      v[k >> 1] |= (uint32_t)__bfloat16_as_ushort(src[k * st[3]])
-                   << (16 * (k & 1));
+    for (int k = 0; k < E; ++k) {
+      if constexpr (E == 8)
+        v[k >> 1] |= (uint32_t)__bfloat16_as_ushort(src[k * st[3]])
+                     << (16 * (k & 1));
+      else
+        v[k] = __float_as_uint(src[k * st[3]]);
+    }
   }
   a.out[c][item] = make_uint4(v[0], v[1], v[2], v[3]);
 }
@@ -480,58 +517,65 @@ int ar_stack_wreduce(const void* part, long long pstride, int chunks,
   return (int)cudaGetLastError();
 }
 
-// dgrad's packed weights of ``n`` convs in one launch (bf16): ``w`` and
-// ``out`` host arrays of device pointers (``out`` 16-byte aligned),
-// ``dims`` n triples (cin, cout, npad) with cout % 16 == 0, npad % 8 == 0
-// and cin <= npad, ``strides`` n quadruples (each weight's [3][3][cin]
-// [cout] strides in elements).
+// dgrad's packed weights of ``n`` convs in one launch, bf16 or with
+// ``f32`` f32 (E = 8 or 4 K values a 16-byte row): ``w`` and ``out`` host
+// arrays of device pointers (``out`` 16-byte aligned), ``dims`` n triples
+// (cin, cout, npad) with cout % 2E == 0, npad % 8 == 0 and cin <= npad,
+// ``strides`` n quadruples (each weight's [3][3][cin][cout] strides in
+// elements).
 int ar_stack_pack_wt(void* const* w, void* const* out, const int* dims,
-                     const long long* strides, int n, void* stream) {
+                     const long long* strides, int n, int f32,
+                     void* stream) {
   if (n < 1 || n > MAX_PACK) return (int)cudaErrorInvalidValue;
+  const int e = f32 ? 4 : 8;
   PackArgs a;
   a.n = n;
   a.start[0] = 0;
   for (int c = 0; c < n; ++c) {
     const int cin = dims[3 * c], cout = dims[3 * c + 1],
               npad = dims[3 * c + 2];
-    if (cout % 16 || npad % 8 || cin > npad ||
+    if (cout % (2 * e) || npad % 8 || cin > npad ||
         reinterpret_cast<uintptr_t>(out[c]) % 16)
       return (int)cudaErrorInvalidValue;
-    a.w[c] = static_cast<const __nv_bfloat16*>(w[c]);
+    a.w[c] = w[c];
     for (int d = 0; d < 4; ++d) a.st[c][d] = strides[4 * c + d];
     a.out[c] = static_cast<uint4*>(out[c]);
     a.cin[c] = cin;
     a.cout[c] = cout;
     a.npad[c] = npad;
-    a.start[c + 1] = a.start[c] + 5 * (cout / 8) * npad;
+    a.start[c + 1] = a.start[c] + 5 * (cout / e) * npad;
   }
   const int blocks = (a.start[n] + PK_THREADS - 1) / PK_THREADS;
-  ar_pack_wt_kernel<<<blocks, PK_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    ar_pack_wt_kernel<float><<<blocks, PK_THREADS, 0, s>>>(a);
+  else
+    ar_pack_wt_kernel<__nv_bfloat16><<<blocks, PK_THREADS, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The glue pass over P pixels of C channels (P % 16 == 0, C <= npad <=
-// 256, npad % 8 == 0, gp 16-byte aligned): with ``pre`` (hidden conv) src
-// is dgrad's bf16 dX, G = f32(dX) * ELU'(pre) and x = bf16(ELU(pre)) is
-// written; without it src is the head's f32 G and x is not written. Writes
-// gb, gp, g32 (if not null) and one row of db sums per block, blocks of
+// The glue pass over P pixels of C channels in T = bf16, or with ``f32``
+// f32 (P % 2E == 0, C <= npad <= 256, npad % 8 == 0, gp 16-byte
+// aligned): with ``pre`` (hidden conv) src is dgrad's dX (T), G = f32(dX)
+// * ELU'(pre) and x = T(ELU(pre)) is written; without it src is the
+// head's f32 G and x is not written. Writes gt (T G, if not null), gp,
+// g32 (if not null) and one row of db sums per block, blocks of
 // ``groups_per_block`` groups of 8 pixels: ceil(P / 8 / groups_per_block)
 // rows.
-int ar_stack_glue(const void* src, const void* pre, void* gb, void* gp,
+int ar_stack_glue(const void* src, const void* pre, void* gt, void* gp,
                   void* g32, void* x, void* dbpart, int P, int C, int npad,
-                  int groups_per_block, void* stream) {
-  if (P % 16 || C < 1 || C > npad || npad % 8 || npad > 256 ||
+                  int groups_per_block, int f32, void* stream) {
+  if (P % (f32 ? 8 : 16) || C < 1 || C > npad || npad % 8 || npad > 256 ||
       groups_per_block < 1 || (pre == nullptr) != (x == nullptr) ||
       reinterpret_cast<uintptr_t>(gp) % 16)
     return (int)cudaErrorInvalidValue;
   GlueArgs a;
   a.src = src;
   a.pre = static_cast<const float*>(pre);
-  a.gb = static_cast<__nv_bfloat16*>(gb);
-  a.gp = static_cast<__nv_bfloat16*>(gp);
+  a.gt = gt;
+  a.gp = gp;
   a.g32 = static_cast<float*>(g32);
-  a.x = static_cast<__nv_bfloat16*>(x);
+  a.x = x;
   a.dbpart = static_cast<float*>(dbpart);
   a.P = P;
   a.C = C;
@@ -541,10 +585,14 @@ int ar_stack_glue(const void* src, const void* pre, void* gb, void* gp,
   const int groups = P / 8;
   const int blocks = (groups + groups_per_block - 1) / groups_per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pre != nullptr)
+  if (f32 && pre != nullptr)
+    ar_glue_kernel<float, true><<<blocks, block, 0, s>>>(a);
+  else if (f32)
+    ar_glue_kernel<float, false><<<blocks, block, 0, s>>>(a);
+  else if (pre != nullptr)
     ar_glue_kernel<__nv_bfloat16, true><<<blocks, block, 0, s>>>(a);
   else
-    ar_glue_kernel<float, false><<<blocks, block, 0, s>>>(a);
+    ar_glue_kernel<__nv_bfloat16, false><<<blocks, block, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 

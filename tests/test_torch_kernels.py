@@ -693,9 +693,9 @@ def test_ar_stack_bwd_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
                                                   depth_ar):
     """dz, dcontext, db and dW at the live taps against autograd of the
     twin (the dead taps are zero), at 1e-4 (f32) / 2e-2 (bf16) of each
-    output's max. At the paper widths in bf16 every conv's dgrad and
-    wgrad take the tensor cores, and f32 and the small shape FMA; two
-    calls on the same inputs give the same bits on either route."""
+    output's max. At the paper widths every conv's dgrad and wgrad take
+    the tensor cores (bf16 wgmma, f32 3xTF32), and the small shape FMA;
+    two calls on the same inputs give the same bits on every route."""
     import importlib
     k1 = importlib.import_module("iaf_torch.ops.ar_stack")
     z, c, ws, bs, masks = _k1_inputs(zs, hs, n, hw, depth_ar)
@@ -720,8 +720,9 @@ def test_ar_stack_bwd_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
             a, b = a.float() * live, b.float() * live
         err = float((a.float() - b.float()).abs().max())
         assert err <= tol * float(b.float().abs().max()), (i, err)
-    paper = zs == 32 and hs == 160 and dtype == torch.bfloat16
-    route = "wgmma" if paper else "fma"
+    paper = zs == 32 and hs == 160
+    route = ({torch.bfloat16: "wgmma", torch.float32: "3xtf32"}[dtype]
+             if paper else "fma")
     assert k1.bwd_route(zt, wt) == ((route, route),) * len(ws)
     with torch.no_grad():
         pre = k1._fwd(zt, ct, wt, bt, save_pre=True)[1]

@@ -217,7 +217,8 @@ def test_f32_routes_take_3xtf32_at_the_5x5_widths(fake_libs, n):
     forward to ``"3xtf32"`` and its backward to ("3xtf32", "3xtf32"),
     in bf16 to the bf16 tensor cores as before; an f32 conv whose staged
     rows do not fit (W = 128, cin = 160) stays on FMA; K1's f32 backward
-    stays on its FMA kernels (it does not run on K2's f32 kernels yet)."""
+    runs on K2's f32 kernels (3xTF32) as its bf16 backward runs on K2's
+    bf16 ones."""
     k1 = fake_libs
     for cin, cout in WIDTHS:
         _, w, m = _inputs(5, (1, 1, 1, cin), cout)
@@ -234,7 +235,7 @@ def test_f32_routes_take_3xtf32_at_the_5x5_widths(fake_libs, n):
     z = torch.empty(32, 16, 16, 32)
     ws = [torch.empty(3, 3, 32, 160), torch.empty(3, 3, 160, 160),
           torch.empty(3, 3, 160, 64)]
-    assert k1.bwd_route(z, ws) == (("fma", "fma"),) * 3
+    assert k1.bwd_route(z, ws) == (("3xtf32", "3xtf32"),) * 3
     assert k1.bwd_route(z.bfloat16(), [w.bfloat16() for w in ws]) == (
         ("wgmma", "wgmma"),) * 3
 
