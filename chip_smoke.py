@@ -9,16 +9,18 @@
                                             # k1_bwd_f32, f32_step,
                                             # f32_chunk, k2_fwd_f32,
                                             # k2_bwd_f32, f32_chunk_5x5,
-                                            # k2_fwd)
+                                            # k2_fwd, k4_fwd, k4_bwd)
 
 Phases, any failure exits non-zero:
 
 1. Device and build: the card's name and power limit, then the CUDA
    kernels (K1 forward ``ar_stack.cu`` and backward ``ar_stack_bwd.cu``,
-   K2 forward ``masked_conv.cu`` and backward ``masked_conv_bwd.cu``, one
-   nvcc each for sm_90a, all started together) and the Triton kernels (K3
-   and K4 forward and backward, K5) are built from the sources beside this
-   script, with their build seconds and ptxas register and spill lines.
+   K2 forward ``masked_conv.cu`` and backward ``masked_conv_bwd.cu``, K4
+   forward and backward ``disc_logistic.cu``, one nvcc each for sm_90a,
+   all started together) and the Triton kernels (K3 forward and backward,
+   K5) are built from the sources beside this script, with their build
+   seconds and ptxas register and spill lines; K4 is launched once on a
+   tiny input.
 2. The main path's config: the CIFAR paper config (``--hpconfig
    depth=1,num_blocks=20,kl_min=0.25,learning_rate=0.002,batch_size=32``:
    z=32, h=160, 20 IAF layers, depth_ar=2, bf16 convs) with random weights
@@ -34,7 +36,10 @@ Phases, any failure exits non-zero:
    contiguous copies; its device time per call is listed by kernel
    (weight pack, main kernel), at N = 1024 and at the training shape
    (the chunk's first 32 images with the pre-activations written, heads
-   and pre-activations held to the twin's at 2e-2 of max).
+   and pre-activations held to the twin's at 2e-2 of max). K4 (CUDA, each
+   row split over ``dl_plan``'s S blocks of a cluster) is held to its twin
+   at 1e-5 per row, gives the same bits on two calls, and lists its
+   device kernels per call and its device time at every S.
    One chunk is then profiled (device time by kernel name).
 4. Port vs plain on a small input: one f32 eval forward on the card
    (kernels) against the same forward on the CPU (twins), same noise.
@@ -86,7 +91,11 @@ Phases, any failure exits non-zero:
    (``bwd_route``), give the same bits on two calls and list its device
    time per call by kernel; its dgrad chain (with the weight pack and the
    glue passes) and its wgrad (with the reduce) are timed apart, and the
-   glue and pack kernels are held to their twins.
+   glue and pack kernels are held to their twins. K4's backward must be
+   one device kernel a call and give the same bits on two calls; it is
+   timed at every S beside an empty kernel on its grid (the launch
+   floor). K3's and K4's forward kernels are held to their twins and
+   timed on the same step's inputs (batch 32) too.
 8. One f32 training step of the paper config at batch 4, card (kernels)
    against CPU (twins), same params, batch and noise: the loss, every
    gradient leaf and every updated parameter and EMA leaf are compared.
@@ -635,26 +644,54 @@ def kernel_phase(ops, cap, device) -> list[dict]:
 
     # K4: the chunk's likelihood
     mean, logscale, sample = cap["disc_logistic_logp"]
+    rows.append(dict(
+        name="disc_logistic_logp", route="cuda",
+        source="iaf_torch/ops/csrc/disc_logistic.cu",
+        replaces="iaf_tpu/ops/fused.py:103",
+        **k4_forward(ops, mean, logscale, sample, "K4")))
+    return rows
+
+
+def k4_forward(ops, mean, logscale, sample, label: str) -> dict:
+    """K4's forward on these inputs: held to its twin at 1e-5 per row, the
+    same bits on two calls, its device kernels per call, timed by events
+    and by device time (also at every split S) beside the twin; the
+    bound from the bytes (each input once, the sums out) and 15 FP32
+    operations an element."""
+    import torch
+    fused = importlib.import_module("iaf_torch.ops.fused")
+    n, row_len = mean.shape[0], mean[0].numel()
+    plan = ops.dl_plan(n, row_len)
+    call = lambda: ops.disc_logistic_logp(mean, logscale, sample)  # noqa: E731
     with torch.inference_mode():
-        got = ops.disc_logistic_logp(mean, logscale, sample)
+        got = call()
+        check(torch.equal(got, call()), f"{label}: two calls differ")
         ref = ops.disc_logistic_ref(mean, logscale, sample)
         err = float((got - ref).abs().max())
         rel = float(((got - ref).abs() / ref.abs()).max())
-        print(f"[K4] disc_logistic_logp {tuple(mean.shape)}: max abs err "
-              f"{err:.3e} (rel {rel:.3e})")
-        check(rel <= 1e-5, f"K4 rel err {rel} > 1e-5")
-        ms = cuda_ms(lambda: ops.disc_logistic_logp(mean, logscale, sample))
-        dev_ms = device_ms(lambda: ops.disc_logistic_logp(mean, logscale,
-                                                          sample))
+        print(f"[{label}] disc_logistic_logp {tuple(mean.shape)}, S = {plan}"
+              f": max abs err {err:.3e} (rel {rel:.3e}), two calls bitwise "
+              "equal")
+        check(rel <= 1e-5, f"{label} rel err {rel} > 1e-5")
+        per_call = _by_kernel(label, call)
+        ms = cuda_ms(call)
+        dev_ms = device_ms(call)
+        by_split = {s_: device_ms(lambda s_=s_: fused._dl_fwd(
+            mean, logscale, sample, 1.0 / 256.0, splits=s_))
+            for s_ in (1, 2, 4, 8)}
         plain = cuda_ms(lambda: ops.disc_logistic_ref(mean, logscale, sample))
     moved = nbytes(mean, sample, got, logscale)
     b_ms, b_by = bound_ms(15 * mean.numel(), "float32", moved)
-    rows.append(dict(
-        name="disc_logistic_logp", route="triton",
-        source="iaf_torch/ops/fused.py", replaces="iaf_tpu/ops/fused.py:103",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, device_ms=dev_ms, mbytes=moved / 1e6))
-    return rows
+    print(f"[{label}] N={n}: by events {ms:.4f} ms, by device time "
+          f"{dev_ms:.4f} ms ({per_call} device launches a call; by S "
+          + ", ".join(f"{k} {v:.4f}" for k, v in by_split.items())
+          + f"), plain {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+          f"{100 * b_ms / dev_ms:.0f} % of it)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, device_ms=dev_ms,
+                mbytes=moved / 1e6, splits=plan,
+                device_launches_per_call=per_call,
+                splits_device_ms=by_split)
 
 
 def profile_phase(label: str, fn) -> dict:
@@ -726,7 +763,8 @@ def build_phase(ops, device) -> None:
     import torch
     from iaf_torch.ops import _build
     t0 = time.perf_counter()
-    names = ("ar_stack", "ar_stack_bwd", "masked_conv", "masked_conv_bwd")
+    names = ("ar_stack", "ar_stack_bwd", "masked_conv", "masked_conv_bwd",
+             "disc_logistic")
     errors: dict[str, str] = {}
 
     def build(name):
@@ -760,9 +798,9 @@ def build_phase(ops, device) -> None:
                           [a.clone()], one[0] + 1e-3, beta1=0.9, beta2=0.999,
                           eps=1e-8, polyak_decay=0.999)
     torch.cuda.synchronize()
-    print(f"[build] triton K3, K4 (forward and backward) and K5 first "
-          f"launches {time.perf_counter() - t1:.1f} s; all builds "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[build] triton K3 (forward and backward) and K5 first launches, "
+          f"with K4's CUDA kernels, {time.perf_counter() - t1:.1f} s; all "
+          f"builds {time.perf_counter() - t0:.1f} s")
     _triton_registers()
 
 
@@ -1139,28 +1177,96 @@ def backward_kernel_phase(ops, cap) -> list[dict]:
 
     # K4 backward, the step's likelihood
     mean, ls, sample, g = cap["disc_logistic_logp"][:4]
-    dmean, dls = ops.disc_logistic_bwd(mean, ls, sample, g)
+    rows.append(dict(
+        name="disc_logistic_logp_bwd", route="cuda",
+        source="iaf_torch/ops/csrc/disc_logistic.cu",
+        replaces="iaf_tpu/ops/fused.py:148",
+        **k4_backward(ops, mean, ls, sample, g)))
+    return rows
+
+
+def k4_backward(ops, mean, ls, sample, g) -> dict:
+    """K4's backward on these inputs against autograd of its twin (dmean
+    within 1e-5 of its max, dlogscale at rel 1e-5), the same bits on two
+    calls, one device kernel a call, timed by events and by device time
+    (also at every split S) beside the twin's backward, an empty kernel
+    on the same grid and clusters (the launch floor) and the bound."""
+    import torch
+    fused = importlib.import_module("iaf_torch.ops.fused")
+    n, row_len = mean.shape[0], mean[0].numel()
+    plan = ops.dl_plan(n, row_len)
+    call = lambda: ops.disc_logistic_bwd(mean, ls, sample, g)  # noqa: E731
+    dmean, dls = call()
+    again = call()
+    check(torch.equal(dmean, again[0]) and torch.equal(dls, again[1]),
+          "K4 bwd: two calls differ")
     rmean, rls = ops.disc_logistic_bwd_ref(mean, ls, sample, g)
     err, rel = _rel_err(dmean, rmean)
     rel_ls = float((dls - rls).abs().max() / rls.abs().max())
-    print(f"[K4 bwd] disc_logistic_bwd {tuple(mean.shape)}: dmean max abs "
-          f"err {err:.3e} ({rel:.3e} of max), dlogscale {float(dls):.6e} vs "
-          f"{float(rls):.6e} (rel {rel_ls:.3e})")
+    print(f"[K4 bwd] disc_logistic_bwd {tuple(mean.shape)}, S = {plan}: "
+          f"dmean max abs err {err:.3e} ({rel:.3e} of max), dlogscale "
+          f"{float(dls):.6e} vs {float(rls):.6e} (rel {rel_ls:.3e}); two "
+          "calls bitwise equal")
     check(rel <= 1e-5, f"K4 bwd dmean {rel} of max > 1e-5")
     check(rel_ls <= 1e-5, f"K4 bwd dlogscale rel err {rel_ls} > 1e-5")
-    ms = cuda_ms(lambda: ops.disc_logistic_bwd(mean, ls, sample, g))
-    dev_ms = device_ms(lambda: ops.disc_logistic_bwd(mean, ls, sample, g))
+    per_call = _by_kernel("K4 bwd", call)
+    check(per_call == 1, f"K4 bwd puts {per_call} kernels on the card a "
+          "call, not 1")
+    ms = cuda_ms(call)
+    dev_ms = device_ms(call)
+    by_split = {s_: device_ms(lambda s_=s_: ops.disc_logistic_bwd(
+        mean, ls, sample, g, splits=s_)) for s_ in (1, 2, 4, 8)}
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = fused._dl_lib()
+    check(lib.dl_launch_floor(n, plan, stream) == 0, "empty kernel failed")
+    floor = device_ms(lambda: lib.dl_launch_floor(n, plan, stream))
     leaves = [t.detach().clone().requires_grad_() for t in (mean, ls)]
     plain = _backward_ms(lambda m_, l_: ops.disc_logistic_ref(m_, l_, sample),
                          leaves, g)
     moved = nbytes(mean, sample, g, ls, dmean, dls)
     b_ms, b_by = bound_ms(40 * mean.numel(), "float32", moved)
-    rows.append(dict(
-        name="disc_logistic_logp_bwd", route="triton",
-        source="iaf_torch/ops/fused.py", replaces="iaf_tpu/ops/fused.py:148",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, device_ms=dev_ms, mbytes=moved / 1e6))
-    return rows
+    print(f"[K4 bwd] batch {n}: by events {ms:.4f} ms, by device time "
+          f"{dev_ms:.4f} ms ({per_call} device launch a call; by S "
+          + ", ".join(f"{k} {v:.4f}" for k, v in by_split.items())
+          + f"), an empty kernel on the same grid {floor:.4f} ms, the twin's "
+          f"backward {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, device_ms=dev_ms,
+                mbytes=moved / 1e6, splits=plan,
+                device_launches_per_call=per_call, splits_device_ms=by_split,
+                launch_floor_device_ms=floor)
+
+
+def forward_b32_phase(ops, cap, rows) -> None:
+    """K3's and K4's forward kernels on one training step's inputs (batch
+    32; the inputs of the forwards whose backward ``cap`` holds): K3 held
+    to its twin at 1e-6 (1 + |ref|) and timed beside its bound, K4 as
+    ``k4_forward``; the numbers go into the K3 and K4 rows under
+    ``b32_``."""
+    import torch
+    by_name = {r["name"]: r for r in rows}
+    a = cap["iaf_update"][0]
+    with torch.inference_mode():
+        got = ops.iaf_update(*a)
+        ref = ops.iaf_update_ref(*a)
+        err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+        check(all(bool(((x - y).abs() <= 1e-6 * (1 + y.abs())).all())
+                  for x, y in zip(got, ref)),
+              f"K3 b32 err {err} beyond 1e-6 * (1 + |ref|)")
+        call = lambda: ops.iaf_update(*a)  # noqa: E731
+        k3 = dict(max_abs_err=err, ms=cuda_ms(call), device_ms=device_ms(call),
+                  plain_ms=cuda_ms(lambda: ops.iaf_update_ref(*a)))
+    k3["bound_ms"], k3["bound_by"] = bound_ms(4 * a[0].numel(), "float32",
+                                              nbytes(*a, *got))
+    print(f"[K3 b32] iaf_update {tuple(a[0].shape)}: max abs err {err:.3e}; "
+          f"by events {k3['ms']:.4f} ms, by device time "
+          f"{k3['device_ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms; bound "
+          f"{k3['bound_ms']:.4f} ms ({k3['bound_by']}, "
+          f"{100 * k3['bound_ms'] / k3['device_ms']:.0f} % of it)")
+    k4 = k4_forward(ops, *cap["disc_logistic_logp"][:3], "K4 b32")
+    for name, got in (("iaf_update", k3), ("disc_logistic_logp", k4)):
+        by_name[name].update({f"b32_{k}": v for k, v in got.items()
+                              if k not in ("library_ms",)})
 
 
 def adamax_phase(ops, cfg, state) -> dict:
@@ -2200,6 +2306,7 @@ def run() -> dict:
     cap = capture_train_step(
         ops, lambda: ts.train_step(tcfg, tstate, 3, tbatch))
     rows += backward_kernel_phase(ops, cap)
+    forward_b32_phase(ops, cap, rows)
     rows.append(adamax_phase(ops, tcfg, tstate))
     del cap, tstate
     torch.cuda.empty_cache()
@@ -2436,6 +2543,47 @@ def _ab_f32_step(ops, k1) -> dict:
                      err, 3)}
 
 
+def _k4_inputs(n: int, seed: int):
+    """K4's inputs at the paper config's image size from a seed, on the
+    card: samples on bin edges (images / 256 - 0.5), means near them, the
+    log-scale at the model's init (0), and an upstream gradient a row."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    sample = torch.randint(0, 256, (n, 32, 32, 3), generator=gen) / 256.0 - 0.5
+    mean = sample + 0.05 * torch.randn(sample.shape, generator=gen)
+    g = torch.randn(n, generator=gen)
+    return (mean.cuda(), torch.zeros(1, device="cuda"), sample.cuda(),
+            g.cuda())
+
+
+def _ab_k4_fwd(ops, k1) -> dict:
+    """A/B case ``k4_fwd``: K4's forward at the eval shape (N = 1024) and
+    at batch 32, inputs from a seed, the largest relative error of a row
+    against the twin."""
+    import torch
+    out = {}
+    for label, n in (("eval", 1024), ("b32", 32)):
+        mean, ls, sample, _ = _k4_inputs(n, 10 + n)
+        with torch.inference_mode():
+            got = ops.disc_logistic_logp(mean, ls, sample)
+            ref = ops.disc_logistic_ref(mean, ls, sample)
+        out[label] = (lambda m=mean, l_=ls, s_=sample:  # noqa: E731
+                      ops.disc_logistic_logp(m, l_, s_),
+                      float(((got - ref).abs() / ref.abs()).max()))
+    return out
+
+
+def _ab_k4_bwd(ops, k1) -> dict:
+    """A/B case ``k4_bwd``: K4's backward at batch 32, inputs and upstream
+    gradient from a seed, the error (dmean over its max, dlogscale
+    relative, the larger) against autograd of the twin."""
+    mean, ls, sample, g = _k4_inputs(32, 12)
+    got = ops.disc_logistic_bwd(mean, ls, sample, g)
+    ref = ops.disc_logistic_bwd_ref(mean, ls, sample, g)
+    err = max(_rel_err(a, b)[1] for a, b in zip(got, ref))
+    return {"b32": (lambda: ops.disc_logistic_bwd(mean, ls, sample, g), err)}
+
+
 # The A/B cases: each takes (ops, the K1 module) of the tree under test
 # and returns {label: (a call of the kernel's wrapper or of the path
 # around it, its relative error against the twin[, calls to time, 20 if
@@ -2449,7 +2597,9 @@ AB_CASES = {"k1_fwd": _ab_k1_fwd,
             "k2_fwd": lambda ops, k1: _ab_k2_fwd(ops, k1, f32=False),
             "k2_bwd_f32": _ab_k2_bwd_f32,
             "f32_chunk_5x5": lambda ops, k1: _ab_f32_chunk(
-                ops, k1, hp=PAPER5, kernel="masked_conv2d")}
+                ops, k1, hp=PAPER5, kernel="masked_conv2d"),
+            "k4_fwd": _ab_k4_fwd,
+            "k4_bwd": _ab_k4_bwd}
 
 # One process per tree for ``ab``: the iaf_torch beside argv[1], timed
 # with this script's helpers (argv[2]) on case argv[3].

@@ -14,8 +14,10 @@ kernel too.
   (``csrc/masked_conv_bwd.cu``), twin ``masked_conv2d_bwd_ref``
 - K3 ``iaf_update`` (Triton), twin ``iaf_update_ref``; backward
   ``iaf_update_bwd``, twin ``iaf_update_bwd_ref``
-- K4 ``disc_logistic_logp`` (Triton), twin ``disc_logistic_ref``; backward
-  ``disc_logistic_bwd``, twin ``disc_logistic_bwd_ref``
+- K4 ``disc_logistic_logp`` (CUDA C++, ``csrc/disc_logistic.cu``; each row
+  split over ``dl_plan(rows, row_len)`` blocks of a cluster), twin
+  ``disc_logistic_ref``; backward ``disc_logistic_bwd`` (the same source,
+  one launch), twin ``disc_logistic_bwd_ref``
 - K5 ``adamax_polyak`` (Triton, one launch over all leaves), twin
   ``adamax_polyak_ref``
 """
@@ -37,6 +39,7 @@ from iaf_torch.ops.fused import (  # noqa: F401
     disc_logistic_bwd_ref,
     disc_logistic_logp,
     disc_logistic_ref,
+    dl_plan,
     iaf_update,
     iaf_update_bwd,
     iaf_update_bwd_ref,

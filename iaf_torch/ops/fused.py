@@ -1,5 +1,6 @@
-"""K3 (IAF update) and K4 (discretized-logistic log-likelihood) as Triton
-kernels, forward and backward, each with its plain PyTorch twin.
+"""K3 (IAF update) as a Triton kernel and K4 (discretized-logistic
+log-likelihood) as a CUDA C++ kernel, forward and backward, each with its
+plain PyTorch twin.
 
 K3 replaces ``iaf_tpu/ops/fused.py:_iaf_kernel``: z' = (z - m) * exp(-s)
 and logqs' = logqs + s, elementwise, both outputs written in one pass. At
@@ -11,50 +12,56 @@ analytic ``_iaf_bwd``: dz = g_z * exp(-s), dm = -dz, ds = -g_z * z' + g_lq,
 dlogqs = g_lq) is the same kind of pass: it reads g_z, z' and s and writes
 dz, dm and ds (g_lq passes through untouched), 6 x 4 bytes per element.
 
-K4 replaces ``iaf_tpu/ops/fused.py:_dl_kernel``: per example, the sum over
-H*W*C of log(sigmoid(x + b/s) - sigmoid(x) + 1e-7) with
-x = (floor(sample / b) * b - mean) / s. At the eval shape (2 x [1024, 3072]
-f32 in, [1024] out) it moves ~25 MB (~7.5 us at 3.35 TB/s) and does ~30
-operations per element, so it too is bound by bytes. One program per
-example loops over its row in power-of-two blocks and keeps the partial
-sums in registers, so the row is read once and only the sum is written.
-``logscale`` is read from a one-element device tensor (the Pallas kernel's
-SMEM scalar operand) so the host never waits on the device for it, and
-``binsize`` is a scalar argument. The terms follow the twin's arithmetic
-step for step, with correctly rounded divisions (``div_rn``) and no
-contraction into FMAs: a sample on a bin edge must snap to that bin, and
-sigmoid(x + b/s) - sigmoid(x) cancels, so an ulp of difference would be
-amplified. Its backward (``_dl_bwd``, the twin's VJP) is one program per
-example row too: it reads mean and sample once, writes dmean,
-and keeps the row's share of dlogscale in registers; the [N] row partials
-are then summed. With D = sigmoid(x + b/s) - sigmoid(x) + 1e-7 and
-sigmoid' = sigmoid * (1 - sigmoid), dmean = g * (sigmoid'(lo) -
-sigmoid'(hi)) / (D * s) and dlogscale = sum g * (sigmoid'(lo) * x -
-sigmoid'(hi) * (x + b/s)) / D; the floor has no gradient.
+K4 replaces ``iaf_tpu/ops/fused.py:_dl_kernel`` and its backward
+``_dl_bwd``: per example, the sum over H*W*C of log(sigmoid(x + b/s) -
+sigmoid(x) + 1e-7) with x = (floor(sample / b) * b - mean) / s. Its kernels
+are ``csrc/disc_logistic.cu`` (the design and its bound are described
+there): each row is split over a thread-block cluster of ``dl_plan(rows,
+row_len)`` blocks, the sums are taken in a fixed order, and the backward
+writes dmean and sums dlogscale over all rows in the same launch (a grid
+ticket on an int32 counter that the wrapper allocates once per device and
+the kernel sets back to 0). ``logscale`` is read from a one-element device
+tensor (the Pallas kernel's SMEM scalar operand), so the host never waits
+on the device for it. The terms follow the twin's arithmetic step for
+step, with correctly rounded divisions and no contraction into FMAs; for a
+bin size that is a power of two (``_pow2_binsize``) the kernel takes
+sample * (1/b) for sample / b, the same float. With D = sigmoid(x + b/s) -
+sigmoid(x) + 1e-7 and sigmoid' = sigmoid * (1 - sigmoid), dmean = g *
+(sigmoid'(lo) - sigmoid'(hi)) / (D * s) and dlogscale = sum g *
+(sigmoid'(lo) * x - sigmoid'(hi) * (x + b/s)) / D; the floor has no
+gradient.
 
 Under autograd the wrappers are ``torch.autograd.Function``s whose
 backward launches the backward kernel; on CPU tensors they are the twins,
-which autograd differentiates.
+which autograd differentiates. On a CUDA tensor a wrapper launches its
+kernel or raises; nothing falls back.
 
-Triton is imported inside the launching functions: the package imports
-(and the CPU tests run the twins) where Triton is absent.
+Triton is imported, and the CUDA library built, inside the launching
+functions: the package imports (and the CPU tests run the twins) where
+neither Triton nor nvcc is present.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 import os
 
 import torch
 
 from iaf_torch.distributions import discretized_logistic
 from iaf_torch.ops import _build
+from iaf_torch.ops.ar_stack import _raise_on
 
 launches = {"iaf_update": 0, "disc_logistic_logp": 0,
             "iaf_update_bwd": 0, "disc_logistic_logp_bwd": 0}
 
 _IAF_BLOCK = 1024
-_DL_BLOCK = 1024
+_DL_THREADS = 256       # disc_logistic.cu DL_THREADS: threads a block
+_DL_MAX_SPLITS = 8      # blocks a row's cluster may have (the portable most)
+_DL_MIN_PER_BLOCK = 2 * _DL_THREADS  # elements a block takes at least
+_SMS = 132              # streaming multiprocessors of an H100 SXM
 
 
 def iaf_update_ref(z, m, s, logqs):
@@ -123,66 +130,7 @@ def _kernels():
         tl.store(dm_ptr + offs, -dz, mask=msk)
         tl.store(ds_ptr + offs, glq - gz * zo, mask=msk)
 
-    @triton.jit
-    def _dl_terms(mean, smp, scale, step, binsize):
-        # the twin's arithmetic, operation for operation: x and the upper
-        # edge divide by the scale, and sigmoid is 1 / (1 + exp(-v)) with
-        # correctly rounded divisions. D = sigmoid(hi) - sigmoid(lo)
-        # cancels (b/s = 1/256 at logscale 0), so an ulp of difference in
-        # x or a sigmoid would come out ~250 times larger.
-        x = libdevice.div_rn(
-            libdevice.floor(libdevice.div_rn(smp, binsize)) * binsize - mean,
-            scale)
-        hi = libdevice.div_rn(1.0, 1.0 + libdevice.exp(-(x + step)))
-        lo = libdevice.div_rn(1.0, 1.0 + libdevice.exp(-x))
-        return x, hi, lo
-
-    @triton.jit
-    def dl_kernel(mean_ptr, sample_ptr, logscale_ptr, out_ptr, row_len,
-                  binsize, BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        scale = libdevice.exp(tl.load(logscale_ptr))
-        step = libdevice.div_rn(binsize, scale)
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        base = row * row_len
-        for start in range(0, row_len, BLOCK):
-            offs = start + tl.arange(0, BLOCK)
-            msk = offs < row_len
-            mean = tl.load(mean_ptr + base + offs, mask=msk, other=0.0)
-            smp = tl.load(sample_ptr + base + offs, mask=msk, other=0.0)
-            x, hi, lo = _dl_terms(mean, smp, scale, step, binsize)
-            logp = libdevice.log(hi - lo + 1e-7)
-            acc += tl.where(msk, logp, 0.0)
-        tl.store(out_ptr + row, tl.sum(acc, axis=0))
-
-    @triton.jit
-    def dl_bwd_kernel(mean_ptr, sample_ptr, logscale_ptr, g_ptr, dmean_ptr,
-                      part_ptr, row_len, binsize, BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        scale = libdevice.exp(tl.load(logscale_ptr))
-        step = libdevice.div_rn(binsize, scale)
-        g = tl.load(g_ptr + row)
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        base = row * row_len
-        for start in range(0, row_len, BLOCK):
-            offs = start + tl.arange(0, BLOCK)
-            msk = offs < row_len
-            mean = tl.load(mean_ptr + base + offs, mask=msk, other=0.0)
-            smp = tl.load(sample_ptr + base + offs, mask=msk, other=0.0)
-            x, hi, lo = _dl_terms(mean, smp, scale, step, binsize)
-            gd = libdevice.div_rn(tl.zeros([BLOCK], tl.float32) + g,
-                                  hi - lo + 1e-7)
-            # sigmoid' as autograd takes it, (g * (1 - y)) * y
-            d_hi = (gd * (1.0 - hi)) * hi        # d/d(x + b/s)
-            d_lo = (-gd * (1.0 - lo)) * lo       # d/dx
-            dx = d_hi + d_lo
-            tl.store(dmean_ptr + base + offs, -libdevice.div_rn(dx, scale),
-                     mask=msk)
-            # d(x)/d(logscale) = -x, d(x + b/s)/d(logscale) = -(x + b/s)
-            acc += tl.where(msk, -(dx * x + d_hi * step), 0.0)
-        tl.store(part_ptr + row, tl.sum(acc, axis=0))
-
-    return iaf_kernel, iaf_bwd_kernel, dl_kernel, dl_bwd_kernel
+    return iaf_kernel, iaf_bwd_kernel
 
 
 def _cuda_inputs(name, *ts):
@@ -254,36 +202,116 @@ def iaf_update(z, m, s, logqs):
     return _iaf_fwd(z, m, s, logqs)
 
 
-def _dl_fwd(mean, logscale, sample, binsize):
+def _dl_chunk(row_len: int, splits: int) -> int:
+    """Elements of a row that each block of a ``splits``-block cluster
+    takes (disc_logistic.cu ``dl_chunk``): a multiple of 4, so that every
+    block's slice of an aligned row is aligned."""
+    return (-(-row_len // splits) + 3) // 4 * 4
+
+
+def dl_plan(rows: int, row_len: int) -> int:
+    """Blocks S (1, 2, 4 or 8: one thread-block cluster) over which K4
+    splits each of ``rows`` rows of ``row_len`` elements: the fewest that
+    give the card two blocks per SM, at most 8, and fewer where a block
+    would take under ``_DL_MIN_PER_BLOCK`` elements or none."""
+    splits = 1
+    while splits < _DL_MAX_SPLITS and rows * splits < 2 * _SMS:
+        splits *= 2
+    while splits > 1 and (row_len < splits * _DL_MIN_PER_BLOCK or (
+            splits - 1) * _dl_chunk(row_len, splits) >= row_len):
+        splits //= 2
+    return splits
+
+
+def _pow2_binsize(binsize: float) -> bool:
+    """Whether ``binsize`` is a power of two whose reciprocal, like
+    itself, is a normal float32: then sample / b and sample * (1/b) are
+    the same float for every sample (both exact scalings)."""
+    mant, exp = math.frexp(binsize)
+    return mant == 0.5 and -126 <= exp - 1 <= 126
+
+
+@functools.cache
+def _dl_lib() -> ctypes.CDLL:
+    lib = _build.load("disc_logistic")
+    lib.dl_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dl_bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dl_launch_floor.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
+    for fn in (lib.dl_fwd, lib.dl_bwd, lib.dl_launch_floor):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _dl_counter(index: int) -> torch.Tensor:
+    """The backward's grid ticket on card ``index``: one int32, zeroed once
+    here and set back to 0 by every launch that used it."""
+    return torch.zeros((1,), dtype=torch.int32,
+                       device=torch.device("cuda", index))
+
+
+def _dl_shape(name, mean, sample, logscale, splits):
+    """(rows, row_len, splits) of a K4 call; ``splits`` None takes
+    ``dl_plan``'s."""
+    if mean.shape != sample.shape or logscale.numel() != 1:
+        raise ValueError(f"{name}: mean {tuple(mean.shape)} and sample "
+                         f"{tuple(sample.shape)} must match, logscale hold "
+                         "one value")
+    rows = mean.shape[0] if mean.dim() else 0
+    row_len = mean.numel() // rows if rows else 0
+    if row_len == 0 or row_len >= 2**31:
+        raise ValueError(f"{name}: rows of {tuple(mean.shape[1:])} elements")
+    if splits is None:
+        splits = dl_plan(rows, row_len)
+    if splits not in (1, 2, 4, 8) or rows * splits >= 2**31:
+        raise ValueError(f"{name}: {rows} rows in {splits} splits each")
+    return rows, row_len, splits
+
+
+def _dl_fwd(mean, logscale, sample, binsize, splits=None):
     _cuda_inputs("disc_logistic_logp", mean, sample, logscale)
-    dl_kernel = _kernels()[2]
-    n = mean.shape[0]
-    out = torch.empty((n,), device=mean.device, dtype=torch.float32)
+    rows, row_len, splits = _dl_shape("disc_logistic_logp", mean, sample,
+                                      logscale, splits)
+    out = torch.empty((rows,), device=mean.device, dtype=torch.float32)
     with torch.cuda.device(mean.device):
-        dl_kernel[(n,)](mean, sample, logscale, out, mean[0].numel(),
-                        float(binsize), BLOCK=_DL_BLOCK, num_warps=4,
-                        enable_fp_fusion=False)
+        err = _dl_lib().dl_fwd(
+            mean.data_ptr(), sample.data_ptr(), logscale.data_ptr(),
+            out.data_ptr(), rows, row_len, splits, float(binsize),
+            int(_pow2_binsize(binsize)),
+            torch.cuda.current_stream(mean.device).cuda_stream)
+    _raise_on(err, "disc_logistic_logp")
     launches["disc_logistic_logp"] += 1
     return out
 
 
 def disc_logistic_bwd(mean, logscale, sample, g,
-                      binsize: float = 1.0 / 256.0):
+                      binsize: float = 1.0 / 256.0, splits=None):
     """K4's backward kernel: (dmean, dlogscale) for the upstream gradient
     ``g`` [N]; ``logscale`` is a one-element tensor and dlogscale has its
-    shape. The [N] per-row partials of dlogscale are summed in a second
-    pass."""
+    shape. One launch: the rows' shares of dlogscale are summed in it.
+    ``splits`` forces the blocks a row is split over (``dl_plan``'s if
+    None)."""
     _cuda_inputs("disc_logistic_logp_bwd", mean, sample, logscale, g)
-    dl_bwd_kernel = _kernels()[3]
-    n = mean.shape[0]
+    rows, row_len, splits = _dl_shape("disc_logistic_logp_bwd", mean,
+                                      sample, logscale, splits)
+    if g.numel() != rows:
+        raise ValueError("disc_logistic_bwd: g must hold one value a row")
     dmean = torch.empty_like(mean)
-    part = torch.empty((n,), device=mean.device, dtype=torch.float32)
+    dls = torch.empty(logscale.shape, device=mean.device, dtype=torch.float32)
+    part = torch.empty((rows,), device=mean.device, dtype=torch.float32)
     with torch.cuda.device(mean.device):
-        dl_bwd_kernel[(n,)](mean, sample, logscale, g, dmean, part,
-                            mean[0].numel(), float(binsize), BLOCK=_DL_BLOCK,
-                            num_warps=4, enable_fp_fusion=False)
+        err = _dl_lib().dl_bwd(
+            mean.data_ptr(), sample.data_ptr(), logscale.data_ptr(),
+            g.data_ptr(), dmean.data_ptr(), part.data_ptr(), dls.data_ptr(),
+            _dl_counter(mean.device.index).data_ptr(), rows, row_len, splits,
+            float(binsize), int(_pow2_binsize(binsize)),
+            torch.cuda.current_stream(mean.device).cuda_stream)
+    _raise_on(err, "disc_logistic_logp_bwd")
     launches["disc_logistic_logp_bwd"] += 1
-    return dmean, part.sum().reshape(logscale.shape)
+    return dmean, dls
 
 
 class _DiscLogistic(torch.autograd.Function):
