@@ -154,6 +154,38 @@ Phases, any failure exits non-zero:
    ``ARMultiConv2d`` on 64 images: launches exactly K1 = 0 and K2 = 17
    per forward, and the heads match K1's twin at 2e-2 (bf16) and 1e-5
    (f32, TF32 off) of the output's max.
+14. The serving modes on phase 9's logdir (its step-12 checkpoint, the
+   paper config in bf16), each entry point under PyTorch's default TF32
+   flags (as the CLI runs it) and counted (launches zeroed just before,
+   read just after): (a) ``train_lib.eval_loop`` with ``max_evals=1``,
+   k=256 and one batch of 16 writes one row of
+   ``eval_test_metrics.jsonl`` at step 12 and launches exactly K1 = K3
+   = 80, K4 = 4; (b) ``evaluate`` over one batch with a progress file,
+   then resumed from it to two batches, equals a straight 2-batch run
+   within 1e-6 relative (the difference printed), the file still there
+   after both (neither is a full pass); (c) ``reconstruct(num=16)``:
+   uint8 [16, 32, 32, 3], K1 = K3 = 20, K4 = 1, and the inputs of each
+   kernel's first call captured (N = 16) and held to its twin as in
+   phase 3 (K1 bf16 at 2e-2 of max, K3 at 1e-6 * (1 + |ref|), K4 at
+   1e-5 a row; each timed, a row of the kernels line); (d)
+   ``sample(num=16, temperature=[1.0, 0.5])``: no kernel launch, finite
+   images equal to ``cvae_sample``'s on the same key with TF32 off in
+   the whole process, the two tiles different, the seconds of a call
+   printed; (e) ``invert_check(batch=2)``: on the inputs it builds
+   (``train_lib.inversion_inputs``), the flow's largest move of z (the
+   error of an inverse that returns z' unchanged) above 1e-4, so that
+   the round-trip limit can fail; K1's f32 inputs captured from one
+   ``ar_fn`` call of the top layer (N = 2) on the 3xTF32 route held to
+   the f64 twin at 1e-5 of max and timed as in phase 6 (a row of the
+   kernels line), the exact inverse run only where it and Jacobi (D =
+   8192 sweeps each) are predicted under 120 s, the launches exactly K1
+   = 1 + D per Jacobi or exact inverse + the fixed point's sweeps, K3 =
+   1, K3's inputs (N = 2) captured and held to its twin as in (c);
+   ``err_jacobi`` and ``err_fixed_point`` (and ``err_exact``) under
+   1e-4; then the fixed-point inverse of the same z', card against the
+   CPU twins, within 1e-5 of max, the sweeps equal at a tolerance
+   halfway (in log) between the CPU's changes either side of 1e-6 and
+   at most one apart at 1e-6 itself (printed).
 
 Times: ``ms`` is by CUDA events around 20 back-to-back calls (what a
 caller waits, host included); ``device_ms`` (every kernel, and K1's and
@@ -165,8 +197,14 @@ The second-last line of standard output is the ``kernels`` JSON (the f32
 recipe's kernels rows of their own: K1's forward ``ar_stack_f32`` and
 backward ``ar_stack_bwd_f32``, their launches those of phase 6's runs,
 and K2's ``masked_conv2d_f32`` and ``masked_conv2d_bwd_f32``, those of
-phase 12's; each with the 3xTF32 bound and the FP32 floor), the last
-``{"ok": true, "device": {...}}``.
+phase 12's; each with the 3xTF32 bound and the FP32 floor; and
+phase 14's rows at the serving shapes: ``ar_stack_recon``,
+``iaf_update_recon`` and ``disc_logistic_logp_recon`` at N = 16, their
+launches those of one ``reconstruct``, and ``ar_stack_f32_inversion``
+(K1 in f32) and ``iaf_update_inversion`` at N = 2, their launches those
+of one ``invert_check``), the last ``{"ok": true,
+"device": {...}}``. The line before it, ``{"main": ...}``, sums up each
+path, phase 14's under ``"serve"``.
 """
 
 from __future__ import annotations
@@ -331,11 +369,11 @@ def _f32_bound_text(b: dict, dev: float) -> str:
             f"floor {b['fp32_floor_ms']:.4f} ms")
 
 
-def capture_inputs(ops, fn):
-    """Run ``fn`` with spies on the three wrappers; return each wrapper's
-    first call's arguments (cloned)."""
+def capture_inputs(ops, fn,
+                   names=("ar_stack", "iaf_update", "disc_logistic_logp")):
+    """Run ``fn`` with spies on the wrappers ``names``; return each
+    wrapper's first call's arguments (cloned)."""
     import torch
-    names = ("ar_stack", "iaf_update", "disc_logistic_logp")
     originals = {n: getattr(ops, n) for n in names}
     seen: dict[str, tuple] = {}
 
@@ -560,6 +598,72 @@ def k1_bwd_fma():
         ar_mod._bwd_route = original
 
 
+def k1_forward(ops, ar_mod, z, ctx, ws, bs, masks, label: str) -> dict:
+    """K1's bf16 forward on these inputs: the tensor-core route, two calls
+    bitwise equal, within 2e-2 of the twin's max; its device kernels per
+    call, timed by events and by device time beside the twin and cuDNN's
+    three convs; the bound (bf16 operations, the live weight taps)."""
+    import torch
+    n, hh, ww, cz = z.shape
+    route = ar_mod.fwd_route(z.dtype, ww, cz, ws[0].shape[-1],
+                             ws[-1].shape[-1])
+    check(route == "wgmma", f"{label} bf16 z{tuple(z.shape)} takes the "
+          f"{route} kernel, not the tensor-core one")
+    call = lambda: ops.ar_stack(z, ctx, ws, bs, masks)  # noqa: E731
+    with torch.inference_mode():
+        got = call()
+        check(torch.equal(got, call()), f"{label}: two bf16 calls differ")
+        ref = ops.ar_stack_ref(z, ctx, ws, bs)
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        print(f"[{label}] ar_stack z{tuple(z.shape)} ctx{tuple(ctx.shape)} "
+              f"-> {tuple(got.shape)} ({route}): bf16 max abs err "
+              f"{err:.3e} (rel {rel:.3e}), two calls bitwise equal")
+        check(rel <= 2e-2, f"{label} bf16 rel err {rel} > 2e-2")
+        per_call = _by_kernel(label, call)
+        ms = cuda_ms(call)
+        dev_ms = device_ms(call)
+        plain = cuda_ms(lambda: ops.ar_stack_ref(z, ctx, ws, bs))
+        lib = cuda_ms(lambda: k1_yardstick(z, ctx, ws, bs))
+        lib_dev = device_ms(lambda: k1_yardstick(z, ctx, ws, bs))
+    flops = 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
+    live_w = sum(5 * w[0, 0].numel() * w.element_size() for w in ws)
+    moved = nbytes(z, ctx, got, *bs) + live_w
+    b_ms, b_by = bound_ms(flops, "bfloat16", moved)
+    print(f"[{label}] N={n}: by events {ms:.4f} ms, by device time "
+          f"{dev_ms:.4f} ms ({per_call} device launches a call), cuDNN "
+          f"{lib_dev:.4f}, ratio {dev_ms / lib_dev:.3f}; bound {b_ms:.4f} ms "
+          f"({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib, device_ms=dev_ms,
+                library_device_ms=lib_dev, gflop=flops / 1e9,
+                mbytes=moved / 1e6, kernel_route=route,
+                device_launches_per_call=per_call)
+
+
+def k3_forward(ops, a, label: str) -> dict:
+    """K3's division update on these inputs: within 1e-6 * (1 + |ref|) of
+    its twin, timed by events and by device time beside the twin; the
+    bound from the bytes (each input once, both outputs)."""
+    import torch
+    with torch.inference_mode():
+        got = ops.iaf_update(*a)
+        ref = ops.iaf_update_ref(*a)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        ok = all(bool(((g - r).abs() <= 1e-6 * (1 + r.abs())).all())
+                 for g, r in zip(got, ref))
+        print(f"[{label}] iaf_update {tuple(a[0].shape)}: max abs err "
+              f"{err:.3e}")
+        check(ok, f"{label} err {err} beyond 1e-6 * (1 + |ref|)")
+        ms = cuda_ms(lambda: ops.iaf_update(*a))
+        dev_ms = device_ms(lambda: ops.iaf_update(*a))
+        plain = cuda_ms(lambda: ops.iaf_update_ref(*a))
+    b_ms, b_by = bound_ms(4 * a[0].numel(), "float32", nbytes(*a, *got))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, device_ms=dev_ms,
+                mbytes=nbytes(*a, *got) / 1e6)
+
+
 def kernel_phase(ops, cap, device) -> list[dict]:
     import torch
     rows = []
@@ -567,28 +671,14 @@ def kernel_phase(ops, cap, device) -> list[dict]:
     # K1: the AR chain of the first IAF step of the chunk (bf16 inputs)
     ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
     z, ctx, ws, bs, masks = cap["ar_stack"]
-    n, hh, ww, cz = z.shape
-    route = ar_mod.fwd_route(z.dtype, ww, cz, ws[0].shape[-1],
-                             ws[-1].shape[-1])
-    check(route == "wgmma", f"K1 bf16 z{tuple(z.shape)} takes the {route} "
-          "kernel, not the tensor-core one")
+    k1 = k1_forward(ops, ar_mod, z, ctx, ws, bs, masks, "K1")
     with torch.inference_mode():
-        got = ops.ar_stack(z, ctx, ws, bs, masks)
-        check(torch.equal(got, ops.ar_stack(z, ctx, ws, bs, masks)),
-              "K1: two bf16 calls differ")
-        ref = ops.ar_stack_ref(z, ctx, ws, bs)
-        err_bf16 = float((got - ref).abs().max())
-        rel_bf16 = err_bf16 / float(ref.abs().max())
         z32, ws32 = z.float(), [w.float() for w in ws]
         got32 = ops.ar_stack(z32, ctx, ws32, bs, masks)
         ref32 = ops.ar_stack_ref(z32, ctx, ws32, bs)
         err_f32 = float((got32 - ref32).abs().max())
         scale32 = max(1.0, float(ref32.abs().max()))
-        print(f"[K1] ar_stack z{tuple(z.shape)} ctx{tuple(ctx.shape)} -> "
-              f"{tuple(got.shape)} ({route}): bf16 max abs err "
-              f"{err_bf16:.3e} (rel {rel_bf16:.3e}), two calls bitwise "
-              f"equal; f32 max abs err {err_f32:.3e}")
-        check(rel_bf16 <= 2e-2, f"K1 bf16 rel err {rel_bf16} > 2e-2")
+        print(f"[K1] the same inputs in f32: max abs err {err_f32:.3e}")
         check(err_f32 <= 1e-4 * scale32, f"K1 f32 err {err_f32} > 1e-4")
         want, offsets = ar_mod.pack_fwd_ref(ws)
         for group in (ws, [w.contiguous() for w in ws]):
@@ -598,49 +688,18 @@ def kernel_phase(ops, cap, device) -> list[dict]:
         print(f"[K1] forward weight pack kernel, all convs (the model's "
               f"weights, contiguous: {ws[0].is_contiguous()}, and contiguous "
               f"copies): bitwise equal to its twin, offsets {offsets}")
-        call = lambda: ops.ar_stack(z, ctx, ws, bs, masks)  # noqa: E731
-        by_kernel = _by_kernel("K1", call)
-        ms = cuda_ms(call)
-        dev_ms = device_ms(call)
-        plain = cuda_ms(lambda: ops.ar_stack_ref(z, ctx, ws, bs))
-        lib = cuda_ms(lambda: k1_yardstick(z, ctx, ws, bs))
-        lib_dev = device_ms(lambda: k1_yardstick(z, ctx, ws, bs))
         ms32 = cuda_ms(lambda: ops.ar_stack(z32, ctx, ws32, bs, masks))
-    flops = 2 * n * hh * ww * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
-    live_w = sum(5 * w[0, 0].numel() * w.element_size() for w in ws)
-    moved = nbytes(z, ctx, got, *bs) + live_w
-    b_ms, b_by = bound_ms(flops, "bfloat16", moved)
-    print(f"[K1] N={n}: by events {ms:.4f} ms, by device time {dev_ms:.4f} "
-          f"ms ({by_kernel} device launches a call), cuDNN {lib_dev:.4f}, "
-          f"ratio {dev_ms / lib_dev:.3f}; bound {b_ms:.4f} ms ({b_by})")
     train = _k1_training_shape(ops, ar_mod, z, ctx, ws, bs)
     rows.append(dict(
         name="ar_stack", route="cuda", source="iaf_torch/ops/csrc/ar_stack.cu",
-        replaces="iaf_tpu/ops/ar_stack.py:115", max_abs_err=err_bf16,
-        max_abs_err_f32=err_f32, ms=ms, ms_f32=ms32, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib, device_ms=dev_ms,
-        library_device_ms=lib_dev, gflop=flops / 1e9, mbytes=moved / 1e6,
-        kernel_route=route, device_launches_per_call=by_kernel, **train))
+        replaces="iaf_tpu/ops/ar_stack.py:115", max_abs_err_f32=err_f32,
+        ms_f32=ms32, **k1, **train))
 
     # K3: the division update of the same IAF step
-    a = cap["iaf_update"]
-    with torch.inference_mode():
-        got = ops.iaf_update(*a)
-        ref = ops.iaf_update_ref(*a)
-        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        ok = all(bool(((g - r).abs() <= 1e-6 * (1 + r.abs())).all())
-                 for g, r in zip(got, ref))
-        print(f"[K3] iaf_update {tuple(a[0].shape)}: max abs err {err:.3e}")
-        check(ok, f"K3 err {err} beyond 1e-6 * (1 + |ref|)")
-        ms = cuda_ms(lambda: ops.iaf_update(*a))
-        dev_ms = device_ms(lambda: ops.iaf_update(*a))
-        plain = cuda_ms(lambda: ops.iaf_update_ref(*a))
-    b_ms, b_by = bound_ms(4 * a[0].numel(), "float32", nbytes(*a, *got))
     rows.append(dict(
         name="iaf_update", route="triton", source="iaf_torch/ops/fused.py",
-        replaces="iaf_tpu/ops/fused.py:43", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        device_ms=dev_ms, mbytes=nbytes(*a, *got) / 1e6))
+        replaces="iaf_tpu/ops/fused.py:43",
+        **k3_forward(ops, cap["iaf_update"], "K3")))
 
     # K4: the chunk's likelihood
     mean, logscale, sample = cap["disc_logistic_logp"]
@@ -2226,6 +2285,257 @@ def five_by_five_phases(ops, device, ds):
     return rows, eval_counts, counts, {"main": main, "train": summary}, f32
 
 
+@contextlib.contextmanager
+def _default_tf32():
+    """Inside the block PyTorch's default TF32 flags (on for cuDNN's convs,
+    off for matmuls), what a process of the CLI starts with; this script
+    turns both off for its twins."""
+    import torch
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
+    """Phase 14: the serving modes on phase 9's logdir (its step-12
+    checkpoint, the paper config in bf16), each entry point under
+    PyTorch's default TF32 flags. Returns (the kernels rows at the
+    serving shapes, each serving path's launch counts, the summary)."""
+    import numpy as np
+    import torch
+    from iaf_torch import train_lib
+    from iaf_torch.models import cvae
+    from iaf_torch.models.inversion import (invert_ar_fixed_point,
+                                            sweep_changes)
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    logdir = cfg.logdir
+    out = os.path.join(HERE, "build", "chip_smoke_serve")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    summary: dict = {}
+    layers = cfg.num_blocks * cfg.depth
+    per_chunk = {"ar_stack": layers, "iaf_update": layers,
+                 "disc_logistic_logp": 1}
+
+    def counted(label, fn, per: dict | None, times: int = 1):
+        """``fn``'s result, seconds and launch counts; with ``per`` the
+        counts must be exactly ``per`` x ``times``."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _default_tf32():
+            result = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        print(f"[serve] {label}: {secs:.3f} s, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        if per is not None:
+            want = _expect(counts, per, times)
+            check(counts == want, f"{label}: launch counts {counts} != "
+                  f"{want}")
+        return result, secs, counts
+
+    # (a) eval_loop: one poll, one batch of 16 at k=256 (4 chunks)
+    _, secs, _ = counted(
+        "eval_loop (max_evals=1, k=256, max_batches=1)",
+        lambda: train_lib.eval_loop(cfg, max_evals=1, k=EVAL_K,
+                                    max_batches=1, device=device),
+        per_chunk, EVAL_K // EVAL_CHUNK)
+    with open(os.path.join(logdir, "eval_test_metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check(len(rows) == 1 and rows[0]["step"] == TRAIN_STEPS + RESUME_STEPS
+          and math.isfinite(rows[0]["bits_per_dim"]),
+          f"eval_test_metrics.jsonl rows {rows}")
+    summary["eval_loop"] = {"bits_per_dim": rows[0]["bits_per_dim"],
+                            "step": rows[0]["step"], "seconds": secs}
+
+    # (b) a 1-batch eval resumed to 2 batches against a straight 2-batch one
+    prog = os.path.join(out, "eval_progress_eval_test.json")
+    log = io.StringIO()
+    with _default_tf32():
+        straight = train_lib.evaluate(cfg, k=EVAL_K, max_batches=2,
+                                      device=device)
+        train_lib.evaluate(cfg, k=EVAL_K, max_batches=1,
+                           progress_path=prog, progress_every=1,
+                           device=device)
+        check(os.path.isfile(prog), "no progress file after the 1-batch eval")
+        with contextlib.redirect_stdout(log):
+            resumed = train_lib.evaluate(cfg, k=EVAL_K, max_batches=2,
+                                         progress_path=prog,
+                                         progress_every=1, device=device)
+    print("\n".join(f"[serve] {line}" for line in
+                    log.getvalue().splitlines()))
+    check("resuming at batch 1/2" in log.getvalue(), "the eval did not resume")
+    check(os.path.isfile(prog), "the progress file went after a capped run")
+    rel = abs(resumed - straight) / abs(straight)
+    print(f"[serve] resumed eval {resumed!r} against a straight run "
+          f"{straight!r}: {rel:.3e} relative (limit 1e-6)")
+    check(rel <= 1e-6, f"resumed eval {rel} relative from the straight run")
+    summary["resume"] = {"straight": straight, "resumed": resumed,
+                         "rel_diff": rel}
+
+    # (c) reconstruct: one eval forward of 16 images at k=1; the first
+    # call of each kernel's wrapper captured, then held to its twin
+    got: dict = {}
+    cap, secs, recon_counts = counted(
+        "reconstruct(num=16)",
+        lambda: capture_inputs(ops, lambda: got.update(
+            recon=train_lib.reconstruct(
+                cfg, num=16, device=device,
+                out_path=os.path.join(out, "recons.npy")))),
+        per_chunk)
+    recon = got["recon"]
+    check(recon.shape == (16, 32, 32, 3) and recon.dtype == np.uint8,
+          f"recon {recon.shape} {recon.dtype}")
+    summary["recon_seconds"] = secs
+    z, ctx, ws, bs, masks = cap["ar_stack"]
+    mean, logscale, smp = cap["disc_logistic_logp"]
+    check(z.shape[0] == cap["iaf_update"][0].shape[0] == mean.shape[0] == 16,
+          "reconstruct's kernels did not run at N = 16")
+    k1 = dict(route="cuda", source="iaf_torch/ops/csrc/ar_stack.cu",
+              replaces="iaf_tpu/ops/ar_stack.py:115", counter="ar_stack")
+    k3 = dict(route="triton", source="iaf_torch/ops/fused.py",
+              replaces="iaf_tpu/ops/fused.py:43", counter="iaf_update")
+    kernel_rows = [
+        dict(name="ar_stack_recon", path="serve recon", shape=list(z.shape),
+             **k1, **k1_forward(ops, ar_mod, z, ctx, ws, bs, masks,
+                                "K1 recon")),
+        dict(name="iaf_update_recon", path="serve recon",
+             shape=list(z.shape), **k3,
+             **k3_forward(ops, cap["iaf_update"], "K3 recon")),
+        dict(name="disc_logistic_logp_recon", path="serve recon",
+             route="cuda", source="iaf_torch/ops/csrc/disc_logistic.cu",
+             replaces="iaf_tpu/ops/fused.py:103",
+             counter="disc_logistic_logp", shape=list(mean.shape),
+             **k4_forward(ops, mean, logscale, smp, "K4 recon"))]
+    del cap
+
+    # (d) sample: the prior decode launches no kernel of the port; its
+    # result under the default flags equals one with TF32 off everywhere
+    temps = [1.0, 0.5]
+    imgs, secs, _ = counted(
+        "sample(num=16, temperature=[1.0, 0.5])",
+        lambda: train_lib.sample(cfg, num=16, temperature=temps,
+                                 device=device,
+                                 out_path=os.path.join(out, "samples.npy")),
+        {})
+    tiles = [np.load(os.path.join(out, f"samples_T{t}.npy")) for t in temps]
+    check(not np.array_equal(*tiles), "T=1.0 and T=0.5 gave the same tile")
+    model = train_lib._serving_model(cfg, True, device)
+    with torch.inference_mode():
+        raw = cvae.cvae_sample(cfg, model, cfg.seed + 4242, 16, temps[-1])
+    check(bool(torch.isfinite(raw).all()), "non-finite samples")
+    check(np.array_equal(raw.cpu().numpy().astype(np.uint8), imgs),
+          "sample() differs from cvae_sample on its key")
+    print(f"[serve] sample: {secs:.3f} s a call ({len(temps)} "
+          f"temperatures, checkpoint load included), images in "
+          f"[{float(raw.min()):.1f}, {float(raw.max()):.1f}], equal to "
+          "cvae_sample's with TF32 off in the whole process")
+    summary["sample_seconds_per_call"] = secs
+
+    # (e) invert_check at batch 2: K1 f32 (3xTF32) at N = 2 first, on
+    # the inputs invert_check builds
+    with torch.inference_mode():
+        z0, context, ar_fn, z_prime = train_lib.inversion_inputs(
+            cfg, model, 2)
+        cap = capture_inputs(ops, lambda: ar_fn(z_prime), ("ar_stack",))
+    # what an inverse that returns z' unchanged would be off by: the
+    # round-trip limit below must be able to fail on this checkpoint
+    unmoved = float(torch.max(torch.abs(z_prime - z0)))
+    print(f"[serve] the top layer's flow moves z by {unmoved:.3e} (max "
+          "abs): the round-trip error of a do-nothing inverse")
+    check(unmoved > 1e-4, f"the flow moves z by {unmoved} <= 1e-4: the "
+          "round-trip limit cannot fail")
+    z, ctx, ws, bs, masks = cap["ar_stack"]
+    check(z.dtype == torch.float32 and z.shape[0] == 2,
+          f"the inversion's K1 input {z.dtype} {tuple(z.shape)}")
+    row = _k1_f32_shape(ops, ar_mod, "N=2 inversion", z, ctx, ws, bs, masks,
+                        False)
+    kernel_rows.append(dict(name="ar_stack_f32_inversion", path="serve",
+                            kernel_route="3xtf32", shape=list(z.shape),
+                            **k1, **row))
+    # the exact inverse only where it and Jacobi take under 120 s
+    D = z_prime.shape[1] * z_prime.shape[2] * z_prime.shape[3]
+    with torch.inference_mode():
+        sweep = cuda_ms(lambda: ar_fn(z_prime), 50, 3) / 1e3
+    predicted = 2 * D * sweep
+    run_exact = predicted < 120.0
+    print(f"[serve] one inversion sweep {sweep * 1e3:.4f} ms: exact and "
+          f"Jacobi ({D} sweeps each) predicted {predicted:.1f} s, "
+          + ("under 120 s: running the exact inverse" if run_exact else
+             "over 120 s: run_exact=False"))
+    cap, secs, inv_counts = counted(
+        "invert_check(batch=2)",
+        lambda: capture_inputs(ops, lambda: got.update(
+            res=train_lib.invert_check(cfg, batch=2, run_exact=run_exact,
+                                       device=device)), ("iaf_update",)),
+        None)
+    res = got["res"]
+    want = {"ar_stack": 1 + D * (2 if run_exact else 1)
+            + res["iters_fixed_point"], "iaf_update": 1}
+    check(inv_counts == _expect(inv_counts, want, 1),
+          f"invert_check launches {inv_counts} != {want}")
+    print(f"[serve] invert_check: D={D}, iters_fixed_point "
+          f"{res['iters_fixed_point']}, " + ", ".join(
+              f"{k} {v:.3e}" for k, v in res.items() if k.startswith("err"))
+          + "; " + ", ".join(f"{k} {v:.3f} s" for k, v in res.items()
+                             if k.startswith("t_")))
+    check(res["err_jacobi"] < 1e-4 and res["err_fixed_point"] < 1e-4,
+          f"inversion round trip {res}")
+    if run_exact:
+        check(res["err_exact"] < 1e-4, f"exact round trip {res}")
+    check(cap["iaf_update"][0].shape[0] == 2,
+          "invert_check's K3 did not run at N = 2")
+    kernel_rows.append(dict(
+        name="iaf_update_inversion", path="serve",
+        shape=list(cap["iaf_update"][0].shape), **k3,
+        **k3_forward(ops, cap["iaf_update"], "K3 inversion")))
+
+    # the fixed-point inverse on the same z', card against the CPU twins
+    cpu = cvae.CVAE(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_ctx, cpu_zp = context.cpu(), z_prime.cpu()
+
+    def cpu_ar_fn(zq):
+        m, s = cpu.blocks[-1].ar1(zq, cpu_ctx)
+        return m * 0.1, s * 0.1
+
+    with torch.inference_mode():
+        z_card, n_card = invert_ar_fixed_point(ar_fn, z_prime)
+        z_cpu, n_cpu = invert_ar_fixed_point(cpu_ar_fn, cpu_zp)
+        err, rel = _rel_err(z_card.cpu(), z_cpu)
+        # the counts at 1e-6 decide on a change of a few ulps of z; at a
+        # tol halfway (in log) between the CPU's changes either side of
+        # 1e-6 they must be equal
+        deltas = sweep_changes(cpu_ar_fn, cpu_zp, 1e-6)
+        tol = math.sqrt(deltas[-2] * deltas[-1])
+        _, n_card_wp = invert_ar_fixed_point(ar_fn, z_prime, tol=tol)
+        _, n_cpu_wp = invert_ar_fixed_point(cpu_ar_fn, cpu_zp, tol=tol)
+    print(f"[serve] fixed-point inverse, card against the CPU twins: "
+          f"{rel:.3e} of max (max abs {err:.3e}, limit 1e-5); sweeps at tol "
+          f"1e-6: card {n_card}, CPU {n_cpu}; at tol {tol:.3e}: card "
+          f"{n_card_wp}, CPU {n_cpu_wp}; the CPU's last changes "
+          f"{[f'{d:.3e}' for d in deltas[-4:]]}")
+    check(rel <= 1e-5, f"card fixed-point inverse {rel} of max from CPU's")
+    check(n_card_wp == n_cpu_wp == len(deltas),
+          f"fixed-point sweeps card {n_card_wp}, CPU {n_cpu_wp}, "
+          f"{len(deltas)} changes")
+    check(abs(n_card - n_cpu) <= 1, f"sweeps at 1e-6: {n_card}, {n_cpu}")
+    summary["invert_check"] = {**res, "run_exact": run_exact,
+                               "sweep_ms": sweep * 1e3,
+                               "flow_moves_z": unmoved,
+                               "card_vs_cpu_rel_err": rel,
+                               "iters_card": n_card, "iters_cpu": n_cpu,
+                               "seconds": secs}
+    return kernel_rows, {"serve": inv_counts,
+                         "serve recon": recon_counts}, summary
+
+
 def run() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -2333,9 +2643,17 @@ def run() -> dict:
 
     # phase 13: a 3x3 chain deeper than K1 holds, through K2
     deep_chain_phase(ops, device)
+
+    # phase 14: the serving modes on phase 9's logdir
+    t0 = time.perf_counter()
+    serve_rows, serve_counts, serve = serve_phase(ops, device, tcfg)
+    serve["phase_seconds"] = time.perf_counter() - t0
+    print(f"[serve] phase 14: {serve['phase_seconds']:.1f} s")
+    rows += serve_rows
     paths = {"paper": (eval_counts, counts), "5x5": (eval5, counts5),
              "paper f32": (eval32, counts32),
-             "5x5 f32": (eval5_32, counts5_32)}
+             "5x5 f32": (eval5_32, counts5_32),
+             **{k: (dict.fromkeys(v, 0), v) for k, v in serve_counts.items()}}
     for r in rows:     # each kernel's launches on the main path it is on
         ev, tr = paths[r.setdefault(
             "path", "5x5" if r["name"] in K2_NAMES else "paper")]
@@ -2357,7 +2675,8 @@ def run() -> dict:
                       "main_5x5": summary5["main"],
                       "train_5x5": summary5["train"],
                       "main_5x5_f32": summary5_32["main"],
-                      "train_5x5_f32": summary5_32["train"]}))
+                      "train_5x5_f32": summary5_32["train"],
+                      "serve": serve}))
     print(json.dumps({"kernels": rows}))
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

@@ -6,9 +6,16 @@
 ``--mode train`` trains (resuming from the newest checkpoint in
 ``--logdir``, the port's or the JAX package's); ``--mode
 eval_test|eval_train`` runs the importance-weighted eval on the EMA
-weights of the newest checkpoint. Both run on the card unless ``--device
-cpu`` asks for the plain twins. The other modes are not ported yet and
-raise, naming the ROADMAP item that brings them. ``--profile_dir D``
+weights of the newest checkpoint, resumable from
+``<logdir>/eval_progress_<mode>.json``; ``--mode eval_loop`` scores each
+new checkpoint of a training run as it appears; ``--mode sample`` writes
+prior samples (``<logdir>/samples.npy``, ``--num_samples``,
+``--temperature`` one value or a comma list), ``--mode recon``
+original/reconstruction pairs (``<logdir>/recons.npy``) and ``--mode
+invert_check`` inverts the top IAF step three ways. Every mode runs on
+the card unless ``--device cpu`` asks for the plain twins. ``--mode
+export`` is not ported yet and raises, naming the ROADMAP item that
+brings it. ``--profile_dir D``
 traces whichever mode runs with ``torch.profiler`` (host activity, and
 the card's kernels when it runs there) and writes the trace into D as
 ``*.pt.trace.json``, as the JAX package's CLI traces into its profile
@@ -24,13 +31,7 @@ import contextlib
 from iaf_torch import train_lib
 from iaf_torch.core.config import resolve_config
 
-_NOT_YET = {
-    "eval_loop": "ROADMAP queue 1, item 1 (eval_loop)",
-    "sample": "ROADMAP queue 1, item 5 (sampling)",
-    "recon": "ROADMAP queue 1, item 5 (reconstruction)",
-    "invert_check": "ROADMAP queue 1, item 5 (inversion)",
-    "export": "ROADMAP queue 1, item 7 (export)",
-}
+_NOT_YET = {"export": "ROADMAP queue 1, item 5 (export)"}
 
 
 @contextlib.contextmanager
@@ -71,7 +72,8 @@ def main(argv=None) -> None:
                    help="reference-CLI parity; ignored")
     p.add_argument("--num_samples", type=int, default=16)
     p.add_argument("--max_batches", type=int, default=None,
-                   help="cap eval batches (eval_* modes)")
+                   help="cap eval batches (eval_* modes); a full eval's "
+                   "partial progress persists to the logdir either way")
     p.add_argument("--temperature", type=str, default="1.0")
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler trace of the run here")
@@ -89,13 +91,29 @@ def main(argv=None) -> None:
         found = real_data_available(cfg.dataset, cfg.data_dir)
         print(f"[data] real cifar10 found at {found}" if found else
               "[data] no real cifar10 on disk -> synthetic fallback")
-    with _profiled(args.profile_dir, args.device):
+    dev = args.device
+    with _profiled(args.profile_dir, dev):
         if args.mode == "train":
-            train_lib.train(cfg, device=args.device)
-        else:
-            train_lib.evaluate(cfg, mode=args.mode,
-                               max_batches=args.max_batches,
-                               device=args.device)
+            train_lib.train(cfg, device=dev)
+        elif args.mode in ("eval_train", "eval_test"):
+            train_lib.evaluate(
+                cfg, mode=args.mode, max_batches=args.max_batches,
+                progress_path=f"{args.logdir}/eval_progress_{args.mode}.json",
+                device=dev)
+        elif args.mode == "eval_loop":
+            train_lib.eval_loop(cfg, max_batches=args.max_batches, device=dev)
+        elif args.mode == "invert_check":
+            train_lib.invert_check(cfg, device=dev)
+        elif args.mode == "recon":
+            train_lib.reconstruct(cfg, num=args.num_samples,
+                                  out_path=f"{args.logdir}/recons.npy",
+                                  device=dev)
+        elif args.mode == "sample":
+            train_lib.sample(cfg, num=args.num_samples,
+                             temperature=[float(t) for t in
+                                          args.temperature.split(",")],
+                             out_path=f"{args.logdir}/samples.npy",
+                             device=dev)
 
 
 if __name__ == "__main__":

@@ -3,6 +3,8 @@ the CPU, and a CUDA request without a card fails instead of falling back."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -31,3 +33,17 @@ def full_f32(compute_dtype: str, dev: torch.device) -> bool:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return True
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Inside the block cuDNN's convs and matmuls compute f32 in full f32
+    (TF32 off) whatever the process's flags say; the flags are restored
+    after. For the parts that run in f32 under any ``compute_dtype``."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

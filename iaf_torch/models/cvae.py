@@ -15,8 +15,14 @@ division-form update through K3 and the likelihood through K4
 data-dependent init runs plain convs, as JAX's init never reaches Pallas.
 
 Noise: every layer's posterior draw comes from the site
-``block_i/layer_j/z_post`` under the step key (``core.rng``), or from the
+``block_i/layer_j/z_post`` under the step key (``core.rng``), its prior
+draw when sampling from ``block_i/layer_j/z_prior``, or either from the
 ``noise`` dict when it holds that site.
+
+``cvae_sample`` (prior decode) and ``posterior_flow_probe`` (the top
+layer's flow for inversion) compute in f32 whatever ``compute_dtype``
+says, as JAX's sampling and probe contexts carry no compute dtype; on
+the card their cuDNN convs run with TF32 off (``core.device.no_tf32``).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from torch import nn
 from iaf_torch import ops
 from iaf_torch.bridge import to_torch_layout
 from iaf_torch.core.config import Config
+from iaf_torch.core.device import no_tf32
 from iaf_torch.core.rng import fold_name, generator, site_normal
 from iaf_torch.distributions import DiagonalGaussian, compute_lowerbound
 from iaf_torch.nn.layers import (ARMultiConv2d, WNConv2d, WNDeconv2d,
@@ -188,10 +195,13 @@ def _images(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.float32) / 256.0 - 0.5
 
 
-def _eps(cfg, rng, i, shape, device, noise):
-    site = f"{layer_names(cfg)[i]}/z_post"
-    key = fold_name(fold_name(rng, layer_names(cfg)[i]), "z_post")
-    return site_normal(key, site, shape, device, noise)
+def _eps(cfg, rng, i, shape, device, noise, site: str = "z_post"):
+    """Layer i's standard-normal draw at ``site`` (``z_post`` or
+    ``z_prior``): key fold_name(fold_name(rng, layer), site), or the
+    ``noise`` dict's tensor for ``<layer>/<site>``."""
+    name = layer_names(cfg)[i]
+    key = fold_name(fold_name(rng, name), site)
+    return site_normal(key, f"{name}/{site}", shape, device, noise)
 
 
 def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
@@ -314,3 +324,67 @@ def init_params(cfg: Config, batch, rng: int = 0, model: CVAE | None = None,
         model.x_dec.init_forward(F.elu(h))
         model.dec_log_stdv.zero_()
     return model
+
+
+@no_tf32()
+def cvae_sample(cfg: Config, model: CVAE, rng: int, num: int,
+                temperature: float = 1.0,
+                noise: Mapping[str, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+    """Generative sampling (``cvae_sample``): no up pass; from ``h_top``
+    each layer top-down draws z = prior mean + T * prior sd * eps and
+    decodes, all in f32 (TF32 off). Returns [num, H, W, C] images in
+    [0, 255]."""
+    zs, hs = cfg.z_size, cfg.h_size
+    device = model.h_top.device
+    dec_hw = cfg.image_size // 2
+    h = model.h_top.expand(num, dec_hw, dec_hw, hs)
+    for i in reversed(range(len(model.blocks))):
+        layer = model.blocks[i]
+        x = layer.down_conv1(F.elu(h))
+        pz_mean, pz_logsd, _, _, _, h_det = _split(
+            x, [zs, zs, zs, zs, hs, hs])
+        eps = _eps(cfg, rng, i, tuple(pz_mean.shape), device, noise,
+                   "z_prior")
+        z = pz_mean + temperature * torch.exp(pz_logsd) * eps
+        hidden = layer.down_conv2(F.elu(torch.cat([z, h_det], dim=-1)))
+        h = h + 0.1 * hidden
+    x_out = model.x_dec(F.elu(h))
+    return torch.clamp((x_out + 0.5) * 256.0, 0.0, 255.0)
+
+
+@no_tf32()
+def posterior_flow_probe(cfg: Config, model: CVAE, rng: int, x,
+                         noise: Mapping[str, torch.Tensor] | None = None):
+    """The top layer's pre-flow posterior sample, its flow context and its
+    AR net for images ``x``, in f32 with TF32 off (``posterior_flow_probe``):
+    the up pass, then the top layer's ``down_conv1`` on ELU(h_top), and
+    the posterior draw from site ``<top layer>/z_post``. Returns (z0,
+    context, ar_fn) with ``ar_fn(z) -> (0.1 m, 0.1 s)`` through the top
+    layer's ``ARMultiConv2d``, so on the card it runs K1 (or K2) as the
+    model does."""
+    zs, hs = cfg.z_size, cfg.h_size
+    device = model.h_top.device
+    xf = _images(x, device)
+    h = model.x_enc(xf)
+    for layer in model.blocks:
+        h, stats = iaf_layer_up(cfg, layer, h)
+    top = model.blocks[-1]          # stats: the top layer's up pass
+    dec_hw = cfg.image_size // 2
+    h = model.h_top.expand(xf.shape[0], dec_hw, dec_hw, hs)
+    xd = top.down_conv1(F.elu(h))
+    _, _, rz_mean, rz_logsd, down_context, _ = _split(
+        xd, [zs, zs, zs, zs, hs, hs])
+    posterior = DiagonalGaussian(stats.qz_mean + rz_mean,
+                                 2.0 * (stats.qz_logsd + rz_logsd))
+    eps = _eps(cfg, rng, len(model.blocks) - 1, tuple(rz_mean.shape),
+               device, noise)
+    z = posterior.sample(eps)
+    # contiguous once here, not at every sweep inside ``ar1``
+    context = (stats.up_context + down_context).contiguous()
+
+    def ar_fn(zq: torch.Tensor):
+        m, s = top.ar1(zq, context)
+        return m * 0.1, s * 0.1
+
+    return z, context, ar_fn

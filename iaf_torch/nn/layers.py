@@ -313,10 +313,13 @@ class ARMultiConv2d(nn.Module):
         if not self.fusable:
             return self.forward_unfused(x, context, dtype)
         ws, bs = self.folded(dtype)
-        z = x if dtype is None else x.to(dtype)
+        # K1 takes NHWC-contiguous tensors; cuDNN may return a conv's
+        # output in NCHW memory, which z and context then inherit
+        z = (x if dtype is None else x.to(dtype)).contiguous()
         if not self.k1_fits(z, ws):
             return self.forward_unfused(x, context, dtype)
-        return self._split(ops.ar_stack(z, context, ws, bs, self.masks))
+        return self._split(ops.ar_stack(z, context.contiguous(), ws, bs,
+                                        self.masks))
 
     @staticmethod
     def k1_fits(z: torch.Tensor, ws) -> bool:

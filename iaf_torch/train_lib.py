@@ -1,17 +1,23 @@
-"""Training and evaluation drivers (``iaf_tpu/train_lib.py``).
+"""Training, evaluation and serving entry points (``iaf_tpu/train_lib.py``).
 
 ``train`` runs the training loop with the JAX package's key discipline,
 cadences and checkpoints (same ``.npz`` keys, so either package resumes
-the other's runs). ``evaluate`` scores a split with the k-sample
-importance-weighted bound on the Polyak (EMA) weights of the newest
-checkpoint in ``cfg.logdir``, or on the caller's model, and returns
-bits/dim. Progress-file resume, ``eval_loop``, image summaries, the
-prefetch thread and TensorBoard come with later slices of the port.
+the other's runs), with image summaries at the heartbeat eval.
+``evaluate`` scores a split with the k-sample importance-weighted bound
+on the Polyak (EMA) weights of the newest checkpoint in ``cfg.logdir``,
+or on the caller's model, and returns bits/dim; with ``progress_path`` a
+killed eval resumes mid-split. ``eval_loop`` follows a training run's
+checkpoints. ``sample``, ``reconstruct`` and ``invert_check`` serve the
+newest checkpoint: prior samples, posterior reconstructions and the AR
+inversion of the top IAF step. The prefetch thread, multi-GPU and
+TensorBoard come with later slices of the port.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import time
 from typing import Iterator, Mapping
 
@@ -27,11 +33,12 @@ from iaf_torch.core.device import full_f32, resolve_device
 from iaf_torch.core.rng import fold
 from iaf_torch.data import feed
 from iaf_torch.data.datasets import load_dataset
+from iaf_torch.models import cvae
 from iaf_torch.models.cvae import CVAE
 from iaf_torch.optim import AdamaxState
 from iaf_torch.parallel import train_step as ts
 from iaf_torch.parallel.eval_step import make_eval_step
-from iaf_torch.utils.metrics import MetricsLogger
+from iaf_torch.utils.metrics import MetricsLogger, img_tile
 from iaf_torch.utils.params import describe
 
 LOG2 = math.log(2.0)
@@ -99,8 +106,7 @@ def train(cfg: Config, max_steps: int | None = None,
           device="cuda") -> ts.TrainState:
     """The training loop on one device (the card unless ``device`` is
     "cpu"). Returns the final state."""
-    if cfg.likelihood != "dlogistic" or cfg.binarize:
-        raise NotImplementedError("the MNIST family is not ported yet")
+    _cifar_only("training", cfg)
     dev = resolve_device(device)
     logger = MetricsLogger(cfg.logdir)
     save_hparams(cfg, cfg.logdir)
@@ -134,9 +140,6 @@ def train(cfg: Config, max_steps: int | None = None,
         eval_images = ds.test_x[:cfg.eval_batch_size]
         eval_fn = make_eval_step(cfg, dev, k=min(cfg.eval_k, 64))
         ema_model = CVAE(cfg, device=dev)
-        if cfg.image_summaries:
-            print("[train] image summaries skipped: sampling is not ported "
-                  "yet")
 
     first = next(data_iter)
     if restored is not None:
@@ -180,6 +183,9 @@ def train(cfg: Config, max_steps: int | None = None,
                                eval_images)
                 logger.log(step, eval_bits_per_dim=float(nats.mean())
                            / (LOG2 * cfg.num_pixels))
+                if cfg.image_summaries:
+                    _log_image_summaries(cfg, ema_model, base_key, step,
+                                         eval_images, logger)
 
             if step % cfg.ckpt_every == 0 or step == total:
                 ckpt.save(cfg.logdir, step,
@@ -190,17 +196,53 @@ def train(cfg: Config, max_steps: int | None = None,
     return state
 
 
-def _model(cfg: Config, params, use_ema: bool, device) -> CVAE:
+def _log_image_summaries(cfg: Config, ema_model: CVAE, base_key: int,
+                         step: int, eval_images: np.ndarray,
+                         logger: MetricsLogger) -> None:
+    """Sample and reconstruction tiles on the EMA weights at the heartbeat
+    eval, key ``fold(base_key, 2**31 - 5)``: ``images/samples_*`` and
+    ``images/recons_*`` (originals and reconstructions in pairs)."""
+    key = fold(base_key, 2**31 - 5)
+    n = min(16, cfg.eval_batch_size)
+    with torch.inference_mode():
+        samples = _uint8(cvae.cvae_sample(cfg, ema_model, key, n))
+        out = cvae.apply_fn(cfg, ema_model, key, eval_images[:n],
+                            mode="eval", k=1)
+        recon = _uint8(_pixels(out.x_out))
+    logger.log_image("samples", img_tile(samples), step)
+    logger.log_image("recons", _pairs(eval_images[:n], recon), step)
+
+
+def _pixels(x_out: torch.Tensor) -> torch.Tensor:
+    """Decoded means as pixel values in [0, 255]."""
+    return torch.clamp((x_out + 0.5) * 256.0, 0.0, 255.0)
+
+
+def _uint8(images: torch.Tensor) -> np.ndarray:
+    return images.cpu().numpy().astype(np.uint8)
+
+
+def _pairs(x: np.ndarray, recon: np.ndarray) -> np.ndarray:
+    """One tile of each original next to its reconstruction."""
+    pairs = np.stack([np.asarray(x).astype(np.uint8), recon], axis=1)
+    return img_tile(pairs.reshape((-1,) + recon.shape[1:]))
+
+
+def _latest(cfg: Config) -> str:
+    latest = latest_checkpoint(cfg.logdir)
+    if latest is None:
+        raise FileNotFoundError(f"no checkpoint in {cfg.logdir}")
+    return latest
+
+
+def _model(cfg: Config, params, device) -> CVAE:
+    """A ``CVAE`` on ``device`` from a ``CVAE`` (used as it is) or a
+    state_dict."""
     if isinstance(params, CVAE):
         if params.h_top.device != device:
             raise ValueError(f"model is on {params.h_top.device}, "
                              f"eval device is {device}")
         return params
-    if params is None:
-        latest = latest_checkpoint(cfg.logdir)
-        if latest is None:
-            raise FileNotFoundError(f"no checkpoint in {cfg.logdir}")
-        params = load_jax_checkpoint(latest, use_ema=use_ema)
     if not isinstance(params, Mapping):
         raise TypeError("params must be a CVAE, a state_dict or None")
     model = CVAE(cfg, device=device)
@@ -208,24 +250,67 @@ def _model(cfg: Config, params, use_ema: bool, device) -> CVAE:
     return model
 
 
-def evaluate(cfg: Config, mode: str = "eval_test", params=None,
-             use_ema: bool = True, k: int | None = None,
-             max_batches: int | None = None, device="cuda") -> float:
-    """Importance-weighted eval of the ``eval_train``/``eval_test`` split.
-    The tail remainder is padded to the batch shape (repeating its first
-    row) and only its real rows count. Returns bits/dim."""
+def _cifar_only(what: str, cfg: Config) -> None:
+    if cfg.likelihood != "dlogistic" or cfg.binarize:
+        raise NotImplementedError(
+            f"{what} of the MNIST family is not ported to iaf_torch yet: "
+            "ROADMAP queue 1, item 3 (MNIST family)")
+
+
+def make_eval_setup(cfg: Config, mode: str, k: int, device="cuda"):
+    """(the split's images, the eval step at ``k``), built once:
+    ``eval_loop`` reuses them across its checkpoint polls."""
     if mode not in ("eval_train", "eval_test"):
         raise ValueError(f"mode {mode!r} not in ('eval_train', 'eval_test')")
-    if cfg.likelihood != "dlogistic" or cfg.binarize:
-        raise NotImplementedError("the MNIST family is not ported yet")
-    dev = resolve_device(device)
-    _config_line(cfg, dev)
-    k = cfg.eval_k if k is None else k
-    model = _model(cfg, params, use_ema, dev)
     ds, _ = load_dataset(cfg.dataset, cfg.data_dir, cfg.image_size,
                          cfg.channels)
     images = ds.train_x if mode == "eval_train" else ds.test_x
-    eval_fn = make_eval_step(cfg, dev, k=k)
+    return images, make_eval_step(cfg, resolve_device(device), k=k)
+
+
+def evaluate(cfg: Config, mode: str = "eval_test", params=None,
+             use_ema: bool = True, k: int | None = None,
+             max_batches: int | None = None, setup=None,
+             progress_path: str | None = None,
+             progress_id: str | None = None, progress_every: int = 10,
+             device="cuda") -> float:
+    """Importance-weighted eval of the ``eval_train``/``eval_test`` split
+    on ``params`` (a ``CVAE``, a state_dict, or None: the newest
+    checkpoint's EMA weights, or its raw ones without ``use_ema``).
+    ``setup`` is ``make_eval_setup``'s pair. The tail remainder is padded
+    to the batch shape (repeating its first row) and only its real rows
+    count. Returns bits/dim.
+
+    With ``progress_path`` the running sums are written there atomically
+    every ``progress_every`` batches and at the last; a killed run resumes
+    at the next batch with the same result, since each batch's key is a
+    function of its index. The file is tied to the eval's identity (mode,
+    k, batch size, split size, seed, ``progress_id``: the checkpoint's
+    name for checkpoint weights, required for caller-supplied ones, and
+    this package's name, since the JAX package draws other noise); a file
+    of another identity is ignored, a capped rerun leaves a more complete
+    one alone, and a full pass deletes it."""
+    if mode not in ("eval_train", "eval_test"):
+        raise ValueError(f"mode {mode!r} not in ('eval_train', 'eval_test')")
+    _cifar_only("evaluation", cfg)
+    dev = resolve_device(device)
+    _config_line(cfg, dev)
+    k = cfg.eval_k if k is None else k
+    if params is None:
+        latest = _latest(cfg)
+        params = load_jax_checkpoint(latest, use_ema=use_ema)
+        if progress_id is None:
+            progress_id = os.path.basename(latest) + ("/ema" if use_ema
+                                                      else "/raw")
+    elif progress_path and progress_id is None:
+        # with no checkpoint name to tie the file to, a constant id would
+        # mix partial sums of different weights
+        raise ValueError("progress_path with caller-supplied params "
+                         "requires an explicit progress_id")
+    model = _model(cfg, params, dev)
+    if setup is None:
+        setup = make_eval_setup(cfg, mode, k, dev)
+    images, eval_fn = setup
     key = cfg.seed + 999
 
     bs = cfg.eval_batch_size
@@ -238,19 +323,213 @@ def evaluate(cfg: Config, mode: str = "eval_test", params=None,
         n_batches = min(n_full, max_batches)
         if max_batches <= n_full:
             tail = 0
-    total_nats, total_n = 0.0, 0
-    for i in range(n_batches):
+    full_pass = n_batches == n_full and tail == len(images) - n_full * bs
+    identity = {"mode": mode, "k": k, "bs": bs, "n": int(len(images)),
+                "seed": cfg.seed, "id": progress_id or "external-params",
+                "impl": "iaf_torch"}
+
+    start_i, total_nats, total_n = 0, 0.0, 0
+    protect_progress = False
+    if progress_path and os.path.isfile(progress_path):
+        with open(progress_path) as f:
+            prog = json.load(f)
+        if prog.get("identity") == identity and prog["i"] <= n_batches:
+            start_i = prog["i"]
+            total_nats, total_n = prog["total_nats"], prog["total_n"]
+            print(f"[{mode}] resuming at batch {start_i}/{n_batches} from "
+                  f"{progress_path}")
+        elif prog.get("identity") == identity:
+            protect_progress = True
+            print(f"[{mode}] progress file has {prog['i']} batches > this "
+                  f"run's {n_batches}; preserving it (this capped run will "
+                  "not write progress)")
+        else:
+            print(f"[{mode}] ignoring stale eval progress {progress_path}")
+    # one process: the multi-GPU eval (ROADMAP queue 1, item 4) must also
+    # broadcast rank 0's resume point to the other ranks
+
+    def save_progress(i: int) -> None:
+        if not progress_path or protect_progress:
+            return
+        tmp = progress_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"identity": identity, "i": i,
+                       "total_nats": total_nats, "total_n": total_n}, f)
+        os.replace(tmp, progress_path)
+
+    t0 = time.time()
+    for i in range(start_i, n_batches):
         nats = eval_fn(model, fold(key, i), images[i * bs:(i + 1) * bs])
         total_nats += float(torch.sum(nats))
         total_n += bs
+        done = i + 1
+        if done % progress_every == 0 or done == n_batches:
+            save_progress(done)
+            if done != n_batches:
+                rate = (done - start_i) / max(time.time() - t0, 1e-9)
+                print(f"[{mode}] batch {done}/{n_batches} running nats/ex "
+                      f"{total_nats / total_n:.2f} eta "
+                      f"{(n_batches - done) / max(rate, 1e-9) / 60:.1f} min")
     if tail:
         rem = images[n_full * bs:]
         pad = np.concatenate([rem] + [rem[:1]] * (bs - tail))[:bs]
         nats = eval_fn(model, fold(key, n_full), pad)
         total_nats += float(torch.sum(nats[:tail]))
         total_n += tail
+    if progress_path and full_pass and os.path.isfile(progress_path):
+        os.remove(progress_path)
     nats_mean = total_nats / max(total_n, 1)
     bits_per_dim = nats_mean / (LOG2 * cfg.num_pixels)
     print(f"[{mode}] k={k} n={total_n} nats {nats_mean:.2f} "
           f"bits/dim {bits_per_dim:.4f}")
     return bits_per_dim
+
+
+def eval_loop(cfg: Config, mode: str = "eval_test", poll_secs: float = 30.0,
+              max_evals: int | None = None, k: int | None = None,
+              max_batches: int | None = None, device="cuda") -> None:
+    """Follow a training run: poll ``cfg.logdir`` for new checkpoints and
+    score each one's EMA weights, logging ``bits_per_dim`` at its step to
+    ``<logdir>/{mode}_metrics.jsonl``. The split, the eval step and the
+    model are built once; runs until interrupted, or ``max_evals``."""
+    dev = resolve_device(device)
+    k = cfg.eval_k if k is None else k
+    setup = make_eval_setup(cfg, mode, k, dev)
+    model = CVAE(cfg, device=dev)
+    loader = ckpt.CheckpointLoader(cfg.logdir)
+    logger = MetricsLogger(cfg.logdir, filename=f"{mode}_metrics.jsonl")
+    done = 0
+    try:
+        while max_evals is None or done < max_evals:
+            item = loader.maybe_load()
+            if item is None:
+                time.sleep(poll_secs)
+                continue
+            path, tree = item
+            step = int(np.asarray(tree["step"]))
+            model.load_state_dict(from_jax_params(tree["opt"]["ema"]))
+            metric = evaluate(
+                cfg, mode=mode, params=model, k=k, max_batches=max_batches,
+                setup=setup, progress_path=os.path.join(
+                    cfg.logdir, f"eval_progress_{mode}.json"),
+                progress_id=os.path.basename(path) + "/ema", device=dev)
+            logger.log(step, bits_per_dim=metric)
+            print(f"[eval_loop] {path} step {step} -> {metric:.4f}")
+            done += 1
+    finally:
+        logger.close()
+
+
+def _serving_model(cfg: Config, use_ema: bool, device) -> CVAE:
+    """The newest checkpoint's EMA (or raw) weights as a ``CVAE`` on
+    ``device``."""
+    return _model(cfg, load_jax_checkpoint(_latest(cfg), use_ema=use_ema),
+                  device)
+
+
+def inversion_inputs(cfg: Config, model: CVAE, batch: int):
+    """What ``invert_check`` inverts: the top IAF step's probe on the
+    first ``batch`` test images (key seed + 31337) and its forward flow.
+    Returns (z0, context, ar_fn, z')."""
+    ds, _ = load_dataset(cfg.dataset, cfg.data_dir, cfg.image_size,
+                         cfg.channels)
+    z0, context, ar_fn = cvae.posterior_flow_probe(
+        cfg, model, cfg.seed + 31337, ds.test_x[:batch])
+    z_prime, _ = cvae.iaf_flow(cfg, model.blocks[-1], z0, context,
+                               torch.zeros_like(z0))
+    return z0, context, ar_fn, z_prime
+
+
+def invert_check(cfg: Config, use_ema: bool = True, batch: int | None = None,
+                 run_exact: bool = True, device="cuda") -> dict:
+    """Invert the top IAF step on the newest checkpoint: forward its flow
+    on the posterior sample of ``batch`` test images (default
+    min(4, eval_batch_size)), then invert it exactly (per position), by
+    D Jacobi sweeps and by early-exit fixed-point sweeps (tol 1e-6),
+    reporting each one's round-trip error and seconds and the sweeps the
+    fixed point took. Returns {"err_*", "t_*", "iters_fixed_point",
+    "D"}."""
+    from iaf_torch.models.inversion import (invert_ar_exact,
+                                            invert_ar_fixed_point,
+                                            invert_ar_jacobi)
+    _cifar_only("inversion", cfg)
+    dev = resolve_device(device)
+    _config_line(cfg, dev)
+    model = _serving_model(cfg, use_ema, dev)
+    form, bias = cfg.flow_update, cfg.gate_forget_bias
+    with torch.inference_mode():
+        z0, _, ar_fn, z_prime = inversion_inputs(
+            cfg, model, batch or min(4, cfg.eval_batch_size))
+        D = z_prime.shape[1] * z_prime.shape[2] * z_prime.shape[3]
+        variants = []
+        if run_exact:
+            variants.append(("exact", lambda: invert_ar_exact(
+                ar_fn, z_prime, form=form, gate_bias=bias)))
+        variants.append(("jacobi", lambda: invert_ar_jacobi(
+            ar_fn, z_prime, iters=D, form=form, gate_bias=bias)))
+        variants.append(("fixed_point", lambda: invert_ar_fixed_point(
+            ar_fn, z_prime, tol=1e-6, form=form, gate_bias=bias)))
+        results: dict = {"D": D}
+        for name, fn in variants:
+            t0 = time.time()
+            z_rec = fn()
+            if name == "fixed_point":
+                z_rec, results["iters_fixed_point"] = z_rec
+            results[f"err_{name}"] = float(torch.max(torch.abs(z_rec - z0)))
+            results[f"t_{name}"] = time.time() - t0
+    parts = [f"[invert_check] shape {tuple(z_prime.shape)} D={D}"]
+    for name, _ in variants:
+        parts.append(f"{name} err {results[f'err_{name}']:.2e} "
+                     f"({results[f't_{name}']:.1f}s)")
+    parts.append(f"fixed-point converged in {results['iters_fixed_point']} "
+                 f"iters ({results['iters_fixed_point'] / D:.1%} of D)")
+    print(" | ".join(parts))
+    return results
+
+
+def reconstruct(cfg: Config, num: int = 16, use_ema: bool = True,
+                out_path: str | None = None, device="cuda") -> np.ndarray:
+    """Posterior reconstructions of the first ``num`` test images (one
+    eval-mode forward, k = 1); with ``out_path`` a tile of each original
+    next to its reconstruction is saved there. Returns the uint8
+    reconstructions [num, H, W, C]."""
+    _cifar_only("reconstruction", cfg)
+    dev = resolve_device(device)
+    _config_line(cfg, dev)
+    model = _serving_model(cfg, use_ema, dev)
+    ds, _ = load_dataset(cfg.dataset, cfg.data_dir, cfg.image_size,
+                         cfg.channels)
+    x = np.asarray(ds.test_x[:num])
+    with torch.inference_mode():
+        out = cvae.apply_fn(cfg, model, cfg.seed + 777, x, mode="eval", k=1)
+        recon = _uint8(_pixels(out.x_out))
+    if out_path:
+        np.save(out_path, _pairs(x, recon))
+        print(f"[recon] wrote {out_path} ({num} original/recon pairs)")
+    return recon
+
+
+def sample(cfg: Config, num: int = 16,
+           temperature: float | list[float] = 1.0, use_ema: bool = True,
+           out_path: str | None = None, device="cuda") -> np.ndarray:
+    """``num`` prior samples at each temperature of ``temperature`` (a
+    float or a list: a sweep, every temperature on the same base noise);
+    with ``out_path`` each temperature's tile is saved (``<out>_T<t>.npy``
+    for a sweep). Returns the last temperature's uint8 images."""
+    _cifar_only("sampling", cfg)
+    dev = resolve_device(device)
+    _config_line(cfg, dev)
+    model = _serving_model(cfg, use_ema, dev)
+    temps = (list(temperature) if isinstance(temperature, (list, tuple))
+             else [temperature])
+    imgs = None
+    for t in temps:
+        with torch.inference_mode():
+            imgs = _uint8(cvae.cvae_sample(cfg, model, cfg.seed + 4242, num,
+                                           t))
+        if out_path:
+            path = (out_path if len(temps) == 1 else
+                    out_path.replace(".npy", "") + f"_T{t}.npy")
+            np.save(path, img_tile(imgs))
+            print(f"[sample] wrote {path} ({num} images, T={t})")
+    return imgs

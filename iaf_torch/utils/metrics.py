@@ -1,6 +1,7 @@
-"""Metrics: one JSON row per logged step in ``metrics.jsonl``, with the
-keys of ``iaf_tpu/utils/metrics.py``. TensorBoard mirroring and image
-tiles are not ported yet."""
+"""Metrics: one JSON row per logged step in ``metrics.jsonl`` (or the file
+named), with the keys of ``iaf_tpu/utils/metrics.py``, and image tiles
+under ``images/`` (``log_image``, ``img_tile``). TensorBoard mirroring is
+not ported yet."""
 
 from __future__ import annotations
 
@@ -11,8 +12,6 @@ from typing import Any
 
 import numpy as np
 import torch
-
-FILENAME = "metrics.jsonl"
 
 
 def _value(v: Any):
@@ -28,8 +27,8 @@ def _value(v: Any):
 
 
 class MetricsLogger:
-    def __init__(self, logdir: str):
-        self.path = os.path.join(logdir, FILENAME)
+    def __init__(self, logdir: str, filename: str = "metrics.jsonl"):
+        self.path = os.path.join(logdir, filename)
         os.makedirs(logdir, exist_ok=True)
         self._f = open(self.path, "a", buffering=1)
         self._t0 = time.time()
@@ -39,5 +38,43 @@ class MetricsLogger:
         rec.update({k: _value(v) for k, v in metrics.items()})
         self._f.write(json.dumps(rec) + "\n")
 
+    def log_image(self, tag: str, image, step: int) -> None:
+        """An HWC uint8 tile as ``images/<tag>_<step:08d>.npy`` beside the
+        metrics file, and a ``.png`` of it when PIL imports (the npy is
+        the authoritative file)."""
+        image = np.asarray(image)
+        img_dir = os.path.join(os.path.dirname(self.path), "images")
+        os.makedirs(img_dir, exist_ok=True)
+        stem = os.path.join(img_dir, f"{tag}_{step:08d}")
+        np.save(stem + ".npy", image)
+        try:
+            from PIL import Image
+        except ImportError:
+            return
+        Image.fromarray(image[..., 0] if image.shape[-1] == 1
+                        else image).save(stem + ".png")
+
     def close(self) -> None:
         self._f.close()
+
+
+def img_stretch(images) -> np.ndarray:
+    """Float images stretched to [0, 1] over the whole batch."""
+    images = np.asarray(images, np.float32)
+    lo, hi = images.min(), images.max()
+    return (images - lo) / max(hi - lo, 1e-12)
+
+
+def img_tile(images, pad: int = 1) -> np.ndarray:
+    """[N, H, W, C] images as one square grid image, ``pad`` zero pixels
+    between tiles, row-major."""
+    images = np.asarray(images)
+    n, h, w, c = images.shape
+    side = int(np.ceil(np.sqrt(n)))
+    grid = np.zeros((side * (h + pad) - pad, side * (w + pad) - pad, c),
+                    images.dtype)
+    for i in range(n):
+        r, col = divmod(i, side)
+        grid[r * (h + pad):r * (h + pad) + h,
+             col * (w + pad):col * (w + pad) + w] = images[i]
+    return grid
