@@ -9,7 +9,8 @@
                                             # k1_bwd_f32, f32_step,
                                             # f32_chunk, k2_fwd_f32,
                                             # k2_bwd_f32, f32_chunk_5x5,
-                                            # k2_fwd, k4_fwd, k4_bwd)
+                                            # k2_fwd, k4_fwd, k4_bwd; or
+                                            # step: 10 steps of ``train``)
 
 Phases, any failure exits non-zero:
 
@@ -101,12 +102,16 @@ Phases, any failure exits non-zero:
    gradient leaf and every updated parameter and EMA leaf are compared.
 9. Training main path: ``iaf_torch.train_lib.train`` at the paper config
    (bf16, batch 32, synthetic data) for 10 steps with a checkpoint at step
-   10, then a resume for 2 more steps that must restore at step 10. The
-   counters are zeroed before each run and read after it, and must be,
-   per step, K1 = K1-backward = K3 = K3-backward = 20, K4 = K4-backward =
-   K5 = 1. Every step's loss must be finite; the steady seconds per step
-   (median of steps 3-10) and examples/s are printed, and one more step is
-   profiled (device time by kernel name, device-busy share).
+   10, then a resume for 2 more steps that must restore at step 10. On
+   the card ``train`` runs the first step of each run eagerly, captures
+   the step as a CUDA graph and replays it (phases 6, 11 and 12 too).
+   The counters are zeroed before each run and read after it, and must
+   be, per step, K1 = K1-backward = K3 = K3-backward = 20, K4 =
+   K4-backward = K5 = 1 (a replay adds the launches its capture saw).
+   Every step's loss must be finite; the steady seconds per step
+   (median of steps 3-10) and examples/s are printed, the reserved
+   memory after each run, and one more eager step is profiled (device
+   time by kernel name, device-busy share).
 10. K1 at the deepest chain it holds at the paper widths (on the tensor
    cores: 16 convs in bf16, 8 in f32 by 3xTF32; 64 images) against its
    twin, bf16 at 2e-2 of the output's max and f32 at 1e-5 of the twin's
@@ -187,6 +192,24 @@ Phases, any failure exits non-zero:
    halfway (in log) between the CPU's changes either side of 1e-6 and
    at most one apart at 1e-6 itself (printed).
 
+15. The captured training step (``train_step.make_train_step``): (a)
+   three eager ``train_step``s against the graphed step (warm-up, then
+   two replays) on two copies of one state, same batches and keys, paper
+   config at batch 32, bf16 and f32: loss, every gradient, param, m, u
+   and EMA leaf and the step bitwise equal where a second eager copy (the
+   control, printed) is bitwise equal to the first; where it is not (f32:
+   cuDNN's algorithms), within ``NONDET_MARGIN`` times the control's
+   difference, and the same steps again on cuDNN's deterministic
+   algorithms must be bitwise; (b) in the four training cells (paper,
+   paper f32, 5x5, 5x5 f32) the median eager step and the median graphed
+   step over the same 8 steps, each ending in a wait for its loss (the
+   graphed one must be faster), and one graphed step's device busy by
+   torch.profiler (by CUDA events if it sees no kernel); (d) from
+   phase 9's step-10 checkpoint, ``train`` for 10 more steps at
+   steps_per_dispatch=1 and at 4 (4 + 4 + 2): one loss row per step, the
+   launch counts of 10 steps each, and the two final states (params, m,
+   u, EMA, step) bitwise equal.
+
 Times: ``ms`` is by CUDA events around 20 back-to-back calls (what a
 caller waits, host included); ``device_ms`` (every kernel, and K1's and
 K2's library calls) is the device time the profiler records for the same
@@ -204,7 +227,9 @@ launches those of one ``reconstruct``, and ``ar_stack_f32_inversion``
 (K1 in f32) and ``iaf_update_inversion`` at N = 2, their launches those
 of one ``invert_check``), the last ``{"ok": true,
 "device": {...}}``. The line before it, ``{"main": ...}``, sums up each
-path, phase 14's under ``"serve"``.
+path, phase 14's under ``"serve"``, phase 15's medians under each
+``train*`` entry's ``"side_by_side"``, with ``"graph_vs_eager"`` and
+``"train_chunked"``.
 """
 
 from __future__ import annotations
@@ -232,6 +257,14 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 EVAL_BATCH, EVAL_K, EVAL_CHUNK, EVAL_BATCHES = 16, 256, 64, 2
 TRAIN_STEPS, RESUME_STEPS = 10, 2
+SIDE_BY_SIDE_STEPS = 8     # phase 15(b): the steps each median is taken over
+# phase 15(a): where two eager runs differ (cuDNN's f32 algorithms are not
+# all deterministic), the graph may differ from the eager run by this many
+# times the control's difference, part by part. Each part's difference is
+# a maximum over up to 41.6 M elements, which spreads little from run to
+# run (an H100 read 0.0036 for the control's gradients and 0.0025 for the
+# graph's, param 4.0e-4 and 3.9e-4)
+NONDET_MARGIN = 2.0
 F32_TRAIN_STEPS = 6
 # f32 step, card vs CPU: small-gradient elements whose Adamax sign may
 # flip. 129-133 of 41.6 M flipped on an H100; a wrong gradient in one
@@ -1454,6 +1487,9 @@ PER_STEP_5X5 = {"masked_conv2d": 60, "masked_conv2d_bwd": 60,
                 "iaf_update": 20, "iaf_update_bwd": 20,
                 "disc_logistic_logp": 1, "disc_logistic_logp_bwd": 1,
                 "adamax_polyak": 1}
+# steps of a ``train_lib.train`` run on the card whose launches Python
+# makes: the eager warm-up step and the capture (the replays run none)
+GRAPH_PY_STEPS = 2
 
 
 def _label(cfg) -> str:
@@ -1495,6 +1531,7 @@ def train_phase(ops, device, hp: str = PAPER, per_step: dict = PER_STEP,
     print(f"[train] {tag}: {steps} steps with init and set-up "
           f"{secs:.3f} s, launches {counts}")
     check(counts == want, f"launch counts {counts} != {want}")
+    _reserved(f"{tag} training run")
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     losses = [r["loss"] for r in rows]
@@ -1529,7 +1566,16 @@ def train_phase(ops, device, hp: str = PAPER, per_step: dict = PER_STEP,
     check(f"at step {steps}" in log, "the resume did not restore")
     check(resumed == _expect(resumed, per_step, resume_steps),
           f"resume launch counts {resumed}")
+    _reserved(f"{tag} resumed run")
     return cfg, state, counts, summary
+
+
+def _reserved(what: str) -> None:
+    import torch
+    gib = 2.0 ** 30
+    print(f"[memory] after the {what}: "
+          f"{torch.cuda.memory_reserved() / gib:.3f} GiB reserved, "
+          f"{torch.cuda.memory_allocated() / gib:.3f} GiB allocated")
 
 
 def eval_phase(ops, device, cfg, model, ds, per_chunk: dict):
@@ -1609,18 +1655,22 @@ def f32_phases(ops, device, model, ds):
         tcfg, tstate, counts, summary = train_phase(
             ops, device, hp, PER_STEP, F32_TRAIN_STEPS, 0)
     tc = (("3xtf32", "3xtf32"),) * 3
-    check(len(routes["fwd"]) == counts["ar_stack"]
+    # the routes are chosen in Python by the warm-up step and the capture;
+    # the replays repeat the capture's launches
+    check(len(routes["fwd"]) == GRAPH_PY_STEPS * PER_STEP["ar_stack"]
           and set(routes["fwd"]) == {"3xtf32"},
-          f"f32 training: K1 routes {sorted(set(routes['fwd']))}, not all "
-          "3xtf32")
-    check(len(routes["bwd"]) == counts["ar_stack_bwd"]
+          f"f32 training: K1 routes {sorted(set(routes['fwd']))} "
+          f"({len(routes['fwd'])}), not all 3xtf32")
+    check(len(routes["bwd"]) == GRAPH_PY_STEPS * PER_STEP["ar_stack_bwd"]
           and set(routes["bwd"]) == {tc},
-          f"f32 training: K1 backward routes {sorted(set(routes['bwd']))}, "
-          "not all 3xtf32")
+          f"f32 training: K1 backward routes {sorted(set(routes['bwd']))} "
+          f"({len(routes['bwd'])}), not all 3xtf32")
     print(f"[main] paper f32: every K1 forward of the eval and the training "
-          f"runs took the 3xtf32 route ({counts['ar_stack']} in training), "
-          f"and every K1 backward ({counts['ar_stack_bwd']}) took 3xtf32 for "
-          "dgrad and wgrad on every conv")
+          f"runs took the 3xtf32 route ({counts['ar_stack']} launches in "
+          f"training, {len(routes['fwd'])} of them chosen by the warm-up "
+          f"step and the capture, the rest replays), and every K1 backward "
+          f"({counts['ar_stack_bwd']}) took 3xtf32 for dgrad and wgrad on "
+          "every conv")
     tbatch = ds.train_x[:tcfg.batch_size]
     cap = capture_train_step(
         ops, lambda: ts.train_step(tcfg, tstate, 98, tbatch))
@@ -2214,16 +2264,19 @@ def five_by_five_f32_phases(ops, device, model, ds):
     with k2_routes() as routes:
         tcfg, tstate, counts, summary = train_phase(
             ops, device, hp, PER_STEP_5X5, F32_TRAIN_STEPS, 0)
-    check(len(routes["fwd"]) == counts["masked_conv2d"]
+    py = GRAPH_PY_STEPS   # the warm-up step and the capture; see f32_phases
+    check(len(routes["fwd"]) == py * PER_STEP_5X5["masked_conv2d"]
           and set(routes["fwd"]) == {"3xtf32"}
-          and len(routes["bwd"]) == counts["masked_conv2d_bwd"]
+          and len(routes["bwd"]) == py * PER_STEP_5X5["masked_conv2d_bwd"]
           and set(routes["bwd"]) == {("3xtf32", "3xtf32")},
           f"5x5 f32 training: K2 routes {sorted(set(routes['fwd']))}, "
-          f"{sorted(set(routes['bwd']))}, not all 3xtf32")
+          f"{sorted(set(routes['bwd']))} ({len(routes['fwd'])}, "
+          f"{len(routes['bwd'])}), not all 3xtf32")
     print(f"[main] 5x5 f32: every K2 forward and backward of the eval and "
           f"the training runs took the 3xtf32 route ({counts['masked_conv2d']}"
           f" forwards and {counts['masked_conv2d_bwd']} backwards in "
-          f"training)")
+          f"training, {len(routes['fwd'])} and {len(routes['bwd'])} of them "
+          f"chosen by the warm-up step and the capture, the rest replays)")
     summary["profile"] = profile_phase(
         f"5x5 f32: one training step (batch {tcfg.batch_size})",
         lambda: ts.train_step(tcfg, tstate, 99, tbatch))
@@ -2536,6 +2589,264 @@ def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
                          "serve recon": recon_counts}, summary
 
 
+def _state_copy(cfg, state, device):
+    """A training state with its own tensors, equal to ``state``'s."""
+    from iaf_torch import optim
+    from iaf_torch.models import cvae
+    from iaf_torch.parallel import train_step as ts
+    model = cvae.CVAE(cfg, device=device)
+    model.load_state_dict(state.params.state_dict())
+    opt = state.opt
+    return ts.TrainState(model, optim.AdamaxState(
+        opt.step.clone(), *({k: v.clone() for k, v in part.items()}
+                            for part in (opt.m, opt.u, opt.ema))))
+
+
+def _state_diffs(a, b, losses_a, losses_b) -> dict:
+    """The largest absolute difference between two training states (and
+    their losses), by part: loss, grad (None as zeros), param, m, u, ema,
+    step."""
+    import torch
+    out = {"loss": max(abs(x - y) for x, y in zip(losses_a, losses_b))}
+    pa = dict(a.params.named_parameters())
+    pb = dict(b.params.named_parameters())
+
+    def worst(pairs):
+        return max(float((x - y).abs().max()) for x, y in pairs)
+
+    def grad(p):
+        return torch.zeros_like(p) if p.grad is None else p.grad
+    out["grad"] = worst((grad(pa[k]), grad(pb[k])) for k in pa)
+    out["param"] = worst((pa[k].detach(), pb[k].detach()) for k in pa)
+    for part in ("m", "u", "ema"):
+        out[part] = worst((getattr(a.opt, part)[k], getattr(b.opt, part)[k])
+                          for k in pa)
+    out["step"] = abs(int(a.opt.step) - int(b.opt.step))
+    return out
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(on: bool):
+    """Inside the block cuDNN picks deterministic algorithms if ``on``."""
+    import torch
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on or saved
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def graph_vs_eager(ops, device, hp: str, steps: int = 3,
+                   deterministic: bool = False) -> dict:
+    """Phase 15(a): ``steps`` eager ``train_step``s on one copy of a state
+    and the graphed step (``make_train_step``: warmed up, captured, then
+    replayed) on another, same batches, keys and so noise; a second eager
+    copy is the control. Where the control is bitwise the graph must be
+    bitwise; elsewhere it may differ from the eager run by at most
+    ``NONDET_MARGIN`` times what the control differs by, part by part.
+    ``deterministic`` runs all three with cuDNN's deterministic
+    algorithms."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.parallel import train_step as ts
+    cfg = Config().parse(hp + ",dataset=synthetic")
+    tag = _label(cfg) + (", cuDNN deterministic" if deterministic else "")
+    B = cfg.batch_size
+    x = synthetic_dataset(cfg.image_size, cfg.channels,
+                          n_train=B * steps).train_x
+    with _cudnn_deterministic(deterministic):
+        eager = ts.init_train_state(cfg, 21, x[:B], device)
+        control, graphed = (_state_copy(cfg, eager, device)
+                            for _ in range(2))
+        step = ts.make_train_step(cfg, graphed)
+        losses = {"eager": [], "control": [], "graph": []}
+        for i in range(steps):
+            batch, key = x[i * B:(i + 1) * B], 1000 + i
+            for name, st in (("eager", eager), ("control", control)):
+                losses[name].append(float(ts.train_step(cfg, st, key,
+                                                         batch)[1]["loss"]))
+            losses["graph"].append(float(step(graphed, key,
+                                              batch)[1]["loss"]))
+        torch.cuda.synchronize()
+        step.close()
+    ctrl = _state_diffs(eager, control, losses["eager"], losses["control"])
+    got = _state_diffs(eager, graphed, losses["eager"], losses["graph"])
+    bitwise = all(v == 0 for v in ctrl.values())
+    print(f"[graph] {tag}: {steps} eager steps against the graphed step "
+          f"(1 warm-up, then {steps - 1} replays), batch {B}: losses "
+          f"{losses['eager']} (eager) {losses['graph']} (graph); largest "
+          f"difference by part, eager vs eager control {ctrl}, eager vs "
+          f"graph {got}; the control is {'' if bitwise else 'NOT '}bitwise")
+    for part, limit in ctrl.items():
+        check(got[part] <= NONDET_MARGIN * limit,
+              f"{tag}: the graphed step's {part} differs from the eager "
+              f"step's by {got[part]} > {NONDET_MARGIN} x the control's "
+              f"{limit}")
+    return {"control": ctrl, "graph": got, "bitwise": bitwise,
+            "losses": losses["graph"]}
+
+
+def step_side_by_side(ops, device, hp: str, n: int = SIDE_BY_SIDE_STEPS
+                      ) -> dict:
+    """Phase 15(b): the median eager step (``train_step``) and the median
+    graphed step (``make_train_chunk``, one step a chunk, as ``train`` at
+    steps_per_dispatch=1 runs it) over the same ``n`` steps after two
+    more, each step ending in a wait for its loss; then the device time of
+    one graphed step by torch.profiler, and by CUDA events over 5."""
+    from iaf_torch.core.config import Config
+    from iaf_torch.core.rng import fold
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.parallel import train_step as ts
+    cfg = Config().parse(hp + ",dataset=synthetic")
+    tag = _label(cfg)
+    B = cfg.batch_size
+    x = synthetic_dataset(cfg.image_size, cfg.channels,
+                          n_train=B * (n + 2)).train_x
+    batches = [x[i * B:(i + 1) * B] for i in range(n + 2)]
+    state = ts.init_train_state(cfg, 23, batches[0], device)
+    eager = []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        float(ts.train_step(cfg, state, fold(7, i), b)[1]["loss"])
+        eager.append(time.perf_counter() - t0)
+    chunk = ts.make_train_chunk(cfg, state)
+    graph = []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        float(chunk(state, 7, i, b[None])[1]["loss"][0])
+        graph.append(time.perf_counter() - t0)
+
+    def one():
+        return chunk(state, 7, 0, batches[0][None])
+    prof = profile_phase(f"{tag}: one graphed training step (batch {B})",
+                         one)
+    ev = cuda_ms(one, iters=5, warmup=1)   # enqueued back to back
+    chunk.close()
+    med_e, med_g = statistics.median(eager[2:]), statistics.median(graph[2:])
+    busy = prof["busy_ms"]
+    if busy == 0:
+        print(f"[graph] {tag}: the profiler recorded no kernel inside the "
+              "graph; busy time from CUDA events")
+        busy = ev
+    print(f"[graph] {tag}: median step over {n} steps (after 2), batch {B}: "
+          f"eager {med_e:.4f} s, graphed {med_g:.4f} s ({med_e / med_g:.2f}x);"
+          f" graphed step's device busy {busy:.3f} ms (profiler "
+          f"{prof['busy_ms']:.3f}, events {ev:.3f} ms), "
+          f"{100 * busy / 1e3 / med_g:.1f} % of the graphed step; eager "
+          f"steps {[round(t, 4) for t in eager]}, graphed "
+          f"{[round(t, 4) for t in graph]} (the first: warm-up and capture)")
+    check(med_g < med_e, f"{tag}: the graphed step ({med_g:.4f} s) is not "
+          f"faster than the eager one ({med_e:.4f} s)")
+    return {"eager_median_s": med_e, "graph_median_s": med_g,
+            "graph_busy_ms": busy, "graph_events_ms": ev,
+            "graph_profiler_busy_ms": prof["busy_ms"],
+            "warm_up_and_capture_s": graph[0]}
+
+
+def chunked_train_phase(ops, device, ref_logdir: str, S: int = 4,
+                        steps: int = TRAIN_STEPS) -> dict:
+    """Phase 15(d): from phase 9's step-``TRAIN_STEPS`` checkpoint (one
+    start for both: the data-dependent init on the card is not bitwise
+    reproducible from run to run), ``train_lib.train`` for ``steps`` more
+    steps at steps_per_dispatch=1 and at S (S + S + a tail), each in a
+    logdir of its own: one loss row per step, the launch counts of
+    ``steps`` steps each, and the two final states bitwise equal (params,
+    m, u, EMA, step)."""
+    import torch
+    from iaf_torch import train_lib
+    from iaf_torch.core.config import Config
+    src = os.path.join(ref_logdir, f"ckpt-{TRAIN_STEPS:09d}.npz")
+    total = TRAIN_STEPS + steps
+    states, out = {}, {"steps_per_dispatch": S, "steps": steps}
+    for spd in (1, S):
+        logdir = os.path.join(HERE, "build", f"chip_smoke_train_s{spd}")
+        shutil.rmtree(logdir, ignore_errors=True)
+        os.makedirs(logdir)
+        shutil.copy(src, logdir)
+        cfg = Config().parse(PAPER + f",dataset=synthetic,log_every=1,"
+                             f"ckpt_every={total},eval_every=0,"
+                             f"steps_per_dispatch={spd}").replace(
+                                 logdir=logdir)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            states[spd] = train_lib.train(cfg, max_steps=total,
+                                          device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(f"at step {TRAIN_STEPS}" in log.getvalue(),
+              f"S = {spd}: the run did not restore")
+        check(counts == _expect(counts, PER_STEP, steps),
+              f"S = {spd}: launch counts {counts}")
+        _reserved(f"steps_per_dispatch={spd} run")
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        loss_steps = [r["step"] for r in rows if "loss" in r]
+        check(loss_steps == list(range(TRAIN_STEPS + 1, total + 1)),
+              f"S = {spd}: loss rows at steps {loss_steps}")
+        rate = [r["steps_per_sec"] for r in rows if "steps_per_sec" in r]
+        print(f"[chunked] steps_per_dispatch={spd}: steps {TRAIN_STEPS + 1}"
+              f"-{total} from phase 9's checkpoint in {secs:.3f} s with "
+              f"set-up, launches {counts}; {len(loss_steps)} loss rows; "
+              f"steps/s at the {len(rate)} flushes "
+              f"{[round(v, 3) for v in rate]}")
+        out[f"s{spd}"] = {"seconds_with_setup": secs,
+                          "loss_rows": len(loss_steps),
+                          "steps_per_s_at_flushes": rate}
+    a, b = states[1], states[S]
+    worst = {"params": max(float((x - y).abs().max()) for x, y in zip(
+        a.params.state_dict().values(), b.params.state_dict().values()))}
+    for part in ("m", "u", "ema"):
+        worst[part] = max(float((v - getattr(b.opt, part)[k]).abs().max())
+                          for k, v in getattr(a.opt, part).items())
+    print(f"[chunked] steps_per_dispatch={S} against 1 from the same "
+          f"checkpoint: largest difference {worst}, steps "
+          f"{int(a.opt.step)} and {int(b.opt.step)}")
+    check(int(a.opt.step) == int(b.opt.step) == total,
+          "chunked run: optimizer step")
+    check(all(v == 0 for v in worst.values()),
+          f"steps_per_dispatch={S} differs from 1: {worst}")
+    out["max_diff"] = worst
+    return out
+
+
+def graph_phase(ops, device, ref_logdir: str) -> dict:
+    """Phase 15: the captured training step against the eager one
+    (bitwise, paper bf16 and f32), eager and graphed medians side by side
+    in the four training cells, and ``train`` at steps_per_dispatch=4.
+    Returns {cell: side-by-side figures, "graph_vs_eager": ...,
+    "chunked": ...}."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"graph_vs_eager": {}}
+    for key, hp in (("paper", PAPER),
+                    ("paper f32", PAPER + ",compute_dtype=float32")):
+        r = out["graph_vs_eager"][key] = graph_vs_eager(ops, device, hp)
+        if not r["bitwise"]:
+            # the same steps on cuDNN's deterministic algorithms: there
+            # the control and so the graph must be bitwise
+            r["deterministic"] = graph_vs_eager(ops, device, hp,
+                                                deterministic=True)
+            check(r["deterministic"]["bitwise"], f"{key}: two eager runs "
+                  "differ on cuDNN's deterministic algorithms")
+        torch.cuda.empty_cache()
+    for key, hp in (("train", PAPER),
+                    ("train_f32", PAPER + ",compute_dtype=float32"),
+                    ("train_5x5", PAPER5),
+                    ("train_5x5_f32", PAPER5 + ",compute_dtype=float32")):
+        out[key] = step_side_by_side(ops, device, hp)
+        torch.cuda.empty_cache()
+        _reserved(f"{key} side by side")
+    out["chunked"] = chunked_train_phase(ops, device, ref_logdir)
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"[graph] phase 15: {out['phase_seconds']:.1f} s")
+    return out
+
+
 def run() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -2650,6 +2961,14 @@ def run() -> dict:
     serve["phase_seconds"] = time.perf_counter() - t0
     print(f"[serve] phase 14: {serve['phase_seconds']:.1f} s")
     rows += serve_rows
+
+    # phase 15: the captured training step: against the eager step, side
+    # by side in the four training cells, and steps_per_dispatch=4
+    graph = graph_phase(ops, device, tcfg.logdir)
+    for key, s in (("train", summary), ("train_f32", summary32["train"]),
+                   ("train_5x5", summary5["train"]),
+                   ("train_5x5_f32", summary5_32["train"])):
+        s["side_by_side"] = graph[key]
     paths = {"paper": (eval_counts, counts), "5x5": (eval5, counts5),
              "paper f32": (eval32, counts32),
              "5x5 f32": (eval5_32, counts5_32),
@@ -2676,7 +2995,10 @@ def run() -> dict:
                       "train_5x5": summary5["train"],
                       "main_5x5_f32": summary5_32["main"],
                       "train_5x5_f32": summary5_32["train"],
-                      "serve": serve}))
+                      "serve": serve,
+                      "graph_vs_eager": graph["graph_vs_eager"],
+                      "train_chunked": graph["chunked"],
+                      "graph_phase_seconds": graph["phase_seconds"]}))
     print(json.dumps({"kernels": rows}))
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}
@@ -2945,13 +3267,84 @@ print(json.dumps({"tree": root, "case": case, **out}))
 """
 
 
+# ``ab``'s case ``step``, one process per tree: ``train_lib.train`` of the
+# paper bf16 config for AB_STEPS steps in the tree argv[1] (its kernels
+# built first, all at once), logging every step into argv[2]; prints the
+# median steady step (steps 3 on, each ending in a wait for its loss).
+_AB_STEP_CHILD = r"""
+import json, os, shutil, statistics, sys, threading
+root, logdir, hp, steps = sys.argv[1:4] + [int(sys.argv[4])]
+sys.path.insert(0, root)
+from iaf_torch import train_lib
+from iaf_torch.core.config import Config
+from iaf_torch.ops import _build
+assert os.path.dirname(_build.__file__).startswith(os.path.abspath(root)), \
+    _build.__file__
+builds = [threading.Thread(target=_build.load, args=(n,)) for n in (
+    "ar_stack", "ar_stack_bwd", "masked_conv", "masked_conv_bwd",
+    "disc_logistic")]
+for t in builds:
+    t.start()
+for t in builds:
+    t.join()
+shutil.rmtree(logdir, ignore_errors=True)
+cfg = Config().parse(hp + ",dataset=synthetic,log_every=1,ckpt_every=100000,"
+                     "eval_every=0").replace(logdir=logdir)
+train_lib.train(cfg, max_steps=steps)
+with open(os.path.join(logdir, "metrics.jsonl")) as f:
+    rows = [json.loads(line) for line in f]
+step_s = [1.0 / r["steps_per_sec"] for r in rows[2:]]
+print(json.dumps({"tree": root, "median_step_s": statistics.median(step_s),
+                  "step_s": step_s, "losses": [r["loss"] for r in rows]}))
+"""
+AB_STEPS = 10
+# Each step's loss in every A/B step run within this of the first run's:
+# two runs start from inits that differ in their last bits (cuDNN's
+# transposed conv in the data-dependent init), which 10 steps of Adamax
+# carry to 1.5e-5 of the loss on an H100.
+AB_STEP_REL = 1e-4
+
+
+def ab_step(other: str) -> list[dict]:
+    """The A/B case ``step``: ``train_lib.train`` for ``AB_STEPS`` steps of
+    the paper bf16 config in the tree ``other`` (A) and in this one (B),
+    A B B A, each a process of its own on the same card; each run's
+    median steady step. Every run's losses must agree within
+    ``AB_STEP_REL``."""
+    runs = []
+    for i, root in enumerate((other, HERE, HERE, other)):
+        proc = subprocess.run(
+            [sys.executable, "-c", _AB_STEP_CHILD, os.path.abspath(root),
+             os.path.join(HERE, "build", f"chip_smoke_ab_step_{i}"), PAPER,
+             str(AB_STEPS)], capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"A/B step run of {root} failed:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"[A/B step] {root}: median steady step {r['median_step_s']:.4f}"
+              f" s over steps 3-{AB_STEPS} "
+              f"{[round(t, 4) for t in r['step_s']]}; last loss "
+              f"{r['losses'][-1]}")
+        runs.append(r)
+    rel = max(abs(x - y) / abs(y) for r in runs
+              for x, y in zip(r["losses"], runs[0]["losses"]))
+    print(f"[A/B step] largest relative difference of a step's loss from "
+          f"the first run's: {rel:.3e} (the card's data-dependent init "
+          "differs from run to run in its last bits)")
+    check(rel <= AB_STEP_REL, f"the A/B step runs' losses differ by {rel} "
+          f"> {AB_STEP_REL}: {[r['losses'] for r in runs]}")
+    return runs
+
+
 def ab(other: str, case: str = "k1_fwd") -> list[dict]:
-    """The A/B case ``case`` (``AB_CASES``) run on the tree ``other`` (A)
-    and on this one (B) in the order A B B A, each run a process of its
-    own on the same card, by device time and by events, each call held
-    to its twin at 2e-2 of max. Returns each run's numbers."""
+    """The A/B case ``case`` (``AB_CASES``, or ``step``: ``ab_step``) run on
+    the tree ``other`` (A) and on this one (B) in the order A B B A, each
+    run a process of its own on the same card, by device time and by
+    events, each call held to its twin at 2e-2 of max. Returns each run's
+    numbers."""
+    if case == "step":
+        return ab_step(other)
     check(case in AB_CASES, f"no A/B case {case!r}; cases: "
-          f"{sorted(AB_CASES)}")
+          f"{sorted(AB_CASES)} and step")
     runs = []
     for root in (other, HERE, HERE, other):
         proc = subprocess.run(

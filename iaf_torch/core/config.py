@@ -6,9 +6,11 @@ so an ``--hpconfig`` string or a JAX run's ``hps.json`` loads unchanged.
 Fields that only steer the TPU build are accepted and ignored here:
 ``kernels`` and ``ar_variant`` (on CUDA the hand-written kernels always
 run, on the CPU their plain twins), ``pin_state_layouts`` and
-``fused_opt_layout_aware`` (XLA layout choices), ``steps_per_dispatch``,
-``scan_blocks`` and ``remat`` (XLA program-shape choices), and
-``mesh_data``/``mesh_model`` (the JAX device mesh).
+``fused_opt_layout_aware`` (XLA layout choices), ``scan_blocks`` and
+``remat`` (XLA program-shape choices), and ``mesh_data``/``mesh_model``
+(the JAX device mesh). ``steps_per_dispatch`` S is the training loop's:
+S steps a dispatch, on the card S replays of the step's CUDA graph
+enqueued back to back.
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ class Config:
     batch_size: int = 16
     total_steps: int = 1_000_000
     seed: int = 123
-    steps_per_dispatch: int = 1       # accepted, ignored (XLA dispatch)
+    steps_per_dispatch: int = 1       # steps per dispatch (graph replays)
 
     scan_blocks: bool = False         # accepted, ignored (XLA program shape)
     fold_wn: bool = True

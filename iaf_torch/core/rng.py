@@ -7,7 +7,9 @@ from device layout. A key here is a plain 63-bit integer; ``fold`` mixes a
 does for threefry keys, and a site's draws come from a ``torch.Generator``
 seeded with the folded key. The bits differ from JAX's threefry stream, so
 parity tests inject JAX's draws through a ``noise`` dict keyed by site path
-(``"block_3/layer_0/z_post"``).
+(``"block_3/layer_0/z_post"``). ``normal_into`` writes a site's draw into
+a buffer that already exists (the noise buffers a captured CUDA graph of
+the training step reads), with the same bits as ``site_normal``.
 """
 
 from __future__ import annotations
@@ -57,3 +59,10 @@ def site_normal(key: int, site: str, shape: Sequence[int],
         return eps
     return torch.randn(tuple(shape), generator=generator(key, device),
                        device=device, dtype=torch.float32)
+
+
+def normal_into(key: int, out: torch.Tensor) -> torch.Tensor:
+    """``site_normal``'s draw for ``key`` written into ``out`` (float32,
+    contiguous): the same generator, the same bits. Returns ``out``."""
+    return torch.randn(tuple(out.shape), generator=generator(key, out.device),
+                       out=out)

@@ -17,7 +17,8 @@ data-dependent init runs plain convs, as JAX's init never reaches Pallas.
 Noise: every layer's posterior draw comes from the site
 ``block_i/layer_j/z_post`` under the step key (``core.rng``), its prior
 draw when sampling from ``block_i/layer_j/z_prior``, or either from the
-``noise`` dict when it holds that site.
+``noise`` dict when it holds that site. ``draw_noise`` writes a training
+forward's posterior draws into given buffers, with the same bits.
 
 ``cvae_sample`` (prior decode) and ``posterior_flow_probe`` (the top
 layer's flow for inversion) compute in f32 whatever ``compute_dtype``
@@ -39,7 +40,8 @@ from iaf_torch import ops
 from iaf_torch.bridge import to_torch_layout
 from iaf_torch.core.config import Config
 from iaf_torch.core.device import no_tf32
-from iaf_torch.core.rng import fold_name, generator, site_normal
+from iaf_torch.core.rng import fold_name, generator, normal_into, \
+    site_normal
 from iaf_torch.distributions import DiagonalGaussian, compute_lowerbound
 from iaf_torch.nn.layers import (ARMultiConv2d, WNConv2d, WNDeconv2d,
                                  compute_dtype)
@@ -202,6 +204,15 @@ def _eps(cfg, rng, i, shape, device, noise, site: str = "z_post"):
     name = layer_names(cfg)[i]
     key = fold_name(fold_name(rng, name), site)
     return site_normal(key, f"{name}/{site}", shape, device, noise)
+
+
+def draw_noise(cfg: Config, rng: int,
+               out: Mapping[str, torch.Tensor]) -> None:
+    """Write into each buffer of ``out`` (``<layer>/z_post`` -> tensor) the
+    posterior draw a forward at key ``rng`` makes there (``_eps``)."""
+    for name in layer_names(cfg):
+        site = f"{name}/z_post"
+        normal_into(fold_name(fold_name(rng, name), "z_post"), out[site])
 
 
 def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",

@@ -20,7 +20,13 @@ kernel too.
   one launch), twin ``disc_logistic_bwd_ref``
 - K5 ``adamax_polyak`` (Triton, one launch over all leaves), twin
   ``adamax_polyak_ref``
+
+Each wrapper counts its launches (``launch_counts``). A replayed CUDA graph
+runs no Python, so the launches its capture saw (``launches_apart``) are
+added once per replay (``add_launch_counts``).
 """
+
+import contextlib
 
 from iaf_torch.ops import ar_stack as _ar_stack_mod
 from iaf_torch.ops import fused as _fused_mod
@@ -69,3 +75,27 @@ def reset_launch_counts() -> None:
     for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (name -> launches) to the counters."""
+    for counters in _COUNTERS:
+        for name in counters:
+            counters[name] += counts.get(name, 0)
+
+
+@contextlib.contextmanager
+def launches_apart():
+    """Leave the launches made inside the block out of the counters; the
+    yielded dict holds them (name -> launches) when the block ends."""
+    before = launch_counts()
+    seen: dict[str, int] = {}
+    try:
+        yield seen
+    finally:
+        now = launch_counts()
+        seen.update({k: now[k] - before[k] for k in now
+                     if now[k] != before[k]})
+        for counters in _COUNTERS:
+            for name in counters:
+                counters[name] = before[name]

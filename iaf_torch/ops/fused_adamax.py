@@ -15,8 +15,10 @@ At the paper config it reads p, g, m, u, e and writes p, m, u, e for
 operations per element, so it is bound by bytes. The design moves each
 byte once and launches once per step for all leaves (428 at the paper
 config): the kernel reads a table of leaf pointers (params, m, u, ema,
-size), copied to the card once per training state, a table of gradient
-pointers, copied each step, and a block map (leaf, offset) per program,
+size) and a table of gradient pointers, each copied to the card once per
+set of pointers (the training step keeps its gradients in fixed buffers,
+so a captured CUDA graph of the step reads the tables it was captured
+with), and a block map (leaf, offset) per program,
 so no leaf is copied into a flat buffer and nothing but the
 update touches device memory. The params are updated where they lie, so
 the model sees the new values with no copy back.
@@ -124,17 +126,15 @@ def _block_map(sizes: tuple[int, ...], device: torch.device):
             torch.from_numpy(off).to(device))
 
 
-def _to_device(values, device: torch.device) -> torch.Tensor:
+@functools.lru_cache(maxsize=16)
+def _table(values: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """A pointer table on the card: the (params, m, u, ema, size) rows or
+    the gradient pointers. Those tensors live as long as the training
+    state and its gradient buffers, so each table is copied once, not once
+    per step; a call under CUDA graph capture must find its tables here
+    (the copy from the host cannot be captured)."""
     host = torch.tensor(values, dtype=torch.int64).pin_memory()
     return host.to(device, non_blocking=True)
-
-
-@functools.lru_cache(maxsize=8)
-def _state_table(values: tuple[int, ...], device: torch.device):
-    """The (params, m, u, ema, size) pointer table on the card. Those
-    tensors live as long as the training state, so the table is copied
-    once per state, not once per step."""
-    return _to_device(values, device)
 
 
 def adamax_polyak(params: Sequence[torch.Tensor],
@@ -173,11 +173,11 @@ def adamax_polyak(params: Sequence[torch.Tensor],
     for group in (grads, m, u, ema):
         if tuple(t.numel() for t in group) != sizes:
             raise ValueError("adamax_polyak: leaf sizes differ")
-    tab = _state_table(tuple(
+    tab = _table(tuple(
         v for p, m_, u_, e in zip(params, m, u, ema)
         for v in (p.data_ptr(), m_.data_ptr(), u_.data_ptr(), e.data_ptr(),
                   p.numel())), dev)
-    gtab = _to_device([g.data_ptr() for g in grads], dev)   # new each step
+    gtab = _table(tuple(g.data_ptr() for g in grads), dev)
     blk_leaf, blk_off = _block_map(sizes, dev)
     kernel = _kernel()
     with torch.cuda.device(dev):

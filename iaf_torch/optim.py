@@ -10,7 +10,9 @@ The state lives beside the model's parameters as name -> tensor dicts
 params, m, u and ema in place: on CUDA every leaf goes through one launch
 of K5 (``ops.adamax_polyak``), on the CPU through its twin. The step
 count, the bias-corrected lr and the clip factor stay on the device, so
-the host never waits on the card. A ``None`` gradient (a parameter the
+the host never waits on the card. The step count is advanced in place,
+so a captured CUDA graph of the step (``parallel/train_step.py``) counts
+on the same tensor at every replay. A ``None`` gradient (a parameter the
 loss does not reach) counts as zeros, as JAX's zero cotangent does.
 """
 
@@ -49,15 +51,16 @@ def apply_updates(
     polyak_decay: float = 0.999, bias_correction: bool = False,
     grad_clip: float = 0.0,
 ) -> tuple[Mapping[str, torch.Tensor], AdamaxState]:
-    """One Adamax + Polyak step over every leaf of ``params``, in place.
-    Returns (params, the state with its step advanced)."""
+    """One Adamax + Polyak step over every leaf of ``params``, in place,
+    the step count too. Returns (params, the state, its tensors the same
+    ones)."""
     names = list(params)
     ps = [params[k].detach() for k in names]
     gs = [grads.get(k) for k in names]
     gs = [torch.zeros_like(p) if g is None else g.detach()
           for p, g in zip(ps, gs)]
     dev = ps[0].device
-    step = state.step + 1
+    step = state.step.add_(1)
     scale = None
     if grad_clip > 0.0:
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
@@ -73,4 +76,4 @@ def apply_updates(
                       [state.ema[k] for k in names], lr_t, beta1=beta1,
                       beta2=beta2, eps=eps, polyak_decay=polyak_decay,
                       scale=scale)
-    return params, AdamaxState(step, state.m, state.u, state.ema)
+    return params, state

@@ -2,15 +2,18 @@
 
 ``train`` runs the training loop with the JAX package's key discipline,
 cadences and checkpoints (same ``.npz`` keys, so either package resumes
-the other's runs), with image summaries at the heartbeat eval.
+the other's runs), with image summaries at the heartbeat eval. It takes
+``steps_per_dispatch`` steps per dispatch from a prefetch thread
+(``feed.ChunkPrefetcher``) through ``train_step.make_train_chunk``: on
+the card a captured CUDA graph of the whole step, replayed.
 ``evaluate`` scores a split with the k-sample importance-weighted bound
 on the Polyak (EMA) weights of the newest checkpoint in ``cfg.logdir``,
 or on the caller's model, and returns bits/dim; with ``progress_path`` a
 killed eval resumes mid-split. ``eval_loop`` follows a training run's
 checkpoints. ``sample``, ``reconstruct`` and ``invert_check`` serve the
 newest checkpoint: prior samples, posterior reconstructions and the AR
-inversion of the top IAF step. The prefetch thread, multi-GPU and
-TensorBoard come with later slices of the port.
+inversion of the top IAF step. Multi-GPU and TensorBoard come with later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -105,7 +108,11 @@ def train(cfg: Config, max_steps: int | None = None,
           data_iter: Iterator[np.ndarray] | None = None,
           device="cuda") -> ts.TrainState:
     """The training loop on one device (the card unless ``device`` is
-    "cpu"). Returns the final state."""
+    "cpu"), ``cfg.steps_per_dispatch`` steps a dispatch: the loop of
+    ``iaf_tpu/train_lib.py``, step i of a chunk keyed fold(base key,
+    start + i), each cadence firing when a multiple of it lies in the
+    chunk. Returns the final state, whose tensors (on the card the ones
+    the step's graph updated) hold the last step's values."""
     _cifar_only("training", cfg)
     dev = resolve_device(device)
     logger = MetricsLogger(cfg.logdir)
@@ -149,33 +156,55 @@ def train(cfg: Config, max_steps: int | None = None,
                                     dev)
         print(f"[train] {describe(state.params)}")
 
+    S = max(1, cfg.steps_per_dispatch)
     total = cfg.total_steps if max_steps is None else max_steps
     t_last, steps_since = time.time(), 0
+    # at S > 1: (chunk start step, length, stacked device metrics) kept
+    # until the log flush, which writes one row per trained step
+    pending: list[tuple[int, int, dict]] = []
     step = start_step
+    chunk_fn = ts.make_train_chunk(cfg, state)
+    # the next chunk's batches are stacked on a thread while the card runs
+    prefetch = feed.ChunkPrefetcher(data_iter, S, total,
+                                    start_step=start_step,
+                                    first_local=first)
     try:
-        while step < total:
-            batch = first if first is not None else next(data_iter)
-            first = None
-            state, metrics = ts.train_step(cfg, state, fold(base_key, step),
-                                           batch)
-            step += 1
-            steps_since += 1
+        for n, batches in prefetch:
+            state, stacked = chunk_fn(state, base_key, step, batches)
+            if S > 1:
+                pending.append((step, n, stacked))
+            metrics = {k: v[-1] for k, v in stacked.items()}
+            step += n
+            steps_since += n
 
-            if cfg.fail_after_step and step == cfg.fail_after_step:
+            if cfg.fail_after_step and step >= cfg.fail_after_step > step - n:
                 raise RuntimeError(f"fault injection: crash at step {step}")
 
-            if step % cfg.log_every == 0 or step == total:
-                loss = float(metrics["loss"])   # waits for the step
+            # each cadence fires when a multiple of it lies in (step-n, step]
+            if step % cfg.log_every < n or step == total:
+                loss = float(metrics["loss"])   # waits for the chunk
                 dt = time.time() - t_last
                 sps = steps_since / dt if dt > 0 else 0.0
-                logger.log(step, steps_per_sec=sps,
-                           examples_per_sec=sps * cfg.batch_size, **metrics)
+                if pending:
+                    for c_start, c_n, stk in pending:
+                        host = {k: v.cpu().numpy() for k, v in stk.items()}
+                        for j in range(c_n):
+                            logger.log(c_start + j + 1,
+                                       **{k: v[j] for k, v in host.items()})
+                    pending.clear()
+                    logger.log(step, steps_per_sec=sps,
+                               examples_per_sec=sps * cfg.batch_size)
+                else:
+                    logger.log(step, steps_per_sec=sps,
+                               examples_per_sec=sps * cfg.batch_size,
+                               **metrics)
                 print(f"[train] step {step} loss {loss:.2f} bits/dim "
                       f"{float(metrics['bits_per_dim']):.4f} "
                       f"{sps:.3f} steps/s")
                 t_last, steps_since = time.time(), 0
 
-            if eval_fn is not None and step % cfg.eval_every == 0:
+            if (eval_fn is not None and step % cfg.eval_every < n
+                    and step >= cfg.eval_every):
                 with torch.no_grad():
                     for k, p in ema_model.named_parameters():
                         p.copy_(state.opt.ema[k])
@@ -187,11 +216,14 @@ def train(cfg: Config, max_steps: int | None = None,
                     _log_image_summaries(cfg, ema_model, base_key, step,
                                          eval_images, logger)
 
-            if step % cfg.ckpt_every == 0 or step == total:
+            if (step % cfg.ckpt_every < n and step >= cfg.ckpt_every) \
+                    or step == total:
                 ckpt.save(cfg.logdir, step,
                           state_to_tree(step, state, base_key),
                           keep=cfg.ckpt_keep)
     finally:
+        prefetch.close()
+        chunk_fn.close()
         logger.close()
     return state
 
