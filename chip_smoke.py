@@ -25,7 +25,10 @@ Phases, any failure exits non-zero:
 2. The main path's config: the CIFAR paper config (``--hpconfig
    depth=1,num_blocks=20,kl_min=0.25,learning_rate=0.002,batch_size=32``:
    z=32, h=160, 20 IAF layers, depth_ar=2, bf16 convs) with random weights
-   from a data-dependent init on 32 synthetic images.
+   from a data-dependent init on 32 synthetic images, run twice from one
+   seed: every parameter bitwise equal (the init runs on cuDNN's
+   deterministic algorithms); a third init on cuDNN's default algorithms
+   gives the seconds before that repair.
 3. Kernel vs plain twin on the card: K1's, K3's and K4's inputs are
    captured from the first launches of one real eval chunk (16 images x 64
    samples); each kernel is held to its twin on them (K1 in bf16 and in f32
@@ -208,7 +211,31 @@ Phases, any failure exits non-zero:
    phase 9's step-10 checkpoint, ``train`` for 10 more steps at
    steps_per_dispatch=1 and at 4 (4 + 4 + 2): one loss row per step, the
    launch counts of 10 steps each, and the two final states (params, m,
-   u, EMA, step) bitwise equal.
+   u, EMA, step) bitwise equal; and ``train`` for 10 steps from init at
+   steps_per_dispatch=4, its state bitwise equal to phase 9's S = 1 run
+   at step 10; (e) in the two f32 cells the median graphed step over the
+   same 8 steps with cuDNN's default and its deterministic algorithms,
+   in turns (default, deterministic, deterministic, default).
+
+16. The MNIST family (``mnist_vae.mnist_config`` at full width: z = h =
+   64, a 640-wide two-layer MADE, two IAF steps, Bernoulli, batch 100;
+   6,716,290 params in 45 leaves) on synthetic 28x28x1 images binarized
+   by ``feed.dynamic_binarize``: (a) the init twice from one seed,
+   bitwise equal, with its seconds; (b) one f32 forward and one f32
+   gradient, card against CPU twins, log_w at 1e-5 and each gradient
+   leaf at 1e-4 of its max; (c) ``train`` at batch 100 for 10 steps
+   through the graphed step, launches exactly K5 = 10 and nothing else,
+   every loss finite, one ``nll_nats`` row a step, a 2-step resume that
+   restores and binarizes from step 10 on; then 15(a)'s check on MNIST
+   (which case held is printed); (d) K5 on one real MNIST step's 45
+   leaves bitwise against its twin and timed (a row of the kernels
+   line, ``adamax_polyak_mnist``); (e) ``evaluate`` at k=256 over 2
+   batches of 16 with no kernel launch and a finite NLL in nats, the
+   steady seconds per batch, one chunk profiled; (f) ``sample`` (two
+   temperatures, their tiles different) and ``reconstruct`` on (c)'s
+   logdir, uint8 [16, 28, 28, 1], no launch, and ``invert_check``
+   raising (the CIFAR family's only); (g) the median eager and graphed
+   steps side by side as in 15(b).
 
 Times: ``ms`` is by CUDA events around 20 back-to-back calls (what a
 caller waits, host included); ``device_ms`` (every kernel, and K1's and
@@ -225,11 +252,14 @@ phase 14's rows at the serving shapes: ``ar_stack_recon``,
 ``iaf_update_recon`` and ``disc_logistic_logp_recon`` at N = 16, their
 launches those of one ``reconstruct``, and ``ar_stack_f32_inversion``
 (K1 in f32) and ``iaf_update_inversion`` at N = 2, their launches those
-of one ``invert_check``), the last ``{"ok": true,
+of one ``invert_check``; and ``adamax_polyak_mnist``, K5 over the MNIST
+model's 45 leaves, its launches those of phase 16's training run), the
+last ``{"ok": true,
 "device": {...}}``. The line before it, ``{"main": ...}``, sums up each
 path, phase 14's under ``"serve"``, phase 15's medians under each
-``train*`` entry's ``"side_by_side"``, with ``"graph_vs_eager"`` and
-``"train_chunked"``.
+``train*`` entry's ``"side_by_side"``, with ``"graph_vs_eager"``,
+``"train_chunked"`` and ``"train_f32_determinism"``, the inits' seconds
+under ``"main"``'s ``"init"`` and phase 16's under ``"mnist"``.
 """
 
 from __future__ import annotations
@@ -250,6 +280,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PAPER = "depth=1,num_blocks=20,kl_min=0.25,learning_rate=0.002,batch_size=32"
 PAPER5 = PAPER + ",kernel_size=5"
+# the MNIST family's configuration (``mnist_vae.mnist_config``) on the
+# synthetic set, as an hpconfig, so the CIFAR cells' helpers take it
+MNIST = ("dataset=synthetic,image_size=28,channels=1,z_size=64,h_size=64,"
+         "ar_hidden_size=640,depth_ar=2,flow_depth=2,flow=iaf,"
+         "flow_update=division,ar_kind=dense,likelihood=bernoulli,"
+         "binarize=true,kl_min=0.25,learning_rate=0.002,batch_size=100,"
+         "eval_k=4096")
+MNIST_PARAMS, MNIST_LEAVES = 6_716_290, 45
 K2_NAMES = ("masked_conv2d", "masked_conv2d_bwd")
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 # dense peaks (data sheet): bf16 and TF32 on the tensor cores, f32 on the
@@ -1493,8 +1531,22 @@ GRAPH_PY_STEPS = 2
 
 
 def _label(cfg) -> str:
-    return (("5x5" if cfg.kernel_size == 5 else "paper")
-            + (" f32" if cfg.compute_dtype == "float32" else ""))
+    if cfg.likelihood == "bernoulli":
+        base = "mnist"
+    else:
+        base = "5x5" if cfg.kernel_size == 5 else "paper"
+    return base + (" f32" if cfg.compute_dtype == "float32" else "")
+
+
+def _train_images(cfg, n: int):
+    """``n`` synthetic training images of ``cfg``'s shape; binarized (step
+    0's draws, ``feed.dynamic_binarize``) where ``cfg.binarize``."""
+    from iaf_torch.data import feed
+    from iaf_torch.data.datasets import synthetic_dataset
+    x = synthetic_dataset(cfg.image_size, cfg.channels, n_train=n).train_x
+    if cfg.binarize:
+        x = feed.dynamic_binarize(x, feed.binarize_rng(cfg.seed, 0))
+    return x
 
 
 def _expect(counts: dict, per: dict, times: int) -> dict:
@@ -1591,15 +1643,16 @@ def eval_phase(ops, device, cfg, model, ds, per_chunk: dict):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    bpd = train_lib.evaluate(cfg, "eval_test", params=model, k=EVAL_K,
-                             max_batches=EVAL_BATCHES, device=device)
+    metric = train_lib.evaluate(cfg, "eval_test", params=model, k=EVAL_K,
+                                max_batches=EVAL_BATCHES, device=device)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
     want = _expect(counts, per_chunk, EVAL_K // EVAL_CHUNK * EVAL_BATCHES)
-    print(f"[main] {tag}: evaluate k={EVAL_K}: bits/dim {bpd!r}, "
+    name = "nll_nats" if cfg.likelihood == "bernoulli" else "bits_per_dim"
+    print(f"[main] {tag}: evaluate k={EVAL_K}: {name} {metric!r}, "
           f"{secs:.4f} s with the data set-up, launches {counts}")
-    check(math.isfinite(bpd), f"bits/dim {bpd} is not finite")
+    check(math.isfinite(metric), f"{name} {metric} is not finite")
     check(counts == want, f"launch counts {counts} != {want}")
     # steady state: the eval step alone on one batch, timed after the
     # counted run (set-up excluded)
@@ -1614,7 +1667,7 @@ def eval_phase(ops, device, cfg, model, ds, per_chunk: dict):
     print(f"[main] {tag}: steady eval step: {per_batch:.4f} s/batch, "
           f"{EVAL_BATCH * EVAL_K / per_batch:.1f} importance samples/s")
     return counts, {
-        "bits_per_dim": bpd, "evaluate_seconds": secs,
+        name: metric, "evaluate_seconds": secs,
         "seconds_per_batch": per_batch,
         "importance_samples_per_s": EVAL_BATCH * EVAL_K / per_batch,
         "k": EVAL_K, "eval_batch_size": EVAL_BATCH, "batches": EVAL_BATCHES}
@@ -2592,9 +2645,9 @@ def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
 def _state_copy(cfg, state, device):
     """A training state with its own tensors, equal to ``state``'s."""
     from iaf_torch import optim
-    from iaf_torch.models import cvae
+    from iaf_torch.models import get_model
     from iaf_torch.parallel import train_step as ts
-    model = cvae.CVAE(cfg, device=device)
+    model = get_model(cfg).Model(cfg, device=device)
     model.load_state_dict(state.params.state_dict())
     opt = state.opt
     return ts.TrainState(model, optim.AdamaxState(
@@ -2625,18 +2678,6 @@ def _state_diffs(a, b, losses_a, losses_b) -> dict:
     return out
 
 
-@contextlib.contextmanager
-def _cudnn_deterministic(on: bool):
-    """Inside the block cuDNN picks deterministic algorithms if ``on``."""
-    import torch
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = on or saved
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = saved
-
-
 def graph_vs_eager(ops, device, hp: str, steps: int = 3,
                    deterministic: bool = False) -> dict:
     """Phase 15(a): ``steps`` eager ``train_step``s on one copy of a state
@@ -2649,14 +2690,14 @@ def graph_vs_eager(ops, device, hp: str, steps: int = 3,
     algorithms."""
     import torch
     from iaf_torch.core.config import Config
-    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.core.device import cudnn_deterministic
     from iaf_torch.parallel import train_step as ts
     cfg = Config().parse(hp + ",dataset=synthetic")
     tag = _label(cfg) + (", cuDNN deterministic" if deterministic else "")
     B = cfg.batch_size
-    x = synthetic_dataset(cfg.image_size, cfg.channels,
-                          n_train=B * steps).train_x
-    with _cudnn_deterministic(deterministic):
+    x = _train_images(cfg, B * steps)
+    with (cudnn_deterministic() if deterministic
+          else contextlib.nullcontext()):
         eager = ts.init_train_state(cfg, 21, x[:B], device)
         control, graphed = (_state_copy(cfg, eager, device)
                             for _ in range(2))
@@ -2688,6 +2729,28 @@ def graph_vs_eager(ops, device, hp: str, steps: int = 3,
             "losses": losses["graph"]}
 
 
+def _step_batches(cfg, n: int) -> list:
+    """``n`` batches of ``cfg.batch_size`` training images."""
+    B = cfg.batch_size
+    x = _train_images(cfg, B * n)
+    return [x[i * B:(i + 1) * B] for i in range(n)]
+
+
+def _graphed_steps(cfg, state, batches):
+    """The graphed step (``make_train_chunk``, one step a chunk, as
+    ``train`` at steps_per_dispatch=1 runs it) over ``batches``, each
+    step ending in a wait for its loss. Returns (the chunk, each step's
+    seconds; the first is the warm-up and the capture)."""
+    from iaf_torch.parallel import train_step as ts
+    chunk = ts.make_train_chunk(cfg, state)
+    graph = []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        float(chunk(state, 7, i, b[None])[1]["loss"][0])
+        graph.append(time.perf_counter() - t0)
+    return chunk, graph
+
+
 def step_side_by_side(ops, device, hp: str, n: int = SIDE_BY_SIDE_STEPS
                       ) -> dict:
     """Phase 15(b): the median eager step (``train_step``) and the median
@@ -2697,26 +2760,18 @@ def step_side_by_side(ops, device, hp: str, n: int = SIDE_BY_SIDE_STEPS
     one graphed step by torch.profiler, and by CUDA events over 5."""
     from iaf_torch.core.config import Config
     from iaf_torch.core.rng import fold
-    from iaf_torch.data.datasets import synthetic_dataset
     from iaf_torch.parallel import train_step as ts
     cfg = Config().parse(hp + ",dataset=synthetic")
     tag = _label(cfg)
     B = cfg.batch_size
-    x = synthetic_dataset(cfg.image_size, cfg.channels,
-                          n_train=B * (n + 2)).train_x
-    batches = [x[i * B:(i + 1) * B] for i in range(n + 2)]
+    batches = _step_batches(cfg, n + 2)
     state = ts.init_train_state(cfg, 23, batches[0], device)
     eager = []
     for i, b in enumerate(batches):
         t0 = time.perf_counter()
         float(ts.train_step(cfg, state, fold(7, i), b)[1]["loss"])
         eager.append(time.perf_counter() - t0)
-    chunk = ts.make_train_chunk(cfg, state)
-    graph = []
-    for i, b in enumerate(batches):
-        t0 = time.perf_counter()
-        float(chunk(state, 7, i, b[None])[1]["loss"][0])
-        graph.append(time.perf_counter() - t0)
+    chunk, graph = _graphed_steps(cfg, state, batches)
 
     def one():
         return chunk(state, 7, 0, batches[0][None])
@@ -2747,13 +2802,12 @@ def step_side_by_side(ops, device, hp: str, n: int = SIDE_BY_SIDE_STEPS
 
 def chunked_train_phase(ops, device, ref_logdir: str, S: int = 4,
                         steps: int = TRAIN_STEPS) -> dict:
-    """Phase 15(d): from phase 9's step-``TRAIN_STEPS`` checkpoint (one
-    start for both: the data-dependent init on the card is not bitwise
-    reproducible from run to run), ``train_lib.train`` for ``steps`` more
-    steps at steps_per_dispatch=1 and at S (S + S + a tail), each in a
-    logdir of its own: one loss row per step, the launch counts of
-    ``steps`` steps each, and the two final states bitwise equal (params,
-    m, u, EMA, step)."""
+    """Phase 15(d): from phase 9's step-``TRAIN_STEPS`` checkpoint,
+    ``train_lib.train`` for ``steps`` more steps at steps_per_dispatch=1
+    and at S (S + S + a tail), each in a logdir of its own: one loss row
+    per step, the launch counts of ``steps`` steps each, and the two
+    final states bitwise equal (params, m, u, EMA, step); then the run
+    from init (``from_init_run``)."""
     import torch
     from iaf_torch import train_lib
     from iaf_torch.core.config import Config
@@ -2798,11 +2852,7 @@ def chunked_train_phase(ops, device, ref_logdir: str, S: int = 4,
                           "loss_rows": len(loss_steps),
                           "steps_per_s_at_flushes": rate}
     a, b = states[1], states[S]
-    worst = {"params": max(float((x - y).abs().max()) for x, y in zip(
-        a.params.state_dict().values(), b.params.state_dict().values()))}
-    for part in ("m", "u", "ema"):
-        worst[part] = max(float((v - getattr(b.opt, part)[k]).abs().max())
-                          for k, v in getattr(a.opt, part).items())
+    worst = _states_worst(a, b)
     print(f"[chunked] steps_per_dispatch={S} against 1 from the same "
           f"checkpoint: largest difference {worst}, steps "
           f"{int(a.opt.step)} and {int(b.opt.step)}")
@@ -2811,6 +2861,99 @@ def chunked_train_phase(ops, device, ref_logdir: str, S: int = 4,
     check(all(v == 0 for v in worst.values()),
           f"steps_per_dispatch={S} differs from 1: {worst}")
     out["max_diff"] = worst
+    out["from_init"] = from_init_run(ops, device, src, S)
+    return out
+
+
+def _states_worst(a, b) -> dict:
+    """The largest absolute difference between two training states' params,
+    m, u and EMA, by part."""
+    worst = {"params": max(float((x - y).abs().max()) for x, y in zip(
+        a.params.state_dict().values(), b.params.state_dict().values()))}
+    for part in ("m", "u", "ema"):
+        worst[part] = max(float((v - getattr(b.opt, part)[k]).abs().max())
+                          for k, v in getattr(a.opt, part).items())
+    return worst
+
+
+def from_init_run(ops, device, ref_ckpt: str, S: int = 4) -> dict:
+    """Phase 15(d) from init: ``train`` for ``TRAIN_STEPS`` steps at
+    steps_per_dispatch=S from an empty logdir; its final state (params, m,
+    u, EMA, step) bitwise equal to phase 9's S = 1 run at that step
+    (``ref_ckpt``), since the data-dependent init runs on cuDNN's
+    deterministic algorithms and the bf16 step repeats bit for bit."""
+    import torch
+    from iaf_torch import train_lib
+    from iaf_torch.core import checkpoint as ckpt
+    from iaf_torch.core.config import Config
+    logdir = os.path.join(HERE, "build", f"chip_smoke_train_init_s{S}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    cfg = Config().parse(PAPER + f",dataset=synthetic,log_every=1,"
+                         f"ckpt_every={TRAIN_STEPS},eval_every=0,"
+                         f"steps_per_dispatch={S}").replace(logdir=logdir)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train_lib.train(cfg, max_steps=TRAIN_STEPS, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(counts == _expect(counts, PER_STEP, TRAIN_STEPS),
+          f"from init, S = {S}: launch counts {counts}")
+    _, ref, _ = train_lib.tree_to_state(ckpt.restore(ref_ckpt), cfg, device)
+    worst = _states_worst(ref, state)
+    print(f"[chunked] steps_per_dispatch={S} from init, steps 1-"
+          f"{TRAIN_STEPS} in {secs:.3f} s with init and set-up, against "
+          f"phase 9's S = 1 run at step {TRAIN_STEPS}: largest difference "
+          f"{worst}, steps {int(state.opt.step)} and {int(ref.opt.step)}")
+    check(int(state.opt.step) == int(ref.opt.step) == TRAIN_STEPS,
+          "from init: optimizer step")
+    check(all(v == 0 for v in worst.values()),
+          f"from init, steps_per_dispatch={S} differs from phase 9: {worst}")
+    return {"seconds_with_setup": secs, "max_diff": worst}
+
+
+def f32_determinism_cost(ops, device, n: int = SIDE_BY_SIDE_STEPS) -> dict:
+    """Phase 15(e): in the two f32 training cells, the median graphed step
+    over the same ``n`` steps (after two more) from the same init, with
+    cuDNN's default algorithms and with its deterministic ones, in turns
+    (default, deterministic, deterministic, default). Returns each cell's
+    medians and the cost: the deterministic medians' mean over the
+    default ones', less 1."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.parallel import train_step as ts
+    out = {}
+    flags = torch.backends.cudnn
+    saved = flags.deterministic
+    try:
+        for key, hp in (("paper f32", PAPER + ",compute_dtype=float32"),
+                        ("5x5 f32", PAPER5 + ",compute_dtype=float32")):
+            cfg = Config().parse(hp + ",dataset=synthetic")
+            batches = _step_batches(cfg, n + 2)
+            med = {"default": [], "deterministic": []}
+            for det in (False, True, True, False):
+                flags.deterministic = det
+                state = ts.init_train_state(cfg, 23, batches[0], device)
+                chunk, times = _graphed_steps(cfg, state, batches)
+                chunk.close()
+                med["deterministic" if det else "default"].append(
+                    statistics.median(times[2:]))
+                del state, chunk
+                torch.cuda.empty_cache()
+            cost = (statistics.mean(med["deterministic"])
+                    / statistics.mean(med["default"]) - 1.0)
+            print(f"[graph] {key}: median graphed step over {n} steps "
+                  f"(after 2), batch {cfg.batch_size}: cuDNN's default "
+                  f"algorithms {[round(v, 5) for v in med['default']]} s, "
+                  f"deterministic {[round(v, 5) for v in med['deterministic']]}"
+                  f" s (in turns: default, deterministic, deterministic, "
+                  f"default): cost {100 * cost:+.2f} %")
+            out[key] = {"default_s": med["default"],
+                        "deterministic_s": med["deterministic"],
+                        "cost": cost}
+    finally:
+        flags.deterministic = saved
     return out
 
 
@@ -2842,9 +2985,241 @@ def graph_phase(ops, device, ref_logdir: str) -> dict:
         torch.cuda.empty_cache()
         _reserved(f"{key} side by side")
     out["chunked"] = chunked_train_phase(ops, device, ref_logdir)
+    out["f32_determinism"] = f32_determinism_cost(ops, device)
     out["phase_seconds"] = time.perf_counter() - t0
     print(f"[graph] phase 15: {out['phase_seconds']:.1f} s")
     return out
+
+
+def init_twice(family, cfg, batch, device, label: str):
+    """Phases 2 and 16(a): the data-dependent init on the card twice from
+    one seed and one batch, every parameter bitwise equal (it runs on
+    cuDNN's deterministic algorithms, ``core.device.cudnn_deterministic``);
+    then once on cuDNN's default algorithms, as before that repair, for
+    its seconds and whether it differs (printed). Returns (the first
+    model, a summary)."""
+    import torch
+    from unittest import mock
+
+    def timed():
+        t0 = time.perf_counter()
+        m = family.init_params(cfg, batch, rng=cfg.seed, device=device)
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t0
+
+    def apart(a, b):
+        sb = b.state_dict()
+        return [k for k, v in a.state_dict().items()
+                if not torch.equal(v, sb[k])]
+
+    (a, t_a), (b, t_b) = timed(), timed()
+    differ = apart(a, b)
+    del b
+    with mock.patch.object(family, "cudnn_deterministic",
+                           contextlib.nullcontext):
+        c, t_c = timed()
+    default_apart = apart(a, c)
+    del c
+    torch.cuda.empty_cache()
+    n = sum(p.numel() for p in a.parameters())
+    leaves = len(list(a.parameters()))
+    print(f"[init] {label}: {n} params in {leaves} leaves, compute_dtype="
+          f"{cfg.compute_dtype}; two inits from seed {cfg.seed} on one "
+          f"batch of {len(batch)}: "
+          f"{'bitwise equal' if not differ else f'differ in {differ}'}, "
+          f"{t_a:.3f} s and {t_b:.3f} s; on cuDNN's default algorithms (as "
+          f"before the repair) {t_c:.3f} s, "
+          + ("bitwise equal to them" if not default_apart else
+             f"apart from them in {default_apart}"))
+    check(not differ, f"{label}: two inits from one seed differ in {differ}")
+    return a, {"params": n, "leaves": leaves, "seconds": [t_a, t_b],
+               "default_algorithms_seconds": t_c,
+               "default_algorithms_apart": default_apart}
+
+
+def mnist_reference(device) -> None:
+    """Phase 16(b): one f32 forward (8 images, k = 4) and one f32 gradient
+    (train mode, 8 images) of the MNIST config on the card against the
+    same on the CPU: same params and noise, TF32 off. log_w at 1e-5
+    relative, every gradient leaf at 1e-4 of its max (None as zeros)."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.core.device import no_tf32
+    from iaf_torch.models import mnist_vae as mv
+    cfg = Config().parse(MNIST + ",compute_dtype=float32")
+    x = _train_images(cfg, 8)
+    gpu = mv.init_params(cfg, x, rng=17, device=device)
+    cpu = mv.MnistVAE(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    g = torch.Generator().manual_seed(3)
+    k = 4
+    ev = torch.randn((8 * k, cfg.z_size), generator=g)
+    tr = torch.randn((8, cfg.z_size), generator=g)
+    with no_tf32():
+        with torch.inference_mode():
+            a = mv.apply_fn(cfg, gpu, 0, x, mode="eval", k=k,
+                            noise={"z": ev.to(device)})
+            b = mv.apply_fn(cfg, cpu, 0, x, mode="eval", k=k,
+                            noise={"z": ev})
+        mv.apply_fn(cfg, gpu, 0, x, noise={"z": tr.to(device)}).loss.backward()
+        loss = mv.apply_fn(cfg, cpu, 0, x, noise={"z": tr}).loss
+        loss.backward()
+    lw_a, lw_b = a.log_w.cpu(), b.log_w
+    rel = float(((lw_a - lw_b).abs() / lw_b.abs()).max())
+    worst = 0.0
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        cp = cpu_params[name]
+        want = torch.zeros_like(cp) if cp.grad is None else cp.grad
+        got = torch.zeros_like(cp) if p.grad is None else p.grad.cpu()
+        if float(want.abs().max()) > 0:
+            worst = max(worst, _rel_err(got, want)[1])
+    print(f"[reference] mnist f32, card vs CPU twins: eval forward (8 "
+          f"images, k={k}) log_w max rel err {rel:.3e}; train loss "
+          f"{float(loss.detach()):.4f}, worst gradient leaf error over its "
+          f"max {worst:.3e}")
+    check(bool(torch.isfinite(lw_a).all()), "mnist: non-finite log_w")
+    check(rel <= 1e-5, f"mnist card vs CPU log_w rel err {rel} > 1e-5")
+    check(worst <= 1e-4, f"mnist grad leaf err {worst} > 1e-4")
+
+
+def mnist_serve(ops, device, cfg) -> dict:
+    """Phase 16(f): on the training cell's logdir, under PyTorch's default
+    TF32 flags (as the CLI runs them), ``sample(num=16, temperature=[1.0,
+    0.5])`` and ``reconstruct(num=16)`` with no kernel launch: uint8
+    [16, 28, 28, 1], the samples equal to ``mnist_vae.sample``'s on the
+    same key and finite there, the two temperatures' tiles different;
+    ``invert_check`` raises, the CIFAR family's only."""
+    import numpy as np
+    import torch
+    from iaf_torch import train_lib
+    from iaf_torch.models import mnist_vae as mv
+    path = os.path.join(cfg.logdir, "samples.npy")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _default_tf32(), contextlib.redirect_stdout(io.StringIO()):
+        imgs = train_lib.sample(cfg, num=16, temperature=[1.0, 0.5],
+                                out_path=path, device=device)
+        t_sample = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        recon = train_lib.reconstruct(cfg, num=16, device=device)
+        t_recon = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    tiles = [np.load(path.replace(".npy", f"_T{t}.npy")) for t in (1.0, 0.5)]
+    with torch.inference_mode():
+        raw = mv.sample(cfg, train_lib._serving_model(cfg, True, device),
+                        cfg.seed + 4242, 16, 0.5)
+    print(f"[mnist] sample: {imgs.dtype} {imgs.shape}, {t_sample:.3f} s for "
+          f"2 temperatures; reconstruct: {recon.dtype} {recon.shape}, "
+          f"{t_recon:.3f} s; launches {counts}")
+    for a in (imgs, recon):
+        check(a.dtype == np.uint8 and a.shape == (16, 28, 28, 1),
+              f"mnist serving output {a.dtype} {a.shape}")
+    check(bool(torch.isfinite(raw).all()), "mnist: non-finite samples")
+    check(np.array_equal(imgs, raw.cpu().numpy().astype(np.uint8)),
+          "mnist: sample() differs from mnist_vae.sample")
+    check(not np.array_equal(*tiles), "the two temperatures' tiles equal")
+    check(not any(counts.values()), f"mnist serving launched {counts}")
+    try:
+        train_lib.invert_check(cfg, device=device)
+    except NotImplementedError as e:
+        print(f"[mnist] invert_check raises: {e}")
+        check("CIFAR family" in str(e), f"invert_check raised {e}")
+    else:
+        raise SmokeFailure("invert_check ran on the MNIST family")
+    return {"sample_seconds": t_sample, "reconstruct_seconds": t_recon}
+
+
+def mnist_phase(ops, device):
+    """Phase 16: the MNIST family (``mnist_config`` at full width on
+    binarized synthetic 28x28x1 images). Returns (the kernels rows, the
+    path's launch counts as {"mnist": (eval, train)}, the summary)."""
+    import types
+
+    import torch
+    from unittest import mock
+    from iaf_torch.core.config import Config
+    from iaf_torch.data import feed
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.models import mnist_vae
+    from iaf_torch.parallel import train_step as ts
+    t_phase = time.perf_counter()
+    cfg = Config().parse(MNIST + f",eval_batch_size={EVAL_BATCH},"
+                         f"eval_k_chunk={EVAL_CHUNK}")
+    check(cfg == mnist_vae.mnist_config(
+        dataset="synthetic", eval_batch_size=EVAL_BATCH,
+        eval_k_chunk=EVAL_CHUNK), "MNIST is not mnist_config's hpconfig")
+    summary = {}
+    # (a) the init, twice
+    x = _train_images(cfg, cfg.batch_size)
+    model, summary["init"] = init_twice(mnist_vae, cfg, x, device, "mnist")
+    check((summary["init"]["params"], summary["init"]["leaves"])
+          == (MNIST_PARAMS, MNIST_LEAVES), f"mnist: {summary['init']}")
+    # (b) the port against its CPU twins
+    mnist_reference(device)
+    # (c) training, counted; the resume binarizes from its own step on
+    starts = []
+    binarized = feed.binarized_iterator
+
+    def spy(it, seed, start_step=0):
+        starts.append(start_step)
+        return binarized(it, seed, start_step=start_step)
+
+    with mock.patch.object(feed, "binarized_iterator", spy):
+        tcfg, _, train_counts, summary["train"] = train_phase(
+            ops, device, MNIST, {"adamax_polyak": 1})
+    check(starts == [0, TRAIN_STEPS], f"batches binarized from {starts}")
+    with open(os.path.join(tcfg.logdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    nll = [(r["step"], r["nll_nats"]) for r in rows if "nll_nats" in r]
+    check([s for s, _ in nll] == list(range(1, TRAIN_STEPS + RESUME_STEPS
+                                            + 1))
+          and all(math.isfinite(v) for _, v in nll), f"nll_nats rows {nll}")
+    print(f"[mnist] nll_nats by step {[round(v, 2) for _, v in nll]}; "
+          f"binarized from steps {starts}")
+    r = summary["graph_vs_eager"] = graph_vs_eager(ops, device, MNIST)
+    if not r["bitwise"]:
+        r["deterministic"] = graph_vs_eager(ops, device, MNIST,
+                                            deterministic=True)
+        check(r["deterministic"]["bitwise"], "mnist: two eager runs differ "
+              "on cuDNN's deterministic algorithms")
+    print(f"[mnist] graphed step against eager at batch {cfg.batch_size}: "
+          + ("bitwise (the control is bitwise)" if r["bitwise"] else
+             f"within {NONDET_MARGIN}x a control that is not bitwise, and "
+             "bitwise on cuDNN's deterministic algorithms"))
+    torch.cuda.empty_cache()
+    # (d) K5 on one real MNIST step's inputs
+    kstate = ts.init_train_state(cfg, 11, x, device)
+    ts.train_step(cfg, kstate, 3, x)
+    row = adamax_phase(ops, cfg, kstate)
+    check(row["leaves"] == MNIST_LEAVES, f"K5 over {row['leaves']} leaves")
+    row.update(name="adamax_polyak_mnist", counter="adamax_polyak",
+               path="mnist")
+    del kstate
+    torch.cuda.empty_cache()
+    # (e) the IW eval, counted (no kernel), and one chunk profiled
+    test = feed.dynamic_binarize(
+        synthetic_dataset(cfg.image_size, cfg.channels).test_x,
+        feed.binarize_rng(cfg.seed, -2))
+    eval_counts, summary["main"] = eval_phase(
+        ops, device, cfg, model, types.SimpleNamespace(test_x=test), {})
+
+    def one_chunk():
+        with torch.inference_mode():
+            mnist_vae.apply_fn(cfg, model, 1, test[:EVAL_BATCH], mode="eval",
+                               k=EVAL_CHUNK)
+    summary["main"]["profile"] = profile_phase(
+        f"mnist: one eval chunk ({EVAL_BATCH} images x {EVAL_CHUNK} "
+        "samples)", one_chunk)
+    del model
+    # (f) serving on the training cell's logdir
+    summary["serve"] = mnist_serve(ops, device, tcfg)
+    # (g) eager and graphed steps side by side
+    summary["train"]["side_by_side"] = step_side_by_side(ops, device, MNIST)
+    torch.cuda.empty_cache()
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"[mnist] phase 16: {summary['phase_seconds']:.1f} s")
+    return [row], {"mnist": (eval_counts, train_counts)}, summary
 
 
 def run() -> dict:
@@ -2880,19 +3255,13 @@ def run() -> dict:
     # phase 1: build
     build_phase(ops, device)
 
-    # phase 2: the paper config, data-dependent init (plain convs)
+    # phase 2: the paper config, data-dependent init (plain convs), twice
     cfg = Config().parse(PAPER + f",dataset=synthetic,eval_batch_size="
                          f"{EVAL_BATCH},eval_k_chunk={EVAL_CHUNK}")
     ds = synthetic_dataset(cfg.image_size, cfg.channels)
-    t0 = time.perf_counter()
-    model = cvae.init_params(cfg, ds.train_x[:32], rng=cfg.seed,
-                             device=device)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"[init] paper config: {len(model.blocks)} IAF layers, h="
-          f"{cfg.h_size}, z={cfg.z_size}, {n_params} params, "
-          f"compute_dtype={cfg.compute_dtype}, "
-          f"{time.perf_counter() - t0:.1f} s")
+    model, init = init_twice(cvae, cfg, ds.train_x[:32], device,
+                             f"paper config ({cfg.num_blocks} IAF layers, "
+                             f"h={cfg.h_size}, z={cfg.z_size})")
 
     # phase 3: kernels against their twins on one real chunk's inputs
     def one_chunk():
@@ -2965,6 +3334,10 @@ def run() -> dict:
     # phase 15: the captured training step: against the eager step, side
     # by side in the four training cells, and steps_per_dispatch=4
     graph = graph_phase(ops, device, tcfg.logdir)
+
+    # phase 16: the MNIST family
+    mnist_rows, mnist_counts, mnist = mnist_phase(ops, device)
+    rows += mnist_rows
     for key, s in (("train", summary), ("train_f32", summary32["train"]),
                    ("train_5x5", summary5["train"]),
                    ("train_5x5_f32", summary5_32["train"])):
@@ -2972,7 +3345,8 @@ def run() -> dict:
     paths = {"paper": (eval_counts, counts), "5x5": (eval5, counts5),
              "paper f32": (eval32, counts32),
              "5x5 f32": (eval5_32, counts5_32),
-             **{k: (dict.fromkeys(v, 0), v) for k, v in serve_counts.items()}}
+             **{k: (dict.fromkeys(v, 0), v) for k, v in serve_counts.items()},
+             **mnist_counts}
     for r in rows:     # each kernel's launches on the main path it is on
         ev, tr = paths[r.setdefault(
             "path", "5x5" if r["name"] in K2_NAMES else "paper")]
@@ -2988,6 +3362,7 @@ def run() -> dict:
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms{dev}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
               f"{r['launches']}")
+    main["init"] = init
     print(json.dumps({"main": main, "train": summary,
                       "main_f32": summary32["main"],
                       "train_f32": summary32["train"],
@@ -2998,7 +3373,9 @@ def run() -> dict:
                       "serve": serve,
                       "graph_vs_eager": graph["graph_vs_eager"],
                       "train_chunked": graph["chunked"],
-                      "graph_phase_seconds": graph["phase_seconds"]}))
+                      "train_f32_determinism": graph["f32_determinism"],
+                      "graph_phase_seconds": graph["phase_seconds"],
+                      "mnist": mnist}))
     print(json.dumps({"kernels": rows}))
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}
@@ -3299,9 +3676,9 @@ print(json.dumps({"tree": root, "median_step_s": statistics.median(step_s),
 """
 AB_STEPS = 10
 # Each step's loss in every A/B step run within this of the first run's:
-# two runs start from inits that differ in their last bits (cuDNN's
-# transposed conv in the data-dependent init), which 10 steps of Adamax
-# carry to 1.5e-5 of the loss on an H100.
+# a tree whose data-dependent init does not run on cuDNN's deterministic
+# algorithms starts each run from other last bits (its transposed conv),
+# which 10 steps of Adamax carry to 1.5e-5 of the loss on an H100.
 AB_STEP_REL = 1e-4
 
 
@@ -3328,8 +3705,7 @@ def ab_step(other: str) -> list[dict]:
     rel = max(abs(x - y) / abs(y) for r in runs
               for x, y in zip(r["losses"], runs[0]["losses"]))
     print(f"[A/B step] largest relative difference of a step's loss from "
-          f"the first run's: {rel:.3e} (the card's data-dependent init "
-          "differs from run to run in its last bits)")
+          f"the first run's: {rel:.3e}")
     check(rel <= AB_STEP_REL, f"the A/B step runs' losses differ by {rel} "
           f"> {AB_STEP_REL}: {[r['losses'] for r in runs]}")
     return runs

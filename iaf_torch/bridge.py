@@ -1,11 +1,13 @@
 """Parameter bridge between the JAX pytree / ``.npz`` checkpoint of
 ``iaf_tpu`` and the port's ``state_dict``.
 
-JAX keeps every stochastic layer's leaves stacked in ``params["blocks"]``
-with a leading layer dim L and conv kernels in HWIO; the port has one
-module per layer (``blocks.{i}.…``) and PyTorch's layouts: a conv ``V`` is
-[out, in, kh, kw], the deconv's (``x_dec``) [in, out, kh, kw], a dense
-``V`` [out, in]. The round trip is exact (transposes only).
+JAX keeps every stochastic layer's leaves of the CIFAR model stacked in
+``params["blocks"]`` with a leading layer dim L and conv kernels in HWIO;
+the port has one module per layer (``blocks.{i}.…``) and PyTorch's
+layouts: a conv ``V`` is [out, in, kh, kw], a deconv's (``x_dec``; the
+MNIST model's ``dec1`` and ``dec2``) [in, out, kh, kw], a dense ``V``
+[out, in]. The MNIST model has no ``blocks``. The round trip is exact
+(transposes only).
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from iaf_torch.core.rng import generator
+
 _SEP = "//"
-_DECONVS = ("x_dec",)
+_DECONVS = ("x_dec", "dec1", "dec2")
 
 
 def to_torch_layout(path: tuple[str, ...], leaf: np.ndarray) -> np.ndarray:
@@ -30,6 +34,27 @@ def to_torch_layout(path: tuple[str, ...], leaf: np.ndarray) -> np.ndarray:
     if leaf.ndim == 2:
         return leaf.T
     return leaf
+
+
+def _jax_shape(path: tuple[str, ...],
+               torch_shape: tuple[int, ...]) -> tuple[int, ...]:
+    """The JAX shape of a leaf the port holds in ``torch_shape``."""
+    if path[-1] != "V" or len(torch_shape) not in (2, 4):
+        return torch_shape
+    if len(torch_shape) == 2:
+        return torch_shape[::-1]
+    a, b, kh, kw = torch_shape
+    return (kh, kw, a, b) if path[0] in _DECONVS else (kh, kw, b, a)
+
+
+def normal_leaf(path: tuple[str, ...], torch_shape: tuple[int, ...],
+                key: int, stddev: float) -> torch.Tensor:
+    """N(0, stddev^2) drawn from ``key`` in the leaf's JAX layout (as
+    JAX's ``normal_init`` draws it), then moved into the port's."""
+    draw = stddev * torch.randn(_jax_shape(path, torch_shape),
+                                generator=generator(key, "cpu"))
+    return torch.from_numpy(np.ascontiguousarray(
+        to_torch_layout(path, draw.numpy())))
 
 
 def to_jax_layout(path: tuple[str, ...], leaf: np.ndarray) -> np.ndarray:

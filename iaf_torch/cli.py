@@ -12,7 +12,9 @@ new checkpoint of a training run as it appears; ``--mode sample`` writes
 prior samples (``<logdir>/samples.npy``, ``--num_samples``,
 ``--temperature`` one value or a comma list), ``--mode recon``
 original/reconstruction pairs (``<logdir>/recons.npy``) and ``--mode
-invert_check`` inverts the top IAF step three ways. Every mode runs on
+invert_check`` inverts the top IAF step three ways (the CIFAR family
+only). A Bernoulli ``--hpconfig`` (``likelihood=bernoulli``) runs the
+MNIST family in every other mode. Every mode runs on
 the card unless ``--device cpu`` asks for the plain twins. ``--mode
 export`` is not ported yet and raises, naming the ROADMAP item that
 brings it. ``--profile_dir D``
@@ -86,11 +88,11 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             f"--mode {args.mode} is not ported to iaf_torch yet: "
             f"{_NOT_YET[args.mode]}")
-    if cfg.dataset == "cifar10":
+    if cfg.dataset in ("cifar10", "mnist"):
         from iaf_torch.data.datasets import real_data_available
         found = real_data_available(cfg.dataset, cfg.data_dir)
-        print(f"[data] real cifar10 found at {found}" if found else
-              "[data] no real cifar10 on disk -> synthetic fallback")
+        print(f"[data] real {cfg.dataset} found at {found}" if found else
+              f"[data] no real {cfg.dataset} on disk -> synthetic fallback")
     dev = args.device
     with _profiled(args.profile_dir, dev):
         if args.mode == "train":

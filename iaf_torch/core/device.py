@@ -1,5 +1,7 @@
 """Device selection: entry points run on CUDA unless the caller asks for
-the CPU, and a CUDA request without a card fails instead of falling back."""
+the CPU, and a CUDA request without a card fails instead of falling back.
+Also the cuDNN flags some paths set for a block: TF32 off (``no_tf32``)
+and deterministic algorithms (``cudnn_deterministic``)."""
 
 from __future__ import annotations
 
@@ -47,3 +49,18 @@ def no_tf32():
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """Inside the block cuDNN picks only deterministic algorithms, so two
+    runs from one seed give the same bits (its transposed convs may
+    otherwise sum in a different order from run to run); the old flag is
+    restored after. The data-dependent inits run under it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = saved

@@ -1,5 +1,5 @@
-"""Datasets: CIFAR-10 from local files and the deterministic synthetic set
-(``iaf_tpu/data/datasets.py``).
+"""Datasets: CIFAR-10 and MNIST from local files and the deterministic
+synthetic set (``iaf_tpu/data/datasets.py``).
 
 Local files only: nothing is downloaded. ``synthetic_dataset`` is an exact
 numpy copy of the JAX package's, so one seed gives the same uint8 images.
@@ -7,6 +7,7 @@ numpy copy of the JAX package's, so one seed gives the same uint8 images.
 
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
 import tarfile
@@ -61,16 +62,55 @@ def _candidate_dirs(data_dir: str) -> list[str]:
     return out
 
 
+_MNIST_FILES = ("train-images-idx3-ubyte", "train-labels-idx1-ubyte",
+                "t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte")
+
+
+def _mnist_file(data_dir: str, name: str) -> str | None:
+    """``name`` in ``data_dir``, plain or ``.gz``, or None."""
+    for suffix in ("", ".gz"):
+        p = os.path.join(data_dir, name + suffix)
+        if os.path.isfile(p):
+            return p
+    return None
+
+
 def real_data_available(name: str, data_dir: str = "./data") -> str | None:
-    """Directory holding the real CIFAR-10 files, or None (never
-    downloads). Only ``cifar10`` is read by this port so far."""
-    if name != "cifar10":
-        return None
+    """Directory holding the real ``name`` files (``cifar10``: the python
+    batches or their tarball; ``mnist``: the four idx files, each plain or
+    ``.gz``), or None. Never downloads."""
     for d in _candidate_dirs(data_dir):
-        if (os.path.isdir(os.path.join(d, "cifar-10-batches-py"))
+        if name == "cifar10" and (
+                os.path.isdir(os.path.join(d, "cifar-10-batches-py"))
                 or os.path.isfile(os.path.join(d, "cifar-10-python.tar.gz"))):
             return d
+        if name == "mnist" and all(_mnist_file(d, n) for n in _MNIST_FILES):
+            return d
     return None
+
+
+def load_mnist(data_dir: str) -> Dataset | None:
+    """MNIST from the four idx files in ``data_dir`` (each plain or
+    ``.gz``), or None if one is missing. Images uint8 [N, 28, 28, 1]."""
+    paths = [_mnist_file(data_dir, n) for n in _MNIST_FILES]
+    if not all(paths):
+        return None
+
+    def read(p):
+        opener = gzip.open if p.endswith(".gz") else open
+        with opener(p, "rb") as f:
+            return f.read()
+
+    def images(p):
+        raw = read(p)
+        n = int.from_bytes(raw[4:8], "big")
+        return np.frombuffer(raw, np.uint8, offset=16).reshape(n, 28, 28, 1)
+
+    def labels(p):
+        return np.frombuffer(read(p), np.uint8, offset=8).astype(np.int32)
+
+    return Dataset(images(paths[0]), labels(paths[1]), images(paths[2]),
+                   labels(paths[3]))
 
 
 def load_cifar10(data_dir: str) -> Dataset | None:
@@ -105,15 +145,14 @@ def load_cifar10(data_dir: str) -> Dataset | None:
 
 def load_dataset(name: str, data_dir: str, image_size: int = 32,
                  channels: int = 3) -> tuple[Dataset, bool]:
-    """(dataset, is_real): real CIFAR-10 when found on disk, else the
-    synthetic set."""
-    if name == "cifar10":
+    """(dataset, is_real): real CIFAR-10 or MNIST when found on disk, else
+    the synthetic set at ``image_size`` x ``channels``."""
+    loaders = {"cifar10": load_cifar10, "mnist": load_mnist}
+    if name in loaders:
         found = real_data_available(name, data_dir)
-        ds = load_cifar10(found) if found else None
+        ds = loaders[name](found) if found else None
         if ds is not None:
             return ds, True
-    elif name == "mnist":
-        raise NotImplementedError("the MNIST family is not ported yet")
     elif name != "synthetic":
         raise ValueError(f"unknown dataset {name!r}")
     return synthetic_dataset(image_size, channels), False

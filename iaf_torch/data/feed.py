@@ -5,7 +5,9 @@ Each process draws its shard of every global batch from an epoch
 permutation that is a pure function of (seed, epoch); ``start_step``
 fast-forwards the order on resume. ``ChunkPrefetcher`` stacks the next
 dispatch's batches on a background thread while the card runs the
-current one.
+current one. ``binarized_iterator`` binarizes MNIST batches afresh at
+every step, keyed by (seed, step), so a resumed run binarizes as a
+straight one.
 """
 
 from __future__ import annotations
@@ -140,3 +142,27 @@ class ChunkPrefetcher:
                 raise self._err
             raise StopIteration
         return item
+
+
+def dynamic_binarize(batch: np.ndarray,
+                     rng: np.random.RandomState) -> np.ndarray:
+    """Dynamic binarization: each pixel Bernoulli(intensity / 255), drawn
+    afresh, as uint8 0 or 255 (the model's x / 255 sees 0 or 1)."""
+    p = batch.astype(np.float32) / 255.0
+    return (rng.uniform(size=batch.shape) < p).astype(np.uint8) * 255
+
+
+def binarize_rng(seed: int, step: int) -> np.random.RandomState:
+    """The binarization draws of one step: a pure function of (seed,
+    step); the evals use steps -1 (heartbeat) and -2 (``evaluate``)."""
+    return np.random.RandomState((seed * 9_176_471 + 17 + step) % (2**31 - 1))
+
+
+def binarized_iterator(it: Iterator[np.ndarray], seed: int,
+                       start_step: int = 0) -> Iterator[np.ndarray]:
+    """``it``'s batches binarized, the one of step s with
+    ``binarize_rng(seed, s)``, counting from ``start_step``."""
+    step = start_step
+    for b in it:
+        yield dynamic_binarize(b, binarize_rng(seed, step))
+        step += 1

@@ -37,11 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from iaf_torch import ops
-from iaf_torch.bridge import to_torch_layout
+from iaf_torch.bridge import normal_leaf
 from iaf_torch.core.config import Config
-from iaf_torch.core.device import no_tf32
-from iaf_torch.core.rng import fold_name, generator, normal_into, \
-    site_normal
+from iaf_torch.core.device import cudnn_deterministic, no_tf32
+from iaf_torch.core.rng import fold_name, normal_into, site_normal
 from iaf_torch.distributions import DiagonalGaussian, compute_lowerbound
 from iaf_torch.nn.layers import (ARMultiConv2d, WNConv2d, WNDeconv2d,
                                  compute_dtype)
@@ -95,8 +94,11 @@ class IAFLayer(nn.Module):
                                    device=device)
         if cfg.flow == "iaf":
             if cfg.ar_kind != "conv":
-                raise NotImplementedError(
-                    "ar_kind=dense (the MNIST MADE flow) is not ported yet")
+                raise ValueError(
+                    f"ar_kind={cfg.ar_kind!r}: the CIFAR family's IAF is "
+                    "the masked conv net (ar_kind=conv); the dense MADE "
+                    "flow is the MNIST family's (likelihood=bernoulli, "
+                    "models/mnist_vae.py)")
             self.ar1 = ARMultiConv2d(
                 zs, [cfg.ar_hidden] * cfg.depth_ar, [zs, zs], ks,
                 trim_rows=cfg.ar_row_trim, merge_heads=cfg.merge_ar_heads,
@@ -110,7 +112,10 @@ class CVAE(nn.Module):
     def __init__(self, cfg: Config, device=None):
         super().__init__()
         if cfg.likelihood != "dlogistic":
-            raise NotImplementedError("the MNIST family is not ported yet")
+            raise ValueError(
+                f"likelihood={cfg.likelihood!r}: the CIFAR family is "
+                "discretized-logistic; models.get_model sends bernoulli "
+                "configs to models/mnist_vae.py")
         sks = (cfg.stem_kernel_size, cfg.stem_kernel_size)
         self.x_enc = WNConv2d(cfg.channels, cfg.h_size, sks, stride=(2, 2),
                               device=device)
@@ -206,6 +211,14 @@ def _eps(cfg, rng, i, shape, device, noise, site: str = "z_post"):
     return site_normal(key, f"{name}/{site}", shape, device, noise)
 
 
+def noise_shapes(cfg: Config, rows: int) -> dict[str, tuple[int, ...]]:
+    """A training forward's noise sites over ``rows`` rows (batch x k):
+    each layer's posterior draw."""
+    hw = cfg.image_size // 2
+    return {f"{n}/z_post": (rows, hw, hw, cfg.z_size)
+            for n in layer_names(cfg)}
+
+
 def draw_noise(cfg: Config, rng: int,
                out: Mapping[str, torch.Tensor]) -> None:
     """Write into each buffer of ``out`` (``<layer>/z_post`` -> tensor) the
@@ -293,18 +306,8 @@ def _draw_params(cfg: Config, model: CVAE, rng: int) -> None:
             scope, site = _jax_path(name, cfg)
             key = fold_name(fold_name(rng, scope), site) if scope else \
                 fold_name(rng, site)
-            path = tuple(site.split("/"))
-            jax_shape = _jax_shape(path, tuple(p.shape))
-            draw = 0.05 * torch.randn(jax_shape, generator=generator(key, "cpu"))
-            p.copy_(torch.from_numpy(np.ascontiguousarray(
-                to_torch_layout(path, draw.numpy()))))
-
-
-def _jax_shape(path: tuple[str, ...], torch_shape: tuple[int, ...]):
-    if path[-1] != "V" or len(torch_shape) != 4:
-        return torch_shape
-    a, b, kh, kw = torch_shape
-    return (kh, kw, a, b) if path[0] == "x_dec" else (kh, kw, b, a)
+            p.copy_(normal_leaf(tuple(site.split("/")), tuple(p.shape),
+                                key, 0.05))
 
 
 def init_params(cfg: Config, batch, rng: int = 0, model: CVAE | None = None,
@@ -313,12 +316,14 @@ def init_params(cfg: Config, batch, rng: int = 0, model: CVAE | None = None,
     """Weight-norm data-dependent init on a real batch (``init_params``):
     the forward sequencing in init mode, where each layer's g and b are
     set from the moments of its activations. A fresh model draws its
-    ``V`` and ``h_top`` from ``rng``; a given ``model`` keeps them."""
+    ``V`` and ``h_top`` from ``rng``; a given ``model`` keeps them. On
+    cuDNN's deterministic algorithms, so one seed gives the same bits
+    on the card from run to run."""
     if model is None:
         model = CVAE(cfg, device=device)
         _draw_params(cfg, model, rng)
     device = model.h_top.device
-    with torch.no_grad():
+    with torch.no_grad(), cudnn_deterministic():
         x = _images(batch, device)
         h = model.x_enc.init_forward(x)
         stats = []
@@ -360,8 +365,16 @@ def cvae_sample(cfg: Config, model: CVAE, rng: int, num: int,
         z = pz_mean + temperature * torch.exp(pz_logsd) * eps
         hidden = layer.down_conv2(F.elu(torch.cat([z, h_det], dim=-1)))
         h = h + 0.1 * hidden
-    x_out = model.x_dec(F.elu(h))
+    return _pixels(model.x_dec(F.elu(h)))
+
+
+def _pixels(x_out: torch.Tensor) -> torch.Tensor:
     return torch.clamp((x_out + 0.5) * 256.0, 0.0, 255.0)
+
+
+def pixels(out: ModelOut) -> torch.Tensor:
+    """The decoded means as pixel values in [0, 255]."""
+    return _pixels(out.x_out)
 
 
 @no_tf32()
@@ -399,3 +412,7 @@ def posterior_flow_probe(cfg: Config, model: CVAE, rng: int, x,
         return m * 0.1, s * 0.1
 
     return z, context, ar_fn
+
+
+Model = CVAE
+sample = cvae_sample

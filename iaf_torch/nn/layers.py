@@ -1,7 +1,9 @@
 """Weight-normalized layers with data-dependent init, and the masked AR
 conv net (``iaf_tpu/nn/layers.py``).
 
-Each layer is an ``nn.Module`` holding ``V``/``g``/``b`` parameters.
+Each layer is an ``nn.Module`` holding ``V``/``g``/``b`` parameters;
+``ARMultiConv2d`` and ``ARMultiDense`` hold the masked AR nets of the
+two model families' IAF steps.
 Conv weights are stored in PyTorch's layouts (``V`` of a conv is
 [out, in, kh, kw], of a deconv [in, out, kh, kw]); activations at every
 public function are NHWC, as in JAX, and convs run on a channels-last
@@ -25,7 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from iaf_torch import ops
-from iaf_torch.nn.masks import get_conv_ar_mask, nonzero_taps
+from iaf_torch.nn.masks import (get_conv_ar_mask, get_linear_ar_mask,
+                                nonzero_taps)
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
@@ -213,9 +216,13 @@ class WNDense(nn.Module):
                 np.ascontiguousarray(mask.T)).to(device), persistent=False)
 
     def _run(self, x, w, dtype):
+        """With a bf16 ``dtype`` the inputs are rounded to bf16 and the
+        product is summed and returned in f32, as JAX's ``dense`` asks
+        (``preferred_element_type=float32``): the products of bf16 values
+        are exact in f32."""
         if dtype is not None:
-            x, w = x.to(dtype), w.to(dtype)
-        return F.linear(x, w).float()
+            x, w = x.to(dtype).float(), w.to(dtype).float()
+        return F.linear(x, w)
 
     def weight(self) -> torch.Tensor:
         W = fold_wn(self.V, self.g, (1,), 0)
@@ -368,3 +375,50 @@ class ARMultiConv2d(nn.Module):
         if self.merge_heads:
             return self._split(self.layer_out.init_forward(h))
         return [c.init_forward(h) for c in self.heads()]
+
+
+class ARMultiDense(nn.Module):
+    """Dense MADE net computing the IAF (m, s) heads of a vector latent
+    (``ar_multidense``): masked ``WNDense`` hidden layers (the first
+    zero-diagonal, the context added after it, ELU after each), then one
+    masked head per output (``layer_out_{i}``). Plain ``F.linear``: the
+    JAX package computes it in XLA, with no kernel of its own."""
+
+    def __init__(self, n_in: int, n_h: Sequence[int], n_out: Sequence[int],
+                 device=None):
+        super().__init__()
+        self.n_hidden, self.n_out = len(n_h), list(n_out)
+        prev = n_in
+        for i, size in enumerate(n_h):
+            self.add_module(f"layer_{i}", WNDense(
+                prev, size, mask=get_linear_ar_mask(prev, size,
+                                                    zerodiagonal=(i == 0)),
+                device=device))
+            prev = size
+        for i, size in enumerate(n_out):
+            self.add_module(f"layer_out_{i}", WNDense(
+                prev, size, mask=get_linear_ar_mask(prev, size, False),
+                device=device))
+
+    def _layers(self):
+        hidden = [getattr(self, f"layer_{i}") for i in range(self.n_hidden)]
+        heads = [getattr(self, f"layer_out_{i}")
+                 for i in range(len(self.n_out))]
+        return hidden, heads
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None,
+                dtype: torch.dtype | None = None) -> list[torch.Tensor]:
+        return self._run(x, context, lambda layer, h: layer(h, dtype))
+
+    def init_forward(self, x, context):
+        return self._run(x, context, lambda layer, h: layer.init_forward(h))
+
+    def _run(self, x, context, apply):
+        hidden, heads = self._layers()
+        h = x
+        for i, layer in enumerate(hidden):
+            h = apply(layer, h)
+            if i == 0 and context is not None:
+                h = h + context
+            h = F.elu(h)
+        return [apply(layer, h) for layer in heads]

@@ -17,7 +17,8 @@ import torch
 from iaf_torch.core.config import Config
 from iaf_torch.core.device import resolve_device
 from iaf_torch.core.rng import fold
-from iaf_torch.models import cvae
+from iaf_torch.models import get_model
+from iaf_torch.utils.params import param_device
 
 
 def k_chunking(k: int, eval_k_chunk: int) -> tuple[int, int]:
@@ -31,22 +32,23 @@ def k_chunking(k: int, eval_k_chunk: int) -> tuple[int, int]:
 
 def make_eval_step(cfg: Config, device="cuda", k: int | None = None):
     """Returns f(model, rng, batch, noise=None) -> per-example negative IW
-    bound in nats, [B]. ``noise``, when given, holds one site-keyed noise
-    dict per chunk."""
+    bound in nats, [B], for the config's model family. ``noise``, when
+    given, holds one site-keyed noise dict per chunk."""
     k = cfg.eval_k if k is None else k
     resolve_device(device)
     k_chunk, n_chunks = k_chunking(k, cfg.eval_k_chunk)
+    apply_fn = get_model(cfg).apply_fn
 
-    def step(model: cvae.CVAE, rng: int, batch,
+    def step(model: torch.nn.Module, rng: int, batch,
              noise: Sequence[Mapping[str, torch.Tensor]] | None = None):
         rng_shard = fold(rng, 0)
         with torch.inference_mode():
             n = len(batch)
-            dev = model.h_top.device
+            dev = param_device(model)
             m_run = torch.full((n,), -math.inf, device=dev)
             s_run = torch.zeros((n,), device=dev)
             for i in range(n_chunks):
-                out = cvae.apply_fn(
+                out = apply_fn(
                     cfg, model, fold(rng_shard, i), batch, mode="eval",
                     k=k_chunk, noise=None if noise is None else noise[i])
                 log_w = out.log_w.reshape(n, k_chunk)

@@ -17,9 +17,13 @@ eagerly (the warm-up: Triton compiles, the kernel libraries load, the
 wrappers' caches fill and cuDNN picks its algorithms), is then captured
 as one CUDA graph (forward, backward, K5 and the step count), and every
 later step is a replay of it. Before each step the host draws that
-step's noise into its buffers (``cvae.draw_noise``, the bits the eager
-step draws) and copies its batch in, so the trajectory is the eager
-loop's. On the CPU the same body runs eagerly at every step.
+step's noise into its buffers (the family's ``draw_noise``, the bits the
+eager step draws) and copies its batch in, so the trajectory is the
+eager loop's. On the CPU the same body runs eagerly at every step.
+
+Both model families take this path (``models.get_model``): the model,
+its noise sites and its metrics (``bits_per_dim`` and ``kl_per_layer``
+for CIFAR, ``nll_nats`` for MNIST) come from the family.
 """
 
 from __future__ import annotations
@@ -32,31 +36,34 @@ import torch
 from iaf_torch import ops, optim
 from iaf_torch.core.config import Config
 from iaf_torch.core.rng import fold
-from iaf_torch.models import cvae
+from iaf_torch.models import get_model
+from iaf_torch.utils.params import param_device
 
 Noise = Mapping[str, torch.Tensor]
 
 
 class TrainState(NamedTuple):
-    params: cvae.CVAE
+    params: torch.nn.Module     # the family's ``Model``
     opt: optim.AdamaxState
 
 
-def loss_fn(cfg: Config, params: cvae.CVAE, rng: int, batch,
+def loss_fn(cfg: Config, params: torch.nn.Module, rng: int, batch,
             noise: Noise | None = None):
-    out = cvae.apply_fn(cfg, params, rng, batch, mode="train", noise=noise)
+    out = get_model(cfg).apply_fn(cfg, params, rng, batch, mode="train",
+                                  noise=noise)
     return out.loss, out
 
 
 def _out_metrics(loss, out) -> dict[str, torch.Tensor]:
-    return {
-        "loss": loss.detach(),
-        "kl_obj": out.kl_obj.detach(),
-        "kl_cost": out.kl_cost.detach(),
-        "log_pxz": out.log_pxz.detach(),
-        "bits_per_dim": out.bits_per_dim.detach(),
-        "kl_per_layer": out.kl_per_layer.detach(),
-    }
+    """The logged metrics: the objective's parts, and the family's own
+    (``bits_per_dim`` and ``kl_per_layer``, or ``nll_nats``)."""
+    metrics = {"loss": loss.detach(), "kl_obj": out.kl_obj.detach(),
+               "kl_cost": out.kl_cost.detach(),
+               "log_pxz": out.log_pxz.detach()}
+    for name in ("bits_per_dim", "nll_nats", "kl_per_layer"):
+        if name in out._fields:
+            metrics[name] = getattr(out, name).detach()
+    return metrics
 
 
 def _device_batch(batch, device: torch.device) -> torch.Tensor:
@@ -70,7 +77,7 @@ def _device_batch(batch, device: torch.device) -> torch.Tensor:
     return t
 
 
-def _grads_and_metrics(cfg: Config, model: cvae.CVAE, rng: int, batch,
+def _grads_and_metrics(cfg: Config, model: torch.nn.Module, rng: int, batch,
                        noise: Noise | Sequence[Noise] | None = None):
     """Mean gradients (None where the loss does not reach a parameter) and
     metrics over the batch, over ``cfg.grad_accum`` sequential micro-batches
@@ -80,7 +87,7 @@ def _grads_and_metrics(cfg: Config, model: cvae.CVAE, rng: int, batch,
     return _accumulate(cfg, model, rng, batch, noise)
 
 
-def _accumulate(cfg: Config, model: cvae.CVAE, rng: int, batch,
+def _accumulate(cfg: Config, model: torch.nn.Module, rng: int, batch,
                 noise: Noise | Sequence[Noise] | None):
     """``_grads_and_metrics`` summing into the gradients as they are (None,
     or zeros)."""
@@ -128,9 +135,9 @@ def train_step(cfg: Config, state: TrainState, rng: int, batch,
                noise: Noise | Sequence[Noise] | None = None):
     """One eager step: returns (the state, updated in place, and the
     metrics as device tensors). ``noise`` injects posterior draws by
-    site, as ``cvae.apply_fn`` takes them."""
+    site, as the family's ``apply_fn`` takes them."""
     model = state.params
-    batch = _device_batch(batch, model.h_top.device)
+    batch = _device_batch(batch, param_device(model))
     grads, metrics = _grads_and_metrics(cfg, model, rng, batch, noise)
     _apply_updates(cfg, state, grads)
     return state, metrics
@@ -141,15 +148,18 @@ class TrainStep:
     state: ``step(state, key, batch, noise=None) -> (state, metrics)``,
     the state updated in place. ``noise`` (one dict, or one per
     micro-batch) is copied into the noise buffers instead of the draws
-    for ``key``. Every batch has the first one's shape. On the card the
-    metrics are the graph's own output tensors, overwritten by the next
-    step: copy them out before it.
+    for ``key``. Every batch has the first one's shape; a Bernoulli
+    config's batch buffer is f32 (as JAX's step takes it), the 0/255
+    pixels exact in it. On the card the metrics are the graph's own
+    output tensors, overwritten by the next step: copy them out before
+    it.
     ``close`` releases the graph and its memory pool. A capture or a
     replay that fails raises; nothing falls back to the eager step."""
 
     def __init__(self, cfg: Config, state: TrainState):
         self.cfg, self.state = cfg, state
-        self.device = state.params.h_top.device
+        self.family = get_model(cfg)
+        self.device = param_device(state.params)
         params = list(state.params.parameters())
         self._grads = torch.zeros(sum(p.numel() for p in params),
                                   device=self.device)
@@ -167,14 +177,15 @@ class TrainStep:
     def _buffers(self, batch: torch.Tensor) -> None:
         """The batch and noise buffers, made at the first batch."""
         cfg = self.cfg
-        self._batch = torch.empty(batch.shape, dtype=batch.dtype,
+        dtype = (torch.float32 if cfg.likelihood == "bernoulli"
+                 else batch.dtype)
+        self._batch = torch.empty(batch.shape, dtype=dtype,
                                   device=self.device)
-        hw = cfg.image_size // 2
         rows = _micro_batch(cfg, batch.shape[0]) * max(1, cfg.k)
-        self._noise = [{f"{n}/z_post": torch.empty(
-            (rows, hw, hw, cfg.z_size), device=self.device)
-            for n in cvae.layer_names(cfg)}
-            for _ in range(max(1, cfg.grad_accum))]
+        shapes = self.family.noise_shapes(cfg, rows)
+        self._noise = [{site: torch.empty(shape, device=self.device)
+                        for site, shape in shapes.items()}
+                       for _ in range(max(1, cfg.grad_accum))]
 
     def _load(self, key: int, batch, noise) -> None:
         batch = torch.as_tensor(batch)
@@ -187,8 +198,8 @@ class TrainStep:
         self._batch.copy_(batch, non_blocking=True)
         if noise is None:
             for a, bufs in enumerate(self._noise):
-                cvae.draw_noise(self.cfg, key if len(self._noise) == 1
-                                else fold(key, a), bufs)
+                self.family.draw_noise(self.cfg, key if len(self._noise) == 1
+                                       else fold(key, a), bufs)
             return
         given = [noise] if len(self._noise) == 1 else noise
         for bufs, src in zip(self._noise, given, strict=True):
@@ -292,6 +303,7 @@ def make_train_chunk(cfg: Config, state: TrainState) -> TrainChunk:
 
 def init_train_state(cfg: Config, rng: int, sample_batch,
                      device="cuda") -> TrainState:
-    model = cvae.init_params(cfg, sample_batch, rng=rng, device=device)
+    model = get_model(cfg).init_params(cfg, sample_batch, rng=rng,
+                                       device=device)
     return TrainState(model,
                       optim.init_state(dict(model.named_parameters())))

@@ -8,12 +8,16 @@ the other's runs), with image summaries at the heartbeat eval. It takes
 the card a captured CUDA graph of the whole step, replayed.
 ``evaluate`` scores a split with the k-sample importance-weighted bound
 on the Polyak (EMA) weights of the newest checkpoint in ``cfg.logdir``,
-or on the caller's model, and returns bits/dim; with ``progress_path`` a
-killed eval resumes mid-split. ``eval_loop`` follows a training run's
-checkpoints. ``sample``, ``reconstruct`` and ``invert_check`` serve the
-newest checkpoint: prior samples, posterior reconstructions and the AR
-inversion of the top IAF step. Multi-GPU and TensorBoard come with later
-slices of the port.
+or on the caller's model, and returns bits/dim (the MNIST family: NLL in
+nats); with ``progress_path`` a killed eval resumes mid-split.
+``eval_loop`` follows a training run's checkpoints. ``sample``,
+``reconstruct`` and ``invert_check`` serve the newest checkpoint: prior
+samples, posterior reconstructions and the AR inversion of the top IAF
+step (the CIFAR family's only, as in the JAX package). Each entry point
+takes the config's model family (``models.get_model``); with
+``cfg.binarize`` the MNIST images are binarized afresh at every training
+step and once, at a fixed key, for the evals (``data/feed.py``).
+Multi-GPU and TensorBoard come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -36,13 +40,12 @@ from iaf_torch.core.device import full_f32, resolve_device
 from iaf_torch.core.rng import fold
 from iaf_torch.data import feed
 from iaf_torch.data.datasets import load_dataset
-from iaf_torch.models import cvae
-from iaf_torch.models.cvae import CVAE
+from iaf_torch.models import cvae, get_model
 from iaf_torch.optim import AdamaxState
 from iaf_torch.parallel import train_step as ts
 from iaf_torch.parallel.eval_step import make_eval_step
 from iaf_torch.utils.metrics import MetricsLogger, img_tile
-from iaf_torch.utils.params import describe
+from iaf_torch.utils.params import describe, param_device
 
 LOG2 = math.log(2.0)
 _INIT_FOLD = 0x0001A51A      # the param-init key: fold(base key, this)
@@ -76,7 +79,7 @@ def tree_to_state(tree: dict, cfg: Config, device
                   ) -> tuple[int, ts.TrainState, int]:
     """(step, state on ``device``, base key) from a checkpoint tree."""
     dev = torch.device(device)
-    model = CVAE(cfg, device=dev)
+    model = get_model(cfg).Model(cfg, device=dev)
     model.load_state_dict(from_jax_params(tree["params"]))
 
     def leaves(sub):
@@ -112,9 +115,11 @@ def train(cfg: Config, max_steps: int | None = None,
     ``iaf_tpu/train_lib.py``, step i of a chunk keyed fold(base key,
     start + i), each cadence firing when a multiple of it lies in the
     chunk. Returns the final state, whose tensors (on the card the ones
-    the step's graph updated) hold the last step's values."""
-    _cifar_only("training", cfg)
+    the step's graph updated) hold the last step's values. With
+    ``cfg.binarize`` the batches of the iterator built here are binarized
+    by (seed, step); a caller's ``data_iter`` comes binarized already."""
     dev = resolve_device(device)
+    family = get_model(cfg)
     logger = MetricsLogger(cfg.logdir)
     save_hparams(cfg, cfg.logdir)
     _config_line(cfg, dev)
@@ -136,6 +141,9 @@ def train(cfg: Config, max_steps: int | None = None,
             print(f"[train] dataset {cfg.dataset!r} unavailable -> synthetic")
         data_iter = feed.batch_iterator(ds.train_x, cfg.batch_size, cfg.seed,
                                         start_step=start_step)
+        if cfg.binarize:
+            data_iter = feed.binarized_iterator(data_iter, cfg.seed,
+                                                start_step=start_step)
     base_key = cfg.seed
 
     # heartbeat eval on the Polyak (EMA) weights
@@ -145,8 +153,12 @@ def train(cfg: Config, max_steps: int | None = None,
             ds, _ = load_dataset(cfg.dataset, cfg.data_dir, cfg.image_size,
                                  cfg.channels)
         eval_images = ds.test_x[:cfg.eval_batch_size]
+        if cfg.binarize:
+            # the training protocol: sampled binarization, at a fixed key
+            eval_images = feed.dynamic_binarize(
+                eval_images, feed.binarize_rng(cfg.seed, -1))
         eval_fn = make_eval_step(cfg, dev, k=min(cfg.eval_k, 64))
-        ema_model = CVAE(cfg, device=dev)
+        ema_model = family.Model(cfg, device=dev)
 
     first = next(data_iter)
     if restored is not None:
@@ -198,8 +210,11 @@ def train(cfg: Config, max_steps: int | None = None,
                     logger.log(step, steps_per_sec=sps,
                                examples_per_sec=sps * cfg.batch_size,
                                **metrics)
-                print(f"[train] step {step} loss {loss:.2f} bits/dim "
-                      f"{float(metrics['bits_per_dim']):.4f} "
+                if "bits_per_dim" in metrics:
+                    head = f"bits/dim {float(metrics['bits_per_dim']):.4f}"
+                else:
+                    head = f"nll {float(metrics['nll_nats']):.2f} nats"
+                print(f"[train] step {step} loss {loss:.2f} {head} "
                       f"{sps:.3f} steps/s")
                 t_last, steps_since = time.time(), 0
 
@@ -208,10 +223,13 @@ def train(cfg: Config, max_steps: int | None = None,
                 with torch.no_grad():
                     for k, p in ema_model.named_parameters():
                         p.copy_(state.opt.ema[k])
-                nats = eval_fn(ema_model, fold(base_key, 2**31 + step),
-                               eval_images)
-                logger.log(step, eval_bits_per_dim=float(nats.mean())
-                           / (LOG2 * cfg.num_pixels))
+                nats = float(eval_fn(ema_model, fold(base_key, 2**31 + step),
+                                     eval_images).mean())
+                if cfg.likelihood == "bernoulli":
+                    logger.log(step, eval_nll_nats=nats)
+                else:
+                    logger.log(step, eval_bits_per_dim=nats
+                               / (LOG2 * cfg.num_pixels))
                 if cfg.image_summaries:
                     _log_image_summaries(cfg, ema_model, base_key, step,
                                          eval_images, logger)
@@ -228,26 +246,23 @@ def train(cfg: Config, max_steps: int | None = None,
     return state
 
 
-def _log_image_summaries(cfg: Config, ema_model: CVAE, base_key: int,
-                         step: int, eval_images: np.ndarray,
+def _log_image_summaries(cfg: Config, ema_model: torch.nn.Module,
+                         base_key: int, step: int, eval_images: np.ndarray,
                          logger: MetricsLogger) -> None:
     """Sample and reconstruction tiles on the EMA weights at the heartbeat
     eval, key ``fold(base_key, 2**31 - 5)``: ``images/samples_*`` and
-    ``images/recons_*`` (originals and reconstructions in pairs)."""
+    ``images/recons_*`` (originals and reconstructions in pairs; the
+    MNIST family's are its Bernoulli means)."""
+    family = get_model(cfg)
     key = fold(base_key, 2**31 - 5)
     n = min(16, cfg.eval_batch_size)
     with torch.inference_mode():
-        samples = _uint8(cvae.cvae_sample(cfg, ema_model, key, n))
-        out = cvae.apply_fn(cfg, ema_model, key, eval_images[:n],
-                            mode="eval", k=1)
-        recon = _uint8(_pixels(out.x_out))
+        samples = _uint8(family.sample(cfg, ema_model, key, n))
+        out = family.apply_fn(cfg, ema_model, key, eval_images[:n],
+                              mode="eval", k=1)
+        recon = _uint8(family.pixels(out))
     logger.log_image("samples", img_tile(samples), step)
     logger.log_image("recons", _pairs(eval_images[:n], recon), step)
-
-
-def _pixels(x_out: torch.Tensor) -> torch.Tensor:
-    """Decoded means as pixel values in [0, 255]."""
-    return torch.clamp((x_out + 0.5) * 256.0, 0.0, 255.0)
 
 
 def _uint8(images: torch.Tensor) -> np.ndarray:
@@ -267,26 +282,21 @@ def _latest(cfg: Config) -> str:
     return latest
 
 
-def _model(cfg: Config, params, device) -> CVAE:
-    """A ``CVAE`` on ``device`` from a ``CVAE`` (used as it is) or a
-    state_dict."""
-    if isinstance(params, CVAE):
-        if params.h_top.device != device:
-            raise ValueError(f"model is on {params.h_top.device}, "
+def _model(cfg: Config, params, device) -> torch.nn.Module:
+    """The config family's ``Model`` on ``device`` from one (used as it
+    is) or a state_dict."""
+    Model = get_model(cfg).Model
+    if isinstance(params, Model):
+        if param_device(params) != device:
+            raise ValueError(f"model is on {param_device(params)}, "
                              f"eval device is {device}")
         return params
     if not isinstance(params, Mapping):
-        raise TypeError("params must be a CVAE, a state_dict or None")
-    model = CVAE(cfg, device=device)
+        raise TypeError(f"params must be a {Model.__name__}, a state_dict "
+                        "or None")
+    model = Model(cfg, device=device)
     model.load_state_dict(params)
     return model
-
-
-def _cifar_only(what: str, cfg: Config) -> None:
-    if cfg.likelihood != "dlogistic" or cfg.binarize:
-        raise NotImplementedError(
-            f"{what} of the MNIST family is not ported to iaf_torch yet: "
-            "ROADMAP queue 1, item 3 (MNIST family)")
 
 
 def make_eval_setup(cfg: Config, mode: str, k: int, device="cuda"):
@@ -297,6 +307,10 @@ def make_eval_setup(cfg: Config, mode: str, k: int, device="cuda"):
     ds, _ = load_dataset(cfg.dataset, cfg.data_dir, cfg.image_size,
                          cfg.channels)
     images = ds.train_x if mode == "eval_train" else ds.test_x
+    if cfg.binarize:
+        # the training protocol: sampled binarization, at a fixed key
+        images = feed.dynamic_binarize(images, feed.binarize_rng(cfg.seed,
+                                                                 -2))
     return images, make_eval_step(cfg, resolve_device(device), k=k)
 
 
@@ -307,11 +321,12 @@ def evaluate(cfg: Config, mode: str = "eval_test", params=None,
              progress_id: str | None = None, progress_every: int = 10,
              device="cuda") -> float:
     """Importance-weighted eval of the ``eval_train``/``eval_test`` split
-    on ``params`` (a ``CVAE``, a state_dict, or None: the newest
-    checkpoint's EMA weights, or its raw ones without ``use_ema``).
-    ``setup`` is ``make_eval_setup``'s pair. The tail remainder is padded
-    to the batch shape (repeating its first row) and only its real rows
-    count. Returns bits/dim.
+    on ``params`` (the family's ``Model``, a state_dict, or None: the
+    newest checkpoint's EMA weights, or its raw ones without
+    ``use_ema``). ``setup`` is ``make_eval_setup``'s pair. The tail
+    remainder is padded to the batch shape (repeating its first row) and
+    only its real rows count. Returns bits/dim, or for the MNIST family
+    the NLL in nats (the paper's metric there).
 
     With ``progress_path`` the running sums are written there atomically
     every ``progress_every`` batches and at the last; a killed run resumes
@@ -324,7 +339,6 @@ def evaluate(cfg: Config, mode: str = "eval_test", params=None,
     one alone, and a full pass deletes it."""
     if mode not in ("eval_train", "eval_test"):
         raise ValueError(f"mode {mode!r} not in ('eval_train', 'eval_test')")
-    _cifar_only("evaluation", cfg)
     dev = resolve_device(device)
     _config_line(cfg, dev)
     k = cfg.eval_k if k is None else k
@@ -411,6 +425,9 @@ def evaluate(cfg: Config, mode: str = "eval_test", params=None,
     if progress_path and full_pass and os.path.isfile(progress_path):
         os.remove(progress_path)
     nats_mean = total_nats / max(total_n, 1)
+    if cfg.likelihood == "bernoulli":
+        print(f"[{mode}] k={k} n={total_n} NLL {nats_mean:.2f} nats")
+        return nats_mean
     bits_per_dim = nats_mean / (LOG2 * cfg.num_pixels)
     print(f"[{mode}] k={k} n={total_n} nats {nats_mean:.2f} "
           f"bits/dim {bits_per_dim:.4f}")
@@ -421,13 +438,16 @@ def eval_loop(cfg: Config, mode: str = "eval_test", poll_secs: float = 30.0,
               max_evals: int | None = None, k: int | None = None,
               max_batches: int | None = None, device="cuda") -> None:
     """Follow a training run: poll ``cfg.logdir`` for new checkpoints and
-    score each one's EMA weights, logging ``bits_per_dim`` at its step to
-    ``<logdir>/{mode}_metrics.jsonl``. The split, the eval step and the
-    model are built once; runs until interrupted, or ``max_evals``."""
+    score each one's EMA weights, logging ``bits_per_dim`` (the MNIST
+    family: ``nll_nats``) at its step to ``<logdir>/{mode}_metrics.jsonl``.
+    The split, the eval step and the model are built once; runs until
+    interrupted, or ``max_evals``."""
     dev = resolve_device(device)
     k = cfg.eval_k if k is None else k
     setup = make_eval_setup(cfg, mode, k, dev)
-    model = CVAE(cfg, device=dev)
+    model = get_model(cfg).Model(cfg, device=dev)
+    metric_name = ("nll_nats" if cfg.likelihood == "bernoulli"
+                   else "bits_per_dim")
     loader = ckpt.CheckpointLoader(cfg.logdir)
     logger = MetricsLogger(cfg.logdir, filename=f"{mode}_metrics.jsonl")
     done = 0
@@ -445,21 +465,21 @@ def eval_loop(cfg: Config, mode: str = "eval_test", poll_secs: float = 30.0,
                 setup=setup, progress_path=os.path.join(
                     cfg.logdir, f"eval_progress_{mode}.json"),
                 progress_id=os.path.basename(path) + "/ema", device=dev)
-            logger.log(step, bits_per_dim=metric)
+            logger.log(step, **{metric_name: metric})
             print(f"[eval_loop] {path} step {step} -> {metric:.4f}")
             done += 1
     finally:
         logger.close()
 
 
-def _serving_model(cfg: Config, use_ema: bool, device) -> CVAE:
-    """The newest checkpoint's EMA (or raw) weights as a ``CVAE`` on
-    ``device``."""
+def _serving_model(cfg: Config, use_ema: bool, device) -> torch.nn.Module:
+    """The newest checkpoint's EMA (or raw) weights as the family's
+    ``Model`` on ``device``."""
     return _model(cfg, load_jax_checkpoint(_latest(cfg), use_ema=use_ema),
                   device)
 
 
-def inversion_inputs(cfg: Config, model: CVAE, batch: int):
+def inversion_inputs(cfg: Config, model: cvae.CVAE, batch: int):
     """What ``invert_check`` inverts: the top IAF step's probe on the
     first ``batch`` test images (key seed + 31337) and its forward flow.
     Returns (z0, context, ar_fn, z')."""
@@ -480,11 +500,16 @@ def invert_check(cfg: Config, use_ema: bool = True, batch: int | None = None,
     D Jacobi sweeps and by early-exit fixed-point sweeps (tol 1e-6),
     reporting each one's round-trip error and seconds and the sweeps the
     fixed point took. Returns {"err_*", "t_*", "iters_fixed_point",
-    "D"}."""
+    "D"}. The CIFAR family's only: the JAX package probes no MNIST flow
+    (``posterior_flow_probe`` is ``cvae``'s)."""
     from iaf_torch.models.inversion import (invert_ar_exact,
                                             invert_ar_fixed_point,
                                             invert_ar_jacobi)
-    _cifar_only("inversion", cfg)
+    if cfg.likelihood == "bernoulli":
+        raise NotImplementedError(
+            "invert_check inverts the CIFAR family's top conv IAF step "
+            "(likelihood=dlogistic); the MNIST family has no inversion "
+            "check, in the JAX package either")
     dev = resolve_device(device)
     _config_line(cfg, dev)
     model = _serving_model(cfg, use_ema, dev)
@@ -524,8 +549,9 @@ def reconstruct(cfg: Config, num: int = 16, use_ema: bool = True,
     """Posterior reconstructions of the first ``num`` test images (one
     eval-mode forward, k = 1); with ``out_path`` a tile of each original
     next to its reconstruction is saved there. Returns the uint8
-    reconstructions [num, H, W, C]."""
-    _cifar_only("reconstruction", cfg)
+    reconstructions [num, H, W, C] (the MNIST family's Bernoulli
+    means)."""
+    family = get_model(cfg)
     dev = resolve_device(device)
     _config_line(cfg, dev)
     model = _serving_model(cfg, use_ema, dev)
@@ -533,8 +559,9 @@ def reconstruct(cfg: Config, num: int = 16, use_ema: bool = True,
                          cfg.channels)
     x = np.asarray(ds.test_x[:num])
     with torch.inference_mode():
-        out = cvae.apply_fn(cfg, model, cfg.seed + 777, x, mode="eval", k=1)
-        recon = _uint8(_pixels(out.x_out))
+        out = family.apply_fn(cfg, model, cfg.seed + 777, x, mode="eval",
+                              k=1)
+        recon = _uint8(family.pixels(out))
     if out_path:
         np.save(out_path, _pairs(x, recon))
         print(f"[recon] wrote {out_path} ({num} original/recon pairs)")
@@ -547,8 +574,9 @@ def sample(cfg: Config, num: int = 16,
     """``num`` prior samples at each temperature of ``temperature`` (a
     float or a list: a sweep, every temperature on the same base noise);
     with ``out_path`` each temperature's tile is saved (``<out>_T<t>.npy``
-    for a sweep). Returns the last temperature's uint8 images."""
-    _cifar_only("sampling", cfg)
+    for a sweep). Returns the last temperature's uint8 images (the MNIST
+    family's Bernoulli means)."""
+    family = get_model(cfg)
     dev = resolve_device(device)
     _config_line(cfg, dev)
     model = _serving_model(cfg, use_ema, dev)
@@ -557,8 +585,8 @@ def sample(cfg: Config, num: int = 16,
     imgs = None
     for t in temps:
         with torch.inference_mode():
-            imgs = _uint8(cvae.cvae_sample(cfg, model, cfg.seed + 4242, num,
-                                           t))
+            imgs = _uint8(family.sample(cfg, model, cfg.seed + 4242, num,
+                                        t))
         if out_path:
             path = (out_path if len(temps) == 1 else
                     out_path.replace(".npy", "") + f"_T{t}.npy")

@@ -13,3 +13,8 @@ def describe(model: torch.nn.Module) -> str:
     """The parameter total and the number of arrays."""
     n_arrays = sum(1 for _ in model.parameters())
     return f"{param_count(model):,} parameters in {n_arrays} arrays"
+
+
+def param_device(model: torch.nn.Module) -> torch.device:
+    """The device a model's parameters live on."""
+    return next(model.parameters()).device

@@ -2,8 +2,10 @@
 a trace of the run; ``eval_loop``, ``sample``, ``recon`` and
 ``invert_check`` run on a tiny logdir and write what they serve;
 ``eval_test`` resumes from its progress file and removes it after a full
-pass; ``export``, not ported yet, and the MNIST family's sampling and
-reconstruction raise naming the ROADMAP item that brings them."""
+pass; on a tiny MNIST-family logdir (a Bernoulli ``--hpconfig`` trained
+through the CLI) ``sample`` and ``recon`` write their uint8 tiles and
+``invert_check`` raises, the CIFAR family's only; ``export``, not ported
+yet, raises naming the ROADMAP item that brings it."""
 
 import json
 import os
@@ -79,16 +81,37 @@ def test_unported_modes_name_their_roadmap_item(tmp_path, mode, item, title):
     _roadmap_item(item, title)
 
 
-@pytest.mark.parametrize("mode", ["sample", "recon"])
-def test_mnist_serving_names_its_roadmap_item(tmp_path, mode):
-    """Sampling and reconstruction of the MNIST family (Bernoulli means)
-    raise naming ROADMAP queue 1's MNIST item, which brings them."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 3 "):
-        cli.main(["--logdir", str(tmp_path), "--hpconfig",
-                  TINY + ",likelihood=bernoulli", "--mode", mode,
+MNIST = ("dataset=synthetic,likelihood=bernoulli,binarize=true,"
+         "ar_kind=dense,image_size=8,channels=1,z_size=4,h_size=8,"
+         "ar_hidden_size=16,depth_ar=1,flow_depth=2,batch_size=4,"
+         "eval_batch_size=4,eval_k=2,eval_k_chunk=2")
+
+
+@pytest.fixture(scope="module")
+def trained_mnist(tmp_path_factory):
+    """A tiny MNIST-family logdir trained through the CLI:
+    ckpt-000000002.npz."""
+    logdir = str(tmp_path_factory.mktemp("cli_mnist"))
+    cli.main(["--logdir", logdir, "--mode", "train", "--device", "cpu",
+              "--hpconfig", MNIST + ",total_steps=2,ckpt_every=2"])
+    return logdir
+
+
+@pytest.mark.parametrize("mode,name", [("sample", "samples.npy"),
+                                       ("recon", "recons.npy")])
+def test_mnist_serving_writes_its_tiles(trained_mnist, mode, name):
+    """``--mode sample`` and ``--mode recon`` of the MNIST family write
+    uint8 tiles of single-channel Bernoulli means."""
+    cli.main(["--logdir", trained_mnist, "--mode", mode, "--device", "cpu",
+              "--num_samples", "4"])
+    tile = np.load(os.path.join(trained_mnist, name))
+    assert tile.dtype == np.uint8 and tile.ndim == 3 and tile.shape[2] == 1
+
+
+def test_mnist_invert_check_raises_cifar_only(trained_mnist):
+    with pytest.raises(NotImplementedError, match="CIFAR family"):
+        cli.main(["--logdir", trained_mnist, "--mode", "invert_check",
                   "--device", "cpu"])
-    _roadmap_item(3, "MNIST family")
 
 
 @pytest.fixture(scope="module")
