@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``iaf_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multi           # phase 17(e) alone (2+ cards)
     python3 chip_smoke.py --ab DIR [CASE]   # one kernel of DIR's tree
                                             # against this one's, A B B A
                                             # (``ab``; CASE in AB_CASES:
@@ -237,6 +238,26 @@ Phases, any failure exits non-zero:
    raising (the CIFAR family's only); (g) the median eager and graphed
    steps side by side as in 15(b).
 
+17. Data parallelism (``parallel/mesh.py``), paper config: (a) an NCCL
+   group of world size 1 made in this process with torchrun's
+   environment; ``train`` for 10 bf16 steps from init at S = 1, its
+   state bitwise equal to phase 9's at step 10, launches exactly
+   ``PER_STEP`` a step; (b) the median graphed step over the same 8
+   steps with no group, with the group (its all-reduces captured in the
+   graph, the design the port keeps) and with the graph split around
+   the gradient all-reduce (``_split_chunk``), in turns (no group,
+   captured, split, no group), and one graphed step's device time by
+   name with no group and captured (the NCCL kernels' share printed);
+   (c) ``evaluate`` at k=256 over 2 batches on phase 9's checkpoint and
+   the batch-sharded k = 1 ELBO through the group, bitwise equal to the
+   calls with no group; (d) ``sample`` at T = 1.0 and 0.5 through the
+   gather, bitwise equal to the calls with no group; (e) where two cards
+   are visible, two ranks (``two_rank_phase``, NCCL, paper f32, global
+   batch 32): the first step's gradient against one process on the
+   whole batch at 1e-4 of each leaf's max, both ranks' params bitwise
+   equal after 10 steps, examples/s at world size 2 and 1; with one
+   card a line says it did not run (neither a pass nor a failure).
+
 Times: ``ms`` is by CUDA events around 20 back-to-back calls (what a
 caller waits, host included); ``device_ms`` (every kernel, and K1's and
 K2's library calls) is the device time the profiler records for the same
@@ -259,7 +280,8 @@ last ``{"ok": true,
 path, phase 14's under ``"serve"``, phase 15's medians under each
 ``train*`` entry's ``"side_by_side"``, with ``"graph_vs_eager"``,
 ``"train_chunked"`` and ``"train_f32_determinism"``, the inits' seconds
-under ``"main"``'s ``"init"`` and phase 16's under ``"mnist"``.
+under ``"main"``'s ``"init"``, phase 16's under ``"mnist"`` and phase
+17's under ``"multi"``.
 """
 
 from __future__ import annotations
@@ -2736,13 +2758,14 @@ def _step_batches(cfg, n: int) -> list:
     return [x[i * B:(i + 1) * B] for i in range(n)]
 
 
-def _graphed_steps(cfg, state, batches):
-    """The graphed step (``make_train_chunk``, one step a chunk, as
-    ``train`` at steps_per_dispatch=1 runs it) over ``batches``, each
-    step ending in a wait for its loss. Returns (the chunk, each step's
-    seconds; the first is the warm-up and the capture)."""
+def _graphed_steps(cfg, state, batches, make_chunk=None):
+    """The graphed step (``make_train_chunk``, or ``make_chunk``; one step
+    a chunk, as ``train`` at steps_per_dispatch=1 runs it) over
+    ``batches``, each step ending in a wait for its loss. Returns (the
+    chunk, each step's seconds; the first is the warm-up and the
+    capture)."""
     from iaf_torch.parallel import train_step as ts
-    chunk = ts.make_train_chunk(cfg, state)
+    chunk = (make_chunk or ts.make_train_chunk)(cfg, state)
     graph = []
     for i, b in enumerate(batches):
         t0 = time.perf_counter()
@@ -3222,6 +3245,386 @@ def mnist_phase(ops, device):
     return [row], {"mnist": (eval_counts, train_counts)}, summary
 
 
+MULTI_CHILD_TIMEOUT = 600   # seconds for phase 17(e)'s two ranks
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _group_of_one():
+    """torchrun's environment for one rank in this process, so that the
+    entry points make an NCCL group of world size 1; the group is
+    destroyed and the environment restored after."""
+    import torch.distributed as dist
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _split_chunk(cfg, state):
+    """Phase 17(b)'s other design: ``make_train_chunk``'s chunk whose step
+    is two CUDA graphs, the forward and backward (the free-bits
+    all-reduce is inside the forward, so it stays captured) and then K5,
+    with the gradient and metrics all-reduce between them, eager."""
+    import torch
+    from iaf_torch import ops as iops
+    from iaf_torch.parallel import train_step as ts
+
+    class SplitStep(ts.TrainStep):
+        def _warm_up_and_capture(self):
+            cur = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                metrics = self._body()                  # the eager step
+            cur.wait_stream(self._stream)
+            for t in metrics.values():
+                t.record_stream(cur)
+            fwd_bwd, update = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            with iops.launches_apart() as seen:
+                with torch.cuda.graph(fwd_bwd, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    self._local = self._forward_backward()
+                with torch.cuda.graph(update, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    self._update()
+            self._graphs, self._per_replay = (fwd_bwd, update), seen
+            return metrics
+
+        def __call__(self, state, key, batch, noise=None):
+            if not hasattr(self, "_graphs"):
+                return super().__call__(state, key, batch, noise)
+            self._load(key, batch, noise)
+            fwd_bwd, update = self._graphs
+            fwd_bwd.replay()
+            metrics = self._reduce(self._local)
+            update.replay()
+            iops.add_launch_counts(self._per_replay)
+            return state, metrics
+
+    chunk = ts.make_train_chunk(cfg, state)
+    chunk.step.close()
+    chunk.step = SplitStep(cfg, state)
+    return chunk
+
+
+def _step_kernels(chunk, state, batches) -> dict:
+    """One graphed step's device time by name (torch.profiler): {name:
+    (ms, launches)}."""
+    return {name: (ms, n) for name, ms, n in device_kernels(
+        lambda: chunk(state, 7, 0, batches[0][None]), iters=3, warmup=0)}
+
+
+def _nccl_ms(rows: dict) -> float:
+    """The NCCL kernels' device time in ``_step_kernels``' rows (a name
+    with "nccl" in it)."""
+    return sum(ms for name, (ms, _) in rows.items() if "nccl" in name.lower())
+
+
+def _busy_apart(base: dict, other: dict) -> dict:
+    """Device ms by name where ``other``'s step differs from ``base``'s by
+    more than 1 us (a name missing from one counts as 0 there)."""
+    out = {}
+    for name in set(base) | set(other):
+        d = other.get(name, (0.0, 0))[0] - base.get(name, (0.0, 0))[0]
+        if abs(d) > 1e-3:
+            out[name[:60]] = round(d, 4)
+    return out
+
+
+_MULTI_CHILD = r"""
+import json, os, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from iaf_torch.core.config import Config
+from iaf_torch.core.device import full_f32
+from iaf_torch.core.rng import fold
+from iaf_torch.parallel import mesh
+from iaf_torch.parallel import train_step as ts
+from iaf_torch.core.device import resolve_device
+dev = resolve_device("cuda")
+mesh.init_distributed(dev)
+r, n = mesh.rank(), mesh.world()
+cfg = Config().parse(cs.PAPER + ",dataset=synthetic,compute_dtype=float32")
+full_f32(cfg.compute_dtype, dev)
+batches = cs._step_batches(cfg, cs.SIDE_BY_SIDE_STEPS + 2)
+per = cfg.batch_size // n
+state = ts.init_train_state(cfg, 23, batches[0][r * per:(r + 1) * per], dev)
+step = ts.make_train_step(cfg, state)
+times = []
+for i, b in enumerate(batches):
+    t0 = time.perf_counter()
+    _, m = step(state, fold(7, i), b[r * per:(r + 1) * per])
+    float(m["loss"])
+    times.append(time.perf_counter() - t0)
+    if i == 0 and r == 0:
+        torch.save({k: p.grad.cpu() for k, p in
+                    state.params.named_parameters()},
+                   os.path.join(sys.argv[2], "grads_world2.pt"))
+torch.cuda.synchronize()
+torch.save({k: v.cpu() for k, v in state.params.state_dict().items()},
+           os.path.join(sys.argv[2], f"params_rank{r}.pt"))
+# one graphed step's device time, and the NCCL kernels' share: the same
+# 3 calls on every rank (each has collectives the others must meet)
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    time.sleep(0.05)
+    for i in range(3):
+        step(state, fold(7, 100 + i), batches[i][r * per:(r + 1) * per])
+    torch.cuda.synchronize()
+dev = cs._device_events(prof)
+busy = sum(us for _, us, _ in dev) / 3e3
+nccl = sum(us for name, us, _ in dev if "nccl" in name.lower()) / 3e3
+step.close()
+mesh.barrier("done")
+print("MULTI_CHILD " + json.dumps({"rank": r, "world": n,
+                                   "median_s": statistics.median(times[2:]),
+                                   "busy_ms": busy, "nccl_ms": nccl,
+                                   "times": times}), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def two_rank_phase(device) -> dict:
+    """Phase 17(e), where two cards are visible: two processes with
+    torchrun's environment (NCCL, ranks 0 and 1 on cards 0 and 1) train
+    the paper f32 recipe at global batch 32 (16 a rank) for 10 graphed
+    steps; the first step's mean gradient against one process's on the
+    whole batch (this one, no group) at 1e-4 of each leaf's max, both
+    ranks' parameters after the 10 steps bitwise equal, and the median
+    step (steps 3-10) at world size 2 beside world size 1."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.core.device import full_f32
+    from iaf_torch.core.rng import fold
+    from iaf_torch.parallel import train_step as ts
+    out_dir = os.path.join(HERE, "build", "chip_smoke_multi")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    port = _free_port()
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _MULTI_CHILD, HERE, out_dir], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=MULTI_CHILD_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0 and "MULTI_CHILD " in log,
+              f"rank {r} of 2 failed (rc {p.returncode}):\n{log[-3000:]}")
+    res = [json.loads(log.split("MULTI_CHILD ", 1)[1].splitlines()[0])
+           for log in logs]
+
+    # world size 1 on the whole batch, one process, no group, in f32 with
+    # TF32 off as the ranks run it
+    cfg = Config().parse(PAPER + ",dataset=synthetic,compute_dtype=float32")
+    full_f32(cfg.compute_dtype, device)
+    batches = _step_batches(cfg, SIDE_BY_SIDE_STEPS + 2)
+    state = ts.init_train_state(cfg, 23, batches[0], device)
+    step = ts.make_train_step(cfg, state)
+    times = []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        float(step(state, fold(7, i), b)[1]["loss"])
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            grads1 = {k: p.grad.detach().cpu().clone() for k, p in
+                      state.params.named_parameters()}
+    step.close()
+    grads2 = torch.load(os.path.join(out_dir, "grads_world2.pt"))
+    worst = max(float((grads2[k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30) for k, g in grads1.items())
+    p0, p1 = (torch.load(os.path.join(out_dir, f"params_rank{r}.pt"))
+              for r in range(2))
+    same = all(torch.equal(p0[k], p1[k]) for k in p0)
+    med1 = statistics.median(times[2:])
+    med2 = res[0]["median_s"]
+    B = cfg.batch_size
+    print(f"[multi] 2 ranks (NCCL), paper f32, global batch {B}: first "
+          f"step's mean gradient against one process on the whole batch, "
+          f"largest difference {worst:.3e} of its leaf's max (limit "
+          f"1e-4); both ranks' params after {len(batches)} steps bitwise "
+          f"equal: {same}; median step {med2:.4f} s at world size 2 "
+          f"({B / med2:.1f} examples/s; rank 1 {res[1]['median_s']:.4f} s) "
+          f"against {med1:.4f} s at world size 1 ({B / med1:.1f} "
+          f"examples/s); a world-size-2 graphed step's device busy "
+          f"{res[0]['busy_ms']:.3f} and {res[1]['busy_ms']:.3f} ms, NCCL "
+          f"kernels {res[0]['nccl_ms']:.3f} and {res[1]['nccl_ms']:.3f} ms "
+          f"(ranks 0 and 1)")
+    check(worst <= 1e-4, f"2 ranks' gradient differs by {worst} of max")
+    check(same, "the two ranks' parameters differ")
+    return {"ran": True, "grad_rel_err": worst, "ranks_bitwise": same,
+            "median_s_world2": med2, "median_s_world1": med1,
+            "busy_ms_world2": [x["busy_ms"] for x in res],
+            "nccl_ms_world2": [x["nccl_ms"] for x in res],
+            "examples_per_s_world2": B / med2,
+            "examples_per_s_world1": B / med1}
+
+
+def multi_phase(ops, device, ref_logdir: str) -> dict:
+    """Phase 17: data parallelism (``parallel/mesh.py``) on the card: (a)
+    at world size 1 over NCCL (a group made in this process), ``train``
+    for 10 paper bf16 steps from init, the state bitwise equal to phase
+    9's at step 10 and the launches ``PER_STEP`` a step, the NCCL
+    kernels' device time in a graphed step; (b) the median graphed step
+    over the same 8 steps with no group, with the group (the all-reduce
+    captured in the graph, the design the port keeps) and with the
+    graph split around the gradient all-reduce, in turns (no group,
+    captured, split, no group); (c) ``evaluate`` at k=256 (2 batches) on
+    phase 9's checkpoint bitwise equal to the same call with no group,
+    and the batch-sharded k = 1 ELBO too; (d) ``sample`` at T = 1.0 and
+    0.5 through the gather path bitwise equal to the call with no group;
+    (e) two ranks on two cards (``two_rank_phase``) where two are
+    visible, else a line saying it did not run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from iaf_torch import train_lib
+    from iaf_torch.core import checkpoint as ckpt
+    from iaf_torch.core.config import Config
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.parallel import mesh
+    from iaf_torch.parallel import train_step as ts
+    from iaf_torch.parallel.eval_step import make_batch_sharded_elbo
+    t0 = time.perf_counter()
+    out: dict = {}
+    cfg = Config().parse(PAPER + ",dataset=synthetic")
+    batches = _step_batches(cfg, SIDE_BY_SIDE_STEPS + 2)
+    serve = Config().parse(PAPER + ",dataset=synthetic").replace(
+        logdir=ref_logdir)
+    x = synthetic_dataset(cfg.image_size, cfg.channels).test_x[:EVAL_BATCH]
+    med = {"no group": [], "captured": [], "split": []}
+
+    busy: dict = {}
+
+    def median_of(label, make_chunk, profiled=True):
+        """The median graphed step, and the first run's profile."""
+        state = ts.init_train_state(cfg, 23, batches[0], device)
+        chunk, times = _graphed_steps(cfg, state, batches, make_chunk)
+        med[label].append(statistics.median(times[2:]))
+        if profiled and label not in busy:
+            busy[label] = _step_kernels(chunk, state, batches)
+        chunk.close()
+
+    def no_group_refs():
+        model = train_lib._serving_model(serve, True, device)
+        return (train_lib.evaluate(serve, k=EVAL_K, max_batches=EVAL_BATCHES,
+                                   device=device),
+                make_batch_sharded_elbo(serve, device, k=1)(model, 5, x),
+                [train_lib.sample(serve, num=16, temperature=t,
+                                  device=device) for t in (1.0, 0.5)])
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref_eval, ref_k1, ref_imgs = no_group_refs()
+    median_of("no group", ts.make_train_chunk)
+    with _group_of_one():
+        # (a) train from init over NCCL at world size 1
+        logdir = os.path.join(HERE, "build", "chip_smoke_train_nccl")
+        shutil.rmtree(logdir, ignore_errors=True)
+        tcfg = Config().parse(PAPER + f",dataset=synthetic,log_every=1,"
+                              f"ckpt_every={TRAIN_STEPS},eval_every=0"
+                              ).replace(logdir=logdir)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trained = train_lib.train(tcfg, max_steps=TRAIN_STEPS,
+                                      device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = ops.launch_counts()
+        check(mesh.active() and dist.get_backend() == "nccl"
+              and mesh.world() == 1, "no NCCL group of one formed")
+        check(counts == _expect(counts, PER_STEP, TRAIN_STEPS),
+              f"world size 1: launch counts {counts}")
+        _, ref, _ = train_lib.tree_to_state(ckpt.restore(os.path.join(
+            ref_logdir, f"ckpt-{TRAIN_STEPS:09d}.npz")), tcfg, device)
+        worst = _states_worst(ref, trained)
+        print(f"[multi] (a) NCCL at world size 1: train from init, "
+              f"{TRAIN_STEPS} steps in {secs:.3f} s with init and set-up, "
+              f"launches {counts}; against phase 9's step {TRAIN_STEPS}: "
+              f"largest difference {worst}")
+        check(all(v == 0 for v in worst.values()),
+              f"world size 1 over NCCL differs from phase 9: {worst}")
+        del trained, ref
+        out["a"] = {"seconds_with_setup": secs, "max_diff": worst}
+        # (b) the graphed step with the group: captured, then split
+        median_of("captured", ts.make_train_chunk)
+        median_of("split", _split_chunk, profiled=False)
+        torch.cuda.empty_cache()
+        # (c), (d) the evals and sampling through the group
+        with contextlib.redirect_stdout(io.StringIO()):
+            got_eval, got_k1, got_imgs = no_group_refs()
+    median_of("no group", ts.make_train_chunk)
+    torch.cuda.empty_cache()
+    a, c, sp = (statistics.mean(med[k]) for k in ("no group", "captured",
+                                                  "split"))
+    nccl = _nccl_ms(busy["captured"])
+    total = {k: sum(ms for ms, _ in v.values()) for k, v in busy.items()}
+    print(f"[multi] (b) design: the gradient all-reduce captured in the "
+          f"step's CUDA graph (kept); NCCL kernels in one graphed step at "
+          f"world size 1: {nccl:.4f} ms of device time; device busy a "
+          f"graphed step {({k: round(v, 3) for k, v in total.items()})} ms;"
+          f" device ms by name, captured minus no group "
+          f"{_busy_apart(busy['no group'], busy['captured'])}")
+    print(f"[multi] (b) median graphed step over the same "
+          f"{SIDE_BY_SIDE_STEPS} steps (after 2), paper bf16, batch "
+          f"{cfg.batch_size}: no group {[round(v, 5) for v in med['no group']]}"
+          f" s, NCCL group of one captured {med['captured'][0]:.5f} s "
+          f"({1e3 * (c - a):+.3f} ms), split around the all-reduce "
+          f"{med['split'][0]:.5f} s ({1e3 * (sp - a):+.3f} ms)")
+    print(f"[multi] (c) evaluate k={EVAL_K} over {EVAL_BATCHES} batches: "
+          f"{got_eval!r} bits/dim through the group, {ref_eval!r} without;"
+          f" k = 1 batch-sharded ELBO equal: "
+          f"{bool(torch.equal(got_k1, ref_k1))}")
+    check(got_eval == ref_eval, "the eval through the group differs")
+    check(torch.equal(got_k1, ref_k1) and bool(torch.isfinite(got_k1).all()),
+          "the batch-sharded ELBO through the group differs")
+    same = all(np.array_equal(u, v) for u, v in zip(got_imgs, ref_imgs))
+    print(f"[multi] (d) sample(num=16) at T = 1.0 and 0.5 through the "
+          f"gather: bitwise equal to the call with no group: {same}")
+    check(same, "the samples through the group differ")
+    out["b"] = {"design": "captured", "median_s": med,
+                "captured_minus_no_group_ms": 1e3 * (c - a),
+                "split_minus_no_group_ms": 1e3 * (sp - a),
+                "nccl_device_ms_per_step": nccl,
+                "device_busy_ms_per_step": total}
+    out["c"] = {"bits_per_dim": got_eval, "k1_equal": True}
+    out["d"] = {"samples_equal": same}
+    if torch.cuda.device_count() >= 2:
+        out["e"] = two_rank_phase(device)
+    else:
+        print(f"[multi] 2-rank phase not run: "
+              f"{torch.cuda.device_count()} CUDA device visible")
+        out["e"] = {"ran": False}
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"[multi] phase 17: {out['phase_seconds']:.1f} s")
+    return out
+
+
 def run() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -3338,6 +3741,9 @@ def run() -> dict:
     # phase 16: the MNIST family
     mnist_rows, mnist_counts, mnist = mnist_phase(ops, device)
     rows += mnist_rows
+
+    # phase 17: data parallelism: NCCL at world size 1, two cards if seen
+    multi = multi_phase(ops, device, tcfg.logdir)
     for key, s in (("train", summary), ("train_f32", summary32["train"]),
                    ("train_5x5", summary5["train"]),
                    ("train_5x5_f32", summary5_32["train"])):
@@ -3375,7 +3781,7 @@ def run() -> dict:
                       "train_chunked": graph["chunked"],
                       "train_f32_determinism": graph["f32_determinism"],
                       "graph_phase_seconds": graph["phase_seconds"],
-                      "mnist": mnist}))
+                      "mnist": mnist, "multi": multi}))
     print(json.dumps({"kernels": rows}))
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}
@@ -3744,11 +4150,36 @@ def ab(other: str, case: str = "k1_fwd") -> list[dict]:
     return runs
 
 
+def multi_only() -> int:
+    """``--multi``: the build and phase 17(e) alone, on a machine with two
+    or more cards."""
+    import torch
+    if torch.cuda.device_count() < 2:
+        raise SmokeFailure(f"--multi needs two cards; "
+                           f"{torch.cuda.device_count()} visible")
+    sys.path.insert(0, HERE)
+    from iaf_torch import ops
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    device = torch.device("cuda")
+    build_phase(ops, device)
+    print(json.dumps({"multi": {"e": two_rank_phase(device)}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     """No arguments: the smoke run above. ``--ab DIR [CASE]``: only ``ab``
     of CASE (default ``k1_fwd``) against the tree unpacked at DIR (for
-    example ``git archive`` of the parent commit under build/)."""
+    example ``git archive`` of the parent commit under build/).
+    ``--multi``: ``multi_only``."""
     try:
+        if sys.argv[1:] == ["--multi"]:
+            return multi_only()
         if len(sys.argv) in (3, 4) and sys.argv[1] == "--ab":
             import torch
             if not torch.cuda.is_available():

@@ -22,7 +22,16 @@ traces whichever mode runs with ``torch.profiler`` (host activity, and
 the card's kernels when it runs there) and writes the trace into D as
 ``*.pt.trace.json``, as the JAX package's CLI traces into its profile
 directory.
-``--num_gpus`` is accepted for command-line parity and ignored.
+
+Data parallelism, one process per GPU (``parallel/mesh.py``)::
+
+    torchrun --nproc_per_node 4 -m iaf_torch.cli --logdir /tmp/iaf \
+        --mode train --hpconfig batch_size=128
+
+``--hpconfig batch_size`` is the global batch; every mode runs so, with
+rank 0 alone writing and printing. ``--num_gpus`` is accepted for
+command-line parity and ignored, as in the JAX package: ``torchrun``
+sets the ranks.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ import contextlib
 
 from iaf_torch import train_lib
 from iaf_torch.core.config import resolve_config
+from iaf_torch.core.device import resolve_device
+from iaf_torch.parallel import mesh
 
 _NOT_YET = {"export": "ROADMAP queue 1, item 5 (export)"}
 
@@ -58,7 +69,7 @@ def _profiled(profile_dir: str, device: str):
         yield
     finally:
         prof.stop()
-        print(f"[profile] trace written to {profile_dir}")
+        mesh.print0(f"[profile] trace written to {profile_dir}")
 
 
 def main(argv=None) -> None:
@@ -88,12 +99,14 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             f"--mode {args.mode} is not ported to iaf_torch yet: "
             f"{_NOT_YET[args.mode]}")
+    dev = resolve_device(args.device)
+    mesh.init_distributed(dev)
     if cfg.dataset in ("cifar10", "mnist"):
         from iaf_torch.data.datasets import real_data_available
         found = real_data_available(cfg.dataset, cfg.data_dir)
-        print(f"[data] real {cfg.dataset} found at {found}" if found else
-              f"[data] no real {cfg.dataset} on disk -> synthetic fallback")
-    dev = args.device
+        mesh.print0(f"[data] real {cfg.dataset} found at {found}" if found
+                    else f"[data] no real {cfg.dataset} on disk -> "
+                    "synthetic fallback")
     with _profiled(args.profile_dir, dev):
         if args.mode == "train":
             train_lib.train(cfg, device=dev)

@@ -1,8 +1,9 @@
-"""Checkpoint / resume (``iaf_tpu/core/checkpoint.py``), numpy only.
+"""Checkpoint / resume (``iaf_tpu/core/checkpoint.py``): numpy ``.npz`` files.
 
 The whole ``{step, params, opt: {step, m, u, ema}, rng}`` tree is written
 as one ``.npz`` with ``//``-joined keys, atomically (a temporary file, then
-a rename), keeping the newest ``keep``. The keys and layouts are JAX's
+a rename), keeping the newest ``keep``; under a process group by rank 0
+alone. The keys and layouts are JAX's
 (``train_lib.state_to_tree`` converts), so either package resumes the
 other's checkpoints.
 """
@@ -14,6 +15,8 @@ import re
 from typing import Any
 
 import numpy as np
+
+from iaf_torch.parallel import mesh
 
 _SEP = "//"
 _CKPT = re.compile(r"ckpt-\d+\.npz")
@@ -59,16 +62,22 @@ def _checkpoints(logdir: str) -> list[str]:
 
 def save(logdir: str, step: int, tree: Any, keep: int = 5) -> str:
     """Write ``ckpt-<step>.npz`` atomically; ``keep`` retains only the
-    newest N checkpoints (0 keeps everything)."""
-    os.makedirs(logdir, exist_ok=True)
+    newest N checkpoints (0 keeps everything). Under a process group
+    (``parallel/mesh.py``) every rank calls it, rank 0 alone writes and
+    prunes (the others may pass ``tree=None``), and a barrier on each
+    side keeps the ranks together, as the JAX package's ``save``."""
     path = os.path.join(logdir, f"ckpt-{step:09d}.npz")
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **flatten_pytree(tree))
-    os.rename(tmp, path)
-    if keep:
-        for old in _checkpoints(logdir)[:-keep]:
-            os.remove(os.path.join(logdir, old))
+    mesh.barrier(f"ckpt_pre_{step}")
+    if mesh.rank() == 0:
+        os.makedirs(logdir, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **flatten_pytree(tree))
+        os.rename(tmp, path)
+        if keep:
+            for old in _checkpoints(logdir)[:-keep]:
+                os.remove(os.path.join(logdir, old))
+    mesh.barrier(f"ckpt_post_{step}")
     return path
 
 

@@ -7,8 +7,11 @@ Fields that only steer the TPU build are accepted and ignored here:
 ``kernels`` and ``ar_variant`` (on CUDA the hand-written kernels always
 run, on the CPU their plain twins), ``pin_state_layouts`` and
 ``fused_opt_layout_aware`` (XLA layout choices), ``scan_blocks`` and
-``remat`` (XLA program-shape choices), and ``mesh_data``/``mesh_model``
-(the JAX device mesh). ``steps_per_dispatch`` S is the training loop's:
+``remat`` (XLA program-shape choices), and ``num_gpus`` (as in the JAX
+CLI: ``torchrun`` sets the ranks). ``mesh_data`` is the data axis, the
+process group of ``parallel/mesh.py``: 0 (all ranks) or the world size;
+``mesh_model`` > 1, JAX's reserved model axis, is not ported and
+raises. ``steps_per_dispatch`` S is the training loop's:
 S steps a dispatch, on the card S replays of the step's CUDA graph
 enqueued back to back.
 """
@@ -108,9 +111,9 @@ class Config:
     merge_ar_heads: bool = True
 
     # --- parallelism ---
-    num_gpus: int = 1
-    mesh_data: int = 0                # accepted, ignored (JAX mesh)
-    mesh_model: int = 1               # accepted, ignored (JAX mesh)
+    num_gpus: int = 1                 # accepted, ignored (torchrun sets it)
+    mesh_data: int = 0                # data-parallel ranks: 0 (all) or world
+    mesh_model: int = 1               # model axis: only 1 (not ported)
 
     # --- eval ---
     eval_batch_size: int = 16

@@ -6,18 +6,26 @@ and deterministic algorithms (``cudnn_deterministic``)."""
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on. Under a data-parallel launch
+    (``WORLD_SIZE`` set, ``parallel/mesh.py``) "cuda" is this process's
+    card, ``cuda:LOCAL_RANK``, made the current device before any NCCL
+    group is."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA device requested but torch.cuda is not "
                                "available; pass device='cpu' to run the "
                                "plain twins on the CPU")
-        if dev.index is None:
+        if dev.index is None and "WORLD_SIZE" in os.environ:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(dev)
+        elif dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")

@@ -11,7 +11,10 @@ flat stack is JAX's ``block_{i // depth}/layer_{i % depth}``.
 On CUDA the eval/train forward runs the AR net of every IAF step through
 K1 (3x3 convs) or conv by conv through K2 (any other kernel size), the
 division-form update through K3 and the likelihood through K4
-(``iaf_torch.ops``); on CPU tensors the same calls run the twins. The
+(``iaf_torch.ops``); on CPU tensors the same calls run the twins. With
+``ar_kind=dense`` the AR net is a MADE over the channels at each latent
+position (``ARMultiDense``, plain ``F.linear``, as the JAX package runs
+it in XLA). The
 data-dependent init runs plain convs, as JAX's init never reaches Pallas.
 
 Noise: every layer's posterior draw comes from the site
@@ -42,8 +45,9 @@ from iaf_torch.core.config import Config
 from iaf_torch.core.device import cudnn_deterministic, no_tf32
 from iaf_torch.core.rng import fold_name, normal_into, site_normal
 from iaf_torch.distributions import DiagonalGaussian, compute_lowerbound
-from iaf_torch.nn.layers import (ARMultiConv2d, WNConv2d, WNDeconv2d,
-                                 compute_dtype)
+from iaf_torch.nn.layers import (ARMultiConv2d, ARMultiDense, WNConv2d,
+                                 WNDeconv2d, compute_dtype)
+from iaf_torch.parallel import mesh
 
 LOG2 = math.log(2.0)
 
@@ -93,16 +97,17 @@ class IAFLayer(nn.Module):
                                    init_scale=cfg.stat_init_scale,
                                    device=device)
         if cfg.flow == "iaf":
-            if cfg.ar_kind != "conv":
-                raise ValueError(
-                    f"ar_kind={cfg.ar_kind!r}: the CIFAR family's IAF is "
-                    "the masked conv net (ar_kind=conv); the dense MADE "
-                    "flow is the MNIST family's (likelihood=bernoulli, "
-                    "models/mnist_vae.py)")
-            self.ar1 = ARMultiConv2d(
-                zs, [cfg.ar_hidden] * cfg.depth_ar, [zs, zs], ks,
-                trim_rows=cfg.ar_row_trim, merge_heads=cfg.merge_ar_heads,
-                device=device)
+            n_h = [cfg.ar_hidden] * cfg.depth_ar
+            if cfg.ar_kind == "conv":
+                self.ar1 = ARMultiConv2d(
+                    zs, n_h, [zs, zs], ks, trim_rows=cfg.ar_row_trim,
+                    merge_heads=cfg.merge_ar_heads, device=device)
+            elif cfg.ar_kind == "dense":
+                # a MADE over the channel vector at every latent position
+                self.ar1 = ARMultiDense(zs, n_h, [zs, zs], device=device)
+            else:
+                raise ValueError(f"unknown ar_kind {cfg.ar_kind!r} (conv "
+                                 "or dense)")
         self.down_conv2 = WNConv2d(zs + hs, hs, ks, device=device)
 
 
@@ -166,8 +171,10 @@ def iaf_flow(cfg: Config, layer: IAFLayer, z, context, logqs, dtype=None,
 def iaf_layer_down(cfg: Config, layer: IAFLayer, h, stats: LayerStats,
                    eps: torch.Tensor, dtype=None, init: bool = False):
     """Top-down pass of one stochastic layer (``IAFLayer.down``) with the
-    posterior drawn from standard-normal ``eps``. Returns (new h, kl_obj
-    per example, kl_cost per example)."""
+    posterior drawn from standard-normal ``eps``. Returns (new h, the
+    free-bits term, kl_cost per example): with ``kl_min`` > 0 the term
+    is the per-channel KL summed over space and averaged over the batch,
+    [1, zs], which ``free_bits`` clamps; else kl_obj per example."""
     zs, hs = cfg.z_size, cfg.h_size
     x = _conv(layer.down_conv1, F.elu(h), dtype, init)
     pz_mean, pz_logsd, rz_mean, rz_logsd, down_context, h_det = _split(
@@ -181,14 +188,9 @@ def iaf_layer_down(cfg: Config, layer: IAFLayer, h, stats: LayerStats,
         context = stats.up_context + down_context
         z, logqs = iaf_flow(cfg, layer, z, context, logqs, dtype, init)
     kl_cost = logqs - prior.logps(z)           # [B, H, W, zs]
-    batch = h.shape[0]
     if cfg.kl_min > 0:
-        # free bits: per-channel KL summed over space, averaged over the
-        # batch, clamped at kl_min (enters the training objective only)
-        kl_ave = torch.mean(torch.sum(kl_cost, dim=(1, 2)), dim=0,
+        kl_obj = torch.mean(torch.sum(kl_cost, dim=(1, 2)), dim=0,
                             keepdim=True)
-        kl_ave = torch.clamp(kl_ave, min=cfg.kl_min)
-        kl_obj = torch.sum(kl_ave.expand(batch, zs), dim=1)
     else:
         kl_obj = torch.sum(kl_cost, dim=(1, 2, 3))
     kl_cost = torch.sum(kl_cost, dim=(1, 2, 3))
@@ -197,8 +199,25 @@ def iaf_layer_down(cfg: Config, layer: IAFLayer, h, stats: LayerStats,
     return h + 0.1 * hidden, kl_obj, kl_cost
 
 
+def free_bits(cfg: Config, kl_aves, batch: int, global_batch: bool):
+    """Each layer's free-bits objective per example (enters the training
+    objective only): its per-channel KL means clamped at ``kl_min`` and
+    summed over the channels. With ``global_batch`` (training under a
+    process group) the means are the global batch's, all layers' in one
+    all-reduce (``mesh.global_means``), as JAX takes them over the
+    sharded global batch."""
+    if global_batch:
+        kl_aves = mesh.global_means(kl_aves)
+    return [torch.sum(torch.clamp(a, min=cfg.kl_min).expand(batch,
+                                                            cfg.z_size),
+                      dim=1) for a in kl_aves]
+
+
 def _images(x, device) -> torch.Tensor:
-    x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+    # NHWC-contiguous whatever layout the images came in: cuDNN's
+    # algorithms, and so the last bits, follow the memory layout
+    x = torch.as_tensor(np.ascontiguousarray(x) if not torch.is_tensor(x)
+                        else x.contiguous())
     return x.to(device=device, dtype=torch.float32) / 256.0 - 0.5
 
 
@@ -258,6 +277,9 @@ def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
         eps = _eps(cfg, rng, i, zshape, device, noise)
         h, objs[i], costs[i] = iaf_layer_down(cfg, model.blocks[i], h,
                                               stats[i], eps, dtype)
+    if cfg.kl_min > 0:
+        objs = free_bits(cfg, objs, batch,
+                         mode == "train" and mesh.active())
     kl_objs, kl_costs = torch.stack(objs), torch.stack(costs)
     kl_obj_total = kl_objs.sum(0)
     kl_cost_total = kl_costs.sum(0)

@@ -41,6 +41,7 @@ from iaf_torch.distributions import (DiagonalGaussian, bernoulli_logp,
                                      compute_lowerbound)
 from iaf_torch.nn.layers import (ARMultiDense, WNConv2d, WNDeconv2d,
                                  WNDense, compute_dtype)
+from iaf_torch.parallel import mesh
 from iaf_torch.utils.params import param_device
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -142,7 +143,10 @@ def _iaf_chain(cfg: Config, model: MnistVAE, z, context, logqs, dtype,
 
 def _images(x, device) -> torch.Tensor:
     """Pixels in [0, 256) as x/255 in f32 (the likelihood's targets)."""
-    x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+    # NHWC-contiguous whatever layout the images came in: cuDNN's
+    # algorithms, and so the last bits, follow the memory layout
+    x = torch.as_tensor(np.ascontiguousarray(x) if not torch.is_tensor(x)
+                        else x.contiguous())
     return x.to(device=device, dtype=torch.float32) / 255.0
 
 
@@ -159,7 +163,7 @@ def draw_noise(cfg: Config, rng: int,
 
 
 def _forward(cfg: Config, model: MnistVAE, x, rng: int, k: int, dtype,
-             noise, init: bool) -> MnistOut:
+             noise, init: bool, global_batch: bool = False) -> MnistOut:
     device = param_device(model)
     x = _images(x, device)
     if k > 1:
@@ -176,9 +180,13 @@ def _forward(cfg: Config, model: MnistVAE, x, rng: int, k: int, dtype,
     kl_cost = logqs - logps                      # [B, z]
     if cfg.kl_min > 0:
         # free bits per z dimension: the mean over the batch (k repeats
-        # included), clamped at kl_min (the training objective only)
-        kl_ave = torch.clamp(torch.mean(kl_cost, dim=0, keepdim=True),
-                             min=cfg.kl_min)
+        # included; in training under a process group the global batch's,
+        # ``mesh.global_means``), clamped at kl_min (the training
+        # objective only)
+        kl_ave = torch.mean(kl_cost, dim=0, keepdim=True)
+        if global_batch:
+            kl_ave = mesh.global_means([kl_ave])[0]
+        kl_ave = torch.clamp(kl_ave, min=cfg.kl_min)
         kl_obj = torch.sum(kl_ave.expand(kl_cost.shape), dim=1)
     else:
         kl_obj = torch.sum(kl_cost, dim=1)
@@ -204,12 +212,14 @@ def apply_fn(cfg: Config, model: MnistVAE, rng: int, x, mode: str = "train",
     """The forward pass (``forward``): ``x`` holds images in [0, 256),
     NHWC, already binarized by the feed; ``k`` importance samples repeat
     each image k times, interleaved. Train and eval modes compute the
-    same."""
+    same, but that under a process group training takes free bits over
+    the global batch."""
     if mode not in ("train", "eval"):
         raise ValueError(f"mode {mode!r} not in ('train', 'eval')")
     k = cfg.k if k is None else k
     return _forward(cfg, model, x, rng, k, compute_dtype(cfg.compute_dtype),
-                    noise, init=False)
+                    noise, init=False,
+                    global_batch=mode == "train" and mesh.active())
 
 
 def pixels(out: MnistOut) -> torch.Tensor:

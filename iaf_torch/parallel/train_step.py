@@ -24,6 +24,19 @@ eager loop's. On the CPU the same body runs eagerly at every step.
 Both model families take this path (``models.get_model``): the model,
 its noise sites and its metrics (``bits_per_dim`` and ``kl_per_layer``
 for CIFAR, ``nll_nats`` for MNIST) come from the family.
+
+Under a process group (``parallel/mesh.py``) the step is data-parallel
+and equals one step on the global batch, as JAX's SPMD step on a mesh:
+each rank takes its rows of the batch and of every global noise draw,
+free bits clamps the global batch's KL means (one all-reduce of all
+layers' inside the forward), the flat gradient buffer is summed over the
+ranks and divided by their number before K5 (one all-reduce; a global
+``grad_clip`` norm therefore keeps JAX's meaning), and the metrics are
+the ranks' means (one small all-reduce). On the card all three are
+captured in the step's graph, on the capture stream; the eager warm-up
+issues them first. ``grad_accum`` > 1 on more than one rank raises: JAX
+reorders micro-batch rows across hosts, an exchange the port does not
+have (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -35,8 +48,9 @@ import torch
 
 from iaf_torch import ops, optim
 from iaf_torch.core.config import Config
-from iaf_torch.core.rng import fold
+from iaf_torch.core.rng import fold, local_rows
 from iaf_torch.models import get_model
+from iaf_torch.parallel import mesh
 from iaf_torch.utils.params import param_device
 
 Noise = Mapping[str, torch.Tensor]
@@ -92,6 +106,11 @@ def _accumulate(cfg: Config, model: torch.nn.Module, rng: int, batch,
     """``_grads_and_metrics`` summing into the gradients as they are (None,
     or zeros)."""
     a_count = max(1, cfg.grad_accum)
+    if a_count > 1 and mesh.world() > 1:
+        raise NotImplementedError(
+            f"grad_accum={a_count} on {mesh.world()} ranks: JAX reorders "
+            "micro-batch rows across hosts, which the port does not "
+            "(ROADMAP queue 1, item 4)")
     if a_count == 1:
         loss, out = loss_fn(cfg, model, rng, batch, noise)
         loss.backward()
@@ -123,6 +142,24 @@ def _micro_batch(cfg: Config, n: int) -> int:
     return n // a_count
 
 
+def _mean_over_ranks(flat: torch.Tensor) -> torch.Tensor:
+    """``flat`` summed over the ranks in place, then divided by their
+    number: one all-reduce (no bit moves at world size 1)."""
+    return mesh.all_reduce_(flat).div_(mesh.world())
+
+
+def _global_metrics(metrics: dict[str, torch.Tensor]
+                    ) -> dict[str, torch.Tensor]:
+    """The ranks' mean of every metric, in one all-reduce."""
+    flat = _mean_over_ranks(torch.cat([v.reshape(-1)
+                                       for v in metrics.values()]))
+    out, off = {}, 0
+    for k, v in metrics.items():
+        out[k] = flat[off:off + v.numel()].view_as(v)
+        off += v.numel()
+    return out
+
+
 def _apply_updates(cfg: Config, state: TrainState, grads) -> None:
     optim.apply_updates(
         dict(state.params.named_parameters()), grads, state.opt,
@@ -135,10 +172,20 @@ def train_step(cfg: Config, state: TrainState, rng: int, batch,
                noise: Noise | Sequence[Noise] | None = None):
     """One eager step: returns (the state, updated in place, and the
     metrics as device tensors). ``noise`` injects posterior draws by
-    site, as the family's ``apply_fn`` takes them."""
+    site, as the family's ``apply_fn`` takes them (under a process group
+    the global draws, which each rank slices)."""
     model = state.params
     batch = _device_batch(batch, param_device(model))
-    grads, metrics = _grads_and_metrics(cfg, model, rng, batch, noise)
+    with mesh.data_rows():
+        grads, metrics = _grads_and_metrics(cfg, model, rng, batch, noise)
+    if mesh.active():
+        live = [g for g in grads.values() if g is not None]
+        flat = _mean_over_ranks(torch.cat([g.reshape(-1) for g in live]))
+        off = 0
+        for g in live:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        metrics = _global_metrics(metrics)
     _apply_updates(cfg, state, grads)
     return state, metrics
 
@@ -167,6 +214,7 @@ class TrainStep:
         for p in params:
             p.grad = self._grads[off:off + p.numel()].view_as(p)
             off += p.numel()
+        self._group = mesh.active()
         self._batch = None
         self._noise: list[dict[str, torch.Tensor]] = []
         self._graph = self._out = None
@@ -196,22 +244,44 @@ class TrainStep:
                              f"step's buffers hold "
                              f"{tuple(self._batch.shape)}")
         self._batch.copy_(batch, non_blocking=True)
-        if noise is None:
-            for a, bufs in enumerate(self._noise):
-                self.family.draw_noise(self.cfg, key if len(self._noise) == 1
-                                       else fold(key, a), bufs)
-            return
-        given = [noise] if len(self._noise) == 1 else noise
-        for bufs, src in zip(self._noise, given, strict=True):
-            for site, buf in bufs.items():
-                buf.copy_(src[site])
+        with mesh.data_rows():     # this rank's rows of the global draws
+            if noise is None:
+                for a, bufs in enumerate(self._noise):
+                    self.family.draw_noise(
+                        self.cfg, key if len(self._noise) == 1
+                        else fold(key, a), bufs)
+                return
+            given = [noise] if len(self._noise) == 1 else noise
+            for bufs, src in zip(self._noise, given, strict=True):
+                for site, buf in bufs.items():
+                    buf.copy_(local_rows(torch.as_tensor(src[site]),
+                                         buf.shape[0]))
 
-    def _body(self) -> dict[str, torch.Tensor]:
+    def _forward_backward(self) -> dict[str, torch.Tensor]:
+        """The step's forward and backward into the zeroed gradient
+        buffer; its metrics, this rank's."""
         self._grads.zero_()
         noise = self._noise[0] if len(self._noise) == 1 else self._noise
-        grads, metrics = _accumulate(self.cfg, self.state.params, 0,
-                                     self._batch, noise)
-        _apply_updates(self.cfg, self.state, grads)
+        return _accumulate(self.cfg, self.state.params, 0, self._batch,
+                           noise)[1]
+
+    def _reduce(self, metrics: dict[str, torch.Tensor]
+                ) -> dict[str, torch.Tensor]:
+        """The gradients and metrics as the ranks' means (a no-op with no
+        group)."""
+        if not self._group:
+            return metrics
+        _mean_over_ranks(self._grads)
+        return _global_metrics(metrics)
+
+    def _update(self) -> None:
+        _apply_updates(self.cfg, self.state,
+                       {k: p.grad for k, p in
+                        self.state.params.named_parameters()})
+
+    def _body(self) -> dict[str, torch.Tensor]:
+        metrics = self._reduce(self._forward_backward())
+        self._update()
         return metrics
 
     def _warm_up_and_capture(self) -> dict[str, torch.Tensor]:
@@ -303,7 +373,21 @@ def make_train_chunk(cfg: Config, state: TrainState) -> TrainChunk:
 
 def init_train_state(cfg: Config, rng: int, sample_batch,
                      device="cuda") -> TrainState:
-    model = get_model(cfg).init_params(cfg, sample_batch, rng=rng,
-                                       device=device)
+    """The family's data-dependent init on ``sample_batch``, and fresh
+    optimizer state. Under a process group ``sample_batch`` is this
+    rank's rows: the ranks' rows are gathered into the global batch, rank
+    0 runs the init on it and broadcasts the parameters, and every rank
+    builds its optimizer state from them (``iaf_tpu/train_lib.py:178-186``,
+    ``make_global_batch``)."""
+    family = get_model(cfg)
+    if not mesh.active():
+        model = family.init_params(cfg, sample_batch, rng=rng, device=device)
+    else:
+        batch = mesh.all_gather_host(np.asarray(sample_batch))
+        if mesh.rank() == 0:
+            model = family.init_params(cfg, batch, rng=rng, device=device)
+        else:
+            model = family.Model(cfg, device=device)
+        mesh.broadcast_params_(model)
     return TrainState(model,
                       optim.init_state(dict(model.named_parameters())))

@@ -17,7 +17,15 @@ step (the CIFAR family's only, as in the JAX package). Each entry point
 takes the config's model family (``models.get_model``); with
 ``cfg.binarize`` the MNIST images are binarized afresh at every training
 step and once, at a fixed key, for the evals (``data/feed.py``).
-Multi-GPU and TensorBoard come with later slices of the port.
+
+Every entry point runs data-parallel under ``torchrun`` (one process per
+GPU; ``parallel/mesh.py``): ``train`` feeds each rank its rows of the
+global batch, inits on the gathered first batch and steps as one
+process on the whole batch would; the evals shard k (or, for a k the
+world size does not divide, the batch) and agree on every rank;
+``sample`` shards the images and gathers them. Rank 0 alone writes
+(checkpoints, metrics, ``hps.json``, image summaries, progress files,
+outputs) and prints. TensorBoard comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -42,8 +50,10 @@ from iaf_torch.data import feed
 from iaf_torch.data.datasets import load_dataset
 from iaf_torch.models import cvae, get_model
 from iaf_torch.optim import AdamaxState
+from iaf_torch.parallel import mesh
 from iaf_torch.parallel import train_step as ts
-from iaf_torch.parallel.eval_step import make_eval_step
+from iaf_torch.parallel.eval_step import (make_batch_sharded_elbo,
+                                          make_eval_step)
 from iaf_torch.utils.metrics import MetricsLogger, img_tile
 from iaf_torch.utils.params import describe, param_device
 
@@ -99,12 +109,31 @@ def _config_line(cfg: Config, dev: torch.device) -> None:
     f32, or the f32 recipe on the card run in full f32 (``full_f32``: TF32
     off for cuDNN's convs and for matmuls)."""
     if full_f32(cfg.compute_dtype, dev):
-        print("[config] compute_dtype=float32 on the card: TF32 off for "
-              "cuDNN convs and matmuls, as the reference recipe computes")
+        mesh.print0("[config] compute_dtype=float32 on the card: TF32 off "
+                    "for cuDNN convs and matmuls, as the reference recipe "
+                    "computes")
     elif cfg.compute_dtype != "float32":
-        print(f"[config] compute_dtype={cfg.compute_dtype} (reference "
-              "recipe: float32 — pin compute_dtype=float32 to reproduce "
-              "it exactly)")
+        mesh.print0(f"[config] compute_dtype={cfg.compute_dtype} "
+                    "(reference recipe: float32 — pin compute_dtype=float32 "
+                    "to reproduce it exactly)")
+
+
+def _start(cfg: Config, device) -> torch.device:
+    """An entry point's device (this rank's card under a data-parallel
+    launch), with the process group made if the launcher asked for one
+    and the config's mesh checked against it."""
+    dev = resolve_device(device)
+    mesh.init_distributed(dev)
+    mesh.check_config(cfg)
+    return dev
+
+
+def heartbeat_k(cfg: Config) -> int:
+    """The heartbeat eval's k: min(eval_k, 64) rounded up to a multiple
+    of the world size, so that the k-sharded eval divides
+    (``iaf_tpu/train_lib.py:167-171``)."""
+    n = mesh.world()
+    return -(-min(cfg.eval_k, 64) // n) * n
 
 
 def train(cfg: Config, max_steps: int | None = None,
@@ -117,11 +146,20 @@ def train(cfg: Config, max_steps: int | None = None,
     chunk. Returns the final state, whose tensors (on the card the ones
     the step's graph updated) hold the last step's values. With
     ``cfg.binarize`` the batches of the iterator built here are binarized
-    by (seed, step); a caller's ``data_iter`` comes binarized already."""
-    dev = resolve_device(device)
+    by (seed, step); a caller's ``data_iter`` comes binarized already.
+
+    Under a process group ``cfg.batch_size`` is the global batch: the
+    iterator built here yields this rank's rows (JAX process r's), a
+    caller's ``data_iter`` must yield them too, and the run equals one
+    process's on the whole batch (but that with ``cfg.binarize`` each
+    rank binarizes its own rows by (seed, step), as JAX's processes
+    do)."""
+    dev = _start(cfg, device)
     family = get_model(cfg)
-    logger = MetricsLogger(cfg.logdir)
-    save_hparams(cfg, cfg.logdir)
+    rank0 = mesh.rank() == 0
+    logger = MetricsLogger(cfg.logdir, enabled=rank0)
+    if rank0:
+        save_hparams(cfg, cfg.logdir)
     _config_line(cfg, dev)
 
     # restore before the data iterator, so that the data order continues
@@ -131,16 +169,18 @@ def train(cfg: Config, max_steps: int | None = None,
     if latest is not None:
         start_step, restored, restored_key = tree_to_state(
             ckpt.restore(latest), cfg, dev)
-        print(f"[train] restored {latest} at step {start_step}")
+        mesh.print0(f"[train] restored {latest} at step {start_step}")
 
     ds = None
     if data_iter is None:
         ds, is_real = load_dataset(cfg.dataset, cfg.data_dir, cfg.image_size,
                                    cfg.channels)
         if not is_real and cfg.dataset != "synthetic":
-            print(f"[train] dataset {cfg.dataset!r} unavailable -> synthetic")
-        data_iter = feed.batch_iterator(ds.train_x, cfg.batch_size, cfg.seed,
-                                        start_step=start_step)
+            mesh.print0(f"[train] dataset {cfg.dataset!r} unavailable -> "
+                        "synthetic")
+        data_iter = feed.batch_iterator(
+            ds.train_x, cfg.batch_size, cfg.seed, process_index=mesh.rank(),
+            process_count=mesh.world(), start_step=start_step)
         if cfg.binarize:
             data_iter = feed.binarized_iterator(data_iter, cfg.seed,
                                                 start_step=start_step)
@@ -157,7 +197,7 @@ def train(cfg: Config, max_steps: int | None = None,
             # the training protocol: sampled binarization, at a fixed key
             eval_images = feed.dynamic_binarize(
                 eval_images, feed.binarize_rng(cfg.seed, -1))
-        eval_fn = make_eval_step(cfg, dev, k=min(cfg.eval_k, 64))
+        eval_fn = make_eval_step(cfg, dev, k=heartbeat_k(cfg))
         ema_model = family.Model(cfg, device=dev)
 
     first = next(data_iter)
@@ -166,7 +206,7 @@ def train(cfg: Config, max_steps: int | None = None,
     else:
         state = ts.init_train_state(cfg, fold(base_key, _INIT_FOLD), first,
                                     dev)
-        print(f"[train] {describe(state.params)}")
+        mesh.print0(f"[train] {describe(state.params)}")
 
     S = max(1, cfg.steps_per_dispatch)
     total = cfg.total_steps if max_steps is None else max_steps
@@ -214,8 +254,8 @@ def train(cfg: Config, max_steps: int | None = None,
                     head = f"bits/dim {float(metrics['bits_per_dim']):.4f}"
                 else:
                     head = f"nll {float(metrics['nll_nats']):.2f} nats"
-                print(f"[train] step {step} loss {loss:.2f} {head} "
-                      f"{sps:.3f} steps/s")
+                mesh.print0(f"[train] step {step} loss {loss:.2f} {head} "
+                            f"{sps:.3f} steps/s")
                 t_last, steps_since = time.time(), 0
 
             if (eval_fn is not None and step % cfg.eval_every < n
@@ -230,15 +270,15 @@ def train(cfg: Config, max_steps: int | None = None,
                 else:
                     logger.log(step, eval_bits_per_dim=nats
                                / (LOG2 * cfg.num_pixels))
-                if cfg.image_summaries:
+                if cfg.image_summaries and rank0:
                     _log_image_summaries(cfg, ema_model, base_key, step,
                                          eval_images, logger)
 
             if (step % cfg.ckpt_every < n and step >= cfg.ckpt_every) \
                     or step == total:
                 ckpt.save(cfg.logdir, step,
-                          state_to_tree(step, state, base_key),
-                          keep=cfg.ckpt_keep)
+                          state_to_tree(step, state, base_key) if rank0
+                          else None, keep=cfg.ckpt_keep)
     finally:
         prefetch.close()
         chunk_fn.close()
@@ -301,7 +341,10 @@ def _model(cfg: Config, params, device) -> torch.nn.Module:
 
 def make_eval_setup(cfg: Config, mode: str, k: int, device="cuda"):
     """(the split's images, the eval step at ``k``), built once:
-    ``eval_loop`` reuses them across its checkpoint polls."""
+    ``eval_loop`` reuses them across its checkpoint polls. The step
+    shards k over the ranks where the world size divides it, else the
+    batch (``make_batch_sharded_elbo``; ``eval_batch_size`` must then
+    divide), as the JAX package picks."""
     if mode not in ("eval_train", "eval_test"):
         raise ValueError(f"mode {mode!r} not in ('eval_train', 'eval_test')")
     ds, _ = load_dataset(cfg.dataset, cfg.data_dir, cfg.image_size,
@@ -311,7 +354,16 @@ def make_eval_setup(cfg: Config, mode: str, k: int, device="cuda"):
         # the training protocol: sampled binarization, at a fixed key
         images = feed.dynamic_binarize(images, feed.binarize_rng(cfg.seed,
                                                                  -2))
-    return images, make_eval_step(cfg, resolve_device(device), k=k)
+    dev = resolve_device(device)
+    n = mesh.world()
+    if k % n == 0:
+        return images, make_eval_step(cfg, dev, k=k)
+    if cfg.eval_batch_size % n:
+        raise ValueError(
+            f"eval k={k} is not a multiple of the world size ({n}); the "
+            f"batch-sharded eval path then requires eval_batch_size "
+            f"({cfg.eval_batch_size}) to divide by it")
+    return images, make_batch_sharded_elbo(cfg, dev, k=k)
 
 
 def evaluate(cfg: Config, mode: str = "eval_test", params=None,
@@ -336,10 +388,12 @@ def evaluate(cfg: Config, mode: str = "eval_test", params=None,
     name for checkpoint weights, required for caller-supplied ones, and
     this package's name, since the JAX package draws other noise); a file
     of another identity is ignored, a capped rerun leaves a more complete
-    one alone, and a full pass deletes it."""
+    one alone, and a full pass deletes it. Under a process group rank 0
+    alone reads and writes the file, and its resume point is broadcast
+    to every rank; every rank returns the same value."""
     if mode not in ("eval_train", "eval_test"):
         raise ValueError(f"mode {mode!r} not in ('eval_train', 'eval_test')")
-    dev = resolve_device(device)
+    dev = _start(cfg, device)
     _config_line(cfg, dev)
     k = cfg.eval_k if k is None else k
     if params is None:
@@ -374,9 +428,10 @@ def evaluate(cfg: Config, mode: str = "eval_test", params=None,
                 "seed": cfg.seed, "id": progress_id or "external-params",
                 "impl": "iaf_torch"}
 
+    rank0 = mesh.rank() == 0
     start_i, total_nats, total_n = 0, 0.0, 0
     protect_progress = False
-    if progress_path and os.path.isfile(progress_path):
+    if progress_path and rank0 and os.path.isfile(progress_path):
         with open(progress_path) as f:
             prog = json.load(f)
         if prog.get("identity") == identity and prog["i"] <= n_batches:
@@ -391,11 +446,13 @@ def evaluate(cfg: Config, mode: str = "eval_test", params=None,
                   "not write progress)")
         else:
             print(f"[{mode}] ignoring stale eval progress {progress_path}")
-    # one process: the multi-GPU eval (ROADMAP queue 1, item 4) must also
-    # broadcast rank 0's resume point to the other ranks
+    if progress_path:
+        # every rank resumes where rank 0 does, which alone sees the file
+        start_i, total_nats, total_n = mesh.broadcast_values(
+            (start_i, total_nats, total_n))
 
     def save_progress(i: int) -> None:
-        if not progress_path or protect_progress:
+        if not progress_path or protect_progress or not rank0:
             return
         tmp = progress_path + ".tmp"
         with open(tmp, "w") as f:
@@ -413,24 +470,26 @@ def evaluate(cfg: Config, mode: str = "eval_test", params=None,
             save_progress(done)
             if done != n_batches:
                 rate = (done - start_i) / max(time.time() - t0, 1e-9)
-                print(f"[{mode}] batch {done}/{n_batches} running nats/ex "
-                      f"{total_nats / total_n:.2f} eta "
-                      f"{(n_batches - done) / max(rate, 1e-9) / 60:.1f} min")
+                mesh.print0(
+                    f"[{mode}] batch {done}/{n_batches} running nats/ex "
+                    f"{total_nats / total_n:.2f} eta "
+                    f"{(n_batches - done) / max(rate, 1e-9) / 60:.1f} min")
     if tail:
         rem = images[n_full * bs:]
         pad = np.concatenate([rem] + [rem[:1]] * (bs - tail))[:bs]
         nats = eval_fn(model, fold(key, n_full), pad)
         total_nats += float(torch.sum(nats[:tail]))
         total_n += tail
-    if progress_path and full_pass and os.path.isfile(progress_path):
+    if progress_path and full_pass and rank0 and \
+            os.path.isfile(progress_path):
         os.remove(progress_path)
     nats_mean = total_nats / max(total_n, 1)
     if cfg.likelihood == "bernoulli":
-        print(f"[{mode}] k={k} n={total_n} NLL {nats_mean:.2f} nats")
+        mesh.print0(f"[{mode}] k={k} n={total_n} NLL {nats_mean:.2f} nats")
         return nats_mean
     bits_per_dim = nats_mean / (LOG2 * cfg.num_pixels)
-    print(f"[{mode}] k={k} n={total_n} nats {nats_mean:.2f} "
-          f"bits/dim {bits_per_dim:.4f}")
+    mesh.print0(f"[{mode}] k={k} n={total_n} nats {nats_mean:.2f} "
+                f"bits/dim {bits_per_dim:.4f}")
     return bits_per_dim
 
 
@@ -441,23 +500,27 @@ def eval_loop(cfg: Config, mode: str = "eval_test", poll_secs: float = 30.0,
     score each one's EMA weights, logging ``bits_per_dim`` (the MNIST
     family: ``nll_nats``) at its step to ``<logdir>/{mode}_metrics.jsonl``.
     The split, the eval step and the model are built once; runs until
-    interrupted, or ``max_evals``."""
-    dev = resolve_device(device)
+    interrupted, or ``max_evals``. Under a process group rank 0 polls and
+    every rank scores the checkpoint it picked."""
+    dev = _start(cfg, device)
     k = cfg.eval_k if k is None else k
     setup = make_eval_setup(cfg, mode, k, dev)
     model = get_model(cfg).Model(cfg, device=dev)
     metric_name = ("nll_nats" if cfg.likelihood == "bernoulli"
                    else "bits_per_dim")
+    rank0 = mesh.rank() == 0
     loader = ckpt.CheckpointLoader(cfg.logdir)
-    logger = MetricsLogger(cfg.logdir, filename=f"{mode}_metrics.jsonl")
+    logger = MetricsLogger(cfg.logdir, filename=f"{mode}_metrics.jsonl",
+                           enabled=rank0)
     done = 0
     try:
         while max_evals is None or done < max_evals:
-            item = loader.maybe_load()
-            if item is None:
+            item = loader.maybe_load() if rank0 else None
+            path = mesh.broadcast_values([item and item[0]])[0]
+            if path is None:
                 time.sleep(poll_secs)
                 continue
-            path, tree = item
+            tree = item[1] if rank0 else ckpt.restore(path)
             step = int(np.asarray(tree["step"]))
             model.load_state_dict(from_jax_params(tree["opt"]["ema"]))
             metric = evaluate(
@@ -466,7 +529,7 @@ def eval_loop(cfg: Config, mode: str = "eval_test", poll_secs: float = 30.0,
                     cfg.logdir, f"eval_progress_{mode}.json"),
                 progress_id=os.path.basename(path) + "/ema", device=dev)
             logger.log(step, **{metric_name: metric})
-            print(f"[eval_loop] {path} step {step} -> {metric:.4f}")
+            mesh.print0(f"[eval_loop] {path} step {step} -> {metric:.4f}")
             done += 1
     finally:
         logger.close()
@@ -510,7 +573,7 @@ def invert_check(cfg: Config, use_ema: bool = True, batch: int | None = None,
             "invert_check inverts the CIFAR family's top conv IAF step "
             "(likelihood=dlogistic); the MNIST family has no inversion "
             "check, in the JAX package either")
-    dev = resolve_device(device)
+    dev = _start(cfg, device)
     _config_line(cfg, dev)
     model = _serving_model(cfg, use_ema, dev)
     form, bias = cfg.flow_update, cfg.gate_forget_bias
@@ -540,7 +603,7 @@ def invert_check(cfg: Config, use_ema: bool = True, batch: int | None = None,
                      f"({results[f't_{name}']:.1f}s)")
     parts.append(f"fixed-point converged in {results['iters_fixed_point']} "
                  f"iters ({results['iters_fixed_point'] / D:.1%} of D)")
-    print(" | ".join(parts))
+    mesh.print0(" | ".join(parts))
     return results
 
 
@@ -552,7 +615,7 @@ def reconstruct(cfg: Config, num: int = 16, use_ema: bool = True,
     reconstructions [num, H, W, C] (the MNIST family's Bernoulli
     means)."""
     family = get_model(cfg)
-    dev = resolve_device(device)
+    dev = _start(cfg, device)
     _config_line(cfg, dev)
     model = _serving_model(cfg, use_ema, dev)
     ds, _ = load_dataset(cfg.dataset, cfg.data_dir, cfg.image_size,
@@ -562,7 +625,7 @@ def reconstruct(cfg: Config, num: int = 16, use_ema: bool = True,
         out = family.apply_fn(cfg, model, cfg.seed + 777, x, mode="eval",
                               k=1)
         recon = _uint8(family.pixels(out))
-    if out_path:
+    if out_path and mesh.rank() == 0:
         np.save(out_path, _pairs(x, recon))
         print(f"[recon] wrote {out_path} ({num} original/recon pairs)")
     return recon
@@ -575,19 +638,24 @@ def sample(cfg: Config, num: int = 16,
     float or a list: a sweep, every temperature on the same base noise);
     with ``out_path`` each temperature's tile is saved (``<out>_T<t>.npy``
     for a sweep). Returns the last temperature's uint8 images (the MNIST
-    family's Bernoulli means)."""
+    family's Bernoulli means). Under a process group ``num`` is padded to
+    a multiple of the world size, rank r decodes its rows of the padded
+    global draw and the images are gathered on every rank: the same
+    images as one process draws (``iaf_tpu/train_lib.py:690-709``)."""
     family = get_model(cfg)
-    dev = resolve_device(device)
+    dev = _start(cfg, device)
     _config_line(cfg, dev)
     model = _serving_model(cfg, use_ema, dev)
     temps = (list(temperature) if isinstance(temperature, (list, tuple))
              else [temperature])
+    n = mesh.world()
+    per = -(-num // n)
     imgs = None
     for t in temps:
-        with torch.inference_mode():
-            imgs = _uint8(family.sample(cfg, model, cfg.seed + 4242, num,
-                                        t))
-        if out_path:
+        with torch.inference_mode(), mesh.data_rows():
+            imgs = _uint8(mesh.all_gather(family.sample(
+                cfg, model, cfg.seed + 4242, per, t))[:num])
+        if out_path and mesh.rank() == 0:
             path = (out_path if len(temps) == 1 else
                     out_path.replace(".npy", "") + f"_T{t}.npy")
             np.save(path, img_tile(imgs))

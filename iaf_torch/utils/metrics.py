@@ -27,13 +27,23 @@ def _value(v: Any):
 
 
 class MetricsLogger:
-    def __init__(self, logdir: str, filename: str = "metrics.jsonl"):
+    """Appends rows to ``<logdir>/<filename>``. A logger made with
+    ``enabled=False`` (every rank but 0 of a process group, as in the JAX
+    package) opens no file and writes nothing."""
+
+    def __init__(self, logdir: str, filename: str = "metrics.jsonl",
+                 enabled: bool = True):
         self.path = os.path.join(logdir, filename)
-        os.makedirs(logdir, exist_ok=True)
-        self._f = open(self.path, "a", buffering=1)
+        self.enabled = enabled
+        self._f = None
+        if enabled:
+            os.makedirs(logdir, exist_ok=True)
+            self._f = open(self.path, "a", buffering=1)
         self._t0 = time.time()
 
     def log(self, step: int, **metrics: Any) -> None:
+        if not self.enabled:
+            return
         rec = {"step": int(step), "wall": round(time.time() - self._t0, 3)}
         rec.update({k: _value(v) for k, v in metrics.items()})
         self._f.write(json.dumps(rec) + "\n")
@@ -42,6 +52,8 @@ class MetricsLogger:
         """An HWC uint8 tile as ``images/<tag>_<step:08d>.npy`` beside the
         metrics file, and a ``.png`` of it when PIL imports (the npy is
         the authoritative file)."""
+        if not self.enabled:
+            return
         image = np.asarray(image)
         img_dir = os.path.join(os.path.dirname(self.path), "images")
         os.makedirs(img_dir, exist_ok=True)
@@ -55,7 +67,8 @@ class MetricsLogger:
                         else image).save(stem + ".png")
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def img_stretch(images) -> np.ndarray:
