@@ -10,8 +10,9 @@
                                             # k1_bwd_f32, f32_step,
                                             # f32_chunk, k2_fwd_f32,
                                             # k2_bwd_f32, f32_chunk_5x5,
-                                            # k2_fwd, k4_fwd, k4_bwd; or
-                                            # step: 10 steps of ``train``)
+                                            # k2_fwd, k4_fwd, k4_bwd,
+                                            # wrappers; or step: 10
+                                            # steps of ``train``)
 
 Phases, any failure exits non-zero:
 
@@ -258,6 +259,32 @@ Phases, any failure exits non-zero:
    equal after 10 steps, examples/s at world size 2 and 1; with one
    card a line says it did not run (neither a pass nor a failure).
 
+18. ``--mode export`` (``core/export.py``), the forward kernels K1-K4 as
+   torch ops (``iaf::*``) that the exported program records, each call
+   under PyTorch's default TF32 flags (the loader sets the contract's):
+   (a) ``train_lib.export_saved`` on phase 9's logdir (paper bf16, EMA
+   weights, k = 1, 16 images, 16 samples): the elbo graph holds exactly
+   20 ``iaf.ar_stack``, 20 ``iaf.iaf_update`` and 1
+   ``iaf.disc_logistic_logp``; the loaded elbo artifact, counters zeroed
+   just before, launches exactly K1 = K3 = 20, K4 = 1 and equals the
+   eager ``apply_fn(mode="eval", k=1)`` bitwise with ``draw_noise``'s
+   tensors; the sample artifact launches nothing and equals
+   ``cvae_sample`` bitwise at T = 1.0 and 0.5; the seconds of the
+   export, the load and a call; (b) the same elbo artifact in a fresh
+   process that imports only torch, ``iaf_torch.ops`` and
+   ``iaf_torch.core.export``: the same launches and bits, no model code
+   in ``sys.modules``; (c) the 5x5 config from a data-dependent init at
+   k = 4: 60 ``iaf.masked_conv2d`` nodes, launches exactly K2 = 60, K3 =
+   20, K4 = 1, bitwise equal to eager, the sample artifact as in (a);
+   (d) the f32 recipe exported for the card and the CPU (TF32 off in the
+   contract): the card's elbo within 1e-5 relative of the CPU's on the
+   same noise; (e) phase 16's MNIST logdir: both artifacts launch
+   nothing and equal eager bitwise; (f) phase 5's steady seconds per
+   eval batch and phase 3's K1, K3 and K4 events ms, now through the
+   torch ops, beside the direct launches' (``BEFORE_OPS``), and the host
+   cost of the dispatch measured directly (``dispatch_cost``: K1 f32,
+   K3 and K4 at N = 2, each op against the launch it wraps).
+
 Times: ``ms`` is by CUDA events around 20 back-to-back calls (what a
 caller waits, host included); ``device_ms`` (every kernel, and K1's and
 K2's library calls) is the device time the profiler records for the same
@@ -280,8 +307,8 @@ last ``{"ok": true,
 path, phase 14's under ``"serve"``, phase 15's medians under each
 ``train*`` entry's ``"side_by_side"``, with ``"graph_vs_eager"``,
 ``"train_chunked"`` and ``"train_f32_determinism"``, the inits' seconds
-under ``"main"``'s ``"init"``, phase 16's under ``"mnist"`` and phase
-17's under ``"multi"``.
+under ``"main"``'s ``"init"``, phase 16's under ``"mnist"``, phase
+17's under ``"multi"`` and phase 18's under ``"export"``.
 """
 
 from __future__ import annotations
@@ -3237,6 +3264,7 @@ def mnist_phase(ops, device):
     del model
     # (f) serving on the training cell's logdir
     summary["serve"] = mnist_serve(ops, device, tcfg)
+    summary["logdir"] = tcfg.logdir      # phase 18(e) exports from it
     # (g) eager and graphed steps side by side
     summary["train"]["side_by_side"] = step_side_by_side(ops, device, MNIST)
     torch.cuda.empty_cache()
@@ -3625,6 +3653,432 @@ def multi_phase(ops, device, ref_logdir: str) -> dict:
     return out
 
 
+# phase 18: the launches of one artifact call on the paper config
+EXPORT_PER_CALL = {"ar_stack": 20, "iaf_update": 20, "disc_logistic_logp": 1}
+EXPORT_SEED = 4242
+# phase 5's steady seconds per paper eval batch and phase 3's events ms of
+# K1, K3 and K4 at N = 1024 when the wrappers launched the kernels directly,
+# before their forwards went through torch ops (an H100 80GB HBM3 at 700 W)
+BEFORE_OPS = {"seconds_per_batch": 0.6038, "ar_stack": 0.3987,
+              "iaf_update": 0.0712, "disc_logistic_logp": 0.0283}
+DISPATCH_CALLS = 200
+
+# phase 18(b): a fresh process that imports only torch, ``iaf_torch.ops``
+# and ``iaf_torch.core.export`` loads the elbo artifact argv[2] and scores
+# argv[3]'s images on device argv[6] with the noise of key argv[4] into
+# argv[5]
+_EXPORT_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from iaf_torch import ops
+from iaf_torch.core.export import draw_noise, load_exported
+fn = load_exported(sys.argv[2])
+dev = torch.device(sys.argv[6])
+x = torch.from_numpy(np.load(sys.argv[3])).to(dev)
+noise = draw_noise(fn.contract, int(sys.argv[4]), dev)
+ops.reset_launch_counts()
+out = fn(x, *noise).cpu()
+np.save(sys.argv[5], out.numpy())
+print(json.dumps({
+    "launches": {k: v for k, v in ops.launch_counts().items() if v},
+    "model_code": sorted(m for m in sys.modules if m.startswith(
+        ("iaf_torch.models", "iaf_torch.nn.layers", "iaf_torch.train_lib",
+         "jax", "iaf_tpu")))}))
+"""
+
+
+def _iaf_nodes(fn) -> dict:
+    """The ``iaf::`` torch ops in a loaded artifact's graph, counted."""
+    found: dict = {}
+    for n in fn.program.graph.nodes:
+        name = str(n.target)
+        if n.op == "call_function" and name.startswith("iaf."):
+            found[name.split(".")[1]] = found.get(name.split(".")[1], 0) + 1
+    return found
+
+
+def _counted_call(ops, fn, *args):
+    """``fn(*args)`` with the launch counters zeroed just before and read
+    just after: (the result, seconds, the nonzero counts)."""
+    import torch
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def _held_to_eager(label: str, got_fn, want_fn) -> str:
+    """The artifact's ``got_fn()`` against the eager ``want_fn()``, both
+    under PyTorch's default TF32 flags (the loader sets the contract's):
+    bitwise where two eager calls are bitwise; where they are not
+    (cuDNN's default algorithms may sum in another order from call to
+    call), bitwise with both on cuDNN's deterministic algorithms, where
+    two eager calls must then agree. Returns which case held."""
+    import torch
+    from iaf_torch.core.device import cudnn_deterministic
+    with _default_tf32():
+        with torch.inference_mode():
+            want, again = want_fn(), want_fn()
+        if torch.equal(want, again):
+            got = got_fn()
+            case = "bitwise"
+        else:
+            spread = float((want - again).abs().max())
+            with cudnn_deterministic():
+                with torch.inference_mode():
+                    want, again = want_fn(), want_fn()
+                check(torch.equal(want, again), f"{label}: two eager calls "
+                      "differ on cuDNN's deterministic algorithms")
+                got = got_fn()
+            case = (f"bitwise on cuDNN's deterministic algorithms (two eager "
+                    f"calls on its default ones differ by {spread:.3e})")
+    check(torch.equal(got, want), f"{label}: the artifact differs from eager "
+          f"by {float((got - want).abs().max())} ({case.split(' (')[0]})")
+    return case
+
+
+def _load_timed(path: str, times: dict, key: str):
+    """``load_exported(path)``, its seconds into ``times[key]``."""
+    from iaf_torch.core import export
+    t0 = time.perf_counter()
+    fn = export.load_exported(path)
+    times[key] = time.perf_counter() - t0
+    return fn
+
+
+def _serve_artifacts(ops, device, label, elbo, sample, eager_elbo,
+                     eager_sample, x, per_call: dict) -> dict:
+    """The loaded elbo artifact on ``x`` with ``draw_noise``'s tensors
+    must launch exactly ``per_call`` and equal ``eager_elbo(seed)``
+    (``_held_to_eager``); the sample artifact (unless None) at T = 1.0
+    and 0.5 launch nothing and equal ``eager_sample(seed, T)``. Returns
+    the seconds of the calls and which equality held."""
+    import torch
+    from iaf_torch.core import export
+    out: dict = {}
+    xt = torch.from_numpy(x).to(device)
+    noise = export.draw_noise(elbo.contract, EXPORT_SEED, device)
+    with _default_tf32():
+        got, out["first_call_s"], counts = _counted_call(ops, elbo, xt,
+                                                         *noise)
+        _, out["call_s"], again = _counted_call(ops, elbo, xt, *noise)
+    check(counts == per_call == again, f"{label}: the elbo artifact "
+          f"launched {counts}, then {again}; want {per_call}")
+    out["elbo"] = _held_to_eager(f"{label} elbo", lambda: elbo(xt, *noise),
+                                 lambda: eager_elbo(EXPORT_SEED))
+    line = (f"[export] {label}: elbo {tuple(got.shape)} launches {per_call} "
+            f"a call, {out['elbo']} equal to eager; first call "
+            f"{out['first_call_s']:.4f} s, next {out['call_s']:.4f} s")
+    if sample is not None:
+        s_noise = export.draw_noise(sample.contract, EXPORT_SEED, device)
+        for t in (1.0, 0.5):
+            temp = torch.tensor(t, device=device)
+            with _default_tf32():
+                _, out[f"sample_call_s_T{t}"], counts = _counted_call(
+                    ops, sample, temp, *s_noise)
+            check(counts == {}, f"{label}: the sample artifact launched "
+                  f"{counts}")
+            out[f"sample_T{t}"] = _held_to_eager(
+                f"{label} sample T={t}", lambda: sample(temp, *s_noise),
+                lambda: eager_sample(EXPORT_SEED, t))
+        line += (f"; sample launches nothing, {out['sample_T1.0']} (T = 1.0)"
+                 f" and {out['sample_T0.5']} (T = 0.5) equal to eager, "
+                 f"{out['sample_call_s_T1.0']:.4f} s a call")
+    print(line)
+    return out
+
+
+def _host_us(fn, n: int = DISPATCH_CALLS) -> tuple[float, float]:
+    """(host microseconds a call to enqueue, microseconds a call until the
+    card is done) over ``n`` back-to-back calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) / n * 1e6, (t2 - t0) / n * 1e6
+
+
+def dispatch_cost(ops, device, model) -> dict:
+    """Phase 18(f)'s direct measurement: the host time of a no-grad call
+    of each kernel's torch op against the launch it wraps, called
+    directly (K1 f32 at N = 2, ``invert_check``'s shape, from ``model``'s
+    top AR net; K3 at N = 2; K4 at 2 images), in turns (op, direct,
+    direct, op); the difference is the dispatcher's cost a launch. K1's
+    public wrapper (its input checks, then the op) is timed beside them,
+    in the same turns."""
+    import torch
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    fused = importlib.import_module("iaf_torch.ops.fused")
+    ar1 = model.blocks[-1].ar1
+    with torch.inference_mode():
+        ws, bs = ar1.folded(torch.float32)
+        g = torch.Generator(device=device).manual_seed(8)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=device)
+        z, ctx = randn(2, 16, 16, ws[0].shape[2]), randn(2, 16, 16,
+                                                          ws[0].shape[3])
+        a = [randn(2, 16, 16, 32) for _ in range(4)]
+        mean, smp = randn(2, 32, 32, 3), torch.floor(randn(2, 32, 32, 3))
+        ls = torch.full((1,), -2.0, device=device)
+        cases = {
+            "ar_stack_f32_n2": {
+                "op": lambda: ar_mod.ar_stack_op(z, ctx, ws, bs),
+                "direct": lambda: ar_mod._fwd(z, ctx, ws, bs, False)[0],
+                "wrapper": lambda: ops.ar_stack(z, ctx, ws, bs, ar1.masks)},
+            "iaf_update_n2": {
+                "op": lambda: fused.iaf_update_op(*a)[0],
+                "direct": lambda: fused._iaf_fwd(*a)[0]},
+            "disc_logistic_logp_n2": {
+                "op": lambda: fused.disc_logistic_op(mean, ls, smp,
+                                                     1.0 / 256.0),
+                "direct": lambda: fused._dl_fwd(mean, ls, smp,
+                                                1.0 / 256.0)}}
+        out = {}
+        for name, calls in cases.items():
+            want = calls["direct"]()
+            check(all(torch.equal(c(), want) for c in calls.values()),
+                  f"{name}: the op and the direct launch differ")
+            order = ("op", "direct", *(("wrapper",) * 2 if "wrapper" in
+                                       calls else ()), "direct", "op")
+            runs: dict = {k: [] for k in calls}
+            for which in order:
+                runs[which].append(_host_us(calls[which]))
+            host = {k: statistics.mean(r[0] for r in v)
+                    for k, v in runs.items()}
+            wall = {k: statistics.mean(r[1] for r in v)
+                    for k, v in runs.items()}
+            out[name] = {"host_us": host, "until_done_us": wall,
+                         "dispatch_us": host["op"] - host["direct"]}
+            print(f"[export] dispatch {name}: host "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+                  + f" us a call (the op +{host['op'] - host['direct']:.1f}"
+                  f" us); until done "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
+                  + f" us ({DISPATCH_CALLS} calls a turn, "
+                  + " ".join(order) + ")")
+    return out
+
+
+def export_phase(ops, device, paper_logdir: str, mnist_logdir: str,
+                 main: dict, rows: list) -> dict:
+    """Phase 18: ``--mode export`` on the card: (a) ``export_saved`` on
+    phase 9's logdir (paper bf16, EMA weights, k = 1, 16 images, 16
+    samples), the elbo graph holding exactly 20 ``iaf.ar_stack``, 20
+    ``iaf.iaf_update`` and 1 ``iaf.disc_logistic_logp``, the loaded elbo
+    artifact launching exactly those and equal to the eager ``apply_fn``
+    with ``draw_noise``'s tensors, the sample artifact launching nothing
+    and equal to ``cvae_sample`` at T = 1.0 and 0.5 (``_held_to_eager``);
+    (b) the same elbo artifact in a fresh process with no model code, the
+    same bits and launches (run beside (c)-(f)); (c) the 5x5 config from
+    a data-dependent init at k = 4: 60 ``iaf.masked_conv2d`` nodes,
+    launches K2 = 60, K3 = 20, K4 = 1, equal to eager; (d) the f32 recipe
+    (the paper widths cut to 4 IAF layers) exported for the card and the
+    CPU, TF32 off in the contract: the card's elbo within 1e-5 relative
+    of the CPU's on the same noise, the card's call made under the
+    default TF32 flags; (e) phase 16's MNIST logdir, both artifacts
+    launching nothing and equal to eager; (f) phase 5's steady seconds
+    per eval batch and phase 3's K1, K3 and K4 events ms, now through the
+    torch ops, beside the direct launches', and the dispatcher's host cost
+    a launch measured directly (``dispatch_cost``)."""
+    import numpy as np
+    import torch
+    from iaf_torch import train_lib
+    from iaf_torch.core.config import resolve_config
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.models import cvae
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "chip_smoke_export")
+    shutil.rmtree(root, ignore_errors=True)
+    summary: dict = {}
+
+    # (a) from phase 9's checkpoint, as the CLI runs it
+    cfg = resolve_config(paper_logdir, "", mode="export")
+    x = synthetic_dataset(cfg.image_size, cfg.channels).test_x[
+        :cfg.eval_batch_size]
+    t0 = time.perf_counter()
+    with _default_tf32():
+        paths = train_lib.export_saved(cfg, out_dir=os.path.join(root, "a"),
+                                       num_samples=EVAL_BATCH, k=1,
+                                       device=device)
+    summary["export_s"] = time.perf_counter() - t0
+    print(f"[export] (a) paper bf16: export_saved {summary['export_s']:.2f} s"
+          f" (" + ", ".join(f"{k} {os.path.getsize(p)} B"
+                            for k, p in paths.items()) + ")")
+    # (b) starts now and runs beside the rest of the phase
+    np.save(os.path.join(root, "x.npy"), x)
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", _EXPORT_CHILD, HERE, paths["elbo"],
+         os.path.join(root, "x.npy"), str(EXPORT_SEED),
+         os.path.join(root, "child.npy"), str(device)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        summary.update(_export_rest(ops, device, cfg, paths, x, root, main,
+                                    rows, mnist_logdir))
+        out, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    summary["child_s"] = time.perf_counter() - t_child
+    check(child.returncode == 0, f"the export child failed:\n{err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    model = train_lib._serving_model(cfg, True, device)
+    with _default_tf32(), torch.inference_mode():
+        want = cvae.apply_fn(cfg, model, EXPORT_SEED, x, mode="eval",
+                             k=1).elbo_nats.cpu().numpy()
+    check(res["model_code"] == [] and res["launches"] == EXPORT_PER_CALL,
+          f"the export child: {res}")
+    check(np.array_equal(np.load(os.path.join(root, "child.npy")), want),
+          "the export child's elbo differs from eager")
+    print(f"[export] (b) a fresh process with torch, iaf_torch.ops and "
+          f"iaf_torch.core.export only: launches {res['launches']}, bitwise "
+          f"equal to eager, no model code imported ({summary['child_s']:.2f}"
+          f" s from its start, beside (c)-(f))")
+    del model
+    torch.cuda.empty_cache()
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"[export] phase 18: {summary['phase_seconds']:.1f} s")
+    return summary
+
+
+def _export_rest(ops, device, cfg, paths, x, root, main, rows,
+                 mnist_logdir) -> dict:
+    """Phase 18 (a)'s checks and (c)-(f), while (b)'s child runs."""
+    import torch
+    from iaf_torch import train_lib
+    from iaf_torch.core import export
+    from iaf_torch.core.config import Config, resolve_config
+    from iaf_torch.core.device import tf32
+    from iaf_torch.data import feed
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.models import cvae, mnist_vae
+    summary: dict = {"load_s": {}}
+    loads = summary["load_s"]
+    ds = synthetic_dataset(cfg.image_size, cfg.channels)
+
+    # (a)'s checks
+    elbo = _load_timed(paths["elbo"], loads, "paper_elbo")
+    sample = _load_timed(paths["sample"], loads, "paper_sample")
+    nodes = _iaf_nodes(elbo)
+    check(nodes == EXPORT_PER_CALL, f"the paper elbo graph holds {nodes}")
+    check(elbo.contract["tf32"] == {"cudnn": True, "matmul": False}
+          and elbo.contract["device"] == "cuda" and elbo.contract["use_ema"],
+          f"the paper elbo contract: {elbo.contract}")
+    model = train_lib._serving_model(cfg, True, device)
+    summary["paper"] = _serve_artifacts(
+        ops, device, "(a) paper bf16", elbo, sample,
+        lambda s: cvae.apply_fn(cfg, model, s, x, mode="eval",
+                                k=1).elbo_nats,
+        lambda s, t: cvae.cvae_sample(cfg, model, s, EVAL_BATCH, t), x,
+        EXPORT_PER_CALL)
+    print(f"[export] (a) graph {nodes}; loads {loads}")
+    del model, elbo, sample
+    torch.cuda.empty_cache()
+
+    # (c) the 5x5 config at k = 4, from a data-dependent init
+    cfg5 = Config().parse(PAPER5 + ",dataset=synthetic")
+    model5 = cvae.init_params(cfg5, ds.train_x[:32], rng=5, device=device)
+    t0 = time.perf_counter()
+    with _default_tf32():
+        paths5 = export.export_artifacts(cfg5, model5,
+                                         os.path.join(root, "c"),
+                                         num_samples=EVAL_BATCH, k=4,
+                                         batch_size=EVAL_BATCH)
+    summary["5x5_export_s"] = time.perf_counter() - t0
+    elbo = _load_timed(paths5["elbo"], loads, "5x5_elbo")
+    per5 = {"masked_conv2d": 60, "iaf_update": 20, "disc_logistic_logp": 1}
+    nodes = _iaf_nodes(elbo)
+    check(nodes == per5, f"the 5x5 elbo graph holds {nodes}")
+    x16 = x[:EVAL_BATCH]
+    summary["5x5"] = _serve_artifacts(
+        ops, device, "(c) 5x5 bf16 k=4", elbo, None,
+        lambda s: cvae.apply_fn(cfg5, model5, s, x16, mode="eval",
+                                k=4).elbo_nats, None, x16, per5)
+    print(f"[export] (c) 5x5: graph {nodes}, exported in "
+          f"{summary['5x5_export_s']:.2f} s, loaded in {loads['5x5_elbo']:.2f}"
+          " s")
+    del model5, elbo
+    torch.cuda.empty_cache()
+
+    # (d) the f32 recipe, the card's artifact against the CPU's
+    cfg32 = Config().parse(PAPER + ",dataset=synthetic,num_blocks=4,"
+                           "compute_dtype=float32")
+    model = cvae.init_params(cfg32, ds.train_x[:32], rng=17, device=device)
+    t0 = time.perf_counter()
+    with tf32(False, False):        # what full_f32 sets for the f32 recipe
+        p32 = export.export_artifacts(cfg32, model, os.path.join(root, "d"),
+                                      num_samples=4, k=1, batch_size=4,
+                                      platforms=["cuda", "cpu"])
+    summary["f32_export_s"] = time.perf_counter() - t0
+    card = _load_timed(p32["elbo_cuda"], loads, "f32_elbo_cuda")
+    host = _load_timed(p32["elbo_cpu"], loads, "f32_elbo_cpu")
+    check(card.contract["tf32"] == {"cudnn": False, "matmul": False},
+          f"the f32 contract: {card.contract['tf32']}")
+    noise = export.draw_noise(host.contract, EXPORT_SEED, "cpu")
+    with _default_tf32():
+        a, _, counts = _counted_call(
+            ops, card, torch.from_numpy(x[:4]).to(device),
+            *[t.to(device) for t in noise])
+    b = host(torch.from_numpy(x[:4]), *noise)
+    rel = float(((a.cpu() - b).abs() / b.abs()).max())
+    per4 = {"ar_stack": 4, "iaf_update": 4, "disc_logistic_logp": 1}
+    print(f"[export] (d) f32 (4 IAF layers, 4 images), card artifact "
+          f"against CPU artifact, same noise: elbo {b.tolist()}, max rel err "
+          f"{rel:.3e}; card launches {counts}; exported for both in "
+          f"{summary['f32_export_s']:.2f} s")
+    check(counts == per4, f"f32 card artifact launched {counts}")
+    check(rel <= 1e-5, f"f32 card vs CPU artifact rel err {rel} > 1e-5")
+    summary["f32_rel_err"] = rel
+
+    # (f) the dispatch cost, on the f32 model's top layer
+    summary["dispatch"] = dispatch_cost(ops, device, model)
+    del model, card, host
+    torch.cuda.empty_cache()
+    now = {"seconds_per_batch": main["seconds_per_batch"],
+           **{r["name"]: r["ms"] for r in rows
+              if r["name"] in ("ar_stack", "iaf_update",
+                               "disc_logistic_logp")}}
+    summary["through_ops"] = now
+    for k, v in now.items():
+        print(f"[export] (f) through the torch ops: {k} {v:.4f} "
+              f"{'s a paper eval batch' if k == 'seconds_per_batch' else 'ms'}"
+              f" (direct launches: {BEFORE_OPS[k]:.4f}; "
+              f"{100 * (v / BEFORE_OPS[k] - 1):+.1f} %)")
+
+    # (e) phase 16's MNIST logdir
+    mcfg = resolve_config(mnist_logdir, "", mode="export")
+    with _default_tf32():
+        mpaths = train_lib.export_saved(mcfg, out_dir=os.path.join(root, "e"),
+                                        num_samples=EVAL_BATCH, k=1,
+                                        device=device)
+    mmodel = train_lib._serving_model(mcfg, True, device)
+    mx = feed.dynamic_binarize(
+        synthetic_dataset(mcfg.image_size, mcfg.channels).test_x[
+            :mcfg.eval_batch_size], feed.binarize_rng(mcfg.seed, -2))
+    summary["mnist"] = _serve_artifacts(
+        ops, device, "(e) mnist",
+        _load_timed(mpaths["elbo"], loads, "mnist_elbo"),
+        _load_timed(mpaths["sample"], loads, "mnist_sample"),
+        lambda s: mnist_vae.apply_fn(mcfg, mmodel, s, mx, mode="eval",
+                                     k=1).elbo_nats,
+        lambda s, t: mnist_vae.sample(mcfg, mmodel, s, EVAL_BATCH, t), mx, {})
+    del mmodel
+    torch.cuda.empty_cache()
+    return summary
+
+
 def run() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -3744,6 +4198,10 @@ def run() -> dict:
 
     # phase 17: data parallelism: NCCL at world size 1, two cards if seen
     multi = multi_phase(ops, device, tcfg.logdir)
+
+    # phase 18: --mode export on the card, the kernels as torch ops
+    exported = export_phase(ops, device, tcfg.logdir, mnist["logdir"], main,
+                            rows)
     for key, s in (("train", summary), ("train_f32", summary32["train"]),
                    ("train_5x5", summary5["train"]),
                    ("train_5x5_f32", summary5_32["train"])):
@@ -3781,7 +4239,8 @@ def run() -> dict:
                       "train_chunked": graph["chunked"],
                       "train_f32_determinism": graph["f32_determinism"],
                       "graph_phase_seconds": graph["phase_seconds"],
-                      "mnist": mnist, "multi": multi}))
+                      "mnist": mnist, "multi": multi,
+                      "export": exported}))
     print(json.dumps({"kernels": rows}))
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}
@@ -4012,6 +4471,33 @@ def _ab_k4_bwd(ops, k1) -> dict:
 # and returns {label: (a call of the kernel's wrapper or of the path
 # around it, its relative error against the twin[, calls to time, 20 if
 # not given])}; ``ab`` times every call by device time and events.
+def _ab_wrappers(ops, k1) -> dict:
+    """A/B case ``wrappers``: the no-grad public wrappers at the serving
+    shapes where a call costs more host time than device time, K1 in f32
+    at N = 2 (``invert_check``'s, paper widths, weights from a seed), K3
+    at N = 2 and K4 at 2 images: by events, what a call costs its caller
+    (the torch ops' dispatch included)."""
+    import torch
+    gen = torch.Generator().manual_seed(31)
+    ws, bs, masks = _paper_chain(2, gen)
+    ws, bs = [w.cuda() for w in ws], [b.cuda() for b in bs]
+    z = torch.randn(2, 16, 16, 32, generator=gen).cuda()
+    ctx = torch.randn(2, 16, 16, 160, generator=gen).cuda()
+    a = [torch.randn(2, 16, 16, 32, generator=gen).cuda() for _ in range(4)]
+    mean, ls, sample, _ = _k4_inputs(2, 33)
+    with torch.inference_mode():
+        k1_err = _rel_err(ops.ar_stack(z, ctx, ws, bs, masks),
+                          ops.ar_stack_ref(z, ctx, ws, bs))[1]
+        k3_err = _rel_err(ops.iaf_update(*a)[0], ops.iaf_update_ref(*a)[0])[1]
+        k4_err = _rel_err(ops.disc_logistic_logp(mean, ls, sample),
+                          ops.disc_logistic_ref(mean, ls, sample))[1]
+    return {"k1_f32_n2": (lambda: ops.ar_stack(z, ctx, ws, bs, masks),
+                          k1_err, 200),
+            "k3_n2": (lambda: ops.iaf_update(*a), k3_err, 200),
+            "k4_n2": (lambda: ops.disc_logistic_logp(mean, ls, sample),
+                      k4_err, 200)}
+
+
 AB_CASES = {"k1_fwd": _ab_k1_fwd,
             "k1_fwd_f32": lambda ops, k1: _ab_k1_fwd(ops, k1, f32=True),
             "k1_bwd_f32": _ab_k1_bwd_f32,
@@ -4023,7 +4509,8 @@ AB_CASES = {"k1_fwd": _ab_k1_fwd,
             "f32_chunk_5x5": lambda ops, k1: _ab_f32_chunk(
                 ops, k1, hp=PAPER5, kernel="masked_conv2d"),
             "k4_fwd": _ab_k4_fwd,
-            "k4_bwd": _ab_k4_bwd}
+            "k4_bwd": _ab_k4_bwd,
+            "wrappers": _ab_wrappers}
 
 # One process per tree for ``ab``: the iaf_torch beside argv[1], timed
 # with this script's helpers (argv[2]) on case argv[3].

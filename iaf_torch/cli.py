@@ -13,15 +13,20 @@ prior samples (``<logdir>/samples.npy``, ``--num_samples``,
 ``--temperature`` one value or a comma list), ``--mode recon``
 original/reconstruction pairs (``<logdir>/recons.npy``) and ``--mode
 invert_check`` inverts the top IAF step three ways (the CIFAR family
-only). A Bernoulli ``--hpconfig`` (``likelihood=bernoulli``) runs the
-MNIST family in every other mode. Every mode runs on
-the card unless ``--device cpu`` asks for the plain twins. ``--mode
-export`` is not ported yet and raises, naming the ROADMAP item that
-brings it. ``--profile_dir D``
+only). ``--mode export`` writes the serving artifacts of the newest
+checkpoint's EMA weights, ``<logdir>/export/sample.pt2`` and
+``elbo.pt2`` (``torch.export`` programs that launch the kernels; the
+noise is an input, see ``core/export.py``), for the devices of
+``--export_platforms`` (a comma list of cuda, alias gpu, and cpu;
+default the run's device) and ``--num_samples`` images a sample call.
+A Bernoulli ``--hpconfig`` (``likelihood=bernoulli``) runs the MNIST
+family in every other mode. Every mode runs on the card unless
+``--device cpu`` asks for the plain twins. ``--profile_dir D``
 traces whichever mode runs with ``torch.profiler`` (host activity, and
 the card's kernels when it runs there) and writes the trace into D as
 ``*.pt.trace.json``, as the JAX package's CLI traces into its profile
-directory.
+directory; the model's and the step's named ranges (``iaf_up``,
+``iaf_down``, ``ar_stack``, ``grads``, ``adamax_polyak``) are in it.
 
 Data parallelism, one process per GPU (``parallel/mesh.py``)::
 
@@ -43,8 +48,6 @@ from iaf_torch import train_lib
 from iaf_torch.core.config import resolve_config
 from iaf_torch.core.device import resolve_device
 from iaf_torch.parallel import mesh
-
-_NOT_YET = {"export": "ROADMAP queue 1, item 5 (export)"}
 
 
 @contextlib.contextmanager
@@ -95,10 +98,6 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     cfg = resolve_config(args.logdir, args.hpconfig, mode=args.mode)
-    if args.mode in _NOT_YET:
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported to iaf_torch yet: "
-            f"{_NOT_YET[args.mode]}")
     dev = resolve_device(args.device)
     mesh.init_distributed(dev)
     if cfg.dataset in ("cifar10", "mnist"):
@@ -129,6 +128,11 @@ def main(argv=None) -> None:
                                           args.temperature.split(",")],
                              out_path=f"{args.logdir}/samples.npy",
                              device=dev)
+        elif args.mode == "export":
+            train_lib.export_saved(
+                cfg, num_samples=args.num_samples,
+                platforms=(args.export_platforms.split(",")
+                           if args.export_platforms else None), device=dev)
 
 
 if __name__ == "__main__":

@@ -46,17 +46,24 @@ def full_f32(compute_dtype: str, dev: torch.device) -> bool:
 
 
 @contextlib.contextmanager
+def tf32(cudnn: bool, matmul: bool):
+    """Inside the block cuDNN's convs (``cudnn``) and matmuls (``matmul``)
+    may or may not compute f32 in TF32, whatever the process's flags say;
+    the flags are restored after."""
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = flags[0].allow_tf32, flags[1].allow_tf32
+    flags[0].allow_tf32, flags[1].allow_tf32 = cudnn, matmul
+    try:
+        yield
+    finally:
+        flags[0].allow_tf32, flags[1].allow_tf32 = saved
+
+
 def no_tf32():
     """Inside the block cuDNN's convs and matmuls compute f32 in full f32
     (TF32 off) whatever the process's flags say; the flags are restored
     after. For the parts that run in f32 under any ``compute_dtype``."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    return tf32(False, False)
 
 
 @contextlib.contextmanager

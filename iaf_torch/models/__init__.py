@@ -8,8 +8,9 @@ Each family module exposes the same names: ``Model`` (its ``nn.Module``),
 NamedTuple with at least (loss, elbo_nats, kl_obj, kl_cost, log_pxz,
 log_w), ``noise_shapes(cfg, rows)`` and ``draw_noise(cfg, rng, out)``
 (a training forward's noise sites and draws), ``pixels(out)`` (the
-reconstructions in [0, 255]) and ``sample(cfg, model, rng, num,
-temperature)``.
+reconstructions in [0, 255]), ``sample(cfg, model, rng, num,
+temperature)`` and ``sample_noise_shapes(cfg, num)`` (its noise
+sites).
 """
 
 from iaf_torch.core.config import Config

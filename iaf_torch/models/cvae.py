@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from iaf_torch import ops
 from iaf_torch.bridge import normal_leaf
@@ -138,22 +139,26 @@ def _conv(conv, x, dtype, init):
 
 def iaf_layer_up(cfg: Config, layer: IAFLayer, h: torch.Tensor, dtype=None,
                  init: bool = False):
-    """Bottom-up pass of one stochastic layer (``IAFLayer.up``)."""
+    """Bottom-up pass of one stochastic layer (``IAFLayer.up``), in the
+    profiler's range ``iaf_up``."""
     zs, hs = cfg.z_size, cfg.h_size
-    x = _conv(layer.up_conv1, F.elu(h), dtype, init)
-    qz_mean, qz_logsd, up_context, hidden = _split(x, [zs, zs, hs, hs])
-    hidden = _conv(layer.up_conv3, F.elu(hidden), dtype, init)
-    return h + 0.1 * hidden, LayerStats(qz_mean, qz_logsd, up_context)
+    with record_function("iaf_up"):
+        x = _conv(layer.up_conv1, F.elu(h), dtype, init)
+        qz_mean, qz_logsd, up_context, hidden = _split(x, [zs, zs, hs, hs])
+        hidden = _conv(layer.up_conv3, F.elu(hidden), dtype, init)
+        return h + 0.1 * hidden, LayerStats(qz_mean, qz_logsd, up_context)
 
 
 def iaf_flow(cfg: Config, layer: IAFLayer, z, context, logqs, dtype=None,
              init: bool = False):
-    """One IAF step: masked AR net -> (m, s) heads scaled by 0.1 ->
-    invertible update, the log-det-Jacobian folded into ``logqs``."""
-    if init:
-        m, s = layer.ar1.init_forward(z, context)
-    else:
-        m, s = layer.ar1(z, context, dtype)
+    """One IAF step: masked AR net (the profiler's range ``ar_stack``) ->
+    (m, s) heads scaled by 0.1 -> invertible update, the log-det-Jacobian
+    folded into ``logqs``."""
+    with record_function("ar_stack"):
+        if init:
+            m, s = layer.ar1.init_forward(z, context)
+        else:
+            m, s = layer.ar1(z, context, dtype)
     m = m * 0.1
     s = s * 0.1
     if cfg.flow_update == "division":
@@ -174,29 +179,31 @@ def iaf_layer_down(cfg: Config, layer: IAFLayer, h, stats: LayerStats,
     posterior drawn from standard-normal ``eps``. Returns (new h, the
     free-bits term, kl_cost per example): with ``kl_min`` > 0 the term
     is the per-channel KL summed over space and averaged over the batch,
-    [1, zs], which ``free_bits`` clamps; else kl_obj per example."""
+    [1, zs], which ``free_bits`` clamps; else kl_obj per example. In the
+    profiler's range ``iaf_down``."""
     zs, hs = cfg.z_size, cfg.h_size
-    x = _conv(layer.down_conv1, F.elu(h), dtype, init)
-    pz_mean, pz_logsd, rz_mean, rz_logsd, down_context, h_det = _split(
-        x, [zs, zs, zs, zs, hs, hs])
-    prior = DiagonalGaussian(pz_mean, 2.0 * pz_logsd)
-    posterior = DiagonalGaussian(stats.qz_mean + rz_mean,
-                                 2.0 * (stats.qz_logsd + rz_logsd))
-    z = posterior.sample(eps)
-    logqs = posterior.logps(z)
-    if cfg.flow == "iaf":
-        context = stats.up_context + down_context
-        z, logqs = iaf_flow(cfg, layer, z, context, logqs, dtype, init)
-    kl_cost = logqs - prior.logps(z)           # [B, H, W, zs]
-    if cfg.kl_min > 0:
-        kl_obj = torch.mean(torch.sum(kl_cost, dim=(1, 2)), dim=0,
-                            keepdim=True)
-    else:
-        kl_obj = torch.sum(kl_cost, dim=(1, 2, 3))
-    kl_cost = torch.sum(kl_cost, dim=(1, 2, 3))
-    hidden = F.elu(torch.cat([z, h_det], dim=-1))
-    hidden = _conv(layer.down_conv2, hidden, dtype, init)
-    return h + 0.1 * hidden, kl_obj, kl_cost
+    with record_function("iaf_down"):
+        x = _conv(layer.down_conv1, F.elu(h), dtype, init)
+        pz_mean, pz_logsd, rz_mean, rz_logsd, down_context, h_det = _split(
+            x, [zs, zs, zs, zs, hs, hs])
+        prior = DiagonalGaussian(pz_mean, 2.0 * pz_logsd)
+        posterior = DiagonalGaussian(stats.qz_mean + rz_mean,
+                                     2.0 * (stats.qz_logsd + rz_logsd))
+        z = posterior.sample(eps)
+        logqs = posterior.logps(z)
+        if cfg.flow == "iaf":
+            context = stats.up_context + down_context
+            z, logqs = iaf_flow(cfg, layer, z, context, logqs, dtype, init)
+        kl_cost = logqs - prior.logps(z)           # [B, H, W, zs]
+        if cfg.kl_min > 0:
+            kl_obj = torch.mean(torch.sum(kl_cost, dim=(1, 2)), dim=0,
+                                keepdim=True)
+        else:
+            kl_obj = torch.sum(kl_cost, dim=(1, 2, 3))
+        kl_cost = torch.sum(kl_cost, dim=(1, 2, 3))
+        hidden = F.elu(torch.cat([z, h_det], dim=-1))
+        hidden = _conv(layer.down_conv2, hidden, dtype, init)
+        return h + 0.1 * hidden, kl_obj, kl_cost
 
 
 def free_bits(cfg: Config, kl_aves, batch: int, global_batch: bool):
@@ -235,6 +242,15 @@ def noise_shapes(cfg: Config, rows: int) -> dict[str, tuple[int, ...]]:
     each layer's posterior draw."""
     hw = cfg.image_size // 2
     return {f"{n}/z_post": (rows, hw, hw, cfg.z_size)
+            for n in layer_names(cfg)}
+
+
+def sample_noise_shapes(cfg: Config, num: int
+                        ) -> dict[str, tuple[int, ...]]:
+    """``cvae_sample``'s noise sites for ``num`` images: each layer's prior
+    draw."""
+    hw = cfg.image_size // 2
+    return {f"{n}/z_prior": (num, hw, hw, cfg.z_size)
             for n in layer_names(cfg)}
 
 

@@ -155,6 +155,12 @@ def noise_shapes(cfg: Config, rows: int) -> dict[str, tuple[int, ...]]:
     return {"z": (rows, cfg.z_size)}
 
 
+def sample_noise_shapes(cfg: Config, num: int
+                        ) -> dict[str, tuple[int, ...]]:
+    """``sample``'s noise site for ``num`` images."""
+    return {"z_prior": (num, cfg.z_size)}
+
+
 def draw_noise(cfg: Config, rng: int,
                out: Mapping[str, torch.Tensor]) -> None:
     """Write into ``out["z"]`` the posterior draw a forward at key ``rng``

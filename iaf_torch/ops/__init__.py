@@ -3,7 +3,13 @@
 On CUDA tensors the kernels always run; a twin serves CPU tensors (and the
 tests) only. There is no switch between the two. Under autograd the
 forward kernels are ``torch.autograd.Function``s whose backward is a
-kernel too.
+kernel too (on the CPU autograd differentiates the twins). Without grad
+the forward wrappers of K1-K4 call torch ops, ``iaf::ar_stack``,
+``iaf::masked_conv2d``, ``iaf::iaf_update`` and
+``iaf::disc_logistic_logp`` (``torch.library``: the kernel for CUDA
+tensors, the twin for CPU tensors, a fake for tracing), which
+``torch.export`` records, so that an exported program launches the
+kernels (``core/export.py``). Importing this package registers them.
 
 - K1 ``ar_stack`` (CUDA C++, ``csrc/ar_stack.cu``), twin ``ar_stack_ref``
   (``ar_stack_ref_pre`` with the hidden pre-activations);

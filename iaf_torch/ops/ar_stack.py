@@ -768,19 +768,55 @@ class _ARStack(torch.autograd.Function):
         return (dz, dctx, None, *dws, *dbs)
 
 
+# K1's forward as the torch op ``iaf::ar_stack`` (``ar_stack_op``): the
+# kernel on CUDA tensors, the twin on CPU tensors, a fake for tracing.
+# ``torch.export`` records the op, so an exported program launches the
+# kernel on the card. Registered through ``torch.library.Library``: the
+# dispatcher calls these functions directly, with no Python autograd or
+# compile-guard layer around them (``torch.library.custom_op`` adds both,
+# at 17-49 us of host time a launch on an H100's host, and its guard
+# imports torch._dynamo at the first call).
+_LIB = torch.library.Library("iaf", "FRAGMENT")
+_LIB.define("ar_stack(Tensor z, Tensor context, Tensor[] weights, "
+            "Tensor[] biases) -> Tensor")
+_LIB.impl("ar_stack", ar_stack_ref, "CPU")
+
+
+def _ar_stack_cuda(z, context, weights, biases):
+    # an exported program keeps a ``.contiguous()`` only where the trace
+    # saw a non-contiguous tensor; the kernel needs these contiguous
+    return _fwd(z.contiguous(), context.contiguous(), weights,
+                [b.contiguous() for b in biases], save_pre=False)[0]
+
+
+_LIB.impl("ar_stack", _ar_stack_cuda, "CUDA")
+
+
+@torch.library.register_fake("iaf::ar_stack", lib=_LIB)
+def _ar_stack_fake(z, context, weights, biases):
+    n, h, w_, _ = z.shape
+    return z.new_empty((n, h, w_, weights[-1].shape[-1]),
+                       dtype=torch.float32)
+
+
+ar_stack_op = torch.ops.iaf.ar_stack.default
+
+
 def ar_stack(z: torch.Tensor, context: torch.Tensor,
              weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
              masks: Sequence[np.ndarray]) -> torch.Tensor:
     """Run the masked AR chain: ``weights`` are the folded, pre-masked
     [3, 3, cin, cout] convs (hidden ones first, the merged head last) in
     z's dtype, ``biases`` f32, ``masks`` the static numpy masks (only their
-    tap structure is read). Returns the heads, [N, H, W, cout] f32."""
+    tap structure is read). Returns the heads, [N, H, W, cout] f32. Under
+    autograd: ``_ARStack`` on CUDA, the twin on the CPU; else the op
+    ``iaf::ar_stack`` (``ar_stack_op``) on either."""
     _check(z, context, weights, biases, masks)
-    if z.device.type == "cpu":
-        return ar_stack_ref(z, context, weights, biases)
-    if z.device.type != "cuda":
+    if z.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"ar_stack: no kernel for device {z.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (z, context, *weights, *biases)):
+        if z.device.type == "cpu":
+            return ar_stack_ref(z, context, weights, biases)
         return _ARStack.apply(z, context, len(weights), *weights, *biases)
-    return _fwd(z, context, weights, biases, save_pre=False)[0]
+    return ar_stack_op(z, context, list(weights), list(biases))

@@ -190,16 +190,43 @@ class _IAFUpdate(torch.autograd.Function):
         return iaf_update_bwd(z_out, s, g_z.contiguous(), g_lq.contiguous())
 
 
+# K3's and K4's forwards as the torch ops ``iaf::iaf_update``
+# (``iaf_update_op``; both outputs new tensors) and
+# ``iaf::disc_logistic_logp`` (``disc_logistic_op``): the kernel on CUDA
+# tensors, the twin on CPU tensors, a fake for tracing; registered as K1's
+# is (``ops/ar_stack.py``), so an exported program launches the kernels.
+# An exported program keeps a ``.contiguous()`` only where the trace saw a
+# non-contiguous tensor; the kernels need their inputs contiguous.
+_LIB = torch.library.Library("iaf", "FRAGMENT")
+_LIB.define("iaf_update(Tensor z, Tensor m, Tensor s, Tensor logqs) "
+            "-> (Tensor, Tensor)")
+_LIB.impl("iaf_update", iaf_update_ref, "CPU")
+_LIB.impl("iaf_update", lambda z, m, s, logqs: _iaf_fwd(
+    *(t.contiguous() for t in (z, m, s, logqs))), "CUDA")
+
+
+@torch.library.register_fake("iaf::iaf_update", lib=_LIB)
+def _iaf_update_fake(z, m, s, logqs):
+    return torch.empty_like(z), torch.empty_like(logqs)
+
+
+iaf_update_op = torch.ops.iaf.iaf_update.default
+
+
 def iaf_update(z, m, s, logqs):
     """IAF division update with the elementwise running log-det-J:
-    returns ((z - m) * exp(-s), logqs + s)."""
+    returns ((z - m) * exp(-s), logqs + s). Under autograd: ``_IAFUpdate``
+    on CUDA, the twin on the CPU; else the op ``iaf::iaf_update``
+    (``iaf_update_op``) on either."""
     if not z.shape == m.shape == s.shape == logqs.shape:
         raise ValueError("iaf_update: shapes differ")
-    if z.device.type == "cpu":
-        return iaf_update_ref(z, m, s, logqs)
+    if z.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"iaf_update: no kernel for device {z.device}")
     if _needs_grad(z, m, s, logqs):
+        if z.device.type == "cpu":
+            return iaf_update_ref(z, m, s, logqs)
         return _IAFUpdate.apply(z, m, s, logqs)
-    return _iaf_fwd(z, m, s, logqs)
+    return iaf_update_op(z, m, s, logqs)
 
 
 def _dl_chunk(row_len: int, splits: int) -> int:
@@ -329,17 +356,39 @@ class _DiscLogistic(torch.autograd.Function):
         return dmean, dls, None, None
 
 
+_LIB.define("disc_logistic_logp(Tensor mean, Tensor logscale, "
+            "Tensor sample, float binsize) -> Tensor")
+_LIB.impl("disc_logistic_logp", disc_logistic_ref, "CPU")
+_LIB.impl("disc_logistic_logp", lambda mean, logscale, sample, binsize:
+          _dl_fwd(mean.contiguous(), logscale.reshape(1).contiguous(),
+                  sample.contiguous(), binsize), "CUDA")
+
+
+@torch.library.register_fake("iaf::disc_logistic_logp", lib=_LIB)
+def _disc_logistic_fake(mean, logscale, sample, binsize):
+    return mean.new_empty((mean.shape[0],), dtype=torch.float32)
+
+
+disc_logistic_op = torch.ops.iaf.disc_logistic_logp.default
+
+
 def disc_logistic_logp(mean, logscale, sample, binsize: float = 1.0 / 256.0):
     """Discretized-logistic log p(sample | mean, exp(logscale)) summed over
     all but the batch dim; ``logscale`` is a one-element tensor. ``sample``
-    carries no gradient."""
+    carries no gradient. Under autograd: ``_DiscLogistic`` on CUDA, the
+    twin on the CPU; else the op ``iaf::disc_logistic_logp``
+    (``disc_logistic_op``) on either."""
     if mean.shape != sample.shape:
         raise ValueError("disc_logistic_logp: mean and sample shapes differ")
-    if mean.device.type == "cpu":
-        return disc_logistic_ref(mean, logscale, sample, binsize)
-    logscale = logscale.reshape(1)
-    if sample.requires_grad:
-        raise ValueError("disc_logistic_logp: sample carries no gradient")
-    if _needs_grad(mean, logscale):
-        return _DiscLogistic.apply(mean, logscale, sample, binsize)
-    return _dl_fwd(mean, logscale, sample, binsize)
+    if mean.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"disc_logistic_logp: no kernel for device "
+                           f"{mean.device}")
+    if _needs_grad(mean, logscale, sample):
+        if mean.device.type == "cpu":
+            return disc_logistic_ref(mean, logscale, sample, binsize)
+        if sample.requires_grad:
+            raise ValueError("disc_logistic_logp: sample carries no "
+                             "gradient")
+        return _DiscLogistic.apply(mean, logscale.reshape(1), sample,
+                                   binsize)
+    return disc_logistic_op(mean, logscale, sample, float(binsize))

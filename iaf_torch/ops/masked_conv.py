@@ -565,17 +565,45 @@ class _MaskedConv2d(torch.autograd.Function):
         return dx, dw, None
 
 
+def _pairs(flat: list[int]) -> Taps:
+    return tuple(zip(flat[0::2], flat[1::2]))
+
+
+# K2's forward as the torch op ``iaf::masked_conv2d`` (``masked_conv2d_op``),
+# ``taps`` flattened (dy0, dx0, dy1, dx1, ...): the kernel on CUDA tensors,
+# the twin on CPU tensors, a fake for tracing; registered as K1's is
+# (``ops/ar_stack.py``), so an exported program launches the kernel.
+_LIB = torch.library.Library("iaf", "FRAGMENT")
+_LIB.define("masked_conv2d(Tensor x, Tensor w, int[] taps) -> Tensor")
+_LIB.impl("masked_conv2d",
+          lambda x, w, taps: masked_conv2d_ref(x, w, _pairs(taps)), "CPU")
+# as K1's: an exported program may hand over a non-contiguous x
+_LIB.impl("masked_conv2d",
+          lambda x, w, taps: _fwd(x.contiguous(), w, _pairs(taps)), "CUDA")
+
+
+@torch.library.register_fake("iaf::masked_conv2d", lib=_LIB)
+def _masked_conv2d_fake(x, w, taps):
+    n, h, w_, _ = x.shape
+    return x.new_empty((n, h, w_, w.shape[3]), dtype=torch.float32)
+
+
+masked_conv2d_op = torch.ops.iaf.masked_conv2d.default
+
+
 def masked_conv2d(x: torch.Tensor, w: torch.Tensor,
                   taps: Iterable | None = None) -> torch.Tensor:
     """The stride-1 SAME conv of ``x`` [N,H,W,cin] with the folded, masked
     weights ``w`` [kh,kw,cin,cout] (odd kh, kw; x's dtype) over ``taps``
-    (default: every tap), as unrounded f32 [N,H,W,cout]."""
+    (default: every tap), as unrounded f32 [N,H,W,cout]. Under autograd:
+    ``_MaskedConv2d`` on CUDA, the twin on the CPU; else the op
+    ``iaf::masked_conv2d`` (``masked_conv2d_op``) on either."""
     _check(x, w)
     taps = _taps(w, taps)
-    if x.device.type == "cpu":
-        return masked_conv2d_ref(x, w, taps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"masked_conv2d: no kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if x.device.type == "cpu":
+            return masked_conv2d_ref(x, w, taps)
         return _MaskedConv2d.apply(x, w, taps)
-    return _fwd(x, w, taps)
+    return masked_conv2d_op(x, w, [v for tap in taps for v in tap])

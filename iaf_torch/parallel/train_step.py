@@ -45,6 +45,7 @@ from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from iaf_torch import ops, optim
 from iaf_torch.core.config import Config
@@ -161,11 +162,14 @@ def _global_metrics(metrics: dict[str, torch.Tensor]
 
 
 def _apply_updates(cfg: Config, state: TrainState, grads) -> None:
-    optim.apply_updates(
-        dict(state.params.named_parameters()), grads, state.opt,
-        lr=cfg.learning_rate, beta1=cfg.beta1, beta2=cfg.beta2,
-        eps=cfg.adamax_eps, polyak_decay=cfg.polyak_decay,
-        bias_correction=cfg.bias_correction, grad_clip=cfg.grad_clip)
+    """Adamax + Polyak over every parameter, in the profiler's range
+    ``adamax_polyak``."""
+    with record_function("adamax_polyak"):
+        optim.apply_updates(
+            dict(state.params.named_parameters()), grads, state.opt,
+            lr=cfg.learning_rate, beta1=cfg.beta1, beta2=cfg.beta2,
+            eps=cfg.adamax_eps, polyak_decay=cfg.polyak_decay,
+            bias_correction=cfg.bias_correction, grad_clip=cfg.grad_clip)
 
 
 def train_step(cfg: Config, state: TrainState, rng: int, batch,
@@ -176,7 +180,7 @@ def train_step(cfg: Config, state: TrainState, rng: int, batch,
     the global draws, which each rank slices)."""
     model = state.params
     batch = _device_batch(batch, param_device(model))
-    with mesh.data_rows():
+    with record_function("grads"), mesh.data_rows():
         grads, metrics = _grads_and_metrics(cfg, model, rng, batch, noise)
     if mesh.active():
         live = [g for g in grads.values() if g is not None]
@@ -259,11 +263,13 @@ class TrainStep:
 
     def _forward_backward(self) -> dict[str, torch.Tensor]:
         """The step's forward and backward into the zeroed gradient
-        buffer; its metrics, this rank's."""
+        buffer; its metrics, this rank's (in the profiler's range
+        ``grads``)."""
         self._grads.zero_()
         noise = self._noise[0] if len(self._noise) == 1 else self._noise
-        return _accumulate(self.cfg, self.state.params, 0, self._batch,
-                           noise)[1]
+        with record_function("grads"):
+            return _accumulate(self.cfg, self.state.params, 0, self._batch,
+                               noise)[1]
 
     def _reduce(self, metrics: dict[str, torch.Tensor]
                 ) -> dict[str, torch.Tensor]:

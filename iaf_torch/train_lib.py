@@ -25,7 +25,9 @@ process on the whole batch would; the evals shard k (or, for a k the
 world size does not divide, the batch) and agree on every rank;
 ``sample`` shards the images and gathers them. Rank 0 alone writes
 (checkpoints, metrics, ``hps.json``, image summaries, progress files,
-outputs) and prints. TensorBoard comes with a later slice of the port.
+outputs, exported artifacts) and prints. With ``cfg.tensorboard`` the
+metrics go to TensorBoard too (``utils/metrics.MetricsLogger``).
+``export_saved`` writes the serving artifacts (``core/export.py``).
 """
 
 from __future__ import annotations
@@ -157,7 +159,8 @@ def train(cfg: Config, max_steps: int | None = None,
     dev = _start(cfg, device)
     family = get_model(cfg)
     rank0 = mesh.rank() == 0
-    logger = MetricsLogger(cfg.logdir, enabled=rank0)
+    logger = MetricsLogger(cfg.logdir, enabled=rank0,
+                           tensorboard=cfg.tensorboard)
     if rank0:
         save_hparams(cfg, cfg.logdir)
     _config_line(cfg, dev)
@@ -511,7 +514,7 @@ def eval_loop(cfg: Config, mode: str = "eval_test", poll_secs: float = 30.0,
     rank0 = mesh.rank() == 0
     loader = ckpt.CheckpointLoader(cfg.logdir)
     logger = MetricsLogger(cfg.logdir, filename=f"{mode}_metrics.jsonl",
-                           enabled=rank0)
+                           enabled=rank0, tensorboard=cfg.tensorboard)
     done = 0
     try:
         while max_evals is None or done < max_evals:
@@ -661,3 +664,28 @@ def sample(cfg: Config, num: int = 16,
             np.save(path, img_tile(imgs))
             print(f"[sample] wrote {path} ({num} images, T={t})")
     return imgs
+
+
+def export_saved(cfg: Config, out_dir: str | None = None,
+                 num_samples: int = 16, k: int = 1, use_ema: bool = True,
+                 platforms=None, device="cuda") -> dict:
+    """``--mode export``: the newest checkpoint's EMA (or raw) weights,
+    the port's or the JAX package's ``ckpt-*.npz``, exported as the two
+    inference surfaces (``core.export``: ``torch.export`` programs that
+    launch the kernels, with the noise contract) under
+    ``<logdir>/export``. Under a process group rank 0 alone traces and
+    writes, the others wait for it; every rank returns the paths."""
+    from iaf_torch.core.export import export_artifacts
+
+    dev = _start(cfg, device)
+    _config_line(cfg, dev)
+    paths = {}
+    if mesh.rank() == 0:
+        paths = export_artifacts(
+            cfg, _serving_model(cfg, use_ema, dev),
+            out_dir or f"{cfg.logdir}/export", num_samples=num_samples, k=k,
+            platforms=platforms, use_ema=use_ema)
+        for path in paths.values():
+            print(f"[export] wrote {path} ({os.path.getsize(path)} bytes)")
+    # the other ranks wait here until rank 0 has written every file
+    return mesh.broadcast_values([paths])[0]

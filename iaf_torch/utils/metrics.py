@@ -1,7 +1,8 @@
 """Metrics: one JSON row per logged step in ``metrics.jsonl`` (or the file
 named), with the keys of ``iaf_tpu/utils/metrics.py``, and image tiles
-under ``images/`` (``log_image``, ``img_tile``). TensorBoard mirroring is
-not ported yet."""
+under ``images/`` (``log_image``, ``img_tile``); with ``tensorboard`` the
+scalars, per-layer vectors and tiles are mirrored into TensorBoard event
+files under ``<logdir>/tb``."""
 
 from __future__ import annotations
 
@@ -29,16 +30,27 @@ def _value(v: Any):
 class MetricsLogger:
     """Appends rows to ``<logdir>/<filename>``. A logger made with
     ``enabled=False`` (every rank but 0 of a process group, as in the JAX
-    package) opens no file and writes nothing."""
+    package) opens no file and writes nothing. With ``tensorboard`` each
+    row's scalars (and each per-layer vector as ``<key>/<i>``) and each
+    image also go to a ``torch.utils.tensorboard`` writer on
+    ``<logdir>/tb``, imported only then; where it does not import, one
+    line says so and the logger goes on without it."""
 
     def __init__(self, logdir: str, filename: str = "metrics.jsonl",
-                 enabled: bool = True):
+                 enabled: bool = True, tensorboard: bool = False):
         self.path = os.path.join(logdir, filename)
         self.enabled = enabled
-        self._f = None
+        self._f = self._tb = None
         if enabled:
             os.makedirs(logdir, exist_ok=True)
             self._f = open(self.path, "a", buffering=1)
+            if tensorboard:
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
+                    self._tb = SummaryWriter(log_dir=os.path.join(logdir,
+                                                                  "tb"))
+                except ImportError as e:
+                    print(f"[metrics] tensorboard writer unavailable: {e}")
         self._t0 = time.time()
 
     def log(self, step: int, **metrics: Any) -> None:
@@ -47,6 +59,16 @@ class MetricsLogger:
         rec = {"step": int(step), "wall": round(time.time() - self._t0, 3)}
         rec.update({k: _value(v) for k, v in metrics.items()})
         self._f.write(json.dumps(rec) + "\n")
+        if self._tb is None:
+            return
+        for k, v in rec.items():
+            if k in ("step", "wall"):
+                continue
+            if isinstance(v, float):
+                self._tb.add_scalar(k, v, rec["step"])
+            elif isinstance(v, list):       # per-layer vectors
+                for i, e in enumerate(v):
+                    self._tb.add_scalar(f"{k}/{i}", e, rec["step"])
 
     def log_image(self, tag: str, image, step: int) -> None:
         """An HWC uint8 tile as ``images/<tag>_<step:08d>.npy`` beside the
@@ -59,6 +81,8 @@ class MetricsLogger:
         os.makedirs(img_dir, exist_ok=True)
         stem = os.path.join(img_dir, f"{tag}_{step:08d}")
         np.save(stem + ".npy", image)
+        if self._tb is not None:
+            self._tb.add_image(tag, image, step, dataformats="HWC")
         try:
             from PIL import Image
         except ImportError:
@@ -69,6 +93,8 @@ class MetricsLogger:
     def close(self) -> None:
         if self._f is not None:
             self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 def img_stretch(images) -> np.ndarray:

@@ -4,8 +4,9 @@ a trace of the run; ``eval_loop``, ``sample``, ``recon`` and
 ``eval_test`` resumes from its progress file and removes it after a full
 pass; on a tiny MNIST-family logdir (a Bernoulli ``--hpconfig`` trained
 through the CLI) ``sample`` and ``recon`` write their uint8 tiles and
-``invert_check`` raises, the CIFAR family's only; ``export``, not ported
-yet, raises naming the ROADMAP item that brings it."""
+``invert_check`` raises, the CIFAR family's only; ``export`` writes both
+serving artifacts; a training trace holds the named ranges of the model
+and the step."""
 
 import json
 import os
@@ -19,8 +20,6 @@ from iaf_torch import cli
 TINY = ("dataset=synthetic,image_size=8,z_size=4,h_size=8,depth=1,"
         "num_blocks=2,batch_size=4,eval_batch_size=4,eval_k=2,"
         "eval_k_chunk=2")
-ROADMAP = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "ROADMAP.md")
 
 
 def _traces(d):
@@ -62,23 +61,21 @@ def test_profile_dir_is_written_when_the_mode_fails(tmp_path, monkeypatch):
     _traces(prof)
 
 
-def _roadmap_item(item, title):
-    with open(ROADMAP) as f:
-        text = f.read()
-    queue = text.split("### 1. Modules still to port", 1)[1].split("\n### ")[0]
-    heading = re.search(rf"^{item}\. \*\*(.+?)\*\*", queue, re.M)
-    assert heading and title in heading.group(1), heading
-
-
-@pytest.mark.parametrize("mode,item,title", [("export", 5, "CLI, export")])
-def test_unported_modes_name_their_roadmap_item(tmp_path, mode, item, title):
-    """Each unported mode raises naming its item of ROADMAP queue 1 ("Modules
-    still to port"), and that item is the one that brings it."""
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1, item {item} "):
-        cli.main(["--logdir", str(tmp_path), "--hpconfig", TINY, "--mode",
-                  mode, "--device", "cpu"])
-    _roadmap_item(item, title)
+def test_profile_dir_trace_holds_the_named_ranges(tmp_path):
+    """The JAX package's named scopes as ``record_function`` ranges in a
+    1-step ``--mode train`` trace: the model's ``iaf_up``, ``iaf_down``
+    and ``ar_stack``, the step's ``grads`` and ``adamax_polyak``."""
+    prof = tmp_path / "prof"
+    cli.main(["--logdir", str(tmp_path / "log"), "--mode", "train",
+              "--device", "cpu", "--profile_dir", str(prof), "--hpconfig",
+              TINY + ",total_steps=1,ckpt_every=1"])
+    names = set()
+    for f in _traces(prof):
+        with open(os.path.join(prof, f)) as fh:
+            names |= {e.get("name") for e in json.load(fh)["traceEvents"]}
+    for scope in ("iaf_up", "iaf_down", "ar_stack", "grads",
+                  "adamax_polyak"):
+        assert scope in names, scope
 
 
 MNIST = ("dataset=synthetic,likelihood=bernoulli,binarize=true,"
@@ -157,6 +154,19 @@ def test_sample_and_recon_modes_write_their_tiles(trained, mode, args, files):
     for name in files:
         tile = np.load(os.path.join(trained, name))
         assert tile.dtype == np.uint8 and tile.shape == (17, 17, 3), name
+
+
+def test_export_mode_writes_both_artifacts(trained, capsys):
+    """``--mode export`` writes ``<logdir>/export/sample.pt2`` and
+    ``elbo.pt2`` from the newest checkpoint, each loadable."""
+    from iaf_torch.core.export import load_exported
+    cli.main(["--logdir", trained, "--mode", "export", "--device", "cpu",
+              "--num_samples", "2"])
+    out = capsys.readouterr().out
+    for name in ("sample", "elbo"):
+        path = os.path.join(trained, "export", f"{name}.pt2")
+        assert f"[export] wrote {path}" in out
+        assert load_exported(path).contract["surface"] == name
 
 
 def test_invert_check_mode_reports_the_three_inverses(trained, capsys):
