@@ -2,7 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (``iaf_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --multi           # phase 17(e) alone (2+ cards)
+    python3 chip_smoke.py --multi           # phases 17(e) and 19(e)
+                                            # alone (2+ cards)
+    python3 chip_smoke.py --memory          # phase 19 alone
     python3 chip_smoke.py --ab DIR [CASE]   # one kernel of DIR's tree
                                             # against this one's, A B B A
                                             # (``ab``; CASE in AB_CASES:
@@ -12,7 +14,10 @@
                                             # k2_bwd_f32, f32_chunk_5x5,
                                             # k2_fwd, k4_fwd, k4_bwd,
                                             # wrappers; or step: 10
-                                            # steps of ``train``)
+                                            # steps of ``train``; or
+                                            # graph_check: phase 15(a)'s
+                                            # f32 check alone, 5 runs a
+                                            # tree)
 
 Phases, any failure exits non-zero:
 
@@ -199,13 +204,15 @@ Phases, any failure exits non-zero:
 
 15. The captured training step (``train_step.make_train_step``): (a)
    three eager ``train_step``s against the graphed step (warm-up, then
-   two replays) on two copies of one state, same batches and keys, paper
+   two replays) on copies of one state, same batches and keys, paper
    config at batch 32, bf16 and f32: loss, every gradient, param, m, u
-   and EMA leaf and the step bitwise equal where a second eager copy (the
-   control, printed) is bitwise equal to the first; where it is not (f32:
-   cuDNN's algorithms), within ``NONDET_MARGIN`` times the control's
-   difference, and the same steps again on cuDNN's deterministic
-   algorithms must be bitwise; (b) in the four training cells (paper,
+   and EMA leaf and the step bitwise equal where two more eager copies
+   (the controls, printed) are bitwise equal to the first and to each
+   other; where they are not (f32: cuDNN's algorithms), within
+   ``NONDET_MARGIN`` times the largest of the three pairs' differences,
+   part by part; in f32, and wherever the controls are not bitwise, the
+   same steps again on cuDNN's deterministic algorithms must be
+   bitwise (``graph_check``); (b) in the four training cells (paper,
    paper f32, 5x5, 5x5 f32) the median eager step and the median graphed
    step over the same 8 steps, each ending in a wait for its loss (the
    graphed one must be faster), and one graphed step's device busy by
@@ -285,6 +292,24 @@ Phases, any failure exits non-zero:
    cost of the dispatch measured directly (``dispatch_cost``: K1 f32,
    K3 and K4 at N = 2, each op against the launch it wraps).
 
+19. The training step's memory levers (``memory_phase``), paper config
+   in bf16 through the graphed step (``make_train_chunk``, one step a
+   chunk), each lever from one init on a copy of its state: (a) batch
+   32 at grad_accum 1 and 2 and at scan_blocks=true,remat=true, and the
+   5x5 config plain and under remat; (b) batch 256 at grad_accum 1 and 8
+   and under remat; for each the peak memory (``max_memory_allocated``
+   over the warm-up, the capture and 8 replays) beside what was
+   allocated before the run and the state's own bytes (params, m, u,
+   EMA), the median replay and the launches a step, exactly
+   ``PER_STEP`` (grad_accum A: each micro-batch's kernels A times, K5
+   once; remat ``PER_STEP_REMAT``: K1 = K3 = 40, 5x5 K2 = 120); (c)
+   grad_accum=2 through an NCCL group of one (the micro-batch row
+   gather captured in the graph) bitwise the run with no group; (d) the
+   remat step's losses and gradients against the plain step's on
+   cuDNN's deterministic algorithms, bitwise or within 1e-6 of each
+   leaf's max (which held is printed); (e) in ``--multi``, two ranks at
+   grad_accum=2 (``two_rank_phase``).
+
 Times: ``ms`` is by CUDA events around 20 back-to-back calls (what a
 caller waits, host included); ``device_ms`` (every kernel, and K1's and
 K2's library calls) is the device time the profiler records for the same
@@ -308,7 +333,8 @@ path, phase 14's under ``"serve"``, phase 15's medians under each
 ``train*`` entry's ``"side_by_side"``, with ``"graph_vs_eager"``,
 ``"train_chunked"`` and ``"train_f32_determinism"``, the inits' seconds
 under ``"main"``'s ``"init"``, phase 16's under ``"mnist"``, phase
-17's under ``"multi"`` and phase 18's under ``"export"``.
+17's under ``"multi"``, phase 18's under ``"export"`` and phase 19's
+under ``"memory"``.
 """
 
 from __future__ import annotations
@@ -345,12 +371,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 EVAL_BATCH, EVAL_K, EVAL_CHUNK, EVAL_BATCHES = 16, 256, 64, 2
 TRAIN_STEPS, RESUME_STEPS = 10, 2
 SIDE_BY_SIDE_STEPS = 8     # phase 15(b): the steps each median is taken over
-# phase 15(a): where two eager runs differ (cuDNN's f32 algorithms are not
-# all deterministic), the graph may differ from the eager run by this many
-# times the control's difference, part by part. Each part's difference is
-# a maximum over up to 41.6 M elements, which spreads little from run to
-# run (an H100 read 0.0036 for the control's gradients and 0.0025 for the
-# graph's, param 4.0e-4 and 3.9e-4)
+# phase 15(a): where eager runs differ (cuDNN's f32 algorithms are not all
+# deterministic), the graph may differ from the eager run by this many
+# times the controls' difference, part by part: the largest over the three
+# pairs of three eager runs, so that one pair that happens to agree (a
+# loss difference of 0.0 while the gradients differ by 2-4e-3, seen on an
+# H100) does not set a limit of 0. Each part's difference is a maximum
+# over up to 41.6 M elements (an H100 read 0.0036 for a control's
+# gradients and 0.0025 for the graph's, param 4.0e-4 and 3.9e-4)
 NONDET_MARGIN = 2.0
 F32_TRAIN_STEPS = 6
 # f32 step, card vs CPU: small-gradient elements whose Adamax sign may
@@ -2692,7 +2720,8 @@ def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
 
 
 def _state_copy(cfg, state, device):
-    """A training state with its own tensors, equal to ``state``'s."""
+    """A training state on ``device`` with its own tensors, equal to
+    ``state``'s."""
     from iaf_torch import optim
     from iaf_torch.models import get_model
     from iaf_torch.parallel import train_step as ts
@@ -2700,8 +2729,9 @@ def _state_copy(cfg, state, device):
     model.load_state_dict(state.params.state_dict())
     opt = state.opt
     return ts.TrainState(model, optim.AdamaxState(
-        opt.step.clone(), *({k: v.clone() for k, v in part.items()}
-                            for part in (opt.m, opt.u, opt.ema))))
+        opt.step.to(device, copy=True),
+        *({k: v.to(device, copy=True) for k, v in part.items()}
+          for part in (opt.m, opt.u, opt.ema))))
 
 
 def _state_diffs(a, b, losses_a, losses_b) -> dict:
@@ -2731,12 +2761,13 @@ def graph_vs_eager(ops, device, hp: str, steps: int = 3,
                    deterministic: bool = False) -> dict:
     """Phase 15(a): ``steps`` eager ``train_step``s on one copy of a state
     and the graphed step (``make_train_step``: warmed up, captured, then
-    replayed) on another, same batches, keys and so noise; a second eager
-    copy is the control. Where the control is bitwise the graph must be
+    replayed) on another, same batches, keys and so noise; two more eager
+    copies are the controls. Each part's limit is the largest difference,
+    part by part, over the pairs eager-control 1, eager-control 2 and
+    control 1-control 2: where all three are bitwise the graph must be
     bitwise; elsewhere it may differ from the eager run by at most
-    ``NONDET_MARGIN`` times what the control differs by, part by part.
-    ``deterministic`` runs all three with cuDNN's deterministic
-    algorithms."""
+    ``NONDET_MARGIN`` times that limit. ``deterministic`` runs all four
+    with cuDNN's deterministic algorithms."""
     import torch
     from iaf_torch.core.config import Config
     from iaf_torch.core.device import cudnn_deterministic
@@ -2745,37 +2776,61 @@ def graph_vs_eager(ops, device, hp: str, steps: int = 3,
     tag = _label(cfg) + (", cuDNN deterministic" if deterministic else "")
     B = cfg.batch_size
     x = _train_images(cfg, B * steps)
+    eager_runs = ("eager", "control 1", "control 2")
     with (cudnn_deterministic() if deterministic
           else contextlib.nullcontext()):
-        eager = ts.init_train_state(cfg, 21, x[:B], device)
-        control, graphed = (_state_copy(cfg, eager, device)
-                            for _ in range(2))
-        step = ts.make_train_step(cfg, graphed)
-        losses = {"eager": [], "control": [], "graph": []}
+        states = {"eager": ts.init_train_state(cfg, 21, x[:B], device)}
+        for name in eager_runs[1:] + ("graph",):
+            states[name] = _state_copy(cfg, states["eager"], device)
+        step = ts.make_train_step(cfg, states["graph"])
+        losses = {name: [] for name in states}
         for i in range(steps):
             batch, key = x[i * B:(i + 1) * B], 1000 + i
-            for name, st in (("eager", eager), ("control", control)):
-                losses[name].append(float(ts.train_step(cfg, st, key,
-                                                         batch)[1]["loss"]))
-            losses["graph"].append(float(step(graphed, key,
+            for name in eager_runs:
+                losses[name].append(float(ts.train_step(
+                    cfg, states[name], key, batch)[1]["loss"]))
+            losses["graph"].append(float(step(states["graph"], key,
                                               batch)[1]["loss"]))
         torch.cuda.synchronize()
         step.close()
-    ctrl = _state_diffs(eager, control, losses["eager"], losses["control"])
-    got = _state_diffs(eager, graphed, losses["eager"], losses["graph"])
+
+    def diffs(a, b):
+        return _state_diffs(states[a], states[b], losses[a], losses[b])
+    pairs = {f"{a} vs {b}": diffs(a, b) for a, b in (
+        ("eager", "control 1"), ("eager", "control 2"),
+        ("control 1", "control 2"))}
+    ctrl = {part: max(d[part] for d in pairs.values())
+            for part in pairs["eager vs control 1"]}
+    got = diffs("eager", "graph")
     bitwise = all(v == 0 for v in ctrl.values())
     print(f"[graph] {tag}: {steps} eager steps against the graphed step "
           f"(1 warm-up, then {steps - 1} replays), batch {B}: losses "
           f"{losses['eager']} (eager) {losses['graph']} (graph); largest "
-          f"difference by part, eager vs eager control {ctrl}, eager vs "
-          f"graph {got}; the control is {'' if bitwise else 'NOT '}bitwise")
+          f"difference by part, {pairs}; the limit (the largest of the "
+          f"three) {ctrl}; eager vs graph {got}; the controls are "
+          f"{'' if bitwise else 'NOT '}bitwise")
     for part, limit in ctrl.items():
         check(got[part] <= NONDET_MARGIN * limit,
               f"{tag}: the graphed step's {part} differs from the eager "
-              f"step's by {got[part]} > {NONDET_MARGIN} x the control's "
+              f"step's by {got[part]} > {NONDET_MARGIN} x the controls' "
               f"{limit}")
-    return {"control": ctrl, "graph": got, "bitwise": bitwise,
-            "losses": losses["graph"]}
+    return {"control": ctrl, "pairs": pairs, "graph": got,
+            "bitwise": bitwise, "losses": losses["graph"]}
+
+
+def graph_check(ops, device, hp: str) -> dict:
+    """Phase 15(a) on one cell (and 16(c)'s on MNIST): ``graph_vs_eager``,
+    then, for an f32 cell or where the controls are not bitwise, the same
+    steps on cuDNN's deterministic algorithms, which must be bitwise."""
+    from iaf_torch.core.config import Config
+    r = graph_vs_eager(ops, device, hp)
+    cfg = Config().parse(hp)
+    if cfg.compute_dtype == "float32" or not r["bitwise"]:
+        r["deterministic"] = graph_vs_eager(ops, device, hp,
+                                            deterministic=True)
+        check(r["deterministic"]["bitwise"], f"{_label(cfg)}: eager runs "
+              "differ on cuDNN's deterministic algorithms")
+    return r
 
 
 def _step_batches(cfg, n: int) -> list:
@@ -3018,14 +3073,7 @@ def graph_phase(ops, device, ref_logdir: str) -> dict:
     out = {"graph_vs_eager": {}}
     for key, hp in (("paper", PAPER),
                     ("paper f32", PAPER + ",compute_dtype=float32")):
-        r = out["graph_vs_eager"][key] = graph_vs_eager(ops, device, hp)
-        if not r["bitwise"]:
-            # the same steps on cuDNN's deterministic algorithms: there
-            # the control and so the graph must be bitwise
-            r["deterministic"] = graph_vs_eager(ops, device, hp,
-                                                deterministic=True)
-            check(r["deterministic"]["bitwise"], f"{key}: two eager runs "
-                  "differ on cuDNN's deterministic algorithms")
+        out["graph_vs_eager"][key] = graph_check(ops, device, hp)
         torch.cuda.empty_cache()
     for key, hp in (("train", PAPER),
                     ("train_f32", PAPER + ",compute_dtype=float32"),
@@ -3227,15 +3275,10 @@ def mnist_phase(ops, device):
           and all(math.isfinite(v) for _, v in nll), f"nll_nats rows {nll}")
     print(f"[mnist] nll_nats by step {[round(v, 2) for _, v in nll]}; "
           f"binarized from steps {starts}")
-    r = summary["graph_vs_eager"] = graph_vs_eager(ops, device, MNIST)
-    if not r["bitwise"]:
-        r["deterministic"] = graph_vs_eager(ops, device, MNIST,
-                                            deterministic=True)
-        check(r["deterministic"]["bitwise"], "mnist: two eager runs differ "
-              "on cuDNN's deterministic algorithms")
+    r = summary["graph_vs_eager"] = graph_check(ops, device, MNIST)
     print(f"[mnist] graphed step against eager at batch {cfg.batch_size}: "
-          + ("bitwise (the control is bitwise)" if r["bitwise"] else
-             f"within {NONDET_MARGIN}x a control that is not bitwise, and "
+          + ("bitwise (the controls are bitwise)" if r["bitwise"] else
+             f"within {NONDET_MARGIN}x controls that are not bitwise, and "
              "bitwise on cuDNN's deterministic algorithms"))
     torch.cuda.empty_cache()
     # (d) K5 on one real MNIST step's inputs
@@ -3274,6 +3317,7 @@ def mnist_phase(ops, device):
 
 
 MULTI_CHILD_TIMEOUT = 600   # seconds for phase 17(e)'s two ranks
+ACCUM_STEPS = 4             # phase 19(e): grad_accum=2 steps over 2 ranks
 
 
 def _free_port() -> int:
@@ -3421,6 +3465,21 @@ dev = cs._device_events(prof)
 busy = sum(us for _, us, _ in dev) / 3e3
 nccl = sum(us for name, us, _ in dev if "nccl" in name.lower()) / 3e3
 step.close()
+# grad_accum=2 over the ranks: each micro-batch's rows gathered and
+# regrouped as JAX reshards them
+acfg = cfg.replace(grad_accum=2)
+state = ts.init_train_state(acfg, 23, batches[0][r * per:(r + 1) * per], dev)
+step = ts.make_train_step(acfg, state)
+for i, b in enumerate(batches[:cs.ACCUM_STEPS]):
+    float(step(state, fold(7, i), b[r * per:(r + 1) * per])[1]["loss"])
+    if i == 0 and r == 0:
+        torch.save({k: p.grad.cpu() for k, p in
+                    state.params.named_parameters()},
+                   os.path.join(sys.argv[2], "grads_world2_a2.pt"))
+torch.cuda.synchronize()
+torch.save({k: v.cpu() for k, v in state.params.state_dict().items()},
+           os.path.join(sys.argv[2], f"params_rank{r}_a2.pt"))
+step.close()
 mesh.barrier("done")
 print("MULTI_CHILD " + json.dumps({"rank": r, "world": n,
                                    "median_s": statistics.median(times[2:]),
@@ -3437,7 +3496,11 @@ def two_rank_phase(device) -> dict:
     steps; the first step's mean gradient against one process's on the
     whole batch (this one, no group) at 1e-4 of each leaf's max, both
     ranks' parameters after the 10 steps bitwise equal, and the median
-    step (steps 3-10) at world size 2 beside world size 1."""
+    step (steps 3-10) at world size 2 beside world size 1. Then phase
+    19(e): the same two ranks at grad_accum=2 (the rows of each
+    micro-batch gathered and regrouped), ``ACCUM_STEPS`` steps, the first
+    step's gradient against one process at grad_accum=2 on the whole
+    batch at 1e-4 and both ranks' parameters bitwise equal."""
     import torch
     from iaf_torch.core.config import Config
     from iaf_torch.core.device import full_f32
@@ -3482,12 +3545,42 @@ def two_rank_phase(device) -> dict:
             grads1 = {k: p.grad.detach().cpu().clone() for k, p in
                       state.params.named_parameters()}
     step.close()
-    grads2 = torch.load(os.path.join(out_dir, "grads_world2.pt"))
-    worst = max(float((grads2[k] - g).abs().max())
-                / max(float(g.abs().max()), 1e-30) for k, g in grads1.items())
-    p0, p1 = (torch.load(os.path.join(out_dir, f"params_rank{r}.pt"))
-              for r in range(2))
-    same = all(torch.equal(p0[k], p1[k]) for k in p0)
+
+    def rel_worst(got, want):
+        return max(float((got[k] - g).abs().max())
+                   / max(float(g.abs().max()), 1e-30)
+                   for k, g in want.items())
+
+    def ranks_equal(suffix):
+        p0, p1 = (torch.load(os.path.join(out_dir,
+                                          f"params_rank{r}{suffix}.pt"))
+                  for r in range(2))
+        return all(torch.equal(p0[k], p1[k]) for k in p0)
+    worst = rel_worst(torch.load(os.path.join(out_dir, "grads_world2.pt")),
+                      grads1)
+    same = ranks_equal("")
+    # phase 19(e): grad_accum=2, one process on the whole batch
+    acfg = cfg.replace(grad_accum=2)
+    state = ts.init_train_state(acfg, 23, batches[0], device)
+    step = ts.make_train_step(acfg, state)
+    float(step(state, fold(7, 0), batches[0])[1]["loss"])
+    grads1_a2 = {k: p.grad.detach().cpu().clone() for k, p in
+                 state.params.named_parameters()}
+    step.close()
+    del state
+    worst_a2 = rel_worst(torch.load(os.path.join(out_dir,
+                                                 "grads_world2_a2.pt")),
+                         grads1_a2)
+    same_a2 = ranks_equal("_a2")
+    print(f"[multi] 19(e) grad_accum=2 over 2 ranks (NCCL), paper f32, "
+          f"global batch {cfg.batch_size}: first step's mean gradient "
+          f"against one process at grad_accum=2 on the whole batch, largest "
+          f"difference {worst_a2:.3e} of its leaf's max (limit 1e-4); both "
+          f"ranks' params after {ACCUM_STEPS} steps bitwise equal: "
+          f"{same_a2}")
+    check(worst_a2 <= 1e-4, f"2 ranks at grad_accum=2: the gradient differs "
+          f"by {worst_a2} of max")
+    check(same_a2, "the two ranks' parameters differ at grad_accum=2")
     med1 = statistics.median(times[2:])
     med2 = res[0]["median_s"]
     B = cfg.batch_size
@@ -3505,6 +3598,8 @@ def two_rank_phase(device) -> dict:
     check(worst <= 1e-4, f"2 ranks' gradient differs by {worst} of max")
     check(same, "the two ranks' parameters differ")
     return {"ran": True, "grad_rel_err": worst, "ranks_bitwise": same,
+            "grad_accum_2": {"grad_rel_err": worst_a2,
+                             "ranks_bitwise": same_a2},
             "median_s_world2": med2, "median_s_world1": med1,
             "busy_ms_world2": [x["busy_ms"] for x in res],
             "nccl_ms_world2": [x["nccl_ms"] for x in res],
@@ -4079,6 +4174,195 @@ def _export_rest(ops, device, cfg, paths, x, root, main, rows,
     return summary
 
 
+# phase 19: remat runs each layer's forward kernels twice a step (once
+# forward, once in the backward's recompute); the backward kernels, K4
+# and K5 keep their counts
+PER_STEP_REMAT = {**PER_STEP, "ar_stack": 40, "iaf_update": 40}
+PER_STEP_5X5_REMAT = {**PER_STEP_5X5, "masked_conv2d": 120,
+                      "iaf_update": 40}
+REMAT = ",scan_blocks=true,remat=true"
+LEVER_REPLAYS = 8        # phase 19: replays after the warm-up and capture
+
+
+def _accum_per_step(per: dict, a: int) -> dict:
+    """Launches a step at grad_accum=a: each micro-batch's forward and
+    backward kernels a times, K5 once."""
+    return {k: v if k == "adamax_polyak" else v * a for k, v in per.items()}
+
+
+def _lever_run(ops, device, cfg, host0, batches, per_step: dict,
+               label: str, keep: bool = False) -> tuple:
+    """Phase 19, one lever: the graphed step (``make_train_chunk``, one
+    step a chunk) on a copy of the host state ``host0`` on the card (the
+    only state there) over ``batches`` (the warm-up and capture, then the
+    replays), each step ending in a wait for its loss. Peak memory
+    (``max_memory_allocated``) over the whole run beside what was
+    allocated before it (the state and whatever the script still holds)
+    and the state's own bytes; the median replay; launches exactly
+    ``per_step`` a step. Returns (the final state on the host where
+    ``keep``, else None; the figures)."""
+    import torch
+    gib = 2.0 ** 30
+    state = _state_copy(cfg, host0, device)
+    own = sum(t.numel() * t.element_size() for t in (
+        list(state.params.state_dict().values())
+        + [v for part in (state.opt.m, state.opt.u, state.opt.ema)
+           for v in part.values()]))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    chunk, times = _graphed_steps(cfg, state, batches)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    chunk.close()
+    n = len(batches)
+    per = {k: v // n for k, v in counts.items() if v}
+    med = statistics.median(times[1:])
+    out = {"batch_size": cfg.batch_size, "grad_accum": cfg.grad_accum,
+           "remat": bool(cfg.scan_blocks and cfg.remat),
+           "peak_gib": peak / gib, "before_gib": base / gib,
+           "state_gib": own / gib, "above_before_gib": (peak - base) / gib,
+           "median_s": med, "examples_per_s": cfg.batch_size / med,
+           "warm_up_and_capture_s": times[0], "launches_per_step": per}
+    print(f"[memory] {label}: peak {peak / gib:.4f} GiB, "
+          f"{(peak - base) / gib:.4f} GiB above the {base / gib:.4f} GiB "
+          f"allocated before the run (the state's own params, m, u and EMA "
+          f"{own / gib:.4f}), over the warm-up, the capture and {n - 1} "
+          f"replays; median graphed step {med:.5f} s "
+          f"({cfg.batch_size / med:.1f} examples/s); warm-up and capture "
+          f"{times[0]:.2f} s; launches a step {per}")
+    check(counts == _expect(counts, per_step, n),
+          f"{label}: launch counts {counts} != {per_step} x {n}")
+    return (_state_copy(cfg, state, "cpu") if keep else None), out
+
+
+def memory_phase(ops, device) -> dict:
+    """Phase 19, the training step's memory levers on the paper config in
+    bf16 through the graphed step: (a) at batch 32 with grad_accum 1 and
+    2 and with scan_blocks=true,remat=true, and the 5x5 config plain and
+    under remat; (b) at batch 256 with grad_accum 1 and 8 and remat; for
+    each the peak memory, the median step and the launches a step
+    (remat: K1 = K3 = 40, 5x5 K2 = 120); (c) grad_accum=2 through an NCCL
+    group of one (the micro-batch row gather captured in the graph),
+    bitwise the run with no group; (d) the remat step's loss and every
+    gradient leaf against the plain step's on cuDNN's deterministic
+    algorithms, bitwise or within 1e-6 of each leaf's max (which held is
+    printed)."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.core.device import cudnn_deterministic, resolve_device
+    from iaf_torch.core.rng import fold
+    from iaf_torch.parallel import mesh
+    from iaf_torch.parallel import train_step as ts
+    t0 = time.perf_counter()
+    out: dict = {}
+    n = LEVER_REPLAYS + 1
+
+    def cell(hp, levers, key):
+        """Each lever of ``levers`` ({label: (hp suffix, launches a
+        step)}) from one init (on 32 images), kept on the host; returns
+        (the plain config, the init, the batches, {label: (the final
+        state on the host for A=2, the figures)})."""
+        cfg = Config().parse(hp + ",dataset=synthetic")
+        batches = _step_batches(cfg, n)
+        host0 = _state_copy(cfg, ts.init_train_state(
+            cfg, 23, batches[0][:32], device), "cpu")
+        torch.cuda.empty_cache()
+        got = {}
+        for label, (extra, per) in levers.items():
+            lcfg = Config().parse(hp + ",dataset=synthetic" + extra)
+            got[label] = _lever_run(ops, device, lcfg, host0, batches,
+                                    per, f"{key} {label}",
+                                    keep=label == "A=2")
+            torch.cuda.empty_cache()
+        return cfg, host0, batches, got
+
+    # (a) batch 32
+    cfg, host0, batches, a32 = cell(PAPER, {
+        "A=1": ("", PER_STEP),
+        "A=2": (",grad_accum=2", _accum_per_step(PER_STEP, 2)),
+        "remat": (REMAT, PER_STEP_REMAT)}, "paper b32")
+    out["a"] = {k: v[1] for k, v in a32.items()}
+    rcfg = Config().parse(PAPER + ",dataset=synthetic" + REMAT)
+    # (c) grad_accum=2 through an NCCL group of one
+    acfg = Config().parse(PAPER + ",dataset=synthetic,grad_accum=2")
+    with _group_of_one():
+        mesh.init_distributed(resolve_device("cuda"))
+        check(mesh.active() and mesh.world() == 1, "no group of one formed")
+        grouped, fig = _lever_run(ops, device, acfg, host0, batches,
+                                  _accum_per_step(PER_STEP, 2),
+                                  "paper b32 A=2, NCCL group of one",
+                                  keep=True)
+    worst = _states_worst(a32["A=2"][0], grouped)
+    print(f"[memory] (c) grad_accum=2 through an NCCL group of one against "
+          f"no group, {n} steps: largest difference {worst}")
+    check(all(v == 0 for v in worst.values()),
+          f"grad_accum=2 through a group of one differs: {worst}")
+    out["c"] = {"max_diff": worst, **fig}
+    # (d) remat against the plain step on deterministic algorithms
+    grads, losses = {}, {}
+    with cudnn_deterministic():
+        for label, c in (("plain", cfg), ("remat", rcfg)):
+            st = _state_copy(cfg, host0, device)
+            step = ts.make_train_step(c, st)
+            losses[label] = [float(step(st, fold(7, i), batches[i])[1]
+                                   ["loss"]) for i in range(2)]
+            grads[label] = {k: p.grad.detach().clone() for k, p in
+                            st.params.named_parameters()}
+            step.close()
+            del st, step
+    rel = max(float((grads["remat"][k] - g).abs().max())
+              / max(float(g.abs().max()), 1e-30)
+              for k, g in grads["plain"].items())
+    bitwise = (losses["remat"] == losses["plain"] and all(
+        torch.equal(grads["remat"][k], g) for k, g in grads["plain"].items()))
+    print(f"[memory] (d) remat against the plain step on cuDNN's "
+          f"deterministic algorithms (the warm-up, then one replay): losses "
+          f"{losses['remat']} and {losses['plain']}; every gradient leaf "
+          + ("bitwise equal" if bitwise else
+             f"within {rel:.3e} of its max (limit 1e-6), not bitwise"))
+    check(bitwise or (rel <= 1e-6 and all(
+        abs(x - y) <= 1e-6 * abs(y) for x, y in zip(losses["remat"],
+                                                    losses["plain"]))),
+          f"remat differs from the plain step: {rel} of a leaf's max, "
+          f"losses {losses}")
+    out["d"] = {"bitwise": bitwise, "grad_rel_err": rel,
+                "losses": losses}
+    del a32, grouped, grads, host0
+    torch.cuda.empty_cache()
+    # the 5x5 config at batch 32: plain and remat (K2 = 120 a step)
+    _, st5, b5, c5 = cell(PAPER5, {"A=1": ("", PER_STEP_5X5),
+                                   "remat": (REMAT, PER_STEP_5X5_REMAT)},
+                          "5x5 b32")
+    out["a_5x5"] = {k: v[1] for k, v in c5.items()}
+    del st5, b5, c5
+    torch.cuda.empty_cache()
+    # (b) batch 256
+    _, st256, b256, c256 = cell(
+        PAPER.replace("batch_size=32", "batch_size=256"), {
+            "A=1": ("", PER_STEP),
+            "A=8": (",grad_accum=8", _accum_per_step(PER_STEP, 8)),
+            "remat": (REMAT, PER_STEP_REMAT)}, "paper b256")
+    out["b"] = {k: v[1] for k, v in c256.items()}
+    del st256, b256, c256
+    torch.cuda.empty_cache()
+    for key in ("a", "a_5x5", "b"):
+        plain = out[key]["A=1"]
+        for label, v in out[key].items():
+            if label != "A=1":
+                print(f"[memory] {key} {label} against A=1: memory above "
+                      f"what was allocated before the run "
+                      f"{v['above_before_gib'] / plain['above_before_gib']:.3f}"
+                      f"x, median step "
+                      f"{v['median_s'] / plain['median_s']:.3f}x")
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"[memory] phase 19: {out['phase_seconds']:.1f} s")
+    return out
+
+
 def run() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -4202,6 +4486,9 @@ def run() -> dict:
     # phase 18: --mode export on the card, the kernels as torch ops
     exported = export_phase(ops, device, tcfg.logdir, mnist["logdir"], main,
                             rows)
+
+    # phase 19: the training step's memory levers (grad_accum, remat)
+    memory = memory_phase(ops, device)
     for key, s in (("train", summary), ("train_f32", summary32["train"]),
                    ("train_5x5", summary5["train"]),
                    ("train_5x5_f32", summary5_32["train"])):
@@ -4240,7 +4527,7 @@ def run() -> dict:
                       "train_f32_determinism": graph["f32_determinism"],
                       "graph_phase_seconds": graph["phase_seconds"],
                       "mnist": mnist, "multi": multi,
-                      "export": exported}))
+                      "export": exported, "memory": memory}))
     print(json.dumps({"kernels": rows}))
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}
@@ -4604,6 +4891,80 @@ def ab_step(other: str) -> list[dict]:
     return runs
 
 
+# ``ab``'s case ``graph_check``, one process per run: phase 15(a)'s check
+# of the paper f32 cell alone in the tree argv[1] (its kernels built first,
+# all at once), as that tree's chip_smoke runs it: ``graph_check`` where
+# the tree has it, else its older form (one control, the deterministic
+# rerun only where the control is not bitwise). Prints whether it passed.
+_AB_GRAPH_CHILD = r"""
+import importlib.util, json, os, sys, threading
+root = sys.argv[1]
+sys.path.insert(0, root)
+spec = importlib.util.spec_from_file_location(
+    "smoke", os.path.join(root, "chip_smoke.py"))
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import torch
+from iaf_torch import ops
+from iaf_torch.ops import _build
+assert os.path.dirname(_build.__file__).startswith(os.path.abspath(root)), \
+    _build.__file__
+builds = [threading.Thread(target=_build.load, args=(n,)) for n in (
+    "ar_stack", "ar_stack_bwd", "masked_conv", "masked_conv_bwd",
+    "disc_logistic")]
+for t in builds:
+    t.start()
+for t in builds:
+    t.join()
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+hp = cs.PAPER + ",compute_dtype=float32"
+try:
+    if hasattr(cs, "graph_check"):
+        r = cs.graph_check(ops, dev, hp)
+    else:
+        r = cs.graph_vs_eager(ops, dev, hp)
+        if not r["bitwise"]:
+            r["deterministic"] = cs.graph_vs_eager(ops, dev, hp,
+                                                   deterministic=True)
+            cs.check(r["deterministic"]["bitwise"], "eager runs differ on "
+                     "cuDNN's deterministic algorithms")
+    res = {"passed": True, "limit": r["control"], "graph": r["graph"],
+           "deterministic_ran": "deterministic" in r}
+except cs.SmokeFailure as e:
+    res = {"passed": False, "error": str(e)}
+print(json.dumps({"tree": root, **res}))
+"""
+GRAPH_CHECK_RUNS = 5     # ``graph_check``: runs of each tree
+
+
+def ab_graph_check(other: str, runs: int = GRAPH_CHECK_RUNS) -> list[dict]:
+    """The A/B case ``graph_check``: phase 15(a)'s f32 check alone,
+    ``runs`` times in the tree ``other`` (A) and in this one (B), in the
+    order A B B A A B ..., each run a process of its own on the same
+    card; each run's pass or failure and the passes of each tree. A
+    failed check is a result here, not a failure of the command."""
+    order = [(other, HERE, HERE, other)[i % 4] for i in range(2 * runs)]
+    out = []
+    for i, root in enumerate(order):
+        proc = subprocess.run(
+            [sys.executable, "-c", _AB_GRAPH_CHILD, os.path.abspath(root)],
+            capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"graph_check run of {root} failed:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"[A/B graph_check] run {i + 1}, {root}: "
+              + (f"passed; limit {r['limit']}, graph {r['graph']}, "
+                 f"deterministic rerun {r['deterministic_ran']}"
+                 if r["passed"] else f"FAILED: {r['error']}"), flush=True)
+        out.append(r)
+    for root in (other, HERE):
+        got = [r["passed"] for r in out if r["tree"] == os.path.abspath(root)]
+        print(f"[A/B graph_check] {root}: passed {sum(got)} of {len(got)}")
+    return out
+
+
 def ab(other: str, case: str = "k1_fwd") -> list[dict]:
     """The A/B case ``case`` (``AB_CASES``, or ``step``: ``ab_step``) run on
     the tree ``other`` (A) and on this one (B) in the order A B B A, each
@@ -4612,6 +4973,8 @@ def ab(other: str, case: str = "k1_fwd") -> list[dict]:
     numbers."""
     if case == "step":
         return ab_step(other)
+    if case == "graph_check":
+        return ab_graph_check(other)
     check(case in AB_CASES, f"no A/B case {case!r}; cases: "
           f"{sorted(AB_CASES)} and step")
     runs = []
@@ -4638,8 +5001,8 @@ def ab(other: str, case: str = "k1_fwd") -> list[dict]:
 
 
 def multi_only() -> int:
-    """``--multi``: the build and phase 17(e) alone, on a machine with two
-    or more cards."""
+    """``--multi``: the build and phases 17(e) and 19(e) alone, on a
+    machine with two or more cards."""
     import torch
     if torch.cuda.device_count() < 2:
         raise SmokeFailure(f"--multi needs two cards; "
@@ -4659,14 +5022,38 @@ def multi_only() -> int:
     return 0
 
 
+def memory_only() -> int:
+    """``--memory``: the build and phase 19 (``memory_phase``) alone."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from iaf_torch import ops
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    build_phase(ops, device)
+    print(json.dumps({"memory": memory_phase(ops, device)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     """No arguments: the smoke run above. ``--ab DIR [CASE]``: only ``ab``
     of CASE (default ``k1_fwd``) against the tree unpacked at DIR (for
     example ``git archive`` of the parent commit under build/).
-    ``--multi``: ``multi_only``."""
+    ``--multi``: ``multi_only``; ``--memory``: ``memory_only``."""
     try:
         if sys.argv[1:] == ["--multi"]:
             return multi_only()
+        if sys.argv[1:] == ["--memory"]:
+            return memory_only()
         if len(sys.argv) in (3, 4) and sys.argv[1] == "--ab":
             import torch
             if not torch.cuda.is_available():

@@ -6,10 +6,16 @@ so an ``--hpconfig`` string or a JAX run's ``hps.json`` loads unchanged.
 Fields that only steer the TPU build are accepted and ignored here:
 ``kernels`` and ``ar_variant`` (on CUDA the hand-written kernels always
 run, on the CPU their plain twins), ``pin_state_layouts`` and
-``fused_opt_layout_aware`` (XLA layout choices), ``scan_blocks`` and
-``remat`` (XLA program-shape choices), and ``num_gpus`` (as in the JAX
-CLI: ``torchrun`` sets the ranks). ``mesh_data`` is the data axis, the
-process group of ``parallel/mesh.py``: 0 (all ranks) or the world size;
+``fused_opt_layout_aware`` (XLA layout choices), ``scan_blocks`` alone
+(an XLA program-shape choice), and ``num_gpus`` (as in the JAX CLI:
+``torchrun`` sets the ranks). ``scan_blocks`` with ``remat`` is JAX's
+activation-memory lever and is honoured: the CIFAR model's training
+forward checkpoints each IAF layer's up and down pass and recomputes
+them in the backward (``models/cvae.py``); ``remat`` without
+``scan_blocks`` changes nothing, as in JAX, and the MNIST family has no
+remat. ``grad_accum`` A splits each step's global batch into A
+micro-batches, over any number of ranks. ``mesh_data`` is the data axis,
+the process group of ``parallel/mesh.py``: 0 (all ranks) or the world size;
 ``mesh_model`` > 1, JAX's reserved model axis, is not ported and
 raises. ``steps_per_dispatch`` S is the training loop's:
 S steps a dispatch, on the card S replays of the step's CUDA graph
@@ -95,9 +101,9 @@ class Config:
     seed: int = 123
     steps_per_dispatch: int = 1       # steps per dispatch (graph replays)
 
-    scan_blocks: bool = False         # accepted, ignored (XLA program shape)
+    scan_blocks: bool = False         # alone: accepted, ignored (XLA)
     fold_wn: bool = True
-    remat: bool = False               # accepted, ignored (XLA program shape)
+    remat: bool = False               # with scan_blocks: per-layer recompute
     pin_state_layouts: bool = False   # accepted, ignored (XLA layouts)
     fused_opt_layout_aware: bool = True  # accepted, ignored (XLA layouts)
 

@@ -16,6 +16,10 @@ division-form update through K3 and the likelihood through K4
 position (``ARMultiDense``, plain ``F.linear``, as the JAX package runs
 it in XLA). The
 data-dependent init runs plain convs, as JAX's init never reaches Pallas.
+With ``scan_blocks`` and ``remat`` a training forward under autograd
+checkpoints each layer's up and down pass (``torch.utils.checkpoint``):
+their activations are recomputed in the backward, so on CUDA every
+layer's forward kernels run twice a step.
 
 Noise: every layer's posterior draw comes from the site
 ``block_i/layer_j/z_post`` under the step key (``core.rng``), its prior
@@ -39,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from iaf_torch import ops
 from iaf_torch.bridge import normal_leaf
@@ -263,6 +268,17 @@ def draw_noise(cfg: Config, rng: int,
         normal_into(fold_name(fold_name(rng, name), "z_post"), out[site])
 
 
+def _layer_pass(remat: bool, fn, *args):
+    """``fn(*args)``, one layer's up or down pass; under ``remat`` in a
+    non-reentrant ``torch.utils.checkpoint``, which keeps the arguments
+    (the layer's noise among them, so the recompute draws nothing) and
+    runs ``fn`` again in the backward to rebuild what it saved."""
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
                  k: int | None = None,
                  noise: Mapping[str, torch.Tensor] | None = None) -> ModelOut:
@@ -279,9 +295,14 @@ def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
     batch = x.shape[0]
 
     h = model.x_enc(x, dtype)
+    # remat: each layer's up and down pass keeps only its inputs and
+    # recomputes the rest in the backward (JAX's jax.checkpoint of the
+    # scanned layer body, so only with scan_blocks); training only
+    remat = (cfg.scan_blocks and cfg.remat and mode == "train"
+             and torch.is_grad_enabled())
     stats = []
     for layer in model.blocks:
-        h, st = iaf_layer_up(cfg, layer, h, dtype)
+        h, st = _layer_pass(remat, iaf_layer_up, cfg, layer, h, dtype)
         stats.append(st)
 
     dec_hw = cfg.image_size // 2
@@ -291,8 +312,9 @@ def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
     zshape = (batch, dec_hw, dec_hw, cfg.z_size)
     for i in reversed(range(n)):
         eps = _eps(cfg, rng, i, zshape, device, noise)
-        h, objs[i], costs[i] = iaf_layer_down(cfg, model.blocks[i], h,
-                                              stats[i], eps, dtype)
+        h, objs[i], costs[i] = _layer_pass(remat, iaf_layer_down, cfg,
+                                           model.blocks[i], h, stats[i],
+                                           eps, dtype)
     if cfg.kl_min > 0:
         objs = free_bits(cfg, objs, batch,
                          mode == "train" and mesh.active())

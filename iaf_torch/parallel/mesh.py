@@ -14,11 +14,17 @@ collectives change no bit.
 
 The data axis is the group: ``cfg.batch_size`` is the global batch, each
 rank takes ``batch_size / world`` rows of it, and a data-parallel step
-equals one step on the whole batch (``parallel/train_step.py``). JAX's
+equals one step on the whole batch (``parallel/train_step.py``). With
+``grad_accum`` > 1 the step exchanges rows first: ``all_gather`` makes
+the global batch on every rank, and each rank takes its part of every
+micro-batch, as JAX reshards each micro-batch over the data axis. JAX's
 ``model`` axis, reserved and off by default there
 (``iaf_tpu/parallel/mesh.py:27-33``), is not ported: no layer of either
-package shards over it, so it would add a second group and nothing to
-compute on it; ``mesh_model > 1`` raises, naming ROADMAP queue 1 item 4.
+package shards over it, and JAX's feed gives each process its own rows
+(``iaf_tpu/data/feed.py — make_global_batch``), so a model axis across
+processes (the only kind one process per card allows) has no meaning
+the reference defines; ``mesh_model > 1`` raises, naming ROADMAP queue 1
+item 4.
 A fault in the group (it does not form, a collective fails) raises;
 nothing falls back to one process.
 """

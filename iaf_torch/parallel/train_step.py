@@ -34,9 +34,14 @@ ranks and divided by their number before K5 (one all-reduce; a global
 ``grad_clip`` norm therefore keeps JAX's meaning), and the metrics are
 the ranks' means (one small all-reduce). On the card all three are
 captured in the step's graph, on the capture stream; the eager warm-up
-issues them first. ``grad_accum`` > 1 on more than one rank raises: JAX
-reorders micro-batch rows across hosts, an exchange the port does not
-have (ROADMAP queue 1, item 4).
+issues them first. With ``grad_accum`` A > 1 under a group the ranks'
+batches are first gathered into the global batch, in rank order (one
+all-gather, captured with the rest): micro-batch a is its rows
+[a·m, (a+1)·m), m = B / A, and rank r takes the r-th of their equal
+parts, the shard JAX's resharding of micro-batch a over the data axis
+gives device r (``iaf_tpu/parallel/train_step.py:66-70``). So free bits
+clamps the KL means of the same rows as in JAX, and each rank's noise
+(its rows of micro-batch a's global draw) pairs with its images.
 """
 
 from __future__ import annotations
@@ -107,21 +112,14 @@ def _accumulate(cfg: Config, model: torch.nn.Module, rng: int, batch,
     """``_grads_and_metrics`` summing into the gradients as they are (None,
     or zeros)."""
     a_count = max(1, cfg.grad_accum)
-    if a_count > 1 and mesh.world() > 1:
-        raise NotImplementedError(
-            f"grad_accum={a_count} on {mesh.world()} ranks: JAX reorders "
-            "micro-batch rows across hosts, which the port does not "
-            "(ROADMAP queue 1, item 4)")
     if a_count == 1:
         loss, out = loss_fn(cfg, model, rng, batch, noise)
         loss.backward()
         metrics = _out_metrics(loss, out)
     else:
-        micro = _micro_batch(cfg, batch.shape[0])
         m_sum = None
-        for a in range(a_count):
-            loss, out = loss_fn(cfg, model, fold(rng, a),
-                                batch[a * micro:(a + 1) * micro],
+        for a, rows in enumerate(_micro_batches(cfg, batch)):
+            loss, out = loss_fn(cfg, model, fold(rng, a), rows,
                                 None if noise is None else noise[a])
             loss.backward()   # sums into .grad: g_0 + g_1 + ...
             m = _out_metrics(loss, out)
@@ -136,11 +134,29 @@ def _accumulate(cfg: Config, model: torch.nn.Module, rng: int, batch,
 
 
 def _micro_batch(cfg: Config, n: int) -> int:
-    a_count = max(1, cfg.grad_accum)
+    """This rank's rows of a micro-batch, for a local batch of ``n`` rows:
+    the global batch must split into grad_accum x world equal parts."""
+    a_count, d = max(1, cfg.grad_accum), mesh.world()
     if n % a_count:
-        raise ValueError(f"batch {n} does not split into grad_accum="
-                         f"{a_count} equal micro-batches")
+        raise ValueError(f"batch {n * d} does not split into grad_accum="
+                         f"{a_count} x {d} rank(s) = {a_count * d} equal "
+                         "parts")
     return n // a_count
+
+
+def _micro_batches(cfg: Config, batch: torch.Tensor) -> list[torch.Tensor]:
+    """This rank's rows of each micro-batch. Under a group the ranks'
+    batches are gathered into the global batch first (in rank order, as
+    the data feed hands them out), so micro-batch a is the global rows
+    [a·m, (a+1)·m), m = B / A, of which rank r keeps the r-th of world
+    equal parts; with no group, the batch's A contiguous parts. A failed
+    gather raises."""
+    micro = _micro_batch(cfg, batch.shape[0])
+    r, m = mesh.rank(), micro * mesh.world()
+    if mesh.active():
+        batch = mesh.all_gather(batch)
+    return [batch[a * m + r * micro:a * m + (r + 1) * micro]
+            for a in range(max(1, cfg.grad_accum))]
 
 
 def _mean_over_ranks(flat: torch.Tensor) -> torch.Tensor:

@@ -164,7 +164,8 @@ def test_chunk_matches_jax_make_train_chunk():
 
 
 @pytest.mark.parametrize("extra", ["", ",grad_accum=2",
-                                   ",bias_correction=True,grad_clip=1.0"])
+                                   ",bias_correction=True,grad_clip=1.0",
+                                   ",scan_blocks=true,remat=true"])
 def test_static_step_equals_eager_train_step(extra):
     """``make_train_step``'s body (static batch and noise buffers, flat
     gradients zeroed in place) against the eager ``train_step`` on a copy

@@ -7,11 +7,14 @@ work. Held, all in f32:
   2-device mesh, every leaf within 1e-4 of its max, free bits
   (``kl_min=0.25``) clamping some channels and not others, both ranks'
   parameters bitwise equal, and the eager step's bitwise the graphed
-  body's;
+  body's; the same at grad_accum=2 against JAX's step at grad_accum=2
+  (each micro-batch's global draw injected), with a guard that free bits
+  clamps other channels under JAX's micro-batch grouping than under
+  each rank splitting its own rows;
 - ``train`` over 2 ranks (no injected noise: each rank its rows of the
   global draws) against one process on the whole batch: the checkpoint
   of step 1 within 1e-5 and of step 3 within 1e-4 of each leaf's max,
-  in both model families;
+  in both model families, at grad_accum 1 and 2;
 - the k-sharded IW eval (k = 8) and the batch-sharded k = 1 ELBO against
   JAX's ``make_eval_step`` and ``make_batch_sharded_elbo`` (rtol 1e-5,
   atol 1e-4 nats);
@@ -50,6 +53,7 @@ from iaf_torch.models import cvae
 from iaf_torch.parallel import mesh
 
 WORLD = 2
+ACCUM = 2            # grad_accum of the accumulation cases
 TINY = ("dataset=synthetic,image_size=4,z_size=4,h_size=8,depth=1,"
         "num_blocks=2,depth_ar=2,kl_min=0.25,batch_size=4,seed=5,"
         "compute_dtype=float32")
@@ -59,6 +63,12 @@ INV = {"cifar": TINY + ",total_steps=3,ckpt_every=1,log_every=1",
                  "ar_hidden_size=16,depth_ar=1,flow_depth=2,kl_min=0.25,"
                  "batch_size=4,seed=5,compute_dtype=float32,total_steps=3,"
                  "ckpt_every=1,log_every=1")}
+# grad_accum=2 over 2 ranks: two rows a rank a micro-batch. PyTorch's
+# CPU convs at batch 1 round otherwise than at batch 2: one process's
+# gradient of a 2-row batch taken as two 1-row backward passes differs
+# from the 2-row one by ~5e-5 of a leaf's max, above step 1's 1e-5
+INV.update({f"{fam}_a2": hp + f",grad_accum={ACCUM},batch_size=8"
+            for fam, hp in list(INV.items())})
 RUN = ("dataset=synthetic,image_size=8,z_size=2,h_size=8,depth=1,"
        "num_blocks=1,depth_ar=1,ar_hidden_size=8,kl_min=0.0,batch_size=8,"
        "total_steps=6,ckpt_every=3,log_every=3,eval_every=3,"
@@ -115,20 +125,26 @@ def run(tmp_path_factory):
     base_key = jax.random.PRNGKey(tcfg.seed)
     jstate = jts.init_train_state(jcfg, jax.random.fold_in(base_key, 1),
                                   batches[0])
-    params0 = jax.tree.map(np.asarray, jstate.params)
+    jhost = jax.tree.map(np.array, jstate)   # the first step donates it
+    params0 = jhost.params
     sd0 = {k: v.numpy() for k, v in from_jax_params(params0).items()}
     keys = [jax.random.fold_in(base_key, i) for i in range(3)]
+    # grad_accum=2: each micro-batch's global draw, fold_in(key, a)
+    micro = tcfg.batch_size // ACCUM
+    noise_a = [[_jax_noise(tcfg, jax.random.fold_in(k, a), micro)
+                for a in range(ACCUM)] for k in keys]
     eval_x = batches[0][:2]
     eval_key = jax.random.PRNGKey(11)
     inputs = {
         "hp": TINY, "params0": sd0, "batches": batches,
         "noise": [_jax_noise(tcfg, k, tcfg.batch_size) for k in keys],
+        "noise_accum": noise_a,
         "eval_x": eval_x,
         "eval_noise": [[_jax_noise(tcfg, jax.random.fold_in(
             jax.random.fold_in(eval_key, r), i), 2 * 2) for i in range(2)]
             for r in range(WORLD)],
         "k1_noise": _jax_noise(tcfg, eval_key, 2),
-        "inv_hp_cifar": INV["cifar"], "inv_hp_mnist": INV["mnist"],
+        **{f"inv_hp_{fam}": hp for fam, hp in INV.items()},
         "run_hp": RUN}
     with open(os.path.join(d, "inputs.pkl"), "wb") as f:
         pickle.dump(inputs, f)
@@ -153,12 +169,24 @@ def run(tmp_path_factory):
         for k, b in zip(keys, batches):
             js, jm = step_fn(js, k, jnp.asarray(b))
             jlosses.append(float(jm["loss"]))
+        acfg = jcfg.replace(grad_accum=ACCUM)
+        step_a = jts.make_train_step(acfg, make_mesh(acfg,
+                                                     jax.devices()[:WORLD]))
+        ja = jts.place_state(jhost, mesh2, acfg)
+        jlosses_a = []
+        for k, b in zip(keys, batches):
+            ja, jm = step_a(ja, k, jnp.asarray(b))
+            jlosses_a.append(float(jm["loss"]))
         ecfg = jcfg.replace(eval_k_chunk=2)
         want_k8 = np.asarray(jev.make_eval_step(ecfg, mesh2, k=8)(
             params0, eval_key, jnp.asarray(eval_x)))
         want_k1 = np.asarray(jev.make_batch_sharded_elbo(ecfg, mesh2, k=1)(
             params0, eval_key, jnp.asarray(eval_x)))
         kl_aves = _kl_means(tcfg, sd0, batches[0], inputs["noise"][0])
+        kl_groups = {g: [_kl_means(tcfg, sd0, batches[0][rows],
+                                   noise_a[0][a])
+                         for a, rows in enumerate(_micro_rows(tcfg, g))]
+                     for g in ("jax", "rank_local")}
         for fam, hp in INV.items():
             cfg = Config().parse(hp).replace(logdir=os.path.join(d,
                                                                  f"ref_{fam}"))
@@ -177,7 +205,22 @@ def run(tmp_path_factory):
         with open(os.path.join(d, f"out_{r}.pkl"), "rb") as f:
             res.append(pickle.load(f))
     return dict(d=d, res=res, outs=outs, jstate=js, jlosses=jlosses,
-                want_k8=want_k8, want_k1=want_k1, kl_aves=kl_aves)
+                jstate_a=ja, jlosses_a=jlosses_a, want_k8=want_k8,
+                want_k1=want_k1, kl_aves=kl_aves, kl_groups=kl_groups)
+
+
+def _micro_rows(cfg, grouping):
+    """The global batch's rows in each of ``ACCUM`` micro-batches: JAX's
+    (micro-batch a is rows [a·m, (a+1)·m), resharded over the ranks), or
+    the grouping of ranks that each split their own rows (micro-batch a
+    is every rank's local rows [a·m/D, (a+1)·m/D))."""
+    B = cfg.batch_size
+    m, per = B // ACCUM, B // WORLD
+    if grouping == "jax":
+        return [np.arange(a * m, (a + 1) * m) for a in range(ACCUM)]
+    return [np.concatenate([np.arange(r * per + a * (m // WORLD),
+                                      r * per + (a + 1) * (m // WORLD))
+                            for r in range(WORLD)]) for a in range(ACCUM)]
 
 
 def _kl_means(tcfg, sd, batch, noise):
@@ -227,11 +270,48 @@ def test_two_ranks_match_jax_two_device_trajectory(run):
             _close(leaf, want[path], 1e-4, jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize("fam", ["cifar", "mnist"])
+def test_grad_accum_over_ranks_matches_jax_two_device_trajectory(run):
+    """grad_accum=2 over 2 gloo ranks, 3 steps of the graphed-step body
+    with JAX's per-micro-batch global draws injected, against JAX's
+    ``make_train_step`` at grad_accum=2 on a 2-device mesh (micro-batch
+    a: global rows [a·B/2, (a+1)·B/2), resharded); both ranks bitwise,
+    the eager step bitwise the graphed body."""
+    a, b = (r["traj_accum"] for r in run["res"])
+    for part in ("params", "ema"):
+        for k in a[part]:
+            np.testing.assert_array_equal(a[part][k], b[part][k], err_msg=k)
+            for r in run["res"]:
+                np.testing.assert_array_equal(r["traj_accum_eager"][part][k],
+                                              a[part][k], err_msg=k)
+    for got, want in zip(run["res"][0]["traj_accum_losses"],
+                         run["jlosses_a"]):
+        assert abs(got - want) <= 1e-4 * abs(want), (got, want)
+    js = run["jstate_a"]
+    for part, jtree in (("params", js.params), ("ema", js.opt.ema)):
+        got = to_jax_params({k: torch.from_numpy(v)
+                             for k, v in a[part].items()})
+        want = dict(jax.tree_util.tree_leaves_with_path(jtree))
+        for path, leaf in jax.tree_util.tree_leaves_with_path(got):
+            _close(leaf, want[path], 1e-4, jax.tree_util.keystr(path))
+
+
+def test_grad_accum_grouping_shows_in_free_bits(run):
+    """The guard of the test above: on its data, free bits clamps other
+    channels under JAX's micro-batch grouping than under the grouping of
+    ranks that each split their own rows, so a port that skipped the
+    row exchange would fail it."""
+    jax_g, local = (run["kl_groups"][g] for g in ("jax", "rank_local"))
+    clamps = [[kl < 0.25 for kl in grouping] for grouping in (jax_g, local)]
+    assert any(c.any() and (~c).any() for c in clamps[0]), jax_g
+    assert any((x != y).any() for x, y in zip(*clamps)), (jax_g, local)
+
+
+@pytest.mark.parametrize("fam", ["cifar", "mnist", "cifar_a2", "mnist_a2"])
 def test_world_size_does_not_change_the_step(run, fam):
-    """``train`` over 2 ranks equals one process on the whole batch:
-    step 1 within 1e-5, step 3 within 1e-4 of each leaf's max (params,
-    m, u, EMA); both ranks' final states bitwise equal."""
+    """``train`` over 2 ranks equals one process on the whole batch (also
+    at grad_accum=2, ``_a2``): step 1 within 1e-5, step 3 within 1e-4 of
+    each leaf's max (params, m, u, EMA); both ranks' final states bitwise
+    equal."""
     d = run["d"]
     for step, rel in ((1, 1e-5), (3, 1e-4)):
         for part in ("params", "opt"):
@@ -306,7 +386,10 @@ def test_what_must_raise(run):
     for r in run["res"]:
         assert r["raised"] == {"mesh_model": "NotImplementedError",
                                "mesh_data": "ValueError",
-                               "grad_accum": "NotImplementedError"}
+                               "grad_accum": "ValueError"}
+        # a global batch of 6 splits into grad_accum=2 but not into 2 x 2
+        assert "batch 6" in r["accum_error"], r["accum_error"]
+        assert "grad_accum=2 x 2 rank" in r["accum_error"], r["accum_error"]
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
         mesh.check_config(Config(mesh_model=2))
     mesh.check_config(Config(mesh_data=1))             # one process

@@ -94,6 +94,29 @@ def main() -> None:
                              for k, v in noise.items()})
     out["traj_eager"] = _state_np(state)
 
+    # the same at grad_accum=2: JAX's per-micro-batch global draws
+    acfg = tcfg.replace(grad_accum=2)
+    for name, graphed in (("traj_accum", True), ("traj_accum_eager", False)):
+        model = model_from(inp["params0"])
+        state = ts.TrainState(model, optim.init_state(
+            dict(model.named_parameters())))
+        step = ts.make_train_step(acfg, state) if graphed else None
+        losses = []
+        for i, (batch, noise) in enumerate(zip(inp["batches"],
+                                               inp["noise_accum"])):
+            noise = [{k: torch.from_numpy(v) for k, v in nz.items()}
+                     for nz in noise]
+            local = batch[r * per:(r + 1) * per]
+            if graphed:
+                _, m = step(state, i, local, noise=noise)
+            else:
+                _, m = ts.train_step(acfg, state, i, local, noise=noise)
+            losses.append(float(m["loss"]))
+        if graphed:
+            step.close()
+            out["traj_accum_losses"] = losses
+        out[name] = _state_np(state)
+
     # the k-sharded IW eval, this rank's draws injected per chunk
     ecfg = tcfg.replace(eval_k_chunk=2)
     model = model_from(inp["params0"])
@@ -108,7 +131,7 @@ def main() -> None:
                for k, v in inp["k1_noise"].items()}).numpy()
 
     # world size does not change the step: train with no injected noise
-    for fam in ("cifar", "mnist"):
+    for fam in ("cifar", "mnist", "cifar_a2", "mnist_a2"):
         cfg = Config().parse(inp[f"inv_hp_{fam}"]).replace(
             logdir=os.path.join(d, f"inv_{fam}"))
         out[f"inv_{fam}"] = _state_np(train_lib.train(cfg, device="cpu"))
@@ -143,13 +166,13 @@ def main() -> None:
             mesh.check_config(bad)
         except (NotImplementedError, ValueError) as e:
             raised[name] = type(e).__name__
-    try:
-        acfg = tcfg.replace(grad_accum=2)
+    try:   # 3 rows a rank: a global batch of 6 at grad_accum=2
         model = model_from(inp["params0"])
         ts.train_step(acfg, ts.TrainState(model, optim.init_state(
-            dict(model.named_parameters()))), 0, inp["batches"][0][:per])
-    except NotImplementedError:
-        raised["grad_accum"] = "NotImplementedError"
+            dict(model.named_parameters()))), 0, inp["batches"][0][:3])
+    except ValueError as e:
+        raised["grad_accum"] = "ValueError"
+        out["accum_error"] = str(e)
     out["raised"] = raised
     out["writes"] = WRITES
     mesh.barrier("done")
