@@ -5,10 +5,18 @@
     python3 chip_smoke.py --multi           # phases 17(e) and 19(e)
                                             # alone (2+ cards)
     python3 chip_smoke.py --memory          # phase 19 alone
-    python3 chip_smoke.py --ab DIR [CASE]   # one kernel of DIR's tree
+    python3 chip_smoke.py --plans           # K1's forward on every
+                                            # launch plan at six shapes
+                                            # (``plans_only``)
+    python3 chip_smoke.py --ab DIR [CASE] [PAIRS]
+                                            # one kernel of DIR's tree
                                             # against this one's, A B B A
-                                            # (``ab``; CASE in AB_CASES:
+                                            # repeated to PAIRS pairs
+                                            # (default 2)
+                                            # (``ab``; CASE, or several
+                                            # joined by commas, in AB_CASES:
                                             # k1_fwd, k1_fwd_f32,
+                                            # k1_fwd_small,
                                             # k1_bwd_f32, f32_step,
                                             # f32_chunk, k2_fwd_f32,
                                             # k2_bwd_f32, f32_chunk_5x5,
@@ -18,6 +26,10 @@
                                             # graph_check: phase 15(a)'s
                                             # f32 check alone, 5 runs a
                                             # tree)
+    python3 chip_smoke.py --invert-ab [PAIRS]
+                                            # invert_check on K1's plan
+                                            # against the whole-image one
+                                            # (``invert_plan_ab``)
 
 Phases, any failure exits non-zero:
 
@@ -51,6 +63,13 @@ Phases, any failure exits non-zero:
    row split over ``dl_plan``'s S blocks of a cluster) is held to its twin
    at 1e-5 per row, gives the same bits on two calls, and lists its
    device kernels per call and its device time at every S.
+   K1's launch plan (``fwd_plan``, ``k1_plans``): at N = 1024 and at the
+   training shape the plan it picks and the whole-image plan run on the
+   same inputs, each held to the twin (heads and pre-activations), the
+   picked one bitwise the whole-image one's, each timed by device time
+   and events with its blocks, the bound and cuDNN's three
+   convs beside them, and where they differ the two A B B A (phase 6
+   does the same in f32, phase 14 at N = 16 bf16 and N = 2 f32).
    One chunk is then profiled (device time by kernel name).
 4. Port vs plain on a small input: one f32 eval forward on the card
    (kernels) against the same forward on the CPU (twins), same noise.
@@ -200,7 +219,10 @@ Phases, any failure exits non-zero:
    1e-4; then the fixed-point inverse of the same z', card against the
    CPU twins, within 1e-5 of max, the sweeps equal at a tolerance
    halfway (in log) between the CPU's changes either side of 1e-6 and
-   at most one apart at 1e-6 itself (printed).
+   at most one apart at 1e-6 itself (printed). K1's launch plans run on
+   the captured inputs of (c) and (e) as in phase 3 (``k1_plans``), and
+   ``invert_check``'s seconds and one sweep's ms are printed beside their
+   figures before the plans (``INVERT_BEFORE``).
 
 15. The captured training step (``train_step.make_train_step``): (a)
    three eager ``train_step``s against the graphed step (warm-up, then
@@ -422,20 +444,26 @@ def _device_events(prof) -> list[tuple[str, float, int]]:
     return [d for d in events if d[1] > 0]
 
 
-def device_kernels(fn, iters: int = 20, warmup: int = 3,
-                   attempts: int = 3) -> list[tuple[str, float, int]]:
+def device_kernels(fn, iters: int = 20, warmup: int = 3, attempts: int = 3,
+                   expect: tuple[str, ...] = ()
+                   ) -> list[tuple[str, float, int]]:
     """Per call of ``fn``: (name, device ms, launches) of each kernel, copy
     and memset it puts on the card, from torch.profiler over ``warmup`` +
     ``iters`` calls after one untraced call. The profiler on the card can
     start recording late: it has missed the first launches of a window
     (half of 6 calls of 2.6 ms each, in every window of a phase, late in
     a long run), and now and then a whole short one. So the window opens
-    with a pause, and a window that recorded no kernel once a call is
-    profiled again after a pause four times as long over twice as many
-    calls, so that a missed start is a smaller share of it (``attempts``
-    in all, saying so on standard error); each name's time is its mean
-    per launch times its launches per call (its count over the calls,
-    rounded). Host gaps between launches do not count."""
+    with a pause, and a window that missed launches (a name seen fewer
+    times than once a call, or a name in ``expect`` not seen: each a
+    substring of a kernel's name that ``fn`` launches) is profiled again
+    after a pause four times as long over twice as many calls, so that a
+    missed start is a smaller share of it (``attempts`` in all, saying so
+    on standard error); each name's time is its mean per launch times its
+    launches per call (its count over the calls, rounded, and at least 1:
+    a name still seen fewer times than once a call after the last window
+    counts once a call, as the profiler drops launches far more often than
+    a call of these functions skips one); an ``expect`` name still missing
+    fails the run. Host gaps between launches do not count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -449,17 +477,21 @@ def device_kernels(fn, iters: int = 20, warmup: int = 3,
                 fn()
             torch.cuda.synchronize()
         events = _device_events(prof)
-        if any(round(count / calls) for _, _, count in events):
+        missing = [e for e in expect if not any(e in k for k, _, _ in events)]
+        short = [k for k, _, count in events if not round(count / calls)]
+        if events and not missing and not short:
             break
         print(f"[profile] {getattr(fn, '__qualname__', fn)}: a window of "
               f"{calls} calls recorded {events} on the card ("
-              f"{len(prof.key_averages())} names in all); again",
+              f"{len(prof.key_averages())} names in all; missing "
+              f"{missing}, under once a call {short}); again",
               file=sys.stderr)
+    check(not missing, f"{attempts} profiler windows of "
+          f"{getattr(fn, '__qualname__', fn)} missed {missing}: {events}")
     out = []
     for key, us, count in events:
-        per_call = round(count / calls)
-        if per_call:
-            out.append((key, us / count * per_call / 1e3, per_call))
+        per_call = max(1, round(count / calls))
+        out.append((key, us / count * per_call / 1e3, per_call))
     return out
 
 
@@ -675,6 +707,166 @@ def _k1_f32_shape(ops, ar_mod, label, z, ctx, ws, bs, masks,
             "device_launches_per_call": per_call, **b}
 
 
+# ``invert_check``'s seconds and one sweep's ms before the sweep's host
+# work was hoisted and ``fwd_plan`` came (PERF.md's serving figures)
+INVERT_BEFORE = (14.063, 0.647)
+# K1's forward device ms a call before ``fwd_plan``, all on the whole-image
+# plan (PERF.md §6's earlier figures), by shape label
+K1_BEFORE = {"N=1024 bf16": 0.3766, "N=1024 f32": 1.7428,
+             "b32 bf16": 0.0517, "b32 f32": 0.2262, "N=16 bf16": 0.0508,
+             "N=2 f32": 0.2249}
+
+
+def _k1_plan_label(plan, h) -> str:
+    """A plan as words: whole-image or bands, with its blocks."""
+    if plan.band >= h:
+        return f"whole-image ({plan.blocks} blocks)"
+    return f"bands of {plan.band} rows, {plan.blocks} blocks"
+
+
+def _k1_call_ms(call) -> tuple[float, float]:
+    """(device ms, main kernel ms) a call of K1's forward ``call`` (the
+    weight pack and the main kernel, one launch each a call)."""
+    found = device_kernels(call, expect=("ar_pack_w", "ar_stack"))
+    return (sum(ms for _, ms, _ in found),
+            sum(ms for k, ms, _ in found if "ar_stack" in k))
+
+
+def k1_plans(ops, ar_mod, label, z, ctx, ws, bs, save_pre: bool,
+             candidates: bool = False) -> dict:
+    """K1's forward on (z, ctx, ws, bs), the pre-activations written with
+    ``save_pre``, on the plan ``fwd_plan`` picks and on the whole-image
+    plan (with ``candidates`` at N >= SMs also a banded walk of several
+    items a block), on the same
+    inputs: each plan's heads (and pre-activations) held to the twin
+    (bf16 at 2e-2 of each one's max; f32 at 1e-5 of each one's max of the
+    twin in f64) and compared bitwise with the whole-image plan's; device
+    ms a call (weight pack included; the main kernel apart) and events
+    ms; blocks; cuDNN's three convs (TF32 off) by device time and the
+    bound. The picked plan must be bitwise the whole-image one;
+    then the two A B B A by device time. Returns the numbers."""
+    import torch
+    n, h, w_, cz = z.shape
+    ch, cout = ws[0].shape[-1], ws[-1].shape[-1]
+    f32 = z.dtype == torch.float32
+    sms = ar_mod._sms(z.device.index)
+    picked = ar_mod.fwd_plan(z.dtype, n, h, w_, cz, ch, cout, len(ws), sms)
+    whole = ar_mod.whole_plan(n, h, sms)
+    plans = [picked] + ([whole] if whole != picked else [])
+    if candidates and n >= sms and 8 + 1 - len(ws) >= 1:
+        plans.append(ar_mod.FwdPlan(band=8 + 1 - len(ws), blocks=sms))
+    tol = 1e-5 if f32 else 2e-2
+    with torch.inference_mode():
+        ref = ops.ar_stack_ref_pre(*(_f64(z, ctx, ws, bs) if f32 else
+                                     (z, ctx, ws, bs)))
+        ref = [ref[0], *ref[1]]
+        outs = {p: ar_mod._fwd(z, ctx, ws, bs, save_pre, plan=p)
+                for p in plans}
+        lib_dev = device_ms(lambda: k1_yardstick(z, ctx, ws, bs))
+    flops = 2 * n * h * w_ * 5 * sum(w.shape[2] * w.shape[3] for w in ws)
+    base = outs[whole]
+    moved = (nbytes(z, ctx, base[0], *base[1], *bs)
+             + sum(5 * w[0, 0].numel() * w.element_size() for w in ws))
+    b_ms, b_by = bound_ms(flops, "tf32" if f32 else "bfloat16", moved)
+    before = K1_BEFORE.get(label)
+    print(f"[K1 plans {label}] z{tuple(z.shape)} {str(z.dtype)[6:]}"
+          f"{' with pre-activations' if save_pre else ''}: cuDNN (TF32 off) "
+          f"{lib_dev:.4f} device ms, bound {b_ms:.4f} ms ({b_by})"
+          + (f"; the whole-image plan's {before} device ms a call before "
+             "fwd_plan (PERF.md)" if before else ""))
+    rows = {}
+    for p in plans:
+        out, pre = outs[p]
+        got = [out, *pre]
+        worst = max(_rel_err(a, b)[1] for a, b in zip(got, ref))
+        same = all(torch.equal(a, b) for a, b in zip(got, [base[0],
+                                                           *base[1]]))
+        call = (lambda p=p: ar_mod._fwd(z, ctx, ws, bs, save_pre, plan=p))
+        with torch.inference_mode():
+            dev, kern = _k1_call_ms(call)
+            ev = cuda_ms(call)
+        rows[p] = dict(device_ms=dev, kernel_ms=kern, ms=ev, rel_err=worst,
+                       bitwise=same)
+        print(f"[K1 plans {label}] {_k1_plan_label(p, h)}"
+              f"{' (picked)' if p == picked else ''}: {worst:.3e} of max "
+              f"from the twin{' in f64' if f32 else ''} (limit {tol}), "
+              f"bitwise the whole-image plan's: {same}; device "
+              f"{dev:.4f} ms a call (kernel {kern:.4f}), events {ev:.4f} "
+              f"ms; cuDNN/plan {lib_dev / dev:.2f}x")
+        check(worst <= tol, f"K1 {label} plan {p}: {worst} of max > {tol}")
+    check(rows[picked]["bitwise"], f"K1 {label}: the picked plan {picked} "
+          "is not bitwise the whole-image plan")
+    result = dict(plan=picked._asdict(), blocks=picked.blocks,
+                  plan_rel_err=rows[picked][
+                      "rel_err"], bitwise_whole=rows[picked]["bitwise"],
+                  library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
+                  candidates={_k1_plan_label(p, h): r
+                              for p, r in rows.items()})
+    if picked != whole:
+        with torch.inference_mode():
+            turns = [_k1_call_ms(lambda p=p: ar_mod._fwd(
+                z, ctx, ws, bs, save_pre, plan=p))[0]
+                for p in (picked, whole, whole, picked)]
+        result.update(abba=turns, plan_device_ms=(turns[0] + turns[3]) / 2,
+                      whole_device_ms=(turns[1] + turns[2]) / 2)
+        print(f"[K1 plans {label}] picked against whole-image, A B B A "
+              f"device ms {', '.join(f'{t:.4f}' for t in turns)}: "
+              f"{result['plan_device_ms']:.4f} against "
+              f"{result['whole_device_ms']:.4f}")
+    else:
+        result.update(plan_device_ms=rows[picked]["device_ms"],
+                      whole_device_ms=rows[picked]["device_ms"])
+    return result
+
+
+def plans_only() -> int:
+    """``--plans``: K1's build and ``k1_plans`` with every candidate plan
+    at the paper widths on random inputs from a seed: N = 2 f32 (the
+    inversion), N = 16 bf16 (recon), batch 32 bf16 and f32 with the
+    pre-activations written (the training forward), N = 1024 bf16 and
+    f32 (the eval chunk)."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from iaf_torch import ops
+    from iaf_torch.ops import _build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load("ar_stack")
+    secs = _build.build_seconds.get("ar_stack", 0)
+    print(f"[build] nvcc ar_stack.cu {secs:.1f} s")
+    for line in _build.build_log.get("ar_stack", "").splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill")):
+            print(f"[build] {line.strip()}")
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    gen = torch.Generator().manual_seed(19)
+    ws, bs, _ = _paper_chain(2, gen)
+    out = {}
+    for label, n, dtype, save_pre in (
+            ("N=2 f32", 2, torch.float32, False),
+            ("N=16 bf16", 16, torch.bfloat16, False),
+            ("b32 bf16", 32, torch.bfloat16, True),
+            ("b32 f32", 32, torch.float32, True),
+            ("N=1024 bf16", 1024, torch.bfloat16, False),
+            ("N=1024 f32", 1024, torch.float32, False)):
+        z = torch.randn(n, 16, 16, 32, generator=gen)
+        ctx = torch.randn(n, 16, 16, 160, generator=gen)
+        args = (z.cuda().to(dtype), ctx.cuda(),
+                [w.cuda().to(dtype) for w in ws], [b.cuda() for b in bs])
+        out[label] = k1_plans(ops, ar_mod, label, *args, save_pre,
+                              candidates=True)
+    print(json.dumps({"plans": out}, default=str))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def k1_f32_phase(ops, cap) -> dict:
     """K1 in f32 (the f32 recipe) on the inputs of one real f32 eval chunk
     (16 images x 64 samples: the posterior samples and the folded weights
@@ -702,6 +894,10 @@ def k1_f32_phase(ops, cap) -> dict:
     b32 = _k1_f32_shape(ops, ar_mod, "b32", z[:32].contiguous(),
                         ctx[:32].contiguous(), ws, bs, masks, True)
     row.update({k + "_b32": v for k, v in b32.items()})
+    row["plans"] = k1_plans(ops, ar_mod, f"N={z.shape[0]} f32", z, ctx, ws,
+                            bs, False)
+    row["plans_b32"] = k1_plans(ops, ar_mod, "b32 f32", z[:32].contiguous(),
+                                ctx[:32].contiguous(), ws, bs, True)
     return dict(name="ar_stack_f32", route="cuda",
                 source="iaf_torch/ops/csrc/ar_stack.cu",
                 replaces="iaf_tpu/ops/ar_stack.py:115", path="paper f32",
@@ -838,10 +1034,15 @@ def kernel_phase(ops, cap, device) -> list[dict]:
               f"copies): bitwise equal to its twin, offsets {offsets}")
         ms32 = cuda_ms(lambda: ops.ar_stack(z32, ctx, ws32, bs, masks))
     train = _k1_training_shape(ops, ar_mod, z, ctx, ws, bs)
+    plans = {"plans": k1_plans(ops, ar_mod, "N=1024 bf16", z, ctx, ws, bs,
+                               False),
+             "plans_b32": k1_plans(ops, ar_mod, "b32 bf16",
+                                   z[:32].contiguous(), ctx[:32].contiguous(),
+                                   ws, bs, True)}
     rows.append(dict(
         name="ar_stack", route="cuda", source="iaf_torch/ops/csrc/ar_stack.cu",
         replaces="iaf_tpu/ops/ar_stack.py:115", max_abs_err_f32=err_f32,
-        ms_f32=ms32, **k1, **train))
+        ms_f32=ms32, **k1, **train, **plans))
 
     # K3: the division update of the same IAF step
     rows.append(dict(
@@ -2587,7 +2788,9 @@ def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
     kernel_rows = [
         dict(name="ar_stack_recon", path="serve recon", shape=list(z.shape),
              **k1, **k1_forward(ops, ar_mod, z, ctx, ws, bs, masks,
-                                "K1 recon")),
+                                "K1 recon"),
+             plans=k1_plans(ops, ar_mod, "N=16 bf16", z, ctx, ws, bs,
+                            False)),
         dict(name="iaf_update_recon", path="serve recon",
              shape=list(z.shape), **k3,
              **k3_forward(ops, cap["iaf_update"], "K3 recon")),
@@ -2639,6 +2842,7 @@ def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
           f"the inversion's K1 input {z.dtype} {tuple(z.shape)}")
     row = _k1_f32_shape(ops, ar_mod, "N=2 inversion", z, ctx, ws, bs, masks,
                         False)
+    row["plans"] = k1_plans(ops, ar_mod, "N=2 f32", z, ctx, ws, bs, False)
     kernel_rows.append(dict(name="ar_stack_f32_inversion", path="serve",
                             kernel_route="3xtf32", shape=list(z.shape),
                             **k1, **row))
@@ -2668,6 +2872,9 @@ def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
               f"{k} {v:.3e}" for k, v in res.items() if k.startswith("err"))
           + "; " + ", ".join(f"{k} {v:.3f} s" for k, v in res.items()
                              if k.startswith("t_")))
+    print(f"[serve] invert_check {secs:.3f} s, one sweep {sweep * 1e3:.4f} "
+          f"ms (before: {INVERT_BEFORE[0]} s, {INVERT_BEFORE[1]} ms; K1 "
+          f"{K1_BEFORE['N=2 f32']} device ms of it)")
     check(res["err_jacobi"] < 1e-4 and res["err_fixed_point"] < 1e-4,
           f"inversion round trip {res}")
     if run_exact:
@@ -4559,6 +4766,30 @@ def _ab_k1_fwd(ops, k1, f32: bool = False) -> dict:
     return out
 
 
+def _ab_k1_fwd_small(ops, k1) -> dict:
+    """A/B case ``k1_fwd_small``: K1's forward at the serving shapes, paper
+    widths, inputs from a seed: N = 2 in f32 (``invert_check``'s, against
+    the twin in f64) and N = 16 in bf16 (``recon``'s)."""
+    import torch
+    gen = torch.Generator().manual_seed(6)
+    ws, bs, _ = _paper_chain(2, gen)
+    out = {}
+    for label, n, dtype in (("N=2 f32", 2, torch.float32),
+                            ("N=16 bf16", 16, torch.bfloat16)):
+        w = [x.cuda().to(dtype) for x in ws]
+        b = [x.cuda() for x in bs]
+        z = torch.randn(n, 16, 16, 32, generator=gen).cuda().to(dtype)
+        c = torch.randn(n, 16, 16, 160, generator=gen).cuda()
+        f32 = dtype == torch.float32
+        with torch.inference_mode():
+            ref = ops.ar_stack_ref(*(_f64(z, c, w, b) if f32
+                                     else (z, c, w, b)))
+            err = _rel_err(k1._fwd(z, c, w, b, False)[0], ref)[1]
+            out[label] = (lambda z=z, c=c, w=w, b=b:  # noqa: E731
+                          k1._fwd(z, c, w, b, False), err)
+    return out
+
+
 def _ab_k1_bwd_f32(ops, k1) -> dict:
     """A/B case ``k1_bwd_f32``: K1's f32 backward at batch 32, paper
     widths, the inputs and output gradient from a seed (full f32
@@ -4786,6 +5017,7 @@ def _ab_wrappers(ops, k1) -> dict:
 
 
 AB_CASES = {"k1_fwd": _ab_k1_fwd,
+            "k1_fwd_small": _ab_k1_fwd_small,
             "k1_fwd_f32": lambda ops, k1: _ab_k1_fwd(ops, k1, f32=True),
             "k1_bwd_f32": _ab_k1_bwd_f32,
             "f32_step": _ab_f32_step,
@@ -4803,7 +5035,7 @@ AB_CASES = {"k1_fwd": _ab_k1_fwd,
 # with this script's helpers (argv[2]) on case argv[3].
 _AB_CHILD = r"""
 import importlib, importlib.util, json, os, sys
-root, here, case = sys.argv[1:4]
+root, here, cases = sys.argv[1:4]
 sys.path.insert(0, root)
 spec = importlib.util.spec_from_file_location("smoke", here)
 cs = importlib.util.module_from_spec(spec)
@@ -4813,14 +5045,15 @@ k1 = importlib.import_module("iaf_torch.ops.ar_stack")
 assert os.path.dirname(k1.__file__).startswith(os.path.abspath(root)), \
     k1.__file__
 out = {}
-for label, (call, err, *n) in cs.AB_CASES[case](ops, k1).items():
-    iters = n[0] if n else 20
-    kernels = sorted(cs.device_kernels(call, iters), key=lambda k: -k[1])
-    out[label] = {"rel_err": err, "ms": cs.cuda_ms(call, iters),
-                  "device_ms": sum(k[1] for k in kernels),
-                  "by_kernel": [[k[0][:60], k[1], k[2]]
-                                for k in kernels[:8]]}
-print(json.dumps({"tree": root, "case": case, **out}))
+for case in cases.split(","):
+    for label, (call, err, *n) in cs.AB_CASES[case](ops, k1).items():
+        iters = n[0] if n else 20
+        kernels = sorted(cs.device_kernels(call, iters), key=lambda k: -k[1])
+        out[f"{case} {label}"] = {
+            "rel_err": err, "ms": cs.cuda_ms(call, iters),
+            "device_ms": sum(k[1] for k in kernels),
+            "by_kernel": [[k[0][:60], k[1], k[2]] for k in kernels[:8]]}
+print(json.dumps({"tree": root, "case": cases, **out}))
 """
 
 
@@ -4965,20 +5198,26 @@ def ab_graph_check(other: str, runs: int = GRAPH_CHECK_RUNS) -> list[dict]:
     return out
 
 
-def ab(other: str, case: str = "k1_fwd") -> list[dict]:
-    """The A/B case ``case`` (``AB_CASES``, or ``step``: ``ab_step``) run on
-    the tree ``other`` (A) and on this one (B) in the order A B B A, each
-    run a process of its own on the same card, by device time and by
-    events, each call held to its twin at 2e-2 of max. Returns each run's
-    numbers."""
+def ab(other: str, case: str = "k1_fwd", pairs: str = "2") -> list[dict]:
+    """The A/B case ``case`` (``AB_CASES``, several joined by commas, or
+    ``step``: ``ab_step``) run on the tree ``other`` (A) and on this one
+    (B) in the order A B B A, repeated to ``pairs`` pairs (even), each run
+    a process of its own on the same card, by device time and by events,
+    each call held to its twin at 2e-2 of max. Prints, for each shape,
+    both trees' mean device ms, B's change and in how many pairs B was the
+    slower. Returns each run's numbers."""
     if case == "step":
         return ab_step(other)
     if case == "graph_check":
         return ab_graph_check(other)
-    check(case in AB_CASES, f"no A/B case {case!r}; cases: "
+    unknown = [c for c in case.split(",") if c not in AB_CASES]
+    check(not unknown, f"no A/B case {unknown}; cases: "
           f"{sorted(AB_CASES)} and step")
+    n_pairs = int(pairs)
+    check(n_pairs >= 2 and n_pairs % 2 == 0, f"pairs {pairs}: an even "
+          "number, at least 2")
     runs = []
-    for root in (other, HERE, HERE, other):
+    for root in (other, HERE, HERE, other) * (n_pairs // 2):
         proc = subprocess.run(
             [sys.executable, "-c", _AB_CHILD, os.path.abspath(root),
              os.path.abspath(__file__), case], capture_output=True,
@@ -4987,17 +5226,118 @@ def ab(other: str, case: str = "k1_fwd") -> list[dict]:
               f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
         r = json.loads(proc.stdout.strip().splitlines()[-1])
         labels = [k for k in r if k not in ("tree", "case")]
-        print(f"[A/B {case}] {root}: " + "; ".join(
+        print(f"[A/B] {root}: " + "; ".join(
             f"{k} device {r[k]['device_ms']:.4f} ms, events {r[k]['ms']:.4f} "
             f"ms, err {r[k]['rel_err']:.2e} of max" for k in labels))
         for k in labels:
             for name, ms, cnt in r[k]["by_kernel"]:
-                print(f"[A/B {case}]   {k} by kernel: {ms:.4f} ms x{cnt} "
-                      f"{name}")
+                print(f"[A/B]   {k} by kernel: {ms:.4f} ms x{cnt} {name}")
         check(all(r[k]["rel_err"] <= 2e-2 for k in labels),
               f"A/B run of {root} disagrees with the twin")
         runs.append(r)
+    for k in labels:
+        a_ms = [r[k]["device_ms"] for r in runs[0::4] + runs[3::4]]
+        b_ms = [r[k]["device_ms"] for r in runs[1::4] + runs[2::4]]
+        # the pairs in run order: (A, B), (B, A), ...
+        pair = [(runs[i], runs[i + 1]) if i % 4 == 0 else
+                (runs[i + 1], runs[i]) for i in range(0, len(runs), 2)]
+        slower = sum(b[k]["device_ms"] > a[k]["device_ms"] for a, b in pair)
+        a_mean, b_mean = statistics.mean(a_ms), statistics.mean(b_ms)
+        print(f"[A/B summary] {k}: A {a_mean:.4f} device ms ({min(a_ms):.4f}"
+              f"-{max(a_ms):.4f}), B {b_mean:.4f} ({min(b_ms):.4f}-"
+              f"{max(b_ms):.4f}), B/A {100 * (b_mean / a_mean - 1):+.2f} %; "
+              f"B slower in {slower} of {len(runs) // 2} pairs")
     return runs
+
+
+def invert_plan_ab(pairs: int = 10) -> int:
+    """``--invert-ab [PAIRS]``: whether K1's launch plan shows end to end.
+    ``train_lib.invert_check`` at batch 2 (exact, Jacobi and fixed-point
+    inverses: 16395 K1 launches) on the paper config's checkpoint after 2
+    steps on the synthetic set, with K1's forward on ``fwd_plan``'s plan
+    (B: bands) and held to the whole-image plan (A), A B B A to ``pairs``
+    pairs (even) in one process; per plan, one sweep's device and events
+    ms, then each run's seconds, the means, the spread of each and in how
+    many pairs B was the slower."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false")
+    check(pairs >= 2 and pairs % 2 == 0, f"pairs {pairs}: an even number, "
+          "at least 2")
+    sys.path.insert(0, HERE)
+    from iaf_torch import ops, train_lib
+    from iaf_torch.core.config import Config
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    device = torch.device("cuda")
+    build_phase(ops, device)
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    logdir = os.path.join(HERE, "build", "chip_smoke_invert_ab")
+    shutil.rmtree(logdir, ignore_errors=True)
+    cfg = Config().parse(PAPER + ",dataset=synthetic,log_every=1,"
+                         "ckpt_every=2,eval_every=0").replace(logdir=logdir)
+    train_lib.train(cfg, max_steps=2, device=device)
+    picked = ar_mod.fwd_plan
+
+    def whole(dtype, n, h, w, cz, ch, cout, n_convs, sms):
+        return ar_mod.whole_plan(n, h, sms)
+
+    plans = {"A": whole, "B": picked}
+    model = train_lib._serving_model(cfg, True, device)
+    with torch.inference_mode(), _default_tf32():
+        _, _, ar_fn, z_prime = train_lib.inversion_inputs(cfg, model, 2)
+        z, _, ws, _, _ = capture_inputs(ops, lambda: ar_fn(z_prime),
+                                        ("ar_stack",))["ar_stack"]
+        shape = (z.dtype, *z.shape, ws[0].shape[-1], ws[-1].shape[-1],
+                 len(ws), ar_mod._sms(z.device.index))
+        for tag, fn in plans.items():
+            ar_mod.fwd_plan = fn
+            plan = fn(*shape)
+            print(f"[invert plan] {tag}: {plan}, one sweep "
+                  f"{device_ms(lambda: ar_fn(z_prime)):.4f} device ms, "
+                  f"{cuda_ms(lambda: ar_fn(z_prime), 50, 3):.4f} events ms")
+    secs = {"A": [], "B": []}
+    by_run = []
+    order = ("A", "B", "B", "A") * (pairs // 2)
+    try:
+        for tag in order:
+            ar_mod.fwd_plan = plans[tag]
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _default_tf32():
+                res = train_lib.invert_check(cfg, batch=2, device=device)
+            torch.cuda.synchronize()
+            secs[tag].append(time.perf_counter() - t0)
+            by_run.append(secs[tag][-1])
+            k1 = ops.launch_counts()["ar_stack"]
+            print(f"[invert plan] {tag}: invert_check {secs[tag][-1]:.3f} s,"
+                  f" K1 {k1} launches, t_exact {res['t_exact']:.3f} s, "
+                  f"t_jacobi {res['t_jacobi']:.3f} s, errors "
+                  f"{res['err_exact']:.3e} {res['err_jacobi']:.3e} "
+                  f"{res['err_fixed_point']:.3e}")
+            check(max(res["err_exact"], res["err_jacobi"],
+                      res["err_fixed_point"]) < 1e-4, f"round trip {res}")
+    finally:
+        ar_mod.fwd_plan = picked
+    pair = [(by_run[i], by_run[i + 1]) if i % 4 == 0 else
+            (by_run[i + 1], by_run[i]) for i in range(0, len(order), 2)]
+    slower = sum(b > a for a, b in pair)
+    a_mean, b_mean = statistics.mean(secs["A"]), statistics.mean(secs["B"])
+    print(f"[invert plan] invert_check seconds: A (whole-image) "
+          f"{a_mean:.3f} ({min(secs['A']):.3f}-{max(secs['A']):.3f}), B "
+          "(fwd_plan) "
+          f"{b_mean:.3f} ({min(secs['B']):.3f}-{max(secs['B']):.3f}), B/A "
+          f"{100 * (b_mean / a_mean - 1):+.2f} %; B slower in {slower} of "
+          f"{len(pair)} pairs")
+    print(json.dumps({"invert_plan": {"A": secs["A"], "B": secs["B"],
+                                       "b_slower_pairs": slower}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def multi_only() -> int:
@@ -5045,16 +5385,23 @@ def memory_only() -> int:
 
 
 def main() -> int:
-    """No arguments: the smoke run above. ``--ab DIR [CASE]``: only ``ab``
-    of CASE (default ``k1_fwd``) against the tree unpacked at DIR (for
-    example ``git archive`` of the parent commit under build/).
+    """No arguments: the smoke run above. ``--ab DIR [CASE] [PAIRS]``: only
+    ``ab`` of CASE (default ``k1_fwd``) against the tree unpacked at DIR
+    (for example ``git archive`` of the parent commit under build/).
+    ``--invert-ab [PAIRS]``: ``invert_plan_ab``.
     ``--multi``: ``multi_only``; ``--memory``: ``memory_only``."""
     try:
         if sys.argv[1:] == ["--multi"]:
             return multi_only()
         if sys.argv[1:] == ["--memory"]:
             return memory_only()
-        if len(sys.argv) in (3, 4) and sys.argv[1] == "--ab":
+        if sys.argv[1:] == ["--plans"]:
+            return plans_only()
+        if len(sys.argv) == 3 and sys.argv[1] == "--invert-ab":
+            return invert_plan_ab(int(sys.argv[2]))
+        if sys.argv[1:] == ["--invert-ab"]:
+            return invert_plan_ab()
+        if len(sys.argv) in (3, 4, 5) and sys.argv[1] == "--ab":
             import torch
             if not torch.cuda.is_available():
                 raise SmokeFailure("torch.cuda.is_available() is false")

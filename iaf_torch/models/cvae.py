@@ -445,8 +445,8 @@ def posterior_flow_probe(cfg: Config, model: CVAE, rng: int, x,
     the up pass, then the top layer's ``down_conv1`` on ELU(h_top), and
     the posterior draw from site ``<top layer>/z_post``. Returns (z0,
     context, ar_fn) with ``ar_fn(z) -> (0.1 m, 0.1 s)`` through the top
-    layer's ``ARMultiConv2d``, so on the card it runs K1 (or K2) as the
-    model does."""
+    layer's ``ARMultiConv2d`` with its weights folded once for every sweep
+    (``frozen``), so on the card it runs K1 (or K2) as the model does."""
     zs, hs = cfg.z_size, cfg.h_size
     device = model.h_top.device
     xf = _images(x, device)
@@ -464,11 +464,13 @@ def posterior_flow_probe(cfg: Config, model: CVAE, rng: int, x,
     eps = _eps(cfg, rng, len(model.blocks) - 1, tuple(rz_mean.shape),
                device, noise)
     z = posterior.sample(eps)
-    # contiguous once here, not at every sweep inside ``ar1``
+    # contiguous once here, and the AR weights folded once (``frozen``),
+    # not at every sweep inside ``ar1``
     context = (stats.up_context + down_context).contiguous()
+    ar = top.ar1.frozen()
 
     def ar_fn(zq: torch.Tensor):
-        m, s = top.ar1(zq, context)
+        m, s = ar(zq, context)
         return m * 0.1, s * 0.1
 
     return z, context, ar_fn

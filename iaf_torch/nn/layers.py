@@ -282,6 +282,9 @@ class ARMultiConv2d(nn.Module):
         self.taps = [nonzero_taps(m) for m in self.masks]
         self.fusable = (tuple(filter_size) == (3, 3) and len(n_h) >= 1
                         and len(set(n_h)) == 1)
+        # K1's masks, checked once here (``ops.check_masks``): the folded
+        # weights are masked by the convs' own copies, made above
+        self.k1_masks = ops.check_masks(self.masks) if self.fusable else None
 
     def hidden(self) -> list[WNConv2d]:
         return [getattr(self, f"layer_{i}") for i in range(self.n_hidden)]
@@ -302,13 +305,13 @@ class ARMultiConv2d(nn.Module):
     def folded(self, dtype: torch.dtype | None = None):
         """Per conv the folded, masked HWIO weight (in ``dtype``) and the
         f32 bias, heads concatenated last: K1's operands."""
-        ws = [c.weight_hwio() for c in self.hidden()]
-        bs = [c.b for c in self.hidden()]
-        heads = self.heads()
-        ws.append(torch.cat([c.weight_hwio() for c in heads], dim=-1))
-        bs.append(torch.cat([c.b for c in heads], dim=-1))
-        if dtype is not None:
-            ws = [w.to(dtype) for w in ws]
+        return self._k1_operands(self._folded_convs(dtype))
+
+    def _k1_operands(self, convs):
+        """``_folded_convs``' weights and biases with the heads' joined."""
+        hidden, heads = convs[:self.n_hidden], convs[self.n_hidden:]
+        ws = [w for w, _ in hidden] + [torch.cat([w for w, _ in heads], -1)]
+        bs = [b for _, b in hidden] + [torch.cat([b for _, b in heads], -1)]
         return ws, bs
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
@@ -317,16 +320,28 @@ class ARMultiConv2d(nn.Module):
         CUDA tensors, its twin on CPU tensors) where it applies (3x3,
         uniform hidden widths, and on CUDA a chain that fits one block:
         ``k1_fits``), else conv by conv through K2."""
+        return self.frozen(dtype)(x, context)
+
+    def frozen(self, dtype: torch.dtype | None = None):
+        """``forward`` with the weights folded now, once: a function (x,
+        context) -> heads for a caller that runs the same weights many
+        times (the inversion's sweeps), equal to ``forward`` bit for bit.
+        Each conv's weight for K2 and, where the chain is fusable, K1's
+        operands from them (a CUDA chain that K1 does not hold takes K2)."""
+        convs = self._folded_convs(dtype)
         if not self.fusable:
-            return self.forward_unfused(x, context, dtype)
-        ws, bs = self.folded(dtype)
-        # K1 takes NHWC-contiguous tensors; cuDNN may return a conv's
-        # output in NCHW memory, which z and context then inherit
-        z = (x if dtype is None else x.to(dtype)).contiguous()
-        if not self.k1_fits(z, ws):
-            return self.forward_unfused(x, context, dtype)
-        return self._split(ops.ar_stack(z, context.contiguous(), ws, bs,
-                                        self.masks))
+            return lambda x, context: self._unfused(x, context, convs, dtype)
+        ws, bs = self._k1_operands(convs)
+
+        def run(x, context):
+            # K1 takes NHWC-contiguous tensors; cuDNN may return a conv's
+            # output in NCHW memory, which z and context then inherit
+            z = (x if dtype is None else x.to(dtype)).contiguous()
+            if not self.k1_fits(z, ws):
+                return self._unfused(x, context, convs, dtype)
+            return self._split(ops.ar_stack(z, context.contiguous(), ws, bs,
+                                            self.k1_masks))
+        return run
 
     @staticmethod
     def k1_fits(z: torch.Tensor, ws) -> bool:
@@ -340,30 +355,40 @@ class ARMultiConv2d(nn.Module):
         return ops.ar_stack_fits(len(ws), w, cz, ws[0].shape[-1],
                                  ws[-1].shape[-1], z.dtype)
 
-    def _ar_conv(self, conv: WNConv2d, h: torch.Tensor, dtype,
+    def _folded_convs(self, dtype):
+        """Per conv, hidden ones then each head, its folded, masked HWIO
+        weight (in ``dtype``) and its bias: K2's operands."""
+        out = []
+        for conv in self.hidden() + self.heads():
+            w = conv.weight_hwio()
+            out.append((w if dtype is None else w.to(dtype), conv.b))
+        return out
+
+    @staticmethod
+    def _ar_conv(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor, dtype,
                  taps) -> torch.Tensor:
         """One masked conv through K2 (``ops.masked_conv2d``) over the
         mask's live taps, then + b (JAX ``conv2d``'s ``pallas`` branch)."""
-        w = conv.weight_hwio()
         if dtype is not None:
-            h, w = h.to(dtype), w.to(dtype)
-        return ops.masked_conv2d(h.contiguous(), w, taps) + conv.b
+            h = h.to(dtype)
+        return ops.masked_conv2d(h.contiguous(), w, taps) + b
 
     def forward_unfused(self, x, context, dtype=None):
         """Conv by conv through K2 (the CUDA kernel on CUDA tensors, its
         twin on CPU tensors), as JAX's ``pallas_conv`` route; bias,
         context add and ELU in PyTorch."""
+        return self._unfused(x, context, self._folded_convs(dtype), dtype)
+
+    def _unfused(self, x, context, convs, dtype):
         h = x
-        for i, conv in enumerate(self.hidden()):
-            h = self._ar_conv(conv, h, dtype, self.taps[i])
+        for i, (w, b) in enumerate(convs[:self.n_hidden]):
+            h = self._ar_conv(w, b, h, dtype, self.taps[i])
             if i == 0:
                 h = h + context
             h = F.elu(h)
-        if self.merge_heads:
-            return self._split(self._ar_conv(self.layer_out, h, dtype,
-                                             self.taps[-1]))
-        return [self._ar_conv(c, h, dtype, self.taps[-1])
-                for c in self.heads()]
+        heads = [self._ar_conv(w, b, h, dtype, self.taps[-1])
+                 for w, b in convs[self.n_hidden:]]
+        return self._split(heads[0]) if self.merge_heads else heads
 
     def init_forward(self, x, context):
         h = x
@@ -409,6 +434,15 @@ class ARMultiDense(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor | None,
                 dtype: torch.dtype | None = None) -> list[torch.Tensor]:
         return self._run(x, context, lambda layer, h: layer(h, dtype))
+
+    def frozen(self, dtype: torch.dtype | None = None):
+        """``forward`` with every layer's weight folded now, once (as
+        ``ARMultiConv2d.frozen``)."""
+        hidden, heads = self._layers()
+        weights = {layer: layer.weight() for layer in hidden + heads}
+        return lambda x, context: self._run(
+            x, context,
+            lambda layer, h: layer._run(h, weights[layer], dtype) + layer.b)
 
     def init_forward(self, x, context):
         return self._run(x, context, lambda layer, h: layer.init_forward(h))

@@ -11,7 +11,8 @@ tensors, the twin for CPU tensors, a fake for tracing), which
 ``torch.export`` records, so that an exported program launches the
 kernels (``core/export.py``). Importing this package registers them.
 
-- K1 ``ar_stack`` (CUDA C++, ``csrc/ar_stack.cu``), twin ``ar_stack_ref``
+- K1 ``ar_stack`` (CUDA C++, ``csrc/ar_stack.cu``; its forward spread
+  over the card by ``ar_stack.fwd_plan``), twin ``ar_stack_ref``
   (``ar_stack_ref_pre`` with the hidden pre-activations);
   backward ``ar_stack_bwd`` (``csrc/ar_stack_bwd.cu``), twin
   ``ar_stack_bwd_ref``
@@ -45,6 +46,7 @@ from iaf_torch.ops.ar_stack import (  # noqa: F401
     ar_stack_fits,
     ar_stack_ref,
     ar_stack_ref_pre,
+    check_masks,
 )
 from iaf_torch.ops.fused import (  # noqa: F401
     disc_logistic_bwd,

@@ -18,14 +18,14 @@ JAX ones: activations NHWC, weights HWIO.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from iaf_torch.nn.masks import nonzero_taps
 from iaf_torch.ops import _build
 
 LIVE_TAPS = ((0, 0), (0, 1), (0, 2), (1, 0), (1, 1))
@@ -38,6 +38,7 @@ _WGMMA_W = 16               # ar_stack.cu TW: the width the wgmma kernel tiles
 _KC = 32                    # masked_conv.cuh KC: K depth of one weight slice
 _KF = 8                     # ar_stack.cu KF: the same in f32 (3xTF32)
 _TF32_MAX = (64, 160, 160)  # ar_stack.cu: the widest cz, ch, cout in f32
+_TR = 8                     # ar_stack.cu TR: rows of one tile
 
 _WGRAD_CHUNKS = 64          # FMA wgrad partials: pixel-row chunks per conv
 _GLUE_THREADS = 512         # ar_stack_bwd.cu GL_THREADS: glue block size
@@ -141,6 +142,44 @@ def fwd_route(dtype: torch.dtype, w: int, cz: int, ch: int, cout: int) -> str:
     return "fma"
 
 
+class FwdPlan(NamedTuple):
+    """How K1's tensor-core forward spreads over the card (``fwd_plan``):
+    work items of ``band`` rows of one image (``band`` = H: whole images)
+    handed to ``blocks`` blocks in turn."""
+    band: int
+    blocks: int
+
+
+def whole_plan(n: int, h: int, sms: int) -> FwdPlan:
+    """The whole-image plan: one block per SM (at most one per image), each
+    walking whole images as tiles of 8 rows, top to bottom."""
+    return FwdPlan(band=h, blocks=min(n, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(dtype: torch.dtype, n: int, h: int, w: int, cz: int, ch: int,
+             cout: int, n_convs: int, sms: int) -> FwdPlan:
+    """K1's forward launch plan for ``n`` images of ``h`` x ``w`` on a card
+    of ``sms`` SMs, from the shapes alone (no built library), so a graph
+    captures a fixed grid. A block's time is its tiles of 8 rows one after
+    another. The whole-image plan (``whole_plan``) gives ``n`` images
+    ceil(h / 8) tiles each; where images are fewer than SMs the banded plan
+    cuts each image into bands of 9 - n_convs rows, one tile each with the
+    rows above that the chain reaches back to computed again (n_convs - 1:
+    2 at the paper's 3 convs, bands of 6 rows, 3 an image), and takes it
+    where that leaves a block fewer tiles. The FMA kernel (``fwd_route``
+    "fma") takes one block an image, whatever the plan."""
+    if fwd_route(dtype, w, cz, ch, cout) == "fma":
+        return FwdPlan(band=h, blocks=n)
+    whole = whole_plan(n, h, sms)
+    band = _TR + 1 - n_convs
+    if 1 <= band < h:
+        items = n * -(-h // band)
+        if -(-items // sms) < -(-n // whole.blocks) * -(-h // _TR):
+            return FwdPlan(band=band, blocks=min(items, sms))
+    return whole
+
+
 def _slice_depth(dtype: torch.dtype) -> int:
     """K depth of one streamed weight slice: 32 in bf16, 8 in f32."""
     return _KF if dtype == torch.float32 else _KC
@@ -207,11 +246,45 @@ def pack_fwd(weights: Sequence[torch.Tensor]):
     return flat, offsets
 
 
+@dataclasses.dataclass(frozen=True)
+class CheckedMasks:
+    """Masks that ``check_masks`` found to hold weights at the raster AR
+    taps only (``LIVE_TAPS``), as their shapes. ``ar_stack`` takes it in
+    place of the masks and then checks the weights' shapes against it, with
+    no scan of the dead taps (an array of masks costs one on every call,
+    ~0.1 ms of host at the paper widths). It holds no array: a mask
+    changed in place after the check does not change it, and that array,
+    passed again, is scanned again."""
+    shapes: tuple[tuple[int, ...], ...]
+
+
+def check_masks(masks: Sequence[np.ndarray]) -> CheckedMasks:
+    """Raise ValueError where a mask is not [3, 3, cin, cout] or has a
+    nonzero weight at a tap outside the raster AR pattern (the live taps
+    are the first five of the nine in raster order, so the dead ones are
+    the last four: one reduction over them a mask); else return the
+    masks' ``CheckedMasks``."""
+    shapes = []
+    for i, m in enumerate(masks):
+        m = np.asarray(m)
+        if m.ndim != 4 or m.shape[:2] != (3, 3):
+            raise ValueError(f"conv {i}: mask {m.shape} is not [3, 3, cin, "
+                             "cout]")
+        if m.reshape(9, -1)[len(LIVE_TAPS):].any():
+            raise ValueError(f"conv {i}: mask has taps outside the raster "
+                             "AR pattern")
+        shapes.append(tuple(m.shape))
+    return CheckedMasks(tuple(shapes))
+
+
 def _check(z, context, weights, biases, masks):
     if not 2 <= len(weights) <= _MAX_CONVS:
         raise ValueError(f"ar_stack takes 2..{_MAX_CONVS} convs, "
                          f"got {len(weights)}")
-    if not len(weights) == len(biases) == len(masks):
+    checked = masks if isinstance(masks, CheckedMasks) else None
+    shapes = (checked.shapes if checked is not None
+              else [np.shape(m) for m in masks])
+    if not len(weights) == len(biases) == len(shapes):
         raise ValueError("weights, biases and masks differ in length")
     if z.dim() != 4 or context.dim() != 4:
         raise ValueError("z and context must be NHWC")
@@ -221,14 +294,10 @@ def _check(z, context, weights, biases, masks):
         raise ValueError(f"context {tuple(context.shape)} != "
                          f"{(n, h, w_, ch)}")
     prev = cz
-    for i, (w, b, m) in enumerate(zip(weights, biases, masks)):
-        m = np.asarray(m)
-        if w.shape[:3] != (3, 3, prev) or m.shape != tuple(w.shape):
+    for i, (w, b, shape) in enumerate(zip(weights, biases, shapes)):
+        if w.shape[:3] != (3, 3, prev) or tuple(shape) != tuple(w.shape):
             raise ValueError(f"conv {i}: weight {tuple(w.shape)}, mask "
-                             f"{m.shape}, expected [3, 3, {prev}, cout]")
-        if not set(nonzero_taps(m)) <= set(LIVE_TAPS):
-            raise ValueError(f"conv {i}: mask has taps outside the raster "
-                             "AR pattern")
+                             f"{tuple(shape)}, expected [3, 3, {prev}, cout]")
         if i < len(weights) - 1 and w.shape[-1] != ch:
             raise ValueError("hidden widths must be uniform")
         if b.shape != (w.shape[-1],) or b.dtype != torch.float32:
@@ -237,6 +306,8 @@ def _check(z, context, weights, biases, masks):
             raise ValueError(f"conv {i}: weight dtype {w.dtype} != z dtype "
                              f"{z.dtype}")
         prev = w.shape[-1]
+    if checked is None:
+        check_masks(masks)
     if z.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"z dtype {z.dtype} not in (float32, bfloat16)")
     if context.dtype != torch.float32:
@@ -254,7 +325,7 @@ def _lib():
     lib = _build.load("ar_stack")
     if not getattr(lib, "_iaf_typed", False):
         lib.ar_stack_fwd.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
             + [ctypes.c_size_t, ctypes.c_void_p])
         lib.ar_stack_pack_w.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -340,10 +411,17 @@ def _check_smem(lib, n_convs, w_, cz, ch, cout, dtype) -> None:
         f"at most {fit} convs (depth_ar <= {fit - 1})")
 
 
-def _fwd(z, context, weights, biases, save_pre: bool):
-    """Launch the forward kernel that ``fwd_route`` names; with
-    ``save_pre`` also return the hidden convs' f32 pre-activations for the
-    backward."""
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fwd(z, context, weights, biases, save_pre: bool,
+         plan: FwdPlan | None = None):
+    """Launch the forward kernel that ``fwd_route`` names, on ``plan``
+    (default ``fwd_plan``'s for these shapes and the card; the tensor-core
+    kernel reads it); with ``save_pre`` also return the hidden convs' f32
+    pre-activations for the backward."""
     tensors = [z, context, *weights, *biases]
     if any(t.device != z.device for t in tensors):
         raise RuntimeError("ar_stack: inputs on different devices")
@@ -357,6 +435,9 @@ def _fwd(z, context, weights, biases, save_pre: bool):
     lib = _lib()
     _check_smem(lib, n_convs, w_, cz, ch, cout, z.dtype)
     tensor_cores = fwd_route(z.dtype, w_, cz, ch, cout) != "fma"
+    if plan is None:
+        plan = fwd_plan(z.dtype, n, h, w_, cz, ch, cout, n_convs,
+                        _sms(z.device.index))
     if tensor_cores:
         if z.data_ptr() % 16:
             raise ValueError("ar_stack: the tensor-core kernel needs z "
@@ -380,7 +461,8 @@ def _fwd(z, context, weights, biases, save_pre: bool):
                                _ptrs(biases), out.data_ptr(),
                                _ptrs(pre) if pre else None, n_convs, n, h,
                                w_, cz, ch, cout, bf16, int(tensor_cores),
-                               threads, _SMEM_LIMIT, stream)
+                               threads, plan.band, plan.blocks,
+                               _SMEM_LIMIT, stream)
     _raise_on(err, "ar_stack")
     launches["ar_stack"] += 1
     return out, pre
@@ -804,13 +886,14 @@ ar_stack_op = torch.ops.iaf.ar_stack.default
 
 def ar_stack(z: torch.Tensor, context: torch.Tensor,
              weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
-             masks: Sequence[np.ndarray]) -> torch.Tensor:
+             masks: Sequence[np.ndarray] | CheckedMasks) -> torch.Tensor:
     """Run the masked AR chain: ``weights`` are the folded, pre-masked
     [3, 3, cin, cout] convs (hidden ones first, the merged head last) in
     z's dtype, ``biases`` f32, ``masks`` the static numpy masks (only their
-    tap structure is read). Returns the heads, [N, H, W, cout] f32. Under
-    autograd: ``_ARStack`` on CUDA, the twin on the CPU; else the op
-    ``iaf::ar_stack`` (``ar_stack_op``) on either."""
+    shapes and tap structure are read; scanned on every call) or their
+    ``check_masks`` (checked once). Returns the heads, [N, H, W, cout]
+    f32. Under autograd: ``_ARStack`` on CUDA, the twin on the CPU; else
+    the op ``iaf::ar_stack`` (``ar_stack_op``) on either."""
     _check(z, context, weights, biases, masks)
     if z.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"ar_stack: no kernel for device {z.device}")

@@ -17,11 +17,12 @@
 // The mask makes every conv causal in rows: output row y reads input rows
 // y-1 and y only. The TPU kernel kept 4 whole images and a [4,18,18,160]
 // f32 scratch in 16 MB of VMEM; a Hopper block has 227 KB. Two kernels,
-// the first in two instantiations:
+// the first in two instantiations (and two walks of the launch plan each):
 //
 // * ar_stack_wgmma_kernel, bf16 at W = 16 (the paper config), on the
 //   tensor cores. Persistent blocks, one per SM, each walking whole images
-//   over the SMs; an image is walked as tiles of 8 rows (128 pixels: two
+//   over the SMs (the whole-image plan; fewer images than SMs take bands,
+//   below); an image is walked as tiles of 8 rows (128 pixels: two
 //   half-image tiles at H = 16), top to bottom. A block is two consumer
 //   warpgroups (warp r computes row r of the tile, 16 pixels, so each
 //   warpgroup is one m64 of wgmma) and one producer warp.
@@ -96,14 +97,31 @@
 // epilogues (a third of the time) run while the tensor cores idle, both
 // warpgroups held by the barrier between convs; the L2 weight stream
 // (410 KB a tile pass, 0.84 GB a launch at N = 1024) costs little beside
-// them, and at batch 32 only 32 of the 132 SMs have work. Tried and worse:
-// 64-deep slices, and overlapping a slice's wgmma with the next slice's
-// ldmatrix (wait_group 1). Untried: warpgroups synchronised by row flags
-// instead of a barrier (warpgroup 0 never waits for warpgroup 1 within a
-// tile), so one's epilogue overlaps the other's products; two blocks of a
-// cluster sharing each weight slice by TMA multicast; independent half-
-// image tiles that recompute a halo growing by one row per conv (64
-// blocks at batch 32).
+// them. Tried and worse: 64-deep slices, and overlapping a slice's wgmma
+// with the next slice's ldmatrix (wait_group 1). Untried: warpgroups
+// synchronised by row flags instead of a barrier (warpgroup 0 never waits
+// for warpgroup 1 within a tile), so one's epilogue overlaps the other's
+// products; two blocks of a cluster sharing each weight slice by TMA
+// multicast.
+// Fewer images than SMs (the inversion's 2, recon's 16, the training
+// step's batch 32): one block an image left most SMs idle, each walking
+// its image's two tiles in turn. Done (the launch plan, Item below, from
+// ops/ar_stack.py fwd_plan): bands of 9 - n_convs rows, one tile each
+// that computes again the rows above the band the chain reaches back to
+// (2 at the paper's 3 convs: bands of 6 rows, 3 an image, 96 blocks at
+// batch 32). Every stored value keeps its arithmetic, so both plans give
+// the same bits. Device ms a call, H100 SXM at 700 W, against the
+// whole-image plan in the same run (PERF.md): N = 2 f32 0.226 -> 0.114
+// (cuDNN's three f32 convs 0.120), N = 16 bf16 0.050 -> 0.027, batch 32
+// with the pre-activations bf16 0.051 -> 0.028 and f32 0.225 -> 0.115. At
+// N = 1024 bands walked several a block took 1.46x (bf16) and 1.48x (f32)
+// the whole-image plan's time (24 one-tile items a block against 8 images
+// of two tiles), so it keeps that plan. Tried and taken out: a cluster of
+// 2 or 4 blocks that split every conv's output channels, exchanging each
+// hidden conv's output through distributed shared memory (N = 2 f32
+// 0.066 ms, but invert_check only 7.6 % faster, less than its run-to-run
+// spread, for a third walk that spilled in f32; bf16 gained 1-2 % at
+// N = 16).
 // In f32 the same 107.4 GFLOP are three TF32 products each: 322 GFLOP at
 // 495 TFLOP/s, 0.65 ms at N = 1024 (~268 MB compulsory, 0.08 ms); the
 // f32 weight stream is 0.82 MB a tile pass, 1.7 GB a launch from L2. Any
@@ -320,6 +338,37 @@ __host__ __device__ static inline WgLayout wg_layout(int n_convs, int cz,
   return L;
 }
 
+// The launch plan (ops/ar_stack.py fwd_plan): work items of ``band`` rows
+// of one image (band = H: whole images), each walked by one block. An
+// item's rows are [r0, r1); its tiles start at t0 = max(0, r0 - (n_convs
+// - 1)), so the rows above r0 that the chain reaches back to (conv c's
+// output row y reads z rows y - 1 - c .. y) are computed again, with zero
+// halo rows: where t0 > 0 those should have held image rows, which leaves
+// conv c's first c tile rows wrong, all of them above r0. Heads and
+// pre-activations are stored for rows r0 .. r1 - 1 only, so every row by
+// one block. Each stored value is the same arithmetic as on the whole-
+// image walk (the same products of the same operands in the same order),
+// so the plans agree bit for bit. BANDS: the banded walk's instantiation;
+// without it the item is the whole image, as constants, and the walk's
+// code is the one from before plans.
+struct Item {
+  int img, r0, r1, t0, tiles;
+};
+
+template <bool BANDS>
+__device__ __forceinline__ Item work_item(int w, int H, int band,
+                                          int n_convs) {
+  if constexpr (!BANDS) return Item{w, 0, H, 0, (H + TR - 1) / TR};
+  const int bands = (H + band - 1) / band;
+  Item it;
+  it.img = w / bands;
+  it.r0 = (w - it.img * bands) * band;
+  it.r1 = it.r0 + band < H ? it.r0 + band : H;
+  it.t0 = it.r0 > n_convs - 1 ? it.r0 - (n_convs - 1) : 0;
+  it.tiles = (it.r1 - it.t0 + TR - 1) / TR;
+  return it;
+}
+
 // One conv of one tile by one consumer warp, N its wgmma width: the
 // mainloop over the 5 live taps and the K slices of each (``cin`` = wg_k
 // of the input channels; A rows: ``above`` and ``here``, shared addresses
@@ -329,13 +378,14 @@ __host__ __device__ static inline WgLayout wg_layout(int n_convs, int cz,
 // conv's in shared memory; for conv 0 the tile's 8 ctx rows follow its
 // weight slices through the ring, row r read by warp r), ``before`` run
 // by every consumer just before the stores. ``img``, ``y``: the image and
-// row this warp computes (rows y >= H are computed and not stored).
-template <int N, bool F32, typename Before>
+// row this warp computes (rows y >= H are computed and not stored; in the
+// banded walk, BANDS, only the item's rows ``r0`` .. ``r1`` - 1 are).
+template <int N, bool F32, bool BANDS, typename Before>
 __device__ __forceinline__ void wg_conv(
     const StackArgs& a, int c, uint32_t above, uint32_t here, int cin,
     unsigned char* ring, int slice, uint64_t* full, uint64_t* empty,
     int stages, int& stage, int& phase, unsigned char* next, int img,
-    int y, const float* bias, Before before) {
+    int y, int r0, int r1, const float* bias, Before before) {
   typedef WgPath<F32> P;
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
   const int cs = cin + P::PAD;
@@ -414,7 +464,7 @@ __device__ __forceinline__ void wg_conv(
   // Epilogue: bias (shared memory), then ctx for conv 0 (from the ring:
   // each warp waits for every ctx row's stage and adds its own row), in
   // the twin's order, (conv + b) + ctx.
-  const bool inside = y < a.H;
+  const bool inside = BANDS ? y >= r0 && y < r1 : y < a.H;
   const bool last = c == a.n_convs - 1;
   const int co_n = last ? a.cout : a.ch;
   const size_t pix = ((size_t)img * a.H + y) * TW + g;   // and pix + 8
@@ -513,10 +563,12 @@ __device__ __forceinline__ void wg_conv(
 // operand. ``stages`` ring stages of L.slice bytes. NMAX: the widest N
 // instantiated (160, or 256 for bf16 chains wider than 160: N = 256 needs
 // 128 accumulator registers a thread, and compiled in it makes the kernel
-// spill and the paper widths slower; f32 takes widths up to 160).
-template <int NMAX, bool F32>
+// spill and the paper widths slower; f32 takes widths up to 160). The
+// walk follows the plan (see Item): work items w = 0 .. n_images *
+// ceil(H / band) - 1, handed to the blocks in turn; BANDS: band < H.
+template <int NMAX, bool F32, bool BANDS>
 __global__ void __launch_bounds__(WgPath<F32>::THREADS, 1)
-    ar_stack_wgmma_kernel(StackArgs a, int n_images, int stages) {
+    ar_stack_wgmma_kernel(StackArgs a, int n_images, int stages, int band) {
   typedef WgPath<F32> P;
   typedef typename std::conditional<F32, float, __nv_bfloat16>::type T;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -529,7 +581,8 @@ __global__ void __launch_bounds__(WgPath<F32>::THREADS, 1)
   unsigned char* hbuf = zbuf + L.zbytes;      // buffer i at i * L.hbytes
   unsigned char* halos = hbuf + L.nbuf * L.hbytes;
   unsigned char* ring = smem + L.fixed;
-  const int H = a.H, tiles = (H + TR - 1) / TR;
+  const int H = a.H;
+  const int items = BANDS ? n_images * ((H + band - 1) / band) : n_images;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   if (tid == 0) {
@@ -568,8 +621,9 @@ __global__ void __launch_bounds__(WgPath<F32>::THREADS, 1)
         phase ^= 1;
       }
     };
-    for (int img = blockIdx.x; img < n_images; img += gridDim.x) {
-      for (int tile = 0; tile < tiles; ++tile) {
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      const Item it = work_item<BANDS>(w, H, band, a.n_convs);
+      for (int tile = 0; tile < it.tiles; ++tile) {
         for (int c = 0; c < a.n_convs; ++c) {
           const int cin = wg_k(c == 0 ? a.cz : a.ch, P::KS);
           const int np = wg_width(c == a.n_convs - 1 ? a.cout : a.ch);
@@ -595,15 +649,15 @@ __global__ void __launch_bounds__(WgPath<F32>::THREADS, 1)
           for (int r = 0; c == 0 && r < TR; ++r) {
             // the tile's ctx rows (16 x ch f32, within a slice); a row
             // past the image completes its stage empty
-            const int yy = tile * TR + r;
+            const int yy = it.t0 + tile * TR + r;
             if (producer) {
               mbar_wait(&empty[stage], phase ^ 1);
               if (yy < H) {
                 const int bytes = TW * a.ch * 4;
                 mbar_expect_tx(&full[stage], bytes);
                 bulk_g2s(ring + stage * L.slice,
-                         a.ctx + ((size_t)img * H + yy) * TW * a.ch, bytes,
-                         &full[stage]);
+                         a.ctx + ((size_t)it.img * H + yy) * TW * a.ch,
+                         bytes, &full[stage]);
               } else {
                 mbar_arrive(&full[stage]);
               }
@@ -640,7 +694,7 @@ __global__ void __launch_bounds__(WgPath<F32>::THREADS, 1)
     return F32 ? hbuf : hbuf + ((c - 1) & 1) * L.hbytes;
   };
   // conv c's input row 7 is the next tile's halo row (zeros after the
-  // image's last tile); warp 7 alone writes that row, once every warp has
+  // item's last tile); warp 7 alone writes that row, once every warp has
   // read the old one
   auto keep_halo = [&](int c, bool last_tile) {
     const uint4* src =
@@ -652,10 +706,15 @@ __global__ void __launch_bounds__(WgPath<F32>::THREADS, 1)
   };
 
   int stage = 0, phase = 0;
-  if (blockIdx.x < n_images) stage_z(blockIdx.x, 0);
-  for (int img = blockIdx.x; img < n_images; img += gridDim.x) {
-    for (int tile = 0; tile < tiles; ++tile) {
-      const int y = tile * TR + r;
+  if (blockIdx.x < items) {
+    const Item it = work_item<BANDS>(blockIdx.x, H, band, a.n_convs);
+    stage_z(it.img, it.t0);
+  }
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const Item it = work_item<BANDS>(w, H, band, a.n_convs);
+    const int img = it.img;
+    for (int tile = 0; tile < it.tiles; ++tile) {
+      const int y = it.t0 + tile * TR + r;
       asm volatile("cp.async.wait_all;\n" ::: "memory");
       consumers_sync();   // z has landed; the last tile's halos are kept
       for (int c = 0; c < a.n_convs; ++c) {
@@ -677,72 +736,72 @@ __global__ void __launch_bounds__(WgPath<F32>::THREADS, 1)
         auto before = [&]() {
           if (F32 && c > 0) {
             consumers_sync();
-            if (r == TR - 1) keep_halo(c, tile + 1 == tiles);
+            if (r == TR - 1) keep_halo(c, tile + 1 == it.tiles);
           }
         };
         const int np = wg_width(conv_cout(a, c));
         const float* cb = biases + c * a.ch;
         switch (np) {
-          case 32:
-            wg_conv<32, F32>(a, c, above, here, cin, ring, L.slice, ready,
-                             empty, stages, stage, phase, next, img, y, cb,
-                             before);
-            break;
-          case 64:
-            wg_conv<64, F32>(a, c, above, here, cin, ring, L.slice, ready,
-                             empty, stages, stage, phase, next, img, y, cb,
-                             before);
-            break;
-          case 128:
-            wg_conv<128, F32>(a, c, above, here, cin, ring, L.slice, ready,
-                              empty, stages, stage, phase, next, img, y, cb,
-                              before);
-            break;
-          case 160:
-            wg_conv<160, F32>(a, c, above, here, cin, ring, L.slice, ready,
-                              empty, stages, stage, phase, next, img, y, cb,
-                              before);
-            break;
+#define AR_CONV(NN)                                                      \
+  wg_conv<NN, F32, BANDS>(a, c, above, here, cin, ring, L.slice, ready,  \
+                          empty, stages, stage, phase, next, img, y,     \
+                          it.r0, it.r1, cb, before)
+          case 32: AR_CONV(32); break;
+          case 64: AR_CONV(64); break;
+          case 128: AR_CONV(128); break;
+          case 160: AR_CONV(160); break;
           default:
-            if constexpr (NMAX == 256)
-              wg_conv<256, F32>(a, c, above, here, cin, ring, L.slice,
-                                ready, empty, stages, stage, phase, next,
-                                img, y, cb, before);
+            if constexpr (NMAX == 256) AR_CONV(256);
+#undef AR_CONV
         }
         consumers_sync();   // conv c's output is in place, its input read
         if (c == 0) {
-          // z is free: stage the next tile's (this image's or the next's)
-          if (tile + 1 < tiles)
-            stage_z(img, (tile + 1) * TR);
-          else if (img + (int)gridDim.x < n_images)
-            stage_z(img + gridDim.x, 0);
+          // z is free: stage the next tile's (this item's or the next's)
+          if (tile + 1 < it.tiles) {
+            stage_z(img, it.t0 + (tile + 1) * TR);
+          } else if (w + (int)gridDim.x < items) {
+            const Item nx =
+                work_item<BANDS>(w + gridDim.x, H, band, a.n_convs);
+            stage_z(nx.img, nx.t0);
+          }
         } else if (!F32 && r == TR - 1) {
-          keep_halo(c, tile + 1 == tiles);
+          keep_halo(c, tile + 1 == it.tiles);
         }
       }
     }
   }
 }
 
+// The instantiation for a walk: f32 takes widths up to 160, bf16 up to 256
+// (``wide``: the NMAX = 256 one).
+typedef void (*WgKernel)(StackArgs, int, int, int);
+template <bool BANDS>
+static WgKernel wg_kernel(bool f32, bool wide) {
+  return f32 ? ar_stack_wgmma_kernel<160, true, BANDS>
+         : wide ? ar_stack_wgmma_kernel<256, false, BANDS>
+                : ar_stack_wgmma_kernel<160, false, BANDS>;
+}
+
 static int launch_wgmma(const StackArgs& a, int n_images, size_t limit,
-                        bool f32, cudaStream_t stream) {
+                        bool f32, int band, int blocks,
+                        cudaStream_t stream) {
   const WgLayout L = wg_layout(a.n_convs, a.cz, a.ch, a.cout, f32);
   const long fit = ((long)limit - L.fixed) / L.slice;
   const int stages = (int)(fit < MAX_STAGES ? fit : MAX_STAGES);
   if (stages < 2) return (int)cudaErrorInvalidValue;
+  // the plan: items of ``band`` rows handed to ``blocks`` blocks in turn
+  if (band < 1 || blocks < 1 ||
+      blocks > n_images * ((a.H + band - 1) / band))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)L.fixed + (size_t)stages * L.slice;
-  auto kernel = f32 ? ar_stack_wgmma_kernel<160, true>
-                : L.slice > KC * 160 * 2 ? ar_stack_wgmma_kernel<256, false>
-                                         : ar_stack_wgmma_kernel<160, false>;
+  const bool wide = L.slice > KC * 160 * 2;
+  const WgKernel kernel = band < a.H ? wg_kernel<true>(f32, wide)
+                                     : wg_kernel<false>(f32, wide);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int blocks = n_images < sms ? n_images : sms;
   kernel<<<blocks, f32 ? TF_THREADS : WG_THREADS, smem, stream>>>(
-      a, n_images, stages);
+      a, n_images, stages, band);
   return (int)cudaGetLastError();
 }
 
@@ -864,13 +923,15 @@ int ar_stack_pack_w(const void* const* w, void* out, const int* dims,
 // tensor-core kernel within ``limit`` bytes of shared memory (W = 16; z,
 // ctx and the weights 16-byte aligned; bf16: cz and ch multiples of 16
 // and cout of 8, all at most 256; f32, by 3xTF32: cz, ch and cout
-// multiples of 8, cz at most 64, ch and cout at most 160), 0 the FMA
-// kernel with ``threads`` a block.
+// multiples of 8, cz at most 64, ch and cout at most 160) on the plan
+// ``band``, ``blocks`` (ops/ar_stack.py fwd_plan: the whole-image plan is
+// band = H, blocks = min(n_images, SMs)), 0 the FMA kernel with
+// ``threads`` a block (one block an image; the plan is not read).
 int ar_stack_fwd(const void* z, const void* ctx, const void* const* w,
                  const void* const* b, void* out, void* const* pre,
                  int n_convs, int n_images, int H, int W, int cz, int ch,
-                 int cout, int bf16, int wgmma, int threads, size_t limit,
-                 void* stream) {
+                 int cout, int bf16, int wgmma, int threads, int band,
+                 int blocks, size_t limit, void* stream) {
   if (n_convs < 2 || n_convs > MAX_CONVS) return (int)cudaErrorInvalidValue;
   StackArgs a = {};
   a.z = z;
@@ -901,7 +962,7 @@ int ar_stack_fwd(const void* z, const void* ctx, const void* const* w,
     for (int i = 0; i < n_convs; ++i)
       ok = ok && reinterpret_cast<uintptr_t>(w[i]) % 16 == 0;
     if (!ok) return (int)cudaErrorInvalidValue;
-    return launch_wgmma(a, n_images, limit, !bf16, s);
+    return launch_wgmma(a, n_images, limit, !bf16, band, blocks, s);
   }
   return bf16 ? launch<__nv_bfloat16>(a, n_images, threads, s)
               : launch<float>(a, n_images, threads, s);

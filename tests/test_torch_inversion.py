@@ -67,6 +67,25 @@ def test_posterior_flow_probe_matches_jax(extra):
     _close(s, js, 1e-5, "s")
 
 
+@pytest.mark.parametrize("extra", ["", K5, ",ar_kind=dense"])
+def test_probe_ar_fn_equals_the_layers_forward_bitwise(extra):
+    """The probe folds the top layer's AR weights once (``frozen``); its
+    ``ar_fn`` gives the bits of ``top.ar1(z, context)``, the call it made
+    on every sweep before (K1's twin at 3x3, K2's at 5x5, the dense MADE),
+    at z0 and at another z."""
+    tcfg = Config().parse(TINY + extra)
+    x = np.random.RandomState(1).randint(
+        0, 256, (2, tcfg.image_size, tcfg.image_size, 3)).astype(np.uint8)
+    model = cvae.init_params(tcfg, x, rng=1, device="cpu")
+    top = model.blocks[-1]
+    with torch.inference_mode():
+        z, ctx, ar_fn = cvae.posterior_flow_probe(tcfg, model, 0, x)
+        for zq in (z, 0.5 * z + 0.25):
+            m, s = ar_fn(zq)
+            wm, ws = top.ar1(zq, ctx)
+            assert torch.equal(m, wm * 0.1) and torch.equal(s, ws * 0.1)
+
+
 def test_position_index_is_raster_then_channel():
     pos = inversion._ar_position_index((1, 3, 4, 2), "cpu")
     want = np.asarray(jinv._ar_position_index((1, 3, 4, 2)))

@@ -250,6 +250,36 @@ def test_ar_stack_rejects_bad_masks_and_shapes():
     with pytest.raises(ValueError, match="context"):
         ops.ar_stack(_t(z), _t(c[..., :4]), [_t(w) for w in ws],
                      [_t(b) for b in bs], masks)
+    # masks checked once (``check_masks``) stand in for the arrays
+    with pytest.raises(ValueError, match="taps"):
+        ops.check_masks(bad)
+    checked = ops.check_masks(masks)
+    args = (_t(z), _t(c), [_t(w) for w in ws], [_t(b) for b in bs])
+    torch.testing.assert_close(ops.ar_stack(*args, checked),
+                               ops.ar_stack(*args, masks), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="mask"):
+        ops.ar_stack(*args[:2], args[2][:2] + [args[2][2][..., :4]],
+                     [args[3][0], args[3][1], args[3][2][:4]], checked)
+    with pytest.raises(ValueError, match="differ in length"):
+        ops.ar_stack(*args, ops.check_masks(masks[:2]))
+
+
+@pytest.mark.parametrize("tap", [(1, 2), (2, 0), (2, 1), (2, 2)])
+def test_mask_given_a_dead_tap_in_place_raises(tap):
+    """A mask array that passed, then given a dead tap in place, is
+    scanned again on the next call and raises; the ``check_masks`` made
+    before the change holds no array and still stands for the masks that
+    passed."""
+    z, c, ws, bs, masks = _k1_inputs(4, 8, 2, 6)
+    args = (_t(z), _t(c), [_t(w) for w in ws], [_t(b) for b in bs])
+    checked = ops.check_masks(masks)
+    ops.ar_stack(*args, masks)
+    masks[2][tap] = 1.0
+    with pytest.raises(ValueError, match="conv 2: mask has taps"):
+        ops.ar_stack(*args, masks)
+    with pytest.raises(ValueError, match="conv 2: mask has taps"):
+        ops.check_masks(masks)
+    assert checked.shapes == tuple(m.shape for m in masks)
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -544,7 +574,7 @@ def cuda():
 @pytest.mark.parametrize("zs,hs,n,hw,depth_ar", [
     (32, 160, 8, 16, 2), (4, 8, 3, 6, 2), (32, 160, 8, 16, 4),
     (16, 32, 8, 16, 2), (16, 48, 8, 16, 2), (32, 128, 8, 16, 2),
-    (32, 256, 8, 16, 2)])
+    (32, 256, 8, 16, 2), (32, 160, 2, 16, 2), (32, 160, 32, 16, 2)])
 def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
                                               depth_ar):
     """The heads against the twin, 1e-4 (f32) / 2e-2 (bf16). In bf16 at
@@ -556,7 +586,8 @@ def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
     holds it to the f64 twin); elsewhere the FMA kernel runs. Beside the paper
     widths the bf16 cases run every wgmma width the kernel takes (N = 32,
     64, 128, 160 and the N = 256 instantiation) and input channels padded
-    to whole 32-deep slices (cz = 16, ch = 48)."""
+    to whole 32-deep slices (cz = 16, ch = 48); N = 2 and 32 take
+    ``fwd_plan``'s bands."""
     import importlib
     k1 = importlib.import_module("iaf_torch.ops.ar_stack")
     z, c, ws, bs, masks = _k1_inputs(zs, hs, n, hw, depth_ar)
@@ -583,6 +614,38 @@ def test_ar_stack_kernel_matches_twin_on_card(cuda, dtype, zs, hs, n, hw,
     for a, b in zip([out, *pre], [rout, *rpre]):
         err = float((a - b.float()).abs().max())
         assert err <= 2e-2 * float(b.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,depth_ar", [(2, 2), (16, 2), (32, 2), (2, 4),
+                                        (140, 2)])
+def test_ar_stack_plans_agree_bitwise_on_card(cuda, dtype, n, depth_ar):
+    """At the paper widths the picked plan and bands of 1, 3 and 9 - convs
+    rows (at 140 images walked several a block) give the whole-image
+    plan's heads and pre-activations bit for bit, within the twin's
+    tolerance (f32: 1e-4, bf16 2e-2 of max)."""
+    import importlib
+    k1 = importlib.import_module("iaf_torch.ops.ar_stack")
+    z, c, ws, bs, masks = _k1_inputs(32, 160, n, 16, depth_ar)
+    args = (_t(z).to(cuda, dtype), _t(c).to(cuda),
+            [_t(w).to(cuda, dtype) for w in ws], [_t(b).to(cuda) for b in bs])
+    sms = k1._sms(cuda.index or 0)
+    whole = k1.whole_plan(n, 16, sms)
+    plans = {k1.fwd_plan(dtype, n, 16, 16, 32, 160, 64, len(ws), sms)}
+    for band in (1, 3, 9 - len(ws)):
+        plans.add(k1.FwdPlan(band=band, blocks=min(n * -(-16 // band), sms)))
+    with torch.inference_mode():
+        base = k1._fwd(*args, save_pre=True, plan=whole)
+        rout, rpre = ops.ar_stack_ref_pre(*args)
+        for plan in plans - {whole}:
+            got = k1._fwd(*args, save_pre=True, plan=plan)
+            for a, b in zip([got[0], *got[1]], [base[0], *base[1]]):
+                assert torch.equal(a, b), plan
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip([base[0], *base[1]], [rout, *rpre]):
+        err = float((a - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), err
 
 
 @pytest.mark.cuda
