@@ -5,6 +5,7 @@
     python3 chip_smoke.py --multi           # phases 17(e) and 19(e)
                                             # alone (2+ cards)
     python3 chip_smoke.py --memory          # phase 19 alone
+    python3 chip_smoke.py --loops           # phase 20 alone
     python3 chip_smoke.py --plans           # K1's forward on every
                                             # launch plan at six shapes
                                             # (``plans_only``)
@@ -26,9 +27,12 @@
                                             # graph_check: phase 15(a)'s
                                             # f32 check alone, 5 runs a
                                             # tree)
-    python3 chip_smoke.py --invert-ab [PAIRS]
+    python3 chip_smoke.py --invert-ab [PAIRS] [plans|loops]
                                             # invert_check on K1's plan
                                             # against the whole-image one
+                                            # (plans, the default), or on
+                                            # the graphed loops against
+                                            # the host loops (loops)
                                             # (``invert_plan_ab``)
 
 Phases, any failure exits non-zero:
@@ -75,8 +79,10 @@ Phases, any failure exits non-zero:
    (kernels) against the same forward on the CPU (twins), same noise.
 5. Eval main path: ``iaf_torch.train_lib.evaluate`` over 2 test batches
    of 16 at k=256 (4 chunks of 64); the launch counters are zeroed just
-   before and read just after, and must be K1 = K3 = 160, K4 = 8. One more
-   batch through the eval step alone gives the steady seconds per batch.
+   before and read just after, and must be K1 = K3 = 160, K4 = 8 (on the
+   card each batch's first chunk runs a CUDA graph's warm-up or a replay,
+   the rest replays). Three more batches through the graphed eval step
+   alone give the steady seconds per batch (their median).
 6. The f32 recipe (the same model, ``compute_dtype=float32``): K1's
    inputs captured from one real f32 eval chunk (posterior samples and
    folded weights with full f32 mantissas, not bf16 upcast); K1 must take
@@ -159,7 +165,9 @@ Phases, any failure exits non-zero:
    autograd of its twin (2e-2 of each output's max; upcast to f32 at
    1e-4 of the twin in f64), two calls bitwise equal, its device time per
    call by kernel, timed whole and as dgrad and wgrad apart beside the
-   twin's and cuDNN's backward; one f32 training step at batch 4, card
+   twin's and cuDNN's backward; K2's forward on the same step's inputs
+   (batch 32) against its twin, timed beside cuDNN with the bound (phase
+   12 the same in f32); one f32 training step at batch 4, card
    against CPU; and ``train_lib.train`` for 10 steps plus a 2-step resume
    with launches exactly K2 = K2-backward = 60, K3 = K3-backward = 20, K4
    = K4-backward = K5 = 1, K1 = K1-backward = 0 per step, and one step
@@ -221,8 +229,10 @@ Phases, any failure exits non-zero:
    halfway (in log) between the CPU's changes either side of 1e-6 and
    at most one apart at 1e-6 itself (printed). K1's launch plans run on
    the captured inputs of (c) and (e) as in phase 3 (``k1_plans``), and
-   ``invert_check``'s seconds and one sweep's ms are printed beside their
-   figures before the plans (``INVERT_BEFORE``).
+   ``invert_check``'s seconds and one sweep's ms are printed beside the
+   host loops' (``INVERT_BEFORE``). The launches count every sweep the
+   blocks run (``inverse_sweeps``: D and the fixed point's sweeps rounded
+   up to whole blocks).
 
 15. The captured training step (``train_step.make_train_step``): (a)
    three eager ``train_step``s against the graphed step (warm-up, then
@@ -332,6 +342,25 @@ Phases, any failure exits non-zero:
    leaf's max (which held is printed); (e) in ``--multi``, two ranks at
    grad_accum=2 (``two_rank_phase``).
 
+20. The serving loops on the device (``loops_phase``, also ``--loops``):
+   (a) in the five eval cells (paper, paper f32, 5x5, 5x5 f32 and MNIST,
+   16 images at k=256 in chunks of 64, each model from a data-dependent
+   init) the graphed eval step (``make_graphed_eval_step``) against the
+   eager one: launches exactly a chunk's (paper K1 = K3 = 20, K4 = 1;
+   5x5 K2 = 60, K3 = 20, K4 = 1; MNIST none) on every call of either;
+   bitwise where three eager runs are, else within ``NONDET_MARGIN``
+   times their largest difference; again after the weights are copied in
+   place (the same graph replayed, a result apart from the old one's);
+   the median seconds a batch and importance samples/s of each over 5
+   batches in turns (A B B A), and one graphed batch's device-busy share;
+   (b) ``invert_check``'s three inverses at batch 2 on the paper model,
+   host loops against the blocked ones (replayed graphs): bitwise, equal
+   fixed-point counts, K1 one launch a sweep, the seconds and one sweep's
+   ms of each; (c) ``train`` (paper bf16, batch 32, 4 steps) with the
+   heartbeat eval every 2 steps and without: launches exact, finite
+   heartbeat rows and the peak memory with the train and eval graphs
+   alive together.
+
 Times: ``ms`` is by CUDA events around 20 back-to-back calls (what a
 caller waits, host included); ``device_ms`` (every kernel, and K1's and
 K2's library calls) is the device time the profiler records for the same
@@ -348,15 +377,17 @@ phase 14's rows at the serving shapes: ``ar_stack_recon``,
 launches those of one ``reconstruct``, and ``ar_stack_f32_inversion``
 (K1 in f32) and ``iaf_update_inversion`` at N = 2, their launches those
 of one ``invert_check``; and ``adamax_polyak_mnist``, K5 over the MNIST
-model's 45 leaves, its launches those of phase 16's training run), the
-last ``{"ok": true,
+model's 45 leaves, its launches those of phase 16's training run; and
+K2's forward at the 5x5 training step's shapes, batch 32,
+``masked_conv2d_b32`` and ``masked_conv2d_f32_b32``, their launches
+those of phases 11's and 12's training runs), the last ``{"ok": true,
 "device": {...}}``. The line before it, ``{"main": ...}``, sums up each
 path, phase 14's under ``"serve"``, phase 15's medians under each
 ``train*`` entry's ``"side_by_side"``, with ``"graph_vs_eager"``,
 ``"train_chunked"`` and ``"train_f32_determinism"``, the inits' seconds
 under ``"main"``'s ``"init"``, phase 16's under ``"mnist"``, phase
-17's under ``"multi"``, phase 18's under ``"export"`` and phase 19's
-under ``"memory"``.
+17's under ``"multi"``, phase 18's under ``"export"``, phase 19's
+under ``"memory"`` and phase 20's under ``"loops"``.
 """
 
 from __future__ import annotations
@@ -391,6 +422,7 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 # CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 EVAL_BATCH, EVAL_K, EVAL_CHUNK, EVAL_BATCHES = 16, 256, 64, 2
+STEADY_BATCHES = 3         # the steady eval's median is over these batches
 TRAIN_STEPS, RESUME_STEPS = 10, 2
 SIDE_BY_SIDE_STEPS = 8     # phase 15(b): the steps each median is taken over
 # phase 15(a): where eager runs differ (cuDNN's f32 algorithms are not all
@@ -707,9 +739,10 @@ def _k1_f32_shape(ops, ar_mod, label, z, ctx, ws, bs, masks,
             "device_launches_per_call": per_call, **b}
 
 
-# ``invert_check``'s seconds and one sweep's ms before the sweep's host
-# work was hoisted and ``fwd_plan`` came (PERF.md's serving figures)
-INVERT_BEFORE = (14.063, 0.647)
+# ``invert_check``'s seconds and one sweep's ms with its loops on the host
+# (PR 19's final chip run, PERF.md's serving figures), before the sweeps
+# became replayed blocks
+INVERT_BEFORE = (6.402, 0.2793)
 # K1's forward device ms a call before ``fwd_plan``, all on the whole-image
 # plan (PERF.md §6's earlier figures), by shape label
 K1_BEFORE = {"N=1024 bf16": 0.3766, "N=1024 f32": 1.7428,
@@ -1911,12 +1944,14 @@ def _reserved(what: str) -> None:
 def eval_phase(ops, device, cfg, model, ds, per_chunk: dict):
     """The eval main path, counted: ``train_lib.evaluate`` over 2 test
     batches at k=256 with the counters zeroed just before and read just
-    after (exactly ``per_chunk`` per chunk); then one more batch through
-    the eval step alone for the steady seconds per batch. Returns (the
-    counts, a summary)."""
+    after (exactly ``per_chunk`` per chunk; on the card the chunks after
+    the first are replays of a CUDA graph); then the graphed eval step
+    alone (``make_graphed_eval_step``, warmed up and captured on one
+    batch) for the steady seconds per batch, the median of
+    ``STEADY_BATCHES``. Returns (the counts, a summary)."""
     import torch
     from iaf_torch import train_lib
-    from iaf_torch.parallel.eval_step import make_eval_step
+    from iaf_torch.parallel.eval_step import make_graphed_eval_step
     tag = _label(cfg)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1932,18 +1967,24 @@ def eval_phase(ops, device, cfg, model, ds, per_chunk: dict):
           f"{secs:.4f} s with the data set-up, launches {counts}")
     check(math.isfinite(metric), f"{name} {metric} is not finite")
     check(counts == want, f"launch counts {counts} != {want}")
-    # steady state: the eval step alone on one batch, timed after the
-    # counted run (set-up excluded)
-    step = make_eval_step(cfg, device, k=EVAL_K)
+    # steady state: the graphed eval step alone, timed after the counted
+    # run (set-up, warm-up and capture excluded)
+    step = make_graphed_eval_step(cfg, device, k=EVAL_K)
     batch = ds.test_x[:EVAL_BATCH]
     step(model, 7, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(model, 7, batch)
-    torch.cuda.synchronize()
-    per_batch = time.perf_counter() - t0
-    print(f"[main] {tag}: steady eval step: {per_batch:.4f} s/batch, "
-          f"{EVAL_BATCH * EVAL_K / per_batch:.1f} importance samples/s")
+    times = []
+    for _ in range(STEADY_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, 7, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step.close()
+    per_batch = statistics.median(times)
+    print(f"[main] {tag}: steady eval step (graphed, median of "
+          f"{STEADY_BATCHES}): {per_batch:.4f} s/batch, "
+          f"{EVAL_BATCH * EVAL_K / per_batch:.1f} importance samples/s "
+          f"({[round(t, 4) for t in times]})")
     return counts, {
         name: metric, "evaluate_seconds": secs,
         "seconds_per_batch": per_batch,
@@ -1977,8 +2018,9 @@ def f32_phases(ops, device, model, ds):
             ops, device, cfg, model, ds,
             {"ar_stack": blocks, "iaf_update": blocks,
              "disc_logistic_logp": 1})
-    check(len(routes["fwd"]) > eval_counts["ar_stack"]
-          and set(routes["fwd"]) == {"3xtf32"},
+    # the routes are chosen in Python by each graphed step's warm-up chunk
+    # and its capture; the replays repeat the capture's launches
+    check(routes["fwd"] and set(routes["fwd"]) == {"3xtf32"},
           f"f32 eval: K1 routes {sorted(set(routes['fwd']))}, not all "
           "3xtf32")
     main["profile"] = chunk
@@ -2336,6 +2378,69 @@ def k2_backward_phase(ops, cap: dict) -> dict:
                     "partial_mbytes"))
 
 
+def k2_forward_b32(ops, cap: dict, f32: bool) -> dict:
+    """K2's forward at the 5x5 training step's shapes: the inputs of the
+    three convs whose backward ``cap`` holds (one real step, batch 32 of
+    16x16), on the tensor cores (``fwd_route``: bf16 ``"wgmma"``, f32
+    ``"3xtf32"``), held to the twin (bf16 at 2e-2 of the output's max,
+    f32 at 1e-5 of the twin in f64), timed by events and by device time
+    beside the twin and one cuDNN conv (device time and the ratio), with
+    the bound from the shapes. Returns the kernels-line row
+    ``masked_conv2d_b32`` (``masked_conv2d_f32_b32``)."""
+    import torch
+    from iaf_torch.ops import masked_conv as mc
+    tag = "K2 f32 b32" if f32 else "K2 b32"
+    shapes = []
+    for (cin, cout), (x, w, _, taps) in sorted(cap.items()):
+        route = mc.fwd_route(x, w, taps)
+        check(route == ("3xtf32" if f32 else "wgmma"),
+              f"{tag} {cin}->{cout} takes the {route} kernel")
+        call = lambda: ops.masked_conv2d(x, w, taps)  # noqa: E731
+        with torch.inference_mode():
+            got = call()
+            ref = (ops.masked_conv2d_ref(x.double(), w.double(), taps) if f32
+                   else ops.masked_conv2d_ref(x, w, taps))
+            err, rel = _rel_err(got, ref)
+            tol = 1e-5 if f32 else 2e-2
+            check(rel <= tol, f"{tag} {cin}->{cout}: {rel:.3e} of max > "
+                  f"{tol}")
+            ms, dev = cuda_ms(call), device_ms(call)
+            plain = cuda_ms(lambda: ops.masked_conv2d_ref(x, w, taps), 5, 1)
+            conv, xl, wl = _k2_conv_lib(x, w)
+            lib = cuda_ms(lambda: conv(xl, wl))
+            lib_dev = device_ms(lambda: conv(xl, wl))
+        n, hh, ww, _ = x.shape
+        flops = 2 * n * hh * ww * len(taps) * cin * cout
+        moved = nbytes(x, got) + len(taps) * cin * cout * w.element_size()
+        if f32:
+            b = _f32_bounds(flops, moved)
+        else:
+            b_ms, b_by = bound_ms(flops, "bfloat16", moved)
+            b = dict(bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9,
+                     mbytes=moved / 1e6)
+        print(f"[{tag}] masked_conv2d x{tuple(x.shape)} {cin}->{cout}, "
+              f"{len(taps)} live taps ({route}): {rel:.3e} of max from the "
+              f"twin (limit {tol}); by events {ms:.4f} ms, by device time "
+              f"{dev:.4f} ms, twin {plain:.4f} ms; cuDNN {lib:.4f} ms, by "
+              f"device time {lib_dev:.4f} ms, ratio {dev / lib_dev:.3f}; "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{100 * b['bound_ms'] / dev:.0f} % of the device time)")
+        shapes.append(dict(cin=cin, cout=cout, max_abs_err=err,
+                           max_rel_err=rel, ms=ms, device_ms=dev,
+                           plain_ms=plain, library_ms=lib,
+                           library_device_ms=lib_dev, **b))
+    if f32:
+        return _k2_row("masked_conv2d_f32_b32",
+                       "iaf_torch/ops/csrc/masked_conv.cu",
+                       "iaf_tpu/ops/masked_conv.py:40", shapes,
+                       ("design_bound_ms", "fp32_floor_ms"),
+                       path="5x5 f32", counter="masked_conv2d",
+                       kernel_route="3xtf32")
+    return _k2_row("masked_conv2d_b32", "iaf_torch/ops/csrc/masked_conv.cu",
+                   "iaf_tpu/ops/masked_conv.py:40", shapes, path="5x5",
+                   counter="masked_conv2d", kernel_route="wgmma")
+
+
 @contextlib.contextmanager
 def k2_routes():
     """Record the route of every K2 forward (``fwd_route``) and backward
@@ -2553,8 +2658,8 @@ def k2_f32_backward_phase(ops, cap: dict) -> dict:
 
 def five_by_five_f32_phases(ops, device, model, ds):
     """The 5x5 config's f32 recipe (``compute_dtype=float32``, phase 12 of
-    the module docstring) on the bf16 phases' model. Returns (K2's two f32
-    rows, the eval and training launch counts, a summary)."""
+    the module docstring) on the bf16 phases' model. Returns (K2's three
+    f32 rows, the eval and training launch counts, a summary)."""
     import torch
     from iaf_torch.core.config import Config
     from iaf_torch.models import cvae
@@ -2578,8 +2683,7 @@ def five_by_five_f32_phases(ops, device, model, ds):
             ops, device, cfg, model, ds,
             {"masked_conv2d": blocks * (cfg.depth_ar + 1),
              "iaf_update": blocks, "disc_logistic_logp": 1})
-    check(len(routes["fwd"]) > eval_counts["masked_conv2d"]
-          and set(routes["fwd"]) == {"3xtf32"},
+    check(routes["fwd"] and set(routes["fwd"]) == {"3xtf32"},
           f"5x5 f32 eval: K2 routes {sorted(set(routes['fwd']))}, not all "
           "3xtf32")
     main["profile"] = chunk
@@ -2590,6 +2694,7 @@ def five_by_five_f32_phases(ops, device, model, ds):
     cap = capture_k2(masked_conv, "masked_conv2d_bwd",
                      lambda: ts.train_step(tcfg, tstate, 3, tbatch))
     rows.append(k2_f32_backward_phase(ops, cap))
+    rows.append(k2_forward_b32(ops, cap, True))
     del cap, tstate
     torch.cuda.empty_cache()
     with k2_routes() as routes:
@@ -2616,7 +2721,7 @@ def five_by_five_f32_phases(ops, device, model, ds):
 
 def five_by_five_phases(ops, device, ds):
     """The 5x5 config's phases (phases 11 and 12 of the module docstring).
-    Returns (K2's two bf16 rows, the eval and training launch counts, a
+    Returns (K2's three bf16 rows, the eval and training launch counts, a
     summary, and ``five_by_five_f32_phases``'s four results)."""
     import torch
     from iaf_torch.core.config import Config
@@ -2658,6 +2763,7 @@ def five_by_five_phases(ops, device, ds):
     cap = capture_k2(masked_conv, "masked_conv2d_bwd",
                      lambda: ts.train_step(tcfg, tstate, 3, tbatch))
     rows.append(k2_backward_phase(ops, cap))
+    rows.append(k2_forward_b32(ops, cap, False))
     del cap, tstate
     torch.cuda.empty_cache()
     train_reference_phase(device, PAPER5)
@@ -2863,8 +2969,10 @@ def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
                                        device=device)), ("iaf_update",)),
         None)
     res = got["res"]
-    want = {"ar_stack": 1 + D * (2 if run_exact else 1)
-            + res["iters_fixed_point"], "iaf_update": 1}
+    # the flow's forward once, then every sweep the blocks run, idle ones
+    # included
+    want = {"ar_stack": 1 + inverse_sweeps(D, res["iters_fixed_point"],
+                                           run_exact), "iaf_update": 1}
     check(inv_counts == _expect(inv_counts, want, 1),
           f"invert_check launches {inv_counts} != {want}")
     print(f"[serve] invert_check: D={D}, iters_fixed_point "
@@ -2872,9 +2980,13 @@ def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
               f"{k} {v:.3e}" for k, v in res.items() if k.startswith("err"))
           + "; " + ", ".join(f"{k} {v:.3f} s" for k, v in res.items()
                              if k.startswith("t_")))
-    print(f"[serve] invert_check {secs:.3f} s, one sweep {sweep * 1e3:.4f} "
-          f"ms (before: {INVERT_BEFORE[0]} s, {INVERT_BEFORE[1]} ms; K1 "
-          f"{K1_BEFORE['N=2 f32']} device ms of it)")
+    from iaf_torch.models import inversion
+    graphed_sweep = res["t_jacobi"] / _blocked(D, inversion.EXACT_BLOCK)
+    print(f"[serve] invert_check {secs:.3f} s, K1 {inv_counts['ar_stack']} "
+          f"launches; one sweep called alone {sweep * 1e3:.4f} ms, one "
+          f"sweep of the graphed Jacobi loop {graphed_sweep * 1e3:.4f} ms "
+          f"(the host loops: {INVERT_BEFORE[0]} s, {INVERT_BEFORE[1]} ms a "
+          f"sweep)")
     check(res["err_jacobi"] < 1e-4 and res["err_fixed_point"] < 1e-4,
           f"inversion round trip {res}")
     if run_exact:
@@ -2918,12 +3030,28 @@ def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
     check(abs(n_card - n_cpu) <= 1, f"sweeps at 1e-6: {n_card}, {n_cpu}")
     summary["invert_check"] = {**res, "run_exact": run_exact,
                                "sweep_ms": sweep * 1e3,
+                               "graphed_sweep_ms": graphed_sweep * 1e3,
+                               "k1_launches": inv_counts["ar_stack"],
                                "flow_moves_z": unmoved,
                                "card_vs_cpu_rel_err": rel,
                                "iters_card": n_card, "iters_cpu": n_cpu,
                                "seconds": secs}
     return kernel_rows, {"serve": inv_counts,
                          "serve recon": recon_counts}, summary
+
+
+def _blocked(sweeps: int, block: int) -> int:
+    """The sweeps that blocks of ``block`` run to reach ``sweeps``."""
+    return -(-sweeps // block) * block
+
+
+def inverse_sweeps(D: int, fixed_point: int, run_exact: bool = True) -> int:
+    """K1's launches in ``invert_check``'s inverses: the exact (where run)
+    and Jacobi loops' D sweeps and the fixed point's, each rounded up to
+    whole blocks (``models/inversion.py``)."""
+    from iaf_torch.models import inversion
+    return ((2 if run_exact else 1) * _blocked(D, inversion.EXACT_BLOCK)
+            + _blocked(fixed_point, inversion.FIXED_POINT_BLOCK))
 
 
 def _state_copy(cfg, state, device):
@@ -4570,6 +4698,302 @@ def memory_phase(ops, device) -> dict:
     return out
 
 
+LOOP_BATCHES = 5        # phase 20(a): eager and graphed batches each
+HEARTBEAT_STEPS = 4     # phase 20(c): steps of train with eval_every=2
+
+
+def _eval_cell(ops, device, cfg, model, batch, per_chunk: dict) -> dict:
+    """Phase 20(a) in one eval cell: the graphed eval step
+    (``make_graphed_eval_step``) against the eager one (``make_eval_step``)
+    on one batch at k=256 with one key, the counters zeroed before each
+    call and read after it (exactly ``per_chunk`` a chunk, either step):
+    the graphed step's first call (warm-up, capture, replays), then
+    ``LOOP_BATCHES`` calls of each in turns (A B B A ..., A eager), each
+    ending in a wait; every graphed result bitwise the first eager one
+    where the first three eager results (the controls) are bitwise equal,
+    else within ``NONDET_MARGIN`` times their largest difference (phase
+    15(a)'s rule). Then weights copied in place (``load_state_dict``, as
+    ``eval_loop`` loads a checkpoint; perturbed by 5 % of each leaf's
+    mean magnitude): one eager and one graphed call, the graphed one a
+    replay of the same graph, held to the eager one by the same rule and
+    apart from the old weights' result; the old weights copied back. The
+    median seconds a batch and importance samples/s of each, and one
+    graphed batch profiled (its device-busy share)."""
+    import torch
+    from iaf_torch.parallel.eval_step import (make_eval_step,
+                                              make_graphed_eval_step)
+    tag = _label(cfg)
+    steps = {"eager": make_eval_step(cfg, device, k=EVAL_K),
+             "graph": make_graphed_eval_step(cfg, device, k=EVAL_K)}
+    chunks = steps["graph"].n_chunks
+
+    def counted(name):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = steps[name](model, 7, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = _expect(counts, per_chunk, chunks)
+        check(counts == want, f"{tag} {name} eval: launch counts {counts} != "
+              f"{want}")
+        check(bool(torch.isfinite(out).all()), f"{tag} {name}: not finite")
+        return out.clone(), secs
+
+    def held(graphed, eager, controls) -> tuple[bool, float, float]:
+        """(whether the controls are bitwise, the graph's largest
+        difference, the limit), failing where the rule fails."""
+        limit = max(float((a - b).abs().max()) for a, b in (
+            (controls[0], controls[1]), (controls[0], controls[2]),
+            (controls[1], controls[2])))
+        diff = max(float((g - eager).abs().max()) for g in graphed)
+        check(diff <= NONDET_MARGIN * limit, f"{tag}: the graphed eval step "
+              f"differs from the eager one by {diff} > {NONDET_MARGIN} x the "
+              f"controls' {limit}")
+        return limit == 0, diff, limit
+
+    first, t_first = counted("graph")
+    got = {"eager": [], "graph": []}
+    secs = {"eager": [], "graph": []}
+    order = [n for i in range(LOOP_BATCHES)
+             for n in (("eager", "graph") if i % 2 == 0 else
+                       ("graph", "eager"))]
+    for name in order:
+        out, t = counted(name)
+        got[name].append(out)
+        secs[name].append(t)
+    bitwise, diff, limit = held(got["graph"] + [first], got["eager"][0],
+                                got["eager"])
+    graph = steps["graph"]._graph
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=device).manual_seed(5)
+    params = dict(model.named_parameters())
+    moved = {k: v + 0.05 * v.abs().mean() * torch.randn(
+        v.shape, generator=gen, device=device) if k in params else v
+        for k, v in saved.items()}
+    model.load_state_dict(moved)
+    new_e = [counted("eager")[0] for _ in range(3)]
+    new_g, _ = counted("graph")
+    check(steps["graph"]._graph is graph and graph.graph is not None,
+          f"{tag}: the weight copy made the step capture again")
+    new_bitwise, new_diff, new_limit = held([new_g], new_e[0], new_e)
+    check(not torch.equal(new_g, first), f"{tag}: the graphed step gave "
+          "the old weights' result after the weights were copied in")
+    model.load_state_dict(saved)
+    prof = profile_phase(f"{tag}: one graphed eval batch ({EVAL_BATCH} "
+                         f"images x {EVAL_K} samples, {chunks} chunks)",
+                         lambda: steps["graph"](model, 7, batch))
+    steps["graph"].close()
+    med = {n: statistics.median(v) for n, v in secs.items()}
+    rate = {n: EVAL_BATCH * EVAL_K / v for n, v in med.items()}
+    busy = prof["busy_ms"] / prof["wall_ms"]
+    print(f"[loops] {tag}: graphed eval step against eager, {chunks} chunks "
+          f"a batch: "
+          + ("bitwise (the controls are bitwise)" if bitwise else
+             f"largest difference {diff:.3e} within {NONDET_MARGIN} x the "
+             f"controls' {limit:.3e}")
+          + "; after an in-place weight copy "
+          + ("bitwise" if new_bitwise else
+             f"{new_diff:.3e} within {NONDET_MARGIN} x {new_limit:.3e}")
+          + f", a replay of the same graph; launches exact a chunk "
+          f"{per_chunk}")
+    print(f"[loops] {tag}: median of {LOOP_BATCHES} batches (A B B A): eager "
+          f"{med['eager']:.4f} s/batch ({rate['eager']:.1f} importance "
+          f"samples/s), graphed {med['graph']:.4f} s/batch "
+          f"({rate['graph']:.1f}/s), graphed/eager "
+          f"{med['graph'] / med['eager']:.4f}; graphed batch device busy "
+          f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.1f} ms "
+          f"({100 * busy:.1f} %); first graphed call (warm-up and capture) "
+          f"{t_first:.4f} s; eager {[round(t, 4) for t in secs['eager']]}, "
+          f"graphed {[round(t, 4) for t in secs['graph']]}")
+    return {"bitwise": bitwise, "max_diff": diff, "control_limit": limit,
+            "after_copy_bitwise": new_bitwise, "after_copy_max_diff": new_diff,
+            "eager_median_s": med["eager"], "graph_median_s": med["graph"],
+            "eager_samples_per_s": rate["eager"],
+            "graph_samples_per_s": rate["graph"],
+            "graph_busy_ms": prof["busy_ms"], "graph_wall_ms": prof["wall_ms"],
+            "graph_busy_share": busy, "first_call_s": t_first,
+            "eager_s": secs["eager"], "graph_s": secs["graph"],
+            "chunks": chunks}
+
+
+@contextlib.contextmanager
+def _host_inverses():
+    """Inside the block ``invert_check`` runs the host loops
+    (``invert_ar_*_host``) instead of the blocked ones."""
+    from iaf_torch.models import inversion
+    names = ("invert_ar_exact", "invert_ar_jacobi", "invert_ar_fixed_point")
+    saved = {n: getattr(inversion, n) for n in names}
+    for n in names:
+        setattr(inversion, n, getattr(inversion, n + "_host"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(inversion, n, fn)
+
+
+def _inversion_loops(ops, cfg, model) -> dict:
+    """Phase 20(b): ``invert_check``'s three inverses on the inputs it
+    builds at batch 2 (``inversion_inputs``), each by the host loop
+    (``*_host``) and by the blocked loop (on the card replayed graphs),
+    the counters zeroed before and read after each: z bitwise equal, the
+    fixed point's counts equal, K1's launches one a sweep (the blocks'
+    idle sweeps included), the seconds of each and one sweep's ms."""
+    import torch
+    from iaf_torch import train_lib
+    from iaf_torch.models import inversion as inv
+    with torch.inference_mode():
+        z0, _, ar_fn, zp = train_lib.inversion_inputs(cfg, model, 2)
+    D = zp.shape[1] * zp.shape[2] * zp.shape[3]
+    kw = dict(form=cfg.flow_update, gate_bias=cfg.gate_forget_bias)
+    loops = {
+        "exact": (lambda: (inv.invert_ar_exact_host(ar_fn, zp, **kw), D),
+                  lambda: (inv.invert_ar_exact(ar_fn, zp, **kw), D)),
+        "jacobi": (lambda: (inv.invert_ar_jacobi_host(ar_fn, zp, D, **kw), D),
+                   lambda: (inv.invert_ar_jacobi(ar_fn, zp, D, **kw), D)),
+        "fixed_point": (
+            lambda: inv.invert_ar_fixed_point_host(ar_fn, zp, **kw),
+            lambda: inv.invert_ar_fixed_point(ar_fn, zp, **kw))}
+    blocks = {"exact": inv.EXACT_BLOCK, "jacobi": inv.EXACT_BLOCK,
+              "fixed_point": inv.FIXED_POINT_BLOCK}
+    out = {}
+    for name, pair in loops.items():
+        res = {}
+        for how, fn in zip(("host", "graphed"), pair):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                z, n = fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            k1 = ops.launch_counts()["ar_stack"]
+            sweeps = n if how == "host" else _blocked(n, blocks[name])
+            check(k1 == sweeps, f"{name} {how}: K1 {k1} launches, "
+                  f"{sweeps} sweeps")
+            res[how] = dict(z=z, sweeps=n, seconds=t, k1=k1,
+                            sweep_ms=1e3 * t / k1)
+        h, g = res["host"], res["graphed"]
+        check(torch.equal(h["z"], g["z"]) and h["sweeps"] == g["sweeps"],
+              f"{name}: the graphed loop differs from the host loop "
+              f"(sweeps {g['sweeps']}, {h['sweeps']})")
+        err = float(torch.max(torch.abs(g["z"] - z0)))
+        check(err < 1e-4, f"{name}: round trip {err}")
+        print(f"[loops] inversion {name} (batch 2, D = {D}): graphed "
+              f"bitwise the host loop, {g['sweeps']} sweeps, round trip "
+              f"{err:.3e}; host {h['seconds']:.4f} s ({h['k1']} K1 launches, "
+              f"{h['sweep_ms']:.4f} ms a sweep), graphed {g['seconds']:.4f} s "
+              f"({g['k1']} K1 launches, {g['sweep_ms']:.4f} ms a sweep), "
+              f"graphed/host {g['seconds'] / h['seconds']:.4f}")
+        out[name] = {"sweeps": g["sweeps"], "round_trip": err,
+                     **{f"{how}_{k}": v for how, r in res.items()
+                        for k, v in r.items() if k != "z"}}
+    return out
+
+
+def _heartbeat_cell(ops, device) -> dict:
+    """Phase 20(c): ``train`` at the paper config (bf16, batch 32) for
+    ``HEARTBEAT_STEPS`` steps with the heartbeat eval every 2 steps (its
+    graphed step: k = 64 in one chunk of 16 images, the first heartbeat
+    the warm-up and capture, the second a replay of its graph) beside the
+    same run with no heartbeat: launches exactly the steps' and the
+    heartbeats' (K1 = K3 = 20, K4 = 1 a heartbeat), finite heartbeat
+    rows, and the peak memory of each run with the train graph and the
+    eval graph alive together."""
+    import torch
+    from iaf_torch import train_lib
+    from iaf_torch.core.config import Config
+    out = {}
+    per_beat = {"ar_stack": 20, "iaf_update": 20, "disc_logistic_logp": 1}
+    for every in (0, 2):
+        logdir = os.path.join(HERE, "build", f"chip_smoke_heartbeat_{every}")
+        shutil.rmtree(logdir, ignore_errors=True)
+        cfg = Config().parse(
+            PAPER + f",dataset=synthetic,log_every=1,ckpt_every=1000,"
+            f"eval_every={every},image_summaries=false").replace(
+                logdir=logdir)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_lib.train(cfg, max_steps=HEARTBEAT_STEPS, device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = ops.launch_counts()
+        want = _expect(counts, PER_STEP, HEARTBEAT_STEPS)
+        beats = HEARTBEAT_STEPS // every if every else 0
+        for k, v in per_beat.items():
+            want[k] += v * beats
+        check(counts == want, f"train eval_every={every}: launches {counts} "
+              f"!= {want}")
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            evals = [json.loads(line)["eval_bits_per_dim"] for line in f
+                     if "eval_bits_per_dim" in line]
+        check(len(evals) == beats and all(map(math.isfinite, evals)),
+              f"heartbeat rows {evals}")
+        gib = 2.0 ** 30
+        print(f"[loops] train, paper bf16, batch 32, {HEARTBEAT_STEPS} steps, "
+              f"eval_every={every}: {secs:.3f} s with init, {beats} heartbeat "
+              f"evals {evals}; peak memory {peak / gib:.3f} GiB "
+              f"({(peak - base) / gib:.3f} GiB above the {base / gib:.3f} "
+              f"allocated before); launches exact {counts}")
+        out[f"eval_every_{every}"] = {"peak_gib": peak / gib,
+                                      "above_before_gib": (peak - base) / gib,
+                                      "seconds": secs, "heartbeats": evals}
+    return out
+
+
+def loops_phase(ops, device) -> dict:
+    """Phase 20, the serving loops on the device: (a) ``_eval_cell`` in the
+    five eval cells (paper, paper f32, 5x5, 5x5 f32, MNIST; each model
+    from a data-dependent init, the f32 cells on the bf16 cells' models);
+    (b) ``_inversion_loops`` on the paper model; (c) ``_heartbeat_cell``.
+    The f32 cells run with TF32 off, as the f32 recipe runs on the card."""
+    import torch
+    from iaf_torch.core.config import Config
+    from iaf_torch.data import feed
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.models import cvae, mnist_vae
+    t0 = time.perf_counter()
+    out: dict = {}
+    ev = f",dataset=synthetic,eval_batch_size={EVAL_BATCH}," \
+         f"eval_k_chunk={EVAL_CHUNK}"
+    ds = synthetic_dataset(32, 3)
+    batch = ds.test_x[:EVAL_BATCH]
+    for hp, per in ((PAPER, {"ar_stack": 20, "iaf_update": 20,
+                             "disc_logistic_logp": 1}),
+                    (PAPER5, {"masked_conv2d": 60, "iaf_update": 20,
+                              "disc_logistic_logp": 1})):
+        cfg = Config().parse(hp + ev)
+        model = cvae.init_params(cfg, ds.train_x[:32], rng=cfg.seed,
+                                 device=device)
+        for extra in ("", ",compute_dtype=float32"):
+            c = Config().parse(hp + ev + extra)
+            out[_label(c)] = _eval_cell(ops, device, c, model, batch, per)
+        if hp == PAPER:
+            out["inversion"] = _inversion_loops(ops, cfg, model)
+        del model
+        torch.cuda.empty_cache()
+    cfg = Config().parse(MNIST + ev)
+    model = mnist_vae.init_params(cfg, _train_images(cfg, cfg.batch_size),
+                                  rng=cfg.seed, device=device)
+    test = feed.dynamic_binarize(
+        synthetic_dataset(cfg.image_size, cfg.channels).test_x[:EVAL_BATCH],
+        feed.binarize_rng(cfg.seed, -2))
+    out["mnist"] = _eval_cell(ops, device, cfg, model, test, {})
+    del model
+    torch.cuda.empty_cache()
+    out["heartbeat"] = _heartbeat_cell(ops, device)
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"[loops] phase 20: {out['phase_seconds']:.1f} s")
+    return out
+
+
 def run() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -4696,6 +5120,9 @@ def run() -> dict:
 
     # phase 19: the training step's memory levers (grad_accum, remat)
     memory = memory_phase(ops, device)
+
+    # phase 20: the serving loops on the device (graphed eval, inversion)
+    loops = loops_phase(ops, device)
     for key, s in (("train", summary), ("train_f32", summary32["train"]),
                    ("train_5x5", summary5["train"]),
                    ("train_5x5_f32", summary5_32["train"])):
@@ -4734,7 +5161,8 @@ def run() -> dict:
                       "train_f32_determinism": graph["f32_determinism"],
                       "graph_phase_seconds": graph["phase_seconds"],
                       "mnist": mnist, "multi": multi,
-                      "export": exported, "memory": memory}))
+                      "export": exported, "memory": memory,
+                      "loops": loops}))
     print(json.dumps({"kernels": rows}))
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}
@@ -5250,20 +5678,23 @@ def ab(other: str, case: str = "k1_fwd", pairs: str = "2") -> list[dict]:
     return runs
 
 
-def invert_plan_ab(pairs: int = 10) -> int:
-    """``--invert-ab [PAIRS]``: whether K1's launch plan shows end to end.
-    ``train_lib.invert_check`` at batch 2 (exact, Jacobi and fixed-point
-    inverses: 16395 K1 launches) on the paper config's checkpoint after 2
-    steps on the synthetic set, with K1's forward on ``fwd_plan``'s plan
-    (B: bands) and held to the whole-image plan (A), A B B A to ``pairs``
-    pairs (even) in one process; per plan, one sweep's device and events
-    ms, then each run's seconds, the means, the spread of each and in how
-    many pairs B was the slower."""
+def invert_plan_ab(pairs: int = 10, what: str = "plans") -> int:
+    """``--invert-ab [PAIRS] [plans|loops]``: ``train_lib.invert_check`` at
+    batch 2 (exact, Jacobi and fixed-point inverses, D = 8192) on the
+    paper config's checkpoint after 2 steps on the synthetic set, A B B A
+    to ``pairs`` pairs (even) in one process: with ``plans``, K1's forward
+    on ``fwd_plan``'s plan (B: bands) against the whole-image plan (A),
+    per plan one sweep's device and events ms first; with ``loops``, the
+    blocked loops (B: on the card replayed graphs) against the host loops
+    (A, ``_host_inverses``). Each run's seconds and K1 launches, the
+    means, the spread of each and in how many pairs B was the slower."""
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
     check(pairs >= 2 and pairs % 2 == 0, f"pairs {pairs}: an even number, "
           "at least 2")
+    check(what in ("plans", "loops"), f"--invert-ab compares plans or "
+          f"loops, not {what!r}")
     sys.path.insert(0, HERE)
     from iaf_torch import ops, train_lib
     from iaf_torch.core.config import Config
@@ -5284,60 +5715,75 @@ def invert_plan_ab(pairs: int = 10) -> int:
     def whole(dtype, n, h, w, cz, ch, cout, n_convs, sms):
         return ar_mod.whole_plan(n, h, sms)
 
-    plans = {"A": whole, "B": picked}
-    model = train_lib._serving_model(cfg, True, device)
-    with torch.inference_mode(), _default_tf32():
-        _, _, ar_fn, z_prime = train_lib.inversion_inputs(cfg, model, 2)
-        z, _, ws, _, _ = capture_inputs(ops, lambda: ar_fn(z_prime),
-                                        ("ar_stack",))["ar_stack"]
-        shape = (z.dtype, *z.shape, ws[0].shape[-1], ws[-1].shape[-1],
-                 len(ws), ar_mod._sms(z.device.index))
-        for tag, fn in plans.items():
-            ar_mod.fwd_plan = fn
-            plan = fn(*shape)
-            print(f"[invert plan] {tag}: {plan}, one sweep "
-                  f"{device_ms(lambda: ar_fn(z_prime)):.4f} device ms, "
-                  f"{cuda_ms(lambda: ar_fn(z_prime), 50, 3):.4f} events ms")
+    if what == "plans":
+        names = {"A": "whole-image", "B": "fwd_plan"}
+        arms = {"A": lambda: _planned(ar_mod, whole),
+                "B": lambda: _planned(ar_mod, picked)}
+        model = train_lib._serving_model(cfg, True, device)
+        with torch.inference_mode(), _default_tf32():
+            _, _, ar_fn, z_prime = train_lib.inversion_inputs(cfg, model, 2)
+            z, _, ws, _, _ = capture_inputs(ops, lambda: ar_fn(z_prime),
+                                            ("ar_stack",))["ar_stack"]
+            shape = (z.dtype, *z.shape, ws[0].shape[-1], ws[-1].shape[-1],
+                     len(ws), ar_mod._sms(z.device.index))
+            for tag, fn in (("A", whole), ("B", picked)):
+                with _planned(ar_mod, fn):
+                    print(f"[invert {what}] {tag}: {fn(*shape)}, one sweep "
+                          f"{device_ms(lambda: ar_fn(z_prime)):.4f} device "
+                          f"ms, {cuda_ms(lambda: ar_fn(z_prime), 50, 3):.4f}"
+                          " events ms")
+    else:
+        names = {"A": "host loops", "B": "graphed blocks"}
+        arms = {"A": _host_inverses, "B": contextlib.nullcontext}
     secs = {"A": [], "B": []}
     by_run = []
     order = ("A", "B", "B", "A") * (pairs // 2)
-    try:
-        for tag in order:
-            ar_mod.fwd_plan = plans[tag]
-            ops.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with _default_tf32():
-                res = train_lib.invert_check(cfg, batch=2, device=device)
-            torch.cuda.synchronize()
-            secs[tag].append(time.perf_counter() - t0)
-            by_run.append(secs[tag][-1])
-            k1 = ops.launch_counts()["ar_stack"]
-            print(f"[invert plan] {tag}: invert_check {secs[tag][-1]:.3f} s,"
-                  f" K1 {k1} launches, t_exact {res['t_exact']:.3f} s, "
-                  f"t_jacobi {res['t_jacobi']:.3f} s, errors "
-                  f"{res['err_exact']:.3e} {res['err_jacobi']:.3e} "
-                  f"{res['err_fixed_point']:.3e}")
-            check(max(res["err_exact"], res["err_jacobi"],
-                      res["err_fixed_point"]) < 1e-4, f"round trip {res}")
-    finally:
-        ar_mod.fwd_plan = picked
+    for tag in order:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with arms[tag](), _default_tf32():
+            res = train_lib.invert_check(cfg, batch=2, device=device)
+        torch.cuda.synchronize()
+        secs[tag].append(time.perf_counter() - t0)
+        by_run.append(secs[tag][-1])
+        k1 = ops.launch_counts()["ar_stack"]
+        print(f"[invert {what}] {tag}: invert_check {secs[tag][-1]:.3f} s, "
+              f"K1 {k1} launches, t_exact {res['t_exact']:.3f} s, t_jacobi "
+              f"{res['t_jacobi']:.3f} s, t_fixed_point "
+              f"{res['t_fixed_point']:.4f} s ({res['iters_fixed_point']} "
+              f"sweeps), errors {res['err_exact']:.3e} "
+              f"{res['err_jacobi']:.3e} {res['err_fixed_point']:.3e}")
+        check(max(res["err_exact"], res["err_jacobi"],
+                  res["err_fixed_point"]) < 1e-4, f"round trip {res}")
     pair = [(by_run[i], by_run[i + 1]) if i % 4 == 0 else
             (by_run[i + 1], by_run[i]) for i in range(0, len(order), 2)]
     slower = sum(b > a for a, b in pair)
     a_mean, b_mean = statistics.mean(secs["A"]), statistics.mean(secs["B"])
-    print(f"[invert plan] invert_check seconds: A (whole-image) "
+    print(f"[invert {what}] invert_check seconds: A ({names['A']}) "
           f"{a_mean:.3f} ({min(secs['A']):.3f}-{max(secs['A']):.3f}), B "
-          "(fwd_plan) "
+          f"({names['B']}) "
           f"{b_mean:.3f} ({min(secs['B']):.3f}-{max(secs['B']):.3f}), B/A "
           f"{100 * (b_mean / a_mean - 1):+.2f} %; B slower in {slower} of "
           f"{len(pair)} pairs")
-    print(json.dumps({"invert_plan": {"A": secs["A"], "B": secs["B"],
-                                       "b_slower_pairs": slower}}))
+    print(json.dumps({f"invert_{what}": {"A": secs["A"], "B": secs["B"],
+                                         "b_slower_pairs": slower}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+@contextlib.contextmanager
+def _planned(ar_mod, plan):
+    """Inside the block K1's forward takes ``plan`` (``fwd_plan``'s
+    signature)."""
+    saved = ar_mod.fwd_plan
+    ar_mod.fwd_plan = plan
+    try:
+        yield
+    finally:
+        ar_mod.fwd_plan = saved
 
 
 def multi_only() -> int:
@@ -5384,21 +5830,46 @@ def memory_only() -> int:
     return 0
 
 
+def loops_only() -> int:
+    """``--loops``: the build and phase 20 (``loops_phase``) alone."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from iaf_torch import ops
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    build_phase(ops, device)
+    print(json.dumps({"loops": loops_phase(ops, device)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     """No arguments: the smoke run above. ``--ab DIR [CASE] [PAIRS]``: only
     ``ab`` of CASE (default ``k1_fwd``) against the tree unpacked at DIR
     (for example ``git archive`` of the parent commit under build/).
-    ``--invert-ab [PAIRS]``: ``invert_plan_ab``.
-    ``--multi``: ``multi_only``; ``--memory``: ``memory_only``."""
+    ``--invert-ab [PAIRS] [plans|loops]``: ``invert_plan_ab``.
+    ``--multi``: ``multi_only``; ``--memory``: ``memory_only``;
+    ``--loops``: ``loops_only``."""
     try:
         if sys.argv[1:] == ["--multi"]:
             return multi_only()
         if sys.argv[1:] == ["--memory"]:
             return memory_only()
+        if sys.argv[1:] == ["--loops"]:
+            return loops_only()
         if sys.argv[1:] == ["--plans"]:
             return plans_only()
-        if len(sys.argv) == 3 and sys.argv[1] == "--invert-ab":
-            return invert_plan_ab(int(sys.argv[2]))
+        if len(sys.argv) in (3, 4) and sys.argv[1] == "--invert-ab":
+            return invert_plan_ab(int(sys.argv[2]), *sys.argv[3:])
         if sys.argv[1:] == ["--invert-ab"]:
             return invert_plan_ab()
         if len(sys.argv) in (3, 4, 5) and sys.argv[1] == "--ab":

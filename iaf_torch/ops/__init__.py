@@ -30,10 +30,14 @@ kernels (``core/export.py``). Importing this package registers them.
 
 Each wrapper counts its launches (``launch_counts``). A replayed CUDA graph
 runs no Python, so the launches its capture saw (``launches_apart``) are
-added once per replay (``add_launch_counts``).
+added once per replay (``add_launch_counts``); ``Graphed`` does both for a
+function replayed as one graph.
 """
 
 import contextlib
+import gc
+
+import torch
 
 from iaf_torch.ops import ar_stack as _ar_stack_mod
 from iaf_torch.ops import fused as _fused_mod
@@ -107,3 +111,50 @@ def launches_apart():
         for counters in _COUNTERS:
             for name in counters:
                 counters[name] = before[name]
+
+
+class Graphed:
+    """A call replayed from one CUDA graph on ``device``: ``graphed(fn)``,
+    with the same ``fn`` (no arguments; it reads and writes tensors it
+    holds) at every call. The first call runs ``fn`` eagerly on a side
+    stream (the warm-up: builds, the wrappers' caches, library handles);
+    the second captures it there ("thread_local" capture errors, the
+    capture's launches kept out of the counters) and replays it; every
+    later call replays the graph on the current stream and adds the
+    capture's launches. So a run of one call captures nothing. On the
+    CPU every call runs ``fn`` eagerly. A capture or a replay that fails
+    raises. It keeps no reference to ``fn``, so an owner whose method
+    ``fn`` is forms no reference cycle with it."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.graph = None
+        self.per_replay: dict[str, int] = {}
+        self._warm = False
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+
+    def __call__(self, fn) -> None:
+        if self.device.type != "cuda":
+            fn()
+            return
+        cur = torch.cuda.current_stream(self.device)
+        if not self._warm:
+            self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                fn()
+            cur.wait_stream(self._stream)
+            self._warm = True
+            return
+        if self.graph is None:
+            # a dead graph that the collector frees inside the capture
+            # would invalidate it (torch.cuda.graph no longer collects)
+            gc.collect()
+            graph = torch.cuda.CUDAGraph()
+            with launches_apart() as seen:
+                with torch.cuda.graph(graph, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    fn()
+            self.graph, self.per_replay = graph, seen
+        self.graph.replay()
+        add_launch_counts(self.per_replay)

@@ -9,12 +9,15 @@ the card a captured CUDA graph of the whole step, replayed.
 ``evaluate`` scores a split with the k-sample importance-weighted bound
 on the Polyak (EMA) weights of the newest checkpoint in ``cfg.logdir``,
 or on the caller's model, and returns bits/dim (the MNIST family: NLL in
-nats); with ``progress_path`` a killed eval resumes mid-split.
+nats), on the card through a CUDA graph of one k-chunk
+(``eval_step.make_graphed_eval_step``); with ``progress_path`` a killed
+eval resumes mid-split.
 ``eval_loop`` follows a training run's checkpoints. ``sample``,
 ``reconstruct`` and ``invert_check`` serve the newest checkpoint: prior
 samples, posterior reconstructions and the AR inversion of the top IAF
-step (the CIFAR family's only, as in the JAX package). Each entry point
-takes the config's model family (``models.get_model``); with
+step (the CIFAR family's only, as in the JAX package; on the card its
+sweeps run as CUDA graphs of a block, ``models/inversion.py``). Each
+entry point takes the config's model family (``models.get_model``); with
 ``cfg.binarize`` the MNIST images are binarized afresh at every training
 step and once, at a fixed key, for the evals (``data/feed.py``).
 
@@ -55,7 +58,7 @@ from iaf_torch.optim import AdamaxState
 from iaf_torch.parallel import mesh
 from iaf_torch.parallel import train_step as ts
 from iaf_torch.parallel.eval_step import (make_batch_sharded_elbo,
-                                          make_eval_step)
+                                          make_graphed_eval_step)
 from iaf_torch.utils.metrics import MetricsLogger, img_tile
 from iaf_torch.utils.params import describe, param_device
 
@@ -200,7 +203,7 @@ def train(cfg: Config, max_steps: int | None = None,
             # the training protocol: sampled binarization, at a fixed key
             eval_images = feed.dynamic_binarize(
                 eval_images, feed.binarize_rng(cfg.seed, -1))
-        eval_fn = make_eval_step(cfg, dev, k=heartbeat_k(cfg))
+        eval_fn = make_graphed_eval_step(cfg, dev, k=heartbeat_k(cfg))
         ema_model = family.Model(cfg, device=dev)
 
     first = next(data_iter)
@@ -285,6 +288,8 @@ def train(cfg: Config, max_steps: int | None = None,
     finally:
         prefetch.close()
         chunk_fn.close()
+        if eval_fn is not None:
+            eval_fn.close()
         logger.close()
     return state
 
@@ -345,9 +350,10 @@ def _model(cfg: Config, params, device) -> torch.nn.Module:
 def make_eval_setup(cfg: Config, mode: str, k: int, device="cuda"):
     """(the split's images, the eval step at ``k``), built once:
     ``eval_loop`` reuses them across its checkpoint polls. The step
-    shards k over the ranks where the world size divides it, else the
-    batch (``make_batch_sharded_elbo``; ``eval_batch_size`` must then
-    divide), as the JAX package picks."""
+    shards k over the ranks where the world size divides it
+    (``make_graphed_eval_step``: on the card a CUDA graph of one chunk),
+    else the batch (``make_batch_sharded_elbo``, eager; ``eval_batch_size``
+    must then divide), as the JAX package picks."""
     if mode not in ("eval_train", "eval_test"):
         raise ValueError(f"mode {mode!r} not in ('eval_train', 'eval_test')")
     ds, _ = load_dataset(cfg.dataset, cfg.data_dir, cfg.image_size,
@@ -360,7 +366,7 @@ def make_eval_setup(cfg: Config, mode: str, k: int, device="cuda"):
     dev = resolve_device(device)
     n = mesh.world()
     if k % n == 0:
-        return images, make_eval_step(cfg, dev, k=k)
+        return images, make_graphed_eval_step(cfg, dev, k=k)
     if cfg.eval_batch_size % n:
         raise ValueError(
             f"eval k={k} is not a multiple of the world size ({n}); the "
