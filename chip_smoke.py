@@ -9,6 +9,11 @@
     python3 chip_smoke.py --plans           # K1's forward on every
                                             # launch plan at six shapes
                                             # (``plans_only``)
+    python3 chip_smoke.py --k2-plans        # K2's forward on both
+                                            # launch plans, the three 5x5
+                                            # convs at N = 1 to 1024, and
+                                            # dgrad on both tiles
+                                            # (``k2_plans_only``)
     python3 chip_smoke.py --ab DIR [CASE] [PAIRS]
                                             # one kernel of DIR's tree
                                             # against this one's, A B B A
@@ -21,9 +26,12 @@
                                             # k1_bwd_f32, f32_step,
                                             # f32_chunk, k2_fwd_f32,
                                             # k2_bwd_f32, f32_chunk_5x5,
-                                            # k2_fwd, k4_fwd, k4_bwd,
+                                            # k2_fwd, k2_fwd_b32,
+                                            # k4_fwd, k4_bwd,
                                             # wrappers; or step: 10
-                                            # steps of ``train``; or
+                                            # steps of ``train``
+                                            # (step_5x5, step_5x5_f32:
+                                            # of the 5x5 config); or
                                             # graph_check: phase 15(a)'s
                                             # f32 check alone, 5 runs a
                                             # tree)
@@ -166,8 +174,13 @@ Phases, any failure exits non-zero:
    1e-4 of the twin in f64), two calls bitwise equal, its device time per
    call by kernel, timed whole and as dgrad and wgrad apart beside the
    twin's and cuDNN's backward; K2's forward on the same step's inputs
-   (batch 32) against its twin, timed beside cuDNN with the bound (phase
-   12 the same in f32); one f32 training step at batch 4, card
+   (batch 32) against its twin, timed beside cuDNN with the bound, on
+   both launch plans (``k2_plans``: the weight pack kernel bitwise
+   ``fwd_pack``, the 64-pixel plan bitwise the 128-pixel one, per plan
+   the blocks, the conv kernel's and the pack's device ms, the two A B B
+   A), then dgrad's kernel on both tiles for the three convs and K1's
+   chain at batch 32 (``dgrad_plans``: measured, not routed) (phase 12
+   the same in f32); one f32 training step at batch 4, card
    against CPU; and ``train_lib.train`` for 10 steps plus a 2-step resume
    with launches exactly K2 = K2-backward = 60, K3 = K3-backward = 20, K4
    = K4-backward = K5 = 1, K1 = K1-backward = 0 per step, and one step
@@ -237,7 +250,8 @@ Phases, any failure exits non-zero:
 15. The captured training step (``train_step.make_train_step``): (a)
    three eager ``train_step``s against the graphed step (warm-up, then
    two replays) on copies of one state, same batches and keys, paper
-   config at batch 32, bf16 and f32: loss, every gradient, param, m, u
+   config at batch 32, bf16 and f32, and the 5x5 config in bf16 (its K2
+   forwards on 64-pixel tiles): loss, every gradient, param, m, u
    and EMA leaf and the step bitwise equal where two more eager copies
    (the controls, printed) are bitwise equal to the first and to each
    other; where they are not (f32: cuDNN's algorithms), within
@@ -894,6 +908,69 @@ def plans_only() -> int:
         out[label] = k1_plans(ops, ar_mod, label, *args, save_pre,
                               candidates=True)
     print(json.dumps({"plans": out}, default=str))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def k2_plans_only() -> int:
+    """``--k2-plans``: K2's builds (forward, backward; K1's backward for
+    its dgrad pack) with their ptxas lines, then on the three 5x5 AR convs
+    at the paper widths from a seed ``k2_plans`` in bf16 and f32 at N = 1,
+    2, 16, 32 (with the A B B A) and 1024, and ``dgrad_plans`` at batch 32
+    for K2's convs and K1's chain."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from iaf_torch import ops
+    from iaf_torch.ops import _build
+    from iaf_torch.ops import masked_conv as mc
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("masked_conv", "masked_conv_bwd", "ar_stack_bwd")
+    threads = [threading.Thread(target=_build.load, args=(n,))
+               for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name in names:
+        print(f"[build] nvcc {name}.cu "
+              f"{_build.build_seconds.get(name, 0):.1f} s")
+        for line in _build.build_log.get(name, "").splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
+                print(f"[build] {line.strip()}")
+    out = {}
+    for n in (1, 2, 16, 32, 1024):
+        for f32 in (False, True):
+            for label, (x, w, taps) in _k2_f32_convs(n, 21).items():
+                if not f32:
+                    x, w = x.bfloat16(), w.bfloat16()
+                tag = f"K2 {'f32' if f32 else 'bf16'} N={n}"
+                out[f"{tag} {label}"] = k2_plans(ops, tag, x, w, taps,
+                                                 abba=n == 32)
+    for f32 in (False, True):
+        convs = []
+        for label, (x, w, taps) in _k2_f32_convs(32, 22).items():
+            if not f32:
+                w = w.bfloat16()
+            taps = mc._taps(w, taps)
+            kh, kw, cin, cout = w.shape
+            g = torch.randn(*x.shape[:3], cout, generator=torch.Generator()
+                            .manual_seed(24)).to(x.device, w.dtype)
+            convs.append((f"K2 {label}", g, mc.dgrad_pack(w, taps, f32),
+                          cin, mc._mirrored(taps, kh, kw), kh, kw))
+        out[f"dgrad {'f32' if f32 else 'bf16'}"] = dgrad_plans(
+            ops, f"b32 {'f32' if f32 else 'bf16'}",
+            convs + k1_dgrad_convs(f32))
+    print(json.dumps({"k2_plans": out}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2336,7 +2413,7 @@ def k2_backward_phase(ops, cap: dict) -> dict:
         mirrored = mc._mirrored(taps, kh, kw)
         t["dgrad_kernel_device_ms"] = device_ms(lambda: mc._launch_wgmma(
             mc._bwd_lib().masked_conv_dgrad_wgmma, "dgrad", gb, pk, dx_t,
-            mirrored, kh, kw))
+            mirrored, kh, kw, mc.TILE))
         leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w)]
         plain = _backward_ms(
             lambda a, b: ops.masked_conv2d_ref(a, b, taps), leaves, g)
@@ -2383,10 +2460,14 @@ def k2_forward_b32(ops, cap: dict, f32: bool) -> dict:
     three convs whose backward ``cap`` holds (one real step, batch 32 of
     16x16), on the tensor cores (``fwd_route``: bf16 ``"wgmma"``, f32
     ``"3xtf32"``), held to the twin (bf16 at 2e-2 of the output's max,
-    f32 at 1e-5 of the twin in f64), timed by events and by device time
-    beside the twin and one cuDNN conv (device time and the ratio), with
-    the bound from the shapes. Returns the kernels-line row
-    ``masked_conv2d_b32`` (``masked_conv2d_f32_b32``)."""
+    f32 at 1e-5 of the twin in f64), on both launch plans (``k2_plans``:
+    per plan the blocks, the conv kernel's and the pack's device ms, the
+    bitwise flag against the 128-pixel plan; the two A B B A), the picked
+    plan timed by events and by device time beside the twin and one cuDNN
+    conv (device time and the ratio), with the bound from the shapes. Then
+    once ``dgrad_plans`` for K2's three convs and K1's dgrad at batch 32.
+    Returns the kernels-line row ``masked_conv2d_b32``
+    (``masked_conv2d_f32_b32``)."""
     import torch
     from iaf_torch.ops import masked_conv as mc
     tag = "K2 f32 b32" if f32 else "K2 b32"
@@ -2404,7 +2485,10 @@ def k2_forward_b32(ops, cap: dict, f32: bool) -> dict:
             tol = 1e-5 if f32 else 2e-2
             check(rel <= tol, f"{tag} {cin}->{cout}: {rel:.3e} of max > "
                   f"{tol}")
-            ms, dev = cuda_ms(call), device_ms(call)
+        plans = k2_plans(ops, tag, x, w, taps)
+        picked = plans["rows"][plans["plan"]["tile_pixels"]]
+        with torch.inference_mode():
+            ms, dev = cuda_ms(call), picked["device_ms"]
             plain = cuda_ms(lambda: ops.masked_conv2d_ref(x, w, taps), 5, 1)
             conv, xl, wl = _k2_conv_lib(x, w)
             lib = cuda_ms(lambda: conv(xl, wl))
@@ -2421,24 +2505,202 @@ def k2_forward_b32(ops, cap: dict, f32: bool) -> dict:
         print(f"[{tag}] masked_conv2d x{tuple(x.shape)} {cin}->{cout}, "
               f"{len(taps)} live taps ({route}): {rel:.3e} of max from the "
               f"twin (limit {tol}); by events {ms:.4f} ms, by device time "
-              f"{dev:.4f} ms, twin {plain:.4f} ms; cuDNN {lib:.4f} ms, by "
-              f"device time {lib_dev:.4f} ms, ratio {dev / lib_dev:.3f}; "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-              f"{100 * b['bound_ms'] / dev:.0f} % of the device time)")
+              f"{dev:.4f} ms on {_k2_plan_label(mc.FwdPlan(**plans['plan']))}"
+              f" (kernel {picked['kernel_device_ms']:.4f}, pack "
+              f"{picked['pack_device_ms']:.4f}), twin {plain:.4f} ms; cuDNN "
+              f"{lib:.4f} ms, by device time {lib_dev:.4f} ms, ratio "
+              f"{dev / lib_dev:.3f}; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}, {100 * b['bound_ms'] / dev:.0f} % of the "
+              "device time)")
         shapes.append(dict(cin=cin, cout=cout, max_abs_err=err,
                            max_rel_err=rel, ms=ms, device_ms=dev,
+                           kernel_device_ms=picked["kernel_device_ms"],
+                           pack_device_ms=picked["pack_device_ms"],
                            plain_ms=plain, library_ms=lib,
-                           library_device_ms=lib_dev, **b))
+                           library_device_ms=lib_dev, plans=plans, **b))
+    dgrad = dgrad_plans(ops, tag, k2_dgrad_convs(cap, f32)
+                        + k1_dgrad_convs(f32))
+    extra = ("kernel_device_ms", "pack_device_ms")
     if f32:
         return _k2_row("masked_conv2d_f32_b32",
                        "iaf_torch/ops/csrc/masked_conv.cu",
                        "iaf_tpu/ops/masked_conv.py:40", shapes,
-                       ("design_bound_ms", "fp32_floor_ms"),
+                       extra + ("design_bound_ms", "fp32_floor_ms"),
                        path="5x5 f32", counter="masked_conv2d",
-                       kernel_route="3xtf32")
+                       kernel_route="3xtf32", dgrad_plans=dgrad)
     return _k2_row("masked_conv2d_b32", "iaf_torch/ops/csrc/masked_conv.cu",
-                   "iaf_tpu/ops/masked_conv.py:40", shapes, path="5x5",
-                   counter="masked_conv2d", kernel_route="wgmma")
+                   "iaf_tpu/ops/masked_conv.py:40", shapes, extra, path="5x5",
+                   counter="masked_conv2d", kernel_route="wgmma",
+                   dgrad_plans=dgrad)
+
+
+def _k2_split_ms(call) -> tuple[float, float, float]:
+    """(device ms, the conv kernel's ms, the weight pack's ms) a call of
+    K2's tensor-core forward ``call``: the conv kernel
+    (``conv_wgmma_kernel`` or ``conv_tf32_kernel``) apart from the rest,
+    the weight pack (``conv_pack_w_kernel``)."""
+    found = device_kernels(call, expect=("conv_pack_w_kernel",))
+    kern = sum(ms for k, ms, _ in found
+               if "conv_wgmma_kernel" in k or "conv_tf32_kernel" in k)
+    check(kern > 0, f"no conv kernel in the profile of a K2 call: {found}")
+    total = sum(ms for _, ms, _ in found)
+    return total, kern, total - kern
+
+
+def _k2_plan_label(plan) -> str:
+    return f"{plan.tile_pixels}-pixel tiles, {plan.blocks} blocks"
+
+
+def k2_plans(ops, label: str, x, w, taps, abba: bool = True) -> dict:
+    """K2's forward on (x, w, taps) on both launch plans (``fwd_plan``'s
+    pick among them): 128-pixel tiles and 64-pixel tiles (one warpgroup
+    a block), on the same inputs. The weight pack kernel
+    (``fwd_pack_kernel``) must give ``fwd_pack``'s bytes, on ``w`` and on
+    a copy of other strides. Each plan's output is held to the twin
+    (bf16 at 2e-2 of max; f32 at 1e-5 of the twin in f64) and compared
+    bitwise with the 128-pixel plan's (the phase fails where it differs);
+    per plan its blocks (checked against the occupancy calculator's grid,
+    with the blocks resident on one SM), the ring stages, device ms a call
+    with the conv kernel and the weight pack apart, and events ms. With
+    ``abba`` the 64-pixel plan against the 128-pixel one, A B B A by
+    device time. Returns the numbers, ``rows`` by tile pixels."""
+    import torch
+    from iaf_torch.ops import masked_conv as mc
+    from iaf_torch.ops.ar_stack import _SMEM_LIMIT
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    taps = mc._taps(w, taps)
+    f32 = x.dtype == torch.float32
+    sms = mc._sm_count(x.device)
+    picked = mc.fwd_plan(x.dtype, n, h, w_, cin, cout, sms)
+    wide = mc.tile_plan(n, h, w_, mc.TILE, sms)
+    small = mc.tile_plan(n, h, w_, mc.SMALL_TILE, sms)
+    tol = 1e-5 if f32 else 2e-2
+    with torch.inference_mode():
+        twin = mc.fwd_pack(w, taps, f32)
+        strided = w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+        pack_same = all(torch.equal(mc.fwd_pack_kernel(v, taps), twin)
+                        for v in (w, strided))
+        ref = ops.masked_conv2d_ref(*((x.double(), w.double()) if f32
+                                      else (x, w)), taps)
+        outs = {p: mc._fwd(x, w, taps, plan=p) for p in (wide, small)}
+    check(pack_same, f"{label} {cin}->{cout}: the pack kernel's bytes are "
+          "not fwd_pack's")
+    rows = {}
+    for p in (wide, small):
+        err, rel = _rel_err(outs[p], ref)
+        same = torch.equal(outs[p], outs[wide])
+        blocks, per_sm = mc.fwd_grid(x, w, taps, p)
+        stages = mc._lib().masked_conv_wgmma_stages_tile(
+            w_, cin, kw, mc._span(taps), mc.wgmma_width(cout), len(taps),
+            _SMEM_LIMIT, int(f32), p.tile_pixels)
+        call = (lambda p=p: mc._fwd(x, w, taps, plan=p))  # noqa: E731
+        with torch.inference_mode():
+            dev, kern, pack = _k2_split_ms(call)
+            ev = cuda_ms(call)
+        rows[p.tile_pixels] = dict(
+            plan=p._asdict(), picked=p == picked, grid_blocks=blocks,
+            resident_per_sm=per_sm, stages=stages, max_abs_err=err,
+            rel_err=rel, bitwise_128=same, device_ms=dev,
+            kernel_device_ms=kern, pack_device_ms=pack, ms=ev)
+        print(f"[{label} plans] {cin}->{cout} x{tuple(x.shape)} "
+              f"{_k2_plan_label(p)}{' (picked)' if p == picked else ''}: "
+              f"grid {blocks} blocks, {per_sm} resident an SM, {stages} "
+              f"stages; {rel:.3e} of max from the twin"
+              f"{' in f64' if f32 else ''} (limit {tol}), bitwise the "
+              f"128-pixel plan's: {same}; device {dev:.4f} ms a call "
+              f"(kernel {kern:.4f}, pack {pack:.4f}), events {ev:.4f} ms")
+        check(rel <= tol, f"{label} {cin}->{cout} plan {p}: {rel} of max > "
+              f"{tol}")
+        check(same, f"{label} {cin}->{cout}: the {p.tile_pixels}-pixel "
+              "plan is not bitwise the 128-pixel plan")
+        check(blocks == p.blocks, f"{label} {cin}->{cout}: the launch's "
+              f"grid {blocks} is not the plan's {p.blocks} blocks")
+    result = dict(plan=picked._asdict(), rows=rows, pack_bitwise=pack_same)
+    print(f"[{label} plans] {cin}->{cout}: the pack kernel gives fwd_pack's "
+          f"bytes (also from a copy of other strides): {pack_same}")
+    if abba:
+        with torch.inference_mode():
+            turns = [_k2_split_ms(lambda p=p: mc._fwd(x, w, taps, plan=p))
+                     for p in (small, wide, wide, small)]
+        dev = [t[0] for t in turns]
+        result.update(abba=turns, small_device_ms=(dev[0] + dev[3]) / 2,
+                      wide_device_ms=(dev[1] + dev[2]) / 2)
+        print(f"[{label} plans] {cin}->{cout}: 64-pixel against 128-pixel "
+              f"tiles, A B B A device ms {', '.join(f'{t:.4f}' for t in dev)}"
+              f" (kernel {', '.join(f'{t[1]:.4f}' for t in turns)}): "
+              f"{result['small_device_ms']:.4f} against "
+              f"{result['wide_device_ms']:.4f}")
+    return result
+
+
+def dgrad_plans(ops, label: str, convs) -> dict:
+    """dgrad's tensor-core kernel (the forward's kernel on the output
+    gradient, the taps mirrored: ``masked_conv_dgrad_wgmma`` in bf16,
+    ``masked_conv_dgrad_tf32`` in f32) on 128-pixel and on 64-pixel tiles,
+    for each (name, g in the dgrad input's dtype, the packed transposed
+    weights, dx's channels, the mirrored taps, kh, kw) of ``convs``: the
+    kernel's device ms on each and whether the two dx agree bitwise.
+    Measured for the next PR; the port's dgrad stays on 128-pixel tiles."""
+    import torch
+    from iaf_torch.ops import masked_conv as mc
+    out = {}
+    for name, gin, packed, c_dx, mirrored, kh, kw in convs:
+        fn = (mc._bwd_lib().masked_conv_dgrad_tf32
+              if gin.dtype == torch.float32
+              else mc._bwd_lib().masked_conv_dgrad_wgmma)
+        dx = {t: torch.empty(gin.shape[:3] + (c_dx,), device=gin.device,
+                             dtype=gin.dtype) for t in (mc.TILE,
+                                                        mc.SMALL_TILE)}
+        ms = {}
+        for t, d in dx.items():
+            call = (lambda t=t, d=d: mc._launch_wgmma(  # noqa: E731
+                fn, "dgrad", gin, packed, d, mirrored, kh, kw, t))
+            call()
+            ms[t] = device_ms(call, 10, 2)
+        same = torch.equal(dx[mc.TILE], dx[mc.SMALL_TILE])
+        out[name] = dict(tile128_device_ms=ms[mc.TILE],
+                         tile64_device_ms=ms[mc.SMALL_TILE], bitwise=same)
+        print(f"[{label} dgrad plans] {name} g{tuple(gin.shape)}: 128-pixel "
+              f"tiles {ms[mc.TILE]:.4f} device ms, 64-pixel "
+              f"{ms[mc.SMALL_TILE]:.4f} ({ms[mc.SMALL_TILE] / ms[mc.TILE]:.2f}"
+              f"x), bitwise {same} (not routed)")
+    return out
+
+
+def k2_dgrad_convs(cap: dict, f32: bool) -> list:
+    """``dgrad_plans``' inputs for K2's three convs of ``cap`` (one real
+    step's backward inputs, batch 32)."""
+    import torch
+    from iaf_torch.ops import masked_conv as mc
+    convs = []
+    for (cin, cout), (x, w, g, taps) in sorted(cap.items()):
+        kh, kw = w.shape[:2]
+        gin = g if f32 else g.to(torch.bfloat16)
+        convs.append((f"K2 {cin}->{cout}", gin, mc.dgrad_pack(w, taps, f32),
+                      cin,
+                      mc._mirrored(taps, kh, kw), kh, kw))
+    return convs
+
+
+def k1_dgrad_convs(f32: bool, n: int = 32) -> list:
+    """``dgrad_plans``' inputs for K1's dgrad chain at batch ``n`` (the
+    paper widths, weights and output gradients from a seed; each conv's
+    dgrad on K2's kernels as ``ar_stack._dgrad_wgmma`` launches it)."""
+    import torch
+    ar_mod = importlib.import_module("iaf_torch.ops.ar_stack")
+    dtype = torch.float32 if f32 else torch.bfloat16
+    gen = torch.Generator().manual_seed(23)
+    ws, _, _ = _paper_chain(2, gen)
+    ws = [w.cuda().to(dtype) for w in ws]
+    packed = ar_mod.pack_dgrad(ws)
+    convs = []
+    for w, pk in zip(ws, packed):
+        cin, cout = w.shape[2], w.shape[3]
+        g = torch.randn(n, 16, 16, cout, generator=gen).cuda().to(dtype)
+        convs.append((f"K1 {cin}->{cout}", g, pk, cin,
+                      ar_mod.MIRRORED_TAPS, 3, 3))
+    return convs
 
 
 @contextlib.contextmanager
@@ -2449,9 +2711,9 @@ def k2_routes():
     fwd, bwd = mc._fwd, mc.masked_conv2d_bwd
     seen = {"fwd": [], "bwd": []}
 
-    def spy_fwd(x, w, taps):
+    def spy_fwd(x, w, taps, plan=None):
         seen["fwd"].append(mc.fwd_route(x, w, taps))
-        return fwd(x, w, taps)
+        return fwd(x, w, taps, plan)
 
     def spy_bwd(x, w, g, taps=None):
         seen["bwd"].append(mc.bwd_route(x, w, taps))
@@ -3399,7 +3661,9 @@ def f32_determinism_cost(ops, device, n: int = SIDE_BY_SIDE_STEPS) -> dict:
 
 def graph_phase(ops, device, ref_logdir: str) -> dict:
     """Phase 15: the captured training step against the eager one
-    (bitwise, paper bf16 and f32), eager and graphed medians side by side
+    (bitwise, paper bf16 and f32, and the 5x5 config in bf16, whose K2
+    forwards run on 64-pixel tiles at batch 32), eager and graphed
+    medians side by side
     in the four training cells, and ``train`` at steps_per_dispatch=4.
     Returns {cell: side-by-side figures, "graph_vs_eager": ...,
     "chunked": ...}."""
@@ -3407,7 +3671,8 @@ def graph_phase(ops, device, ref_logdir: str) -> dict:
     t0 = time.perf_counter()
     out = {"graph_vs_eager": {}}
     for key, hp in (("paper", PAPER),
-                    ("paper f32", PAPER + ",compute_dtype=float32")):
+                    ("paper f32", PAPER + ",compute_dtype=float32"),
+                    ("5x5", PAPER5)):
         out["graph_vs_eager"][key] = graph_check(ops, device, hp)
         torch.cuda.empty_cache()
     for key, hp in (("train", PAPER),
@@ -5279,6 +5544,33 @@ def _ab_k2_fwd(ops, k1, f32: bool = True) -> dict:
     return out
 
 
+def _ab_k2_fwd_b32(ops, k1) -> dict:
+    """A/B case ``k2_fwd_b32``: K2's forward at the 5x5 training step's
+    batch 32 for the three 5x5 AR convs, inputs from a seed
+    (``_k2_f32_convs(32, ...)``), in bf16 (against the twin) and in f32
+    (against the twin in f64), each conv alone and the three in one call
+    (``sum``), on the plan the tree picks (before ``fwd_plan``: 128-pixel
+    tiles)."""
+    import torch
+    out = {}
+    convs = _k2_f32_convs(32, 21)
+    for tag, f32 in (("bf16", False), ("f32", True)):
+        calls, errs = [], []
+        for label, (x, w, taps) in convs.items():
+            if not f32:
+                x, w = x.bfloat16(), w.bfloat16()
+            with torch.inference_mode():
+                ref = ops.masked_conv2d_ref(*((x.double(), w.double()) if f32
+                                              else (x, w)), taps)
+                errs.append(_rel_err(ops.masked_conv2d(x, w, taps), ref)[1])
+            calls.append(lambda x=x, w=w, taps=taps:  # noqa: E731
+                         ops.masked_conv2d(x, w, taps))
+            out[f"{tag} {label}"] = (calls[-1], errs[-1], 50)
+        out[f"{tag} sum"] = (lambda calls=calls: [c() for c in calls],
+                             max(errs), 50)
+    return out
+
+
 def _ab_k2_bwd_f32(ops, k1) -> dict:
     """A/B case ``k2_bwd_f32``: K2's backward in f32 at the training
     shape (batch 32) for the three 5x5 AR convs, inputs and output
@@ -5452,6 +5744,7 @@ AB_CASES = {"k1_fwd": _ab_k1_fwd,
             "f32_chunk": _ab_f32_chunk,
             "k2_fwd_f32": _ab_k2_fwd,
             "k2_fwd": lambda ops, k1: _ab_k2_fwd(ops, k1, f32=False),
+            "k2_fwd_b32": _ab_k2_fwd_b32,
             "k2_bwd_f32": _ab_k2_bwd_f32,
             "f32_chunk_5x5": lambda ops, k1: _ab_f32_chunk(
                 ops, k1, hp=PAPER5, kernel="masked_conv2d"),
@@ -5523,17 +5816,23 @@ AB_STEPS = 10
 AB_STEP_REL = 1e-4
 
 
-def ab_step(other: str) -> list[dict]:
-    """The A/B case ``step``: ``train_lib.train`` for ``AB_STEPS`` steps of
-    the paper bf16 config in the tree ``other`` (A) and in this one (B),
-    A B B A, each a process of its own on the same card; each run's
+# ``ab``'s step cases: the config each trains
+AB_STEP_CONFIGS = {"step": PAPER, "step_5x5": PAPER5,
+                   "step_5x5_f32": PAPER5 + ",compute_dtype=float32"}
+
+
+def ab_step(other: str, hp: str = PAPER) -> list[dict]:
+    """The A/B cases ``step`` (the paper bf16 config), ``step_5x5`` and
+    ``step_5x5_f32`` (``AB_STEP_CONFIGS``): ``train_lib.train`` for
+    ``AB_STEPS`` steps of ``hp`` in the tree ``other`` (A) and in this one
+    (B), A B B A, each a process of its own on the same card; each run's
     median steady step. Every run's losses must agree within
     ``AB_STEP_REL``."""
     runs = []
     for i, root in enumerate((other, HERE, HERE, other)):
         proc = subprocess.run(
             [sys.executable, "-c", _AB_STEP_CHILD, os.path.abspath(root),
-             os.path.join(HERE, "build", f"chip_smoke_ab_step_{i}"), PAPER,
+             os.path.join(HERE, "build", f"chip_smoke_ab_step_{i}"), hp,
              str(AB_STEPS)], capture_output=True, text=True, timeout=900)
         check(proc.returncode == 0, f"A/B step run of {root} failed:\n"
               f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
@@ -5628,19 +5927,19 @@ def ab_graph_check(other: str, runs: int = GRAPH_CHECK_RUNS) -> list[dict]:
 
 def ab(other: str, case: str = "k1_fwd", pairs: str = "2") -> list[dict]:
     """The A/B case ``case`` (``AB_CASES``, several joined by commas, or
-    ``step``: ``ab_step``) run on the tree ``other`` (A) and on this one
+    a step case of ``AB_STEP_CONFIGS``: ``ab_step``) run on the tree ``other`` (A) and on this one
     (B) in the order A B B A, repeated to ``pairs`` pairs (even), each run
     a process of its own on the same card, by device time and by events,
     each call held to its twin at 2e-2 of max. Prints, for each shape,
     both trees' mean device ms, B's change and in how many pairs B was the
     slower. Returns each run's numbers."""
-    if case == "step":
-        return ab_step(other)
+    if case in AB_STEP_CONFIGS:
+        return ab_step(other, AB_STEP_CONFIGS[case])
     if case == "graph_check":
         return ab_graph_check(other)
     unknown = [c for c in case.split(",") if c not in AB_CASES]
     check(not unknown, f"no A/B case {unknown}; cases: "
-          f"{sorted(AB_CASES)} and step")
+          f"{sorted(AB_CASES)} and {sorted(AB_STEP_CONFIGS)}")
     n_pairs = int(pairs)
     check(n_pairs >= 2 and n_pairs % 2 == 0, f"pairs {pairs}: an even "
           "number, at least 2")
@@ -5868,6 +6167,8 @@ def main() -> int:
             return loops_only()
         if sys.argv[1:] == ["--plans"]:
             return plans_only()
+        if sys.argv[1:] == ["--k2-plans"]:
+            return k2_plans_only()
         if len(sys.argv) in (3, 4) and sys.argv[1] == "--invert-ab":
             return invert_plan_ab(int(sys.argv[2]), *sys.argv[3:])
         if sys.argv[1:] == ["--invert-ab"]:

@@ -676,7 +676,7 @@ def _dgrad_wgmma(z, weights, pre, g):
         dx = torch.empty(z.shape[:3] + (cin,), device=z.device,
                          dtype=z.dtype)
         mc._launch_wgmma(dgrad, "ar_stack dgrad", gt, packed[c], dx,
-                         MIRRORED_TAPS, 3, 3)
+                         MIRRORED_TAPS, 3, 3, mc.TILE)
         if c == 0:
             feeds[0] = (z, gp, dbp)
             return dx, dctx, feeds

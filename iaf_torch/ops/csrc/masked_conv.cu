@@ -24,16 +24,73 @@
 // exact f32 products on the CUDA cores has a third of those FLOP at 67
 // TFLOP/s, 2.6, 0.52 and 1.04 ms, as its floor).
 //
-// Design: conv_wgmma_kernel<N, float> (masked_conv.cuh; bf16 on the
-// tensor cores, 128-pixel tiles), conv_tf32_kernel<N> (f32 by 3xTF32 on
-// the tensor cores, the same tiles) and conv_fma_kernel for the shapes the
+// Design: conv_wgmma_kernel<N, float, WGS> (masked_conv.cuh; bf16 on the
+// tensor cores, 128-pixel tiles, or 64-pixel tiles of one warpgroup where
+// the 128-pixel ones leave SMs idle: the launch plan, fwd_plan in
+// masked_conv.py), conv_tf32_kernel<N, WGS> (f32 by 3xTF32 on the tensor
+// cores, the same tiles) and conv_fma_kernel for the shapes the
 // tensor-core kernels do not tile.
 //
 // Entry points (plain C, loaded with ctypes): masked_conv_smem_bytes and
-// masked_conv_fwd (FMA path), masked_conv_wgmma_stages,
-// masked_conv_fwd_wgmma and masked_conv_fwd_tf32 (tensor-core paths).
+// masked_conv_fwd (FMA path), masked_conv_wgmma_stages(_tile),
+// masked_conv_fwd_wgmma and masked_conv_fwd_tf32 (tensor-core paths),
+// masked_conv_pack_w (their weights, packed in one launch) and
+// masked_conv_fwd_grid (the tensor-core launch's grid, launching
+// nothing).
 
 #include "masked_conv.cuh"
+
+#define PACK_THREADS 256
+
+struct PackArgs {
+  const void* w;          // [kh][kw][cin][cout], strides st (elements)
+  uint4* out;             // [taps][cin/2E][npad/8][2][8][E]
+  long long st[4];
+  int cin, cout, npad, units;
+  signed char dy[MAX_TAPS], dx[MAX_TAPS];
+};
+
+// The tensor-core forward's weights, the live taps only, in wgmma_pack
+// order (masked_conv.py fwd_pack, its plain twin: the same bytes), in one
+// launch where the twin's gather and packing copy take two. One thread a
+// 16-byte core-matrix row: unit i = (((t * cin/2E + s) * npad/8 + j) * 2
+// + h) * 8 + n holds the E (bf16: 8, f32: 4) weights of input channels
+// 2E s + E h .. + E - 1 for output column 8 j + n of live tap t, zeros
+// past cout. Bound by its launch: 665 KB in and out at 160->160 bf16.
+template <bool F32>
+__global__ void __launch_bounds__(PACK_THREADS) conv_pack_w_kernel(
+    PackArgs a) {
+  constexpr int E = F32 ? 4 : 8;
+  const int i = blockIdx.x * PACK_THREADS + threadIdx.x;
+  if (i >= a.units) return;
+  const int jn = a.npad / 8, ks = a.cin / (2 * E);
+  int r = i;
+  const int n = r & 7;
+  r >>= 3;
+  const int h = r & 1;
+  r >>= 1;
+  const int j = r % jn;
+  r /= jn;
+  const int s = r % ks, t = r / ks;
+  const int co = 8 * j + n;
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+  if (co < a.cout) {
+    const long long off = a.dy[t] * a.st[0] + a.dx[t] * a.st[1] +
+                          (2 * E * s + E * h) * a.st[2] + co * a.st[3];
+    if constexpr (F32) {
+      const float* src = static_cast<const float*>(a.w) + off;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = __float_as_uint(src[k * a.st[2]]);
+    } else {
+      const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(a.w) + off;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k >> 1] |= (uint32_t)__bfloat16_as_ushort(src[k * a.st[2]])
+                     << (16 * (k & 1));
+    }
+  }
+  a.out[i] = make_uint4(v[0], v[1], v[2], v[3]);
+}
 
 extern "C" {
 
@@ -46,13 +103,26 @@ size_t masked_conv_smem_bytes(int tr, int W, int cin, int kw, int span) {
 
 // Ring stages the tensor-core kernel (bf16, or with f32 = 1 the 3xTF32
 // instantiation) gets within ``limit`` bytes at this shape (npad: cout
-// rounded up to an instantiated width); it takes the shape when this is
-// at least 2.
-int masked_conv_wgmma_stages(int W, int cin, int kw, int span, int npad,
-                             int ntaps, size_t limit, int f32) {
-  const int tr = wg_tile_rows(W);
+// rounded up to an instantiated width) on tiles of ``tile_pixels`` (128 or
+// 64); it takes the shape when this is at least 2. 64-pixel tiles stage
+// fewer rows, so a shape that fits at 128 fits at 64 with at least as
+// many stages.
+int masked_conv_wgmma_stages_tile(int W, int cin, int kw, int span, int npad,
+                                  int ntaps, size_t limit, int f32,
+                                  int tile_pixels) {
+  const int tr = tile_pixels == 64 || tile_pixels == 128
+                     ? wg_tile_rows(W, tile_pixels / 16)
+                     : 0;
   return tr ? wg_plan(tr, W, cin, kw, span, npad, ntaps, limit, f32).stages
             : 0;
+}
+
+// The same on 128-pixel tiles: what the routes (``_route`` in
+// masked_conv.py) decide on.
+int masked_conv_wgmma_stages(int W, int cin, int kw, int span, int npad,
+                             int ntaps, size_t limit, int f32) {
+  return masked_conv_wgmma_stages_tile(W, cin, kw, span, npad, ntaps, limit,
+                                       f32, 128);
 }
 
 // out [N,H,W,cout] f32 = the conv of x [N,H,W,cin] (T) with the weights
@@ -77,13 +147,14 @@ int masked_conv_fwd(const void* x, const void* w, void* out, const int* taps,
 
 // The same conv on the tensor cores (f32 out): x bf16 (16-byte aligned),
 // the weights packed as conv_wgmma_kernel reads them with their columns
-// zero-padded to npad; see wgmma_conv.
+// zero-padded to npad, on tiles of ``tile_pixels`` (128 or 64); see
+// wgmma_conv.
 int masked_conv_fwd_wgmma(const void* x, const void* w, void* out,
                           const int* taps, int ntaps, int n_images, int H,
                           int W, int cin, int cout, int npad, int kh, int kw,
-                          size_t limit, void* stream) {
+                          int tile_pixels, size_t limit, void* stream) {
   return wgmma_conv<float, false>(x, w, out, taps, ntaps, n_images, H, W,
-                                  cin, cout, npad, kh, kw, limit,
+                                  cin, cout, npad, kh, kw, limit, tile_pixels,
                                   static_cast<cudaStream_t>(stream));
 }
 
@@ -93,10 +164,63 @@ int masked_conv_fwd_wgmma(const void* x, const void* w, void* out,
 int masked_conv_fwd_tf32(const void* x, const void* w, void* out,
                          const int* taps, int ntaps, int n_images, int H,
                          int W, int cin, int cout, int npad, int kh, int kw,
-                         size_t limit, void* stream) {
+                         int tile_pixels, size_t limit, void* stream) {
   return wgmma_conv<float, true>(x, w, out, taps, ntaps, n_images, H, W,
-                                 cin, cout, npad, kh, kw, limit,
+                                 cin, cout, npad, kh, kw, limit, tile_pixels,
                                  static_cast<cudaStream_t>(stream));
+}
+
+// ``w`` [kh][kw][cin][cout] (bf16, or f32 with ``f32``; ``strides`` its
+// four strides in elements) packed for the tensor-core forward into
+// ``out`` (16-byte aligned): the ntaps (dy, dx) pairs of ``taps`` (host
+// array), each [cin/2E][npad/8][2][8][E], E = 8 (f32: 4); cin % 2E == 0,
+// npad % 8 == 0, cout <= npad.
+int masked_conv_pack_w(const void* w, void* out, const int* taps, int ntaps,
+                       int kh, int kw, int cin, int cout, int npad,
+                       const long long* strides, int f32, void* stream) {
+  const int e = f32 ? 4 : 8;
+  if (ntaps < 1 || ntaps > MAX_TAPS || cin % (2 * e) || npad % 8 ||
+      cout > npad || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  PackArgs a;
+  a.w = w;
+  a.out = static_cast<uint4*>(out);
+  for (int k = 0; k < 4; ++k) a.st[k] = strides[k];
+  a.cin = cin;
+  a.cout = cout;
+  a.npad = npad;
+  a.units = ntaps * (cin / (2 * e)) * (npad / 8) * 16;
+  for (int t = 0; t < ntaps; ++t) {
+    const int dy = taps[2 * t], dx = taps[2 * t + 1];
+    if (dy < 0 || dy >= kh || dx < 0 || dx >= kw)
+      return (int)cudaErrorInvalidValue;
+    a.dy[t] = (signed char)dy;
+    a.dx[t] = (signed char)dx;
+  }
+  const int blocks = (a.units + PACK_THREADS - 1) / PACK_THREADS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    conv_pack_w_kernel<true><<<blocks, PACK_THREADS, 0, s>>>(a);
+  else
+    conv_pack_w_kernel<false><<<blocks, PACK_THREADS, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The grid that masked_conv_fwd_wgmma (f32 = 0) or masked_conv_fwd_tf32
+// (f32 = 1) would launch with these arguments, launching nothing: grid[0]
+// the blocks, grid[1] the blocks resident on one SM (1: no two blocks of
+// the grid share an SM). Sets the kernel's shared-memory attribute as the
+// launch does.
+int masked_conv_fwd_grid(const void* x, const void* w, const int* taps,
+                         int ntaps, int n_images, int H, int W, int cin,
+                         int cout, int npad, int kh, int kw, int tile_pixels,
+                         size_t limit, int f32, int* grid) {
+  return f32 ? wgmma_conv<float, true>(x, w, nullptr, taps, ntaps, n_images,
+                                       H, W, cin, cout, npad, kh, kw, limit,
+                                       tile_pixels, nullptr, grid)
+             : wgmma_conv<float, false>(x, w, nullptr, taps, ntaps, n_images,
+                                        H, W, cin, cout, npad, kh, kw, limit,
+                                        tile_pixels, nullptr, grid);
 }
 
 }  // extern "C"

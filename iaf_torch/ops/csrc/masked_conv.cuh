@@ -10,10 +10,15 @@
 //
 // Three kernels compute it:
 //
-// * conv_wgmma_kernel<N, Tout>, bf16 on the tensor cores: persistent
+// * conv_wgmma_kernel<N, Tout, WGS>, bf16 on the tensor cores: persistent
 //   blocks, one per SM, each walking 128-pixel tiles (8 row segments of
 //   16 pixels of one image). A block is two consumer warpgroups and one
-//   producer warp.
+//   producer warp. With WGS = 1 (the forward's 64-pixel plan, for
+//   pixel counts whose 128-pixel tiles leave SMs idle: the training
+//   step's batch 32 has 64 of them for 132 SMs) a block is one consumer
+//   warpgroup on 64-pixel tiles (4 segments) and stages tr + span rows:
+//   each pixel's sum is the same sequence of wgmmas, so both plans give
+//   the same bits.
 //   - Activations: the consumers stage the tile's input rows (halo rows
 //     included, the SAME padding zero-filled by cp.async with source size
 //     0; the column halo is zeroed once) with 16-byte cp.async into one of
@@ -37,9 +42,10 @@
 //     segment, each warpgroup 64 pixels. The accumulators go straight
 //     from registers to the output, f32 (forward) or rounded once to bf16
 //     (dgrad's dx).
-// * conv_tf32_kernel<N>, f32 on the tensor cores by 3xTF32 (the forward
-//   and dgrad of the f32 recipe), on the same tiles, ring and warp roles
-//   (the producer warp grown to a warpgroup): Hopper has no f32 tensor-core
+// * conv_tf32_kernel<N, WGS>, f32 on the tensor cores by 3xTF32 (the
+//   forward and dgrad of the f32 recipe), on the same tiles (WGS = 1: 64
+//   pixels), ring and warp roles (the producer warp grown to a
+//   warpgroup): Hopper has no f32 tensor-core
 //   product and one TF32 product keeps ~11 bits, so each f32 operand x is
 //   split into hi = tf32(x) and lo = tf32(x - hi) and every product is
 //   lo*hi + hi*lo + hi*hi, small terms first, as K1's f32 forward does.
@@ -80,7 +86,8 @@
 #define FMA_THREADS 256
 #define WG_CONSUMERS 256         // tensor cores: two consumer warpgroups
 #define WG_THREADS (WG_CONSUMERS + 32)  // and one producer warp
-#define WG_TILE_SEGS 8           // 16-pixel row segments per tile
+#define WG_TILE_SEGS 8           // 16-pixel row segments per tile (128
+                                 // pixels; a warpgroup takes 4 of them)
 #define KC 32                    // K depth of one weight slice
 #define MAX_STAGES 32            // weight ring stages, at most
 #define BAR_BYTES (2 * MAX_STAGES * 8)
@@ -638,8 +645,10 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Named barrier 1 over the block's ``THREADS`` consumer threads.
+template <int THREADS = WG_CONSUMERS>
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
 }
 
 __host__ __device__ static inline int round128(int b) {
@@ -717,10 +726,13 @@ struct RowCopy {
 
 // The weights are packed [taps][cin/16 k-steps][N/8 column groups][2 k
 // halves][8 columns][8 k] (bf16), so one (tap, 32-deep chunk) slice is
-// contiguous and each k-step in it is one canonical B operand.
-template <int N, typename Tout>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+// contiguous and each k-step in it is one canonical B operand. WGS
+// consumer warpgroups (2: 128-pixel tiles, 1: 64-pixel tiles) and one
+// producer warp.
+template <int N, typename Tout, int WGS = 2>
+__global__ void __launch_bounds__(128 * WGS + 32, 1)
     conv_wgmma_kernel(ConvArgs a, int n_tiles, int stages, int resident) {
+  constexpr int CONS = 128 * WGS;   // consumer threads
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + MAX_STAGES;
@@ -739,7 +751,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], WG_CONSUMERS / 32);
+      mbar_init(&empty[s], CONS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -749,7 +761,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
   const __nv_bfloat16* __restrict__ wp =
       static_cast<const __nv_bfloat16*>(a.w);
-  if (warp == WG_CONSUMERS / 32) {
+  if (warp == CONS / 32) {
     // producer: one thread streams the weight slices through the ring
     if (lane == 0) {
       int stage = 0, phase = 0;
@@ -775,7 +787,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 
   // consumers: warp w computes row segment w of the tile (warpgroup w / 4
-  // owns segments 4(w/4) .. 4(w/4) + 3 as its 64 M rows)
+  // owns segments 4(w/4) .. 4(w/4) + 3 as its 64 M rows, whichever WGS)
   const int segs = W / 16;
   const int ry = warp / segs, sx = (warp - ry * segs) * 16;
   const int g = lane >> 2, tig = lane & 3;
@@ -783,7 +795,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   // the same rows at k 8-15
   const int lane_off = ((ry * SC + sx + (lane & 15)) * cs + (lane >> 4) * 8)
                        * 2;
-  const RowCopy copy(tid, WG_CONSUMERS, cin, W);
+  const RowCopy copy(tid, CONS, cin, W);
   const __nv_bfloat16* __restrict__ in =
       static_cast<const __nv_bfloat16*>(a.in);
 
@@ -799,7 +811,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   if (blockIdx.x < n_tiles) stage_tile(blockIdx.x, 0);
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
-    consumers_sync();   // the tile has landed; the other buffer is free
+    consumers_sync<CONS>();   // the tile has landed; the other buffer is
+                              // free
     if (tile + (int)gridDim.x < n_tiles) stage_tile(tile + gridDim.x, buf ^ 1);
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
@@ -863,10 +876,14 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 // rows staged in one buffer (the next tile's copy is issued once every
 // warp has read the tile, behind the stores). Kept apart from the bf16
 // kernel: sharing one body cost the bf16 kernel registers and ~1.5 % of
-// its time.
-template <int N>
-__global__ void __launch_bounds__(TF_THREADS, 1)
+// its time. WGS consumer warpgroups (2: 128-pixel tiles, 1: 64-pixel
+// tiles) and the producer warpgroup. With two, the block's 384 threads
+// share the SM's registers and setmaxnreg hands the consumers 224 each;
+// with one, its 256 threads may each hold 255 and nothing is handed.
+template <int N, int WGS = 2>
+__global__ void __launch_bounds__(128 * WGS + 128, 1)
     conv_tf32_kernel(ConvArgs a, int n_tiles, int stages) {
+  constexpr int CONS = 128 * WGS;   // consumer threads
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + MAX_STAGES;
@@ -885,7 +902,7 @@ __global__ void __launch_bounds__(TF_THREADS, 1)
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], WG_CONSUMERS / 32);
+      mbar_init(&empty[s], CONS / 32);
       mbar_init(&ready[s], 32 * SPLIT_WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -894,15 +911,15 @@ __global__ void __launch_bounds__(TF_THREADS, 1)
   zero_halo(abuf, SR, SC, W, cs * 2, a.pw, tid, blockDim.x);
   __syncthreads();
 
-  if (warp >= WG_CONSUMERS / 32) {
+  if (warp >= CONS / 32) {
     // the producer (one thread) streams the weight slices through the
     // ring; the splitters (the warpgroup's other warps) walk the same
     // order and split each slice as it lands; the warpgroup hands
     // registers to the consumers
-    reg_dealloc<TF_PRODUCER_REGS>();
-    const bool producer = warp == WG_CONSUMERS / 32;
+    if constexpr (WGS == 2) reg_dealloc<TF_PRODUCER_REGS>();
+    const bool producer = warp == CONS / 32;
     if (producer && lane != 0) return;
-    const int sl = (warp - WG_CONSUMERS / 32 - 1) * 32 + lane;
+    const int sl = (warp - CONS / 32 - 1) * 32 + lane;
     const float* __restrict__ wp = static_cast<const float*>(a.w);
     int stage = 0, phase = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -932,7 +949,7 @@ __global__ void __launch_bounds__(TF_THREADS, 1)
 
   // consumers: warp w computes row segment w of the tile, as in
   // conv_wgmma_kernel
-  reg_alloc<TF_CONSUMER_REGS>();
+  if constexpr (WGS == 2) reg_alloc<TF_CONSUMER_REGS>();
   const int segs = W / 16;
   const int ry = warp / segs, sx = (warp - ry * segs) * 16;
   const int g = lane >> 2, tig = lane & 3;
@@ -941,7 +958,7 @@ __global__ void __launch_bounds__(TF_THREADS, 1)
   // element, so the four matrices are the tf32 A fragment
   const int lane_off = ((ry * SC + sx + (lane & 15)) * cs + (lane >> 4) * 4)
                        * 4;
-  const RowCopy copy(tid, WG_CONSUMERS, cin * 2, W);
+  const RowCopy copy(tid, CONS, cin * 2, W);
   const __nv_bfloat16* __restrict__ in =
       static_cast<const __nv_bfloat16*>(a.in);
 
@@ -960,7 +977,7 @@ __global__ void __launch_bounds__(TF_THREADS, 1)
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int next = tile + gridDim.x;
     asm volatile("cp.async.wait_all;\n" ::: "memory");
-    consumers_sync();   // the tile has landed
+    consumers_sync<CONS>();   // the tile has landed
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) tot[i] = 0.f;
     int run = 0;
@@ -1006,7 +1023,7 @@ __global__ void __launch_bounds__(TF_THREADS, 1)
     }
     // every warp has read the buffer; the next tile's copy runs behind
     // this tile's stores
-    consumers_sync();
+    consumers_sync<CONS>();
     if (next < n_tiles) stage_tile(next);
 
     const int n = tile / tiles_y, y = (tile - n * tiles_y) * a.tr + ry;
@@ -1055,19 +1072,22 @@ static WgPlan wg_plan(int tr, int W, int cin, int kw, int span, int npad,
   return p;
 }
 
-// Rows of a 128-pixel tile at width W, or 0 where the tile is not whole
-// rows (W of 16, 32, 64 or 128).
-__host__ __device__ static inline int wg_tile_rows(int W) {
-  if (W < 16 || W % 16 || WG_TILE_SEGS % (W / 16)) return 0;
-  return WG_TILE_SEGS / (W / 16);
+// Rows of a tile of ``segs`` 16-pixel row segments (8: 128 pixels, 4:
+// 64) at width W, or 0 where the tile is not whole rows (128 pixels: W of
+// 16, 32, 64 or 128; 64 pixels: W of 16, 32 or 64).
+__host__ __device__ static inline int wg_tile_rows(int W,
+                                                   int segs = WG_TILE_SEGS) {
+  if (W < 16 || W % 16 || segs % (W / 16)) return 0;
+  return segs / (W / 16);
 }
 
 // Blocks of ``kernel`` (``threads`` a block, ``smem`` dynamic bytes) for
 // ``n_tiles`` persistent tiles: as many as are resident on the card, at
-// most one per tile; 0 or the CUDA error.
+// most one per tile, and how many are resident on one SM; 0 or the CUDA
+// error.
 template <typename K>
 static int persistent_blocks(K kernel, int threads, size_t smem, int n_tiles,
-                             int* blocks) {
+                             int* blocks, int* resident) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -1079,36 +1099,60 @@ static int persistent_blocks(K kernel, int threads, size_t smem, int n_tiles,
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   *blocks = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  *resident = per_sm;
   return 0;
 }
 
-// Launches conv_wgmma_kernel<N, Tout> (bf16) or with F32
-// conv_tf32_kernel<N> on ``a`` (its tr already the tile's rows): one
-// persistent block per SM, at most one per tile.
-template <int N, typename Tout, bool F32>
+// Launches conv_wgmma_kernel<N, Tout, WGS> (bf16) or with F32
+// conv_tf32_kernel<N, WGS> on ``a`` (its tr already the tile's rows: 128
+// pixels with WGS = 2, 64 with WGS = 1): one persistent block per SM, at
+// most one per tile. With ``query`` it launches nothing and writes the
+// grid's blocks and the blocks resident on one SM there.
+template <int N, typename Tout, bool F32, int WGS>
 static int wgmma_launch(const ConvArgs& a, int n_images, int kw,
-                        size_t limit, cudaStream_t stream) {
+                        size_t limit, cudaStream_t stream, int* query) {
   const WgPlan p = wg_plan(a.tr, a.W, a.cin, kw, a.dy_hi - a.dy_lo, N,
                            a.ntaps, limit, F32);
   if (p.stages < 2) return (int)cudaErrorInvalidValue;
   const int n_tiles = n_images * ((a.H + a.tr - 1) / a.tr);
-  int blocks = 0, e;
+  int blocks = 0, per_sm = 0, e;
   if constexpr (F32) {
-    e = persistent_blocks(conv_tf32_kernel<N>, TF_THREADS, p.smem, n_tiles,
-                          &blocks);
-    if (e) return e;
-    conv_tf32_kernel<N><<<blocks, TF_THREADS, p.smem, stream>>>(a, n_tiles,
-                                                                 p.stages);
+    constexpr int threads = 128 * WGS + 128;
+    e = persistent_blocks(conv_tf32_kernel<N, WGS>, threads, p.smem,
+                          n_tiles, &blocks, &per_sm);
+    if (!e && !query) {
+      conv_tf32_kernel<N, WGS><<<blocks, threads, p.smem, stream>>>(
+          a, n_tiles, p.stages);
+      e = (int)cudaGetLastError();
+    }
   } else {
-    e = persistent_blocks(conv_wgmma_kernel<N, Tout>, WG_THREADS, p.smem,
-                          n_tiles, &blocks);
-    if (e) return e;
-    // the last argument: whether every slice stays resident
-    const int slices = a.ntaps * ((a.cin + KC - 1) / KC);
-    conv_wgmma_kernel<N, Tout><<<blocks, WG_THREADS, p.smem, stream>>>(
-        a, n_tiles, p.stages, p.stages >= slices);
+    constexpr int threads = 128 * WGS + 32;
+    e = persistent_blocks(conv_wgmma_kernel<N, Tout, WGS>, threads, p.smem,
+                          n_tiles, &blocks, &per_sm);
+    if (!e && !query) {
+      // the last argument: whether every slice stays resident
+      const int slices = a.ntaps * ((a.cin + KC - 1) / KC);
+      conv_wgmma_kernel<N, Tout, WGS><<<blocks, threads, p.smem, stream>>>(
+          a, n_tiles, p.stages, p.stages >= slices);
+      e = (int)cudaGetLastError();
+    }
   }
-  return (int)cudaGetLastError();
+  if (!e && query) {
+    query[0] = blocks;
+    query[1] = per_sm;
+  }
+  return e;
+}
+
+// wgmma_launch on 128-pixel tiles (wgs 2) or 64-pixel ones (wgs 1).
+template <int N, typename Tout, bool F32>
+static int wgmma_launch_tiles(int wgs, const ConvArgs& a, int n_images,
+                              int kw, size_t limit, cudaStream_t s,
+                              int* query) {
+  return wgs == 1
+             ? wgmma_launch<N, Tout, F32, 1>(a, n_images, kw, limit, s, query)
+             : wgmma_launch<N, Tout, F32, 2>(a, n_images, kw, limit, s,
+                                             query);
 }
 
 // The tensor-core conv of ``in`` (16-byte aligned) with the packed weights
@@ -1116,13 +1160,20 @@ static int wgmma_launch(const ConvArgs& a, int n_images, int kw,
 // most 160) into ``out`` (Tout) over the ntaps (dy, dx) pairs of ``taps``:
 // bf16 in and weights with cin % 16 == 0, or with F32 f32 in, weights and
 // out by 3xTF32 with cin % TK == 0; cout even and <= npad; ``limit``:
-// dynamic shared memory allowed.
+// dynamic shared memory allowed; ``tile_pixels``: 128 (two consumer
+// warpgroups a block) or 64 (one; the forward's plan for pixel counts
+// whose 128-pixel tiles leave SMs idle, ``fwd_plan`` in masked_conv.py);
+// ``query``: see wgmma_launch.
 template <typename Tout, bool F32>
 static int wgmma_conv(const void* in, const void* w, void* out,
                       const int* taps, int ntaps, int n_images, int H, int W,
                       int cin, int cout, int npad, int kh, int kw,
-                      size_t limit, cudaStream_t s) {
-  const int tr = wg_tile_rows(W);
+                      size_t limit, int tile_pixels, cudaStream_t s,
+                      int* query = nullptr) {
+  const int wgs = tile_pixels / 64;
+  const int tr = tile_pixels % 64 || wgs < 1 || wgs > 2
+                     ? 0
+                     : wg_tile_rows(W, 4 * wgs);
   if (!tr || cin % (F32 ? TK : 16) || cout % 2 || cout > npad ||
       reinterpret_cast<uintptr_t>(in) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16)
@@ -1132,14 +1183,23 @@ static int wgmma_conv(const void* in, const void* w, void* out,
                        tr);
   if (e) return e;
   switch (npad) {
-    case 32: return wgmma_launch<32, Tout, F32>(a, n_images, kw, limit, s);
-    case 64: return wgmma_launch<64, Tout, F32>(a, n_images, kw, limit, s);
-    case 128: return wgmma_launch<128, Tout, F32>(a, n_images, kw, limit, s);
-    case 160: return wgmma_launch<160, Tout, F32>(a, n_images, kw, limit, s);
+    case 32:
+      return wgmma_launch_tiles<32, Tout, F32>(wgs, a, n_images, kw, limit,
+                                               s, query);
+    case 64:
+      return wgmma_launch_tiles<64, Tout, F32>(wgs, a, n_images, kw, limit,
+                                               s, query);
+    case 128:
+      return wgmma_launch_tiles<128, Tout, F32>(wgs, a, n_images, kw, limit,
+                                                s, query);
+    case 160:
+      return wgmma_launch_tiles<160, Tout, F32>(wgs, a, n_images, kw, limit,
+                                                s, query);
     case 256:
       // f32 at N = 256 would need 256 accumulator registers a thread
       if constexpr (!F32)
-        return wgmma_launch<256, Tout, false>(a, n_images, kw, limit, s);
+        return wgmma_launch_tiles<256, Tout, false>(wgs, a, n_images, kw,
+                                                    limit, s, query);
       break;
   }
   return (int)cudaErrorInvalidValue;

@@ -515,25 +515,27 @@ int masked_conv_dgrad(const void* g, const void* wt, void* dx,
 
 // The same on the tensor cores, dx bf16: g in bf16 (16-byte aligned), the
 // transposed weights packed as conv_wgmma_kernel reads them with their
-// columns zero-padded to npad; see wgmma_conv (masked_conv.cuh).
+// columns zero-padded to npad, on tiles of ``tile_pixels`` (the port
+// passes 128; 64 is measured, not routed); see wgmma_conv
+// (masked_conv.cuh).
 int masked_conv_dgrad_wgmma(const void* g, const void* wt, void* dx,
                             const int* taps, int ntaps, int n_images, int H,
                             int W, int cg, int cdx, int npad, int kh, int kw,
-                            size_t limit, void* stream) {
-  return wgmma_conv<__nv_bfloat16, false>(g, wt, dx, taps, ntaps, n_images,
-                                          H, W, cg, cdx, npad, kh, kw, limit,
-                                          static_cast<cudaStream_t>(stream));
+                            int tile_pixels, size_t limit, void* stream) {
+  return wgmma_conv<__nv_bfloat16, false>(
+      g, wt, dx, taps, ntaps, n_images, H, W, cg, cdx, npad, kh, kw, limit,
+      tile_pixels, static_cast<cudaStream_t>(stream));
 }
 
 // The same in f32 by 3xTF32, dx f32: g f32 (16-byte aligned), the
 // transposed f32 weights in the tf32 K-major order; cg % 16 == 0, npad at
-// most 160.
+// most 160; tiles as masked_conv_dgrad_wgmma's.
 int masked_conv_dgrad_tf32(const void* g, const void* wt, void* dx,
                            const int* taps, int ntaps, int n_images, int H,
                            int W, int cg, int cdx, int npad, int kh, int kw,
-                           size_t limit, void* stream) {
+                           int tile_pixels, size_t limit, void* stream) {
   return wgmma_conv<float, true>(g, wt, dx, taps, ntaps, n_images, H, W, cg,
-                                 cdx, npad, kh, kw, limit,
+                                 cdx, npad, kh, kw, limit, tile_pixels,
                                  static_cast<cudaStream_t>(stream));
 }
 

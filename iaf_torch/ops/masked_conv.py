@@ -15,6 +15,10 @@ as ``bwd_route`` decides); on the CPU autograd differentiates the twin
 (``masked_conv2d_bwd_ref``).
 Layouts are the JAX ones: activations NHWC, weights HWIO.
 
+The tensor-core forward spreads over the card by ``fwd_plan``: 128-pixel
+tiles, or 64-pixel ones where the 128-pixel tiles leave SMs idle (the
+training step's batch 32), with the same bits.
+
 ``taps`` names the (dy, dx) kernel positions that may hold nonzero
 weights; the kernels compute only those (``nonzero_taps`` of the AR mask:
 13 of 25 for a 5x5 raster mask) and treat the rest as zero, and so does
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Iterable
+from typing import Iterable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +51,9 @@ _GW_PIXELS = 128        # masked_conv_bwd.cu GW_PIXELS: wgrad sub-tile
 _GW_CB = 32             # masked_conv_bwd.cu GW_CB: wgrad channels per block
 _GW_TG = 4              # masked_conv_bwd.cu GW_TG: wgrad taps per block
 _GT_PIXELS = 64         # masked_conv_bwd.cu GT_PIXELS: 3xTF32 wgrad sub-tile
+TILE = 128              # masked_conv.cuh: pixels of a tensor-core conv tile
+                        # (two consumer warpgroups a block)
+SMALL_TILE = 64         # the forward's small tile (one warpgroup a block)
 
 launches = {"masked_conv2d": 0, "masked_conv2d_bwd": 0}  # since the reset
 
@@ -175,6 +182,28 @@ def fwd_pack(w: torch.Tensor, taps: Taps, f32: bool = False) -> torch.Tensor:
                       e=4 if f32 else 8)
 
 
+def fwd_pack_kernel(w: torch.Tensor, taps: Taps) -> torch.Tensor:
+    """``fwd_pack`` (f32 weights in the 3xTF32 order) in one launch of
+    ``conv_pack_w_kernel`` (CUDA weights of any strides): the same bytes,
+    where the twin's gather and packing copy take two launches."""
+    if w.device.type != "cuda":
+        raise RuntimeError(f"masked_conv2d pack: no kernel for device "
+                           f"{w.device}")
+    kh, kw, cin, cout = w.shape
+    f32 = w.dtype == torch.float32
+    e = 4 if f32 else 8
+    npad = wgmma_width(cout)
+    out = torch.empty((len(taps), cin // (2 * e), npad // 8, 2, 8, e),
+                      device=w.device, dtype=w.dtype)
+    with torch.cuda.device(w.device):
+        err = _lib().masked_conv_pack_w(
+            w.data_ptr(), out.data_ptr(), _c_taps(taps), len(taps), kh, kw,
+            cin, cout, npad, (ctypes.c_longlong * 4)(*w.stride()), int(f32),
+            _stream(w.device))
+    _raise_on(err, "masked_conv2d pack")
+    return out
+
+
 def dgrad_pack(w: torch.Tensor, taps: Taps, f32: bool = False
                ) -> torch.Tensor:
     """dgrad's weights on the tensor cores: the live taps transposed per
@@ -198,8 +227,9 @@ def wgrad_pack(g: torch.Tensor, f32: bool = False) -> torch.Tensor:
 
 
 # the tensor-core conv entries (forward and dgrad, bf16 and 3xTF32): 4
-# pointers, 9 ints, the shared-memory limit and the stream
-_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+# pointers, 10 ints (the last the tile's pixels), the shared-memory limit
+# and the stream
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                    + [ctypes.c_size_t, ctypes.c_void_p])
 
 
@@ -212,10 +242,20 @@ def _lib():
         lib.masked_conv_smem_bytes.restype = ctypes.c_size_t
         lib.masked_conv_wgmma_stages.argtypes = (
             [ctypes.c_int] * 6 + [ctypes.c_size_t, ctypes.c_int])
+        lib.masked_conv_wgmma_stages_tile.argtypes = (
+            [ctypes.c_int] * 6 + [ctypes.c_size_t] + [ctypes.c_int] * 2)
         lib.masked_conv_fwd_wgmma.argtypes = _WGMMA_ARGTYPES
         lib.masked_conv_fwd_tf32.argtypes = _WGMMA_ARGTYPES
+        lib.masked_conv_pack_w.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        lib.masked_conv_fwd_grid.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+            + [ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p])
         for fn in (lib.masked_conv_fwd, lib.masked_conv_wgmma_stages,
-                   lib.masked_conv_fwd_wgmma, lib.masked_conv_fwd_tf32):
+                   lib.masked_conv_wgmma_stages_tile,
+                   lib.masked_conv_fwd_wgmma, lib.masked_conv_fwd_tf32,
+                   lib.masked_conv_pack_w, lib.masked_conv_fwd_grid):
             fn.restype = ctypes.c_int
         lib._iaf_typed = True
     return lib
@@ -303,17 +343,18 @@ def _launch_conv(fn, what: str, inp, packed, out, taps: Taps, kh: int,
 
 
 def _launch_wgmma(fn, what: str, inp, packed, out, taps: Taps, kh: int,
-                  kw: int) -> None:
+                  kw: int, tile_pixels: int) -> None:
     """Launch the tensor-core conv (``fn``: the forward or dgrad entry,
     bf16 or 3xTF32) on ``inp`` [N,H,W,c_in] with ``packed``
-    (``wgmma_pack`` order) into ``out`` [N,H,W,c_out]."""
+    (``wgmma_pack`` order) into ``out`` [N,H,W,c_out], on tiles of
+    ``tile_pixels`` (``TILE`` or ``SMALL_TILE``)."""
     n, h, w_, c_in = inp.shape
     c_out = out.shape[-1]
     _aligned(what, inp, packed)
     with torch.cuda.device(inp.device):
         err = fn(inp.data_ptr(), packed.data_ptr(), out.data_ptr(),
                  _c_taps(taps), len(taps), n, h, w_, c_in, c_out,
-                 packed.shape[-4] * 8, kh, kw, _SMEM_LIMIT,
+                 packed.shape[-4] * 8, kh, kw, tile_pixels, _SMEM_LIMIT,
                  _stream(inp.device))
     _raise_on(err, what)
 
@@ -396,6 +437,66 @@ def _route(dtype: torch.dtype, w_: int, cin: int, cout: int, kw: int,
     return "fma"
 
 
+class FwdPlan(NamedTuple):
+    """How K2's tensor-core forward spreads over the card (``fwd_plan``):
+    tiles of ``tile_pixels`` output pixels (``TILE``: two consumer
+    warpgroups a block; ``SMALL_TILE``: one) walked by ``blocks``
+    persistent blocks, at most one an SM. ``FwdPlan(0, 0)``: no plan (a
+    shape no tensor-core kernel tiles)."""
+    tile_pixels: int
+    blocks: int
+
+
+def _tiles(n: int, h: int, w: int, tile_pixels: int) -> int:
+    """Tiles of ``tile_pixels`` (``tile_pixels`` / w whole rows, the last
+    of an image cut at its bottom) in ``n`` images of ``h`` x ``w``."""
+    return n * -(-h // (tile_pixels // w))
+
+
+def tile_plan(n: int, h: int, w: int, tile_pixels: int, sms: int
+              ) -> FwdPlan:
+    """The plan on tiles of ``tile_pixels`` for ``n`` images of ``h`` x
+    ``w``: one block per tile, at most ``sms``."""
+    return FwdPlan(tile_pixels, min(_tiles(n, h, w, tile_pixels), sms))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(dtype: torch.dtype, n: int, h: int, w: int, cin: int,
+             cout: int, sms: int) -> FwdPlan:
+    """K2's forward launch plan for ``n`` images of ``h`` x ``w`` on a card
+    of ``sms`` SMs, from the shapes alone (no built library), so a CUDA
+    graph captures a fixed grid. The rule:
+
+    - 128-pixel tiles (``TILE``) wherever n*h*w / 128 >= ``sms`` (every
+      SM has a tile: the eval chunk's N = 1024, 2048 tiles) or the width
+      gives no whole 64-pixel tile (W = 128);
+    - else 64-pixel tiles (``SMALL_TILE``, one warpgroup a block) where
+      each block then walks one tile (tiles64 <= ``sms``): the training
+      step's batch 32 at W = 16 has 64 tiles of 128 for 132 SMs, 128 of
+      64 (N = 1, 2 and 16 too); else 128-pixel tiles.
+
+    That is where it leaves a block less tile time, as measured on an
+    H100 80GB HBM3 at 700 W (``chip_smoke.py --k2-plans``): a block's
+    time is its tiles' chains of dependent wgmmas, whatever the number of
+    blocks (N = 1 and batch 32 alike), and one 64-pixel tile takes
+    0.79-0.93x one 128-pixel tile: at batch 32 the 64-pixel plan's kernel
+    is 0.86-0.93x the 128-pixel plan's on the three 5x5 AR convs in bf16
+    (160->160 included: its doubled weight stream from L2, 85 MB, does
+    not limit it) and 0.79-0.83x in f32; two 64-pixel tiles a block lose
+    (N = 1024: 1.45-1.65x).
+
+    Both plans give the same bits. A shape whose 128-pixel tile fits
+    shared memory (``_route``) fits at 64 (fewer staged rows). Shapes no
+    tensor-core kernel tiles (``wgmma_path``, ``tf32_path``; the FMA
+    kernel reads no plan) get ``FwdPlan(0, 0)``."""
+    if not (wgmma_path(dtype, w, cin, cout) or tf32_path(dtype, w, cin,
+                                                          cout)):
+        return FwdPlan(0, 0)
+    if w <= SMALL_TILE and _tiles(n, h, w, SMALL_TILE) <= sms:
+        return tile_plan(n, h, w, SMALL_TILE, sms)
+    return tile_plan(n, h, w, TILE, sms)
+
+
 @functools.lru_cache(maxsize=None)
 def _wgrad_route(dtype: torch.dtype, h: int, w_: int, cin: int, cout: int,
                  kw: int, span: int) -> str:
@@ -409,8 +510,11 @@ def _wgrad_route(dtype: torch.dtype, h: int, w_: int, cin: int, cout: int,
     return "fma"
 
 
-def _fwd(x: torch.Tensor, w: torch.Tensor, taps: Taps) -> torch.Tensor:
-    """Launch the forward on the kernel ``fwd_route`` names."""
+def _fwd(x: torch.Tensor, w: torch.Tensor, taps: Taps,
+         plan: FwdPlan | None = None) -> torch.Tensor:
+    """Launch the forward on the kernel ``fwd_route`` names; the
+    tensor-core kernels on ``plan`` (default ``fwd_plan``'s for these
+    shapes and the card)."""
     if w.device != x.device:
         raise RuntimeError("masked_conv2d: x and w on different devices")
     if not x.is_contiguous():
@@ -421,15 +525,40 @@ def _fwd(x: torch.Tensor, w: torch.Tensor, taps: Taps) -> torch.Tensor:
     out = torch.empty((n, h, w_, cout), device=x.device, dtype=torch.float32)
     route = _route(x.dtype, w_, cin, cout, kw, taps)
     if route != "fma":
+        if plan is None:
+            plan = fwd_plan(x.dtype, n, h, w_, cin, cout,
+                            _sm_count(x.device))
         _launch_wgmma(lib.masked_conv_fwd_wgmma if route == "wgmma"
                       else lib.masked_conv_fwd_tf32, "masked_conv2d", x,
-                      fwd_pack(w, taps, route == "3xtf32"), out, taps, kh,
-                      kw)
+                      fwd_pack_kernel(w, taps), out, taps, kh, kw,
+                      plan.tile_pixels)
     else:
         _launch_conv(lib.masked_conv_fwd, "masked_conv2d", x, _live(w, taps),
                      out, taps, kh, kw)
     launches["masked_conv2d"] += 1
     return out
+
+
+def fwd_grid(x: torch.Tensor, w: torch.Tensor, taps: Iterable | None,
+             plan: FwdPlan) -> tuple[int, int]:
+    """(blocks, blocks resident on one SM) of the tensor-core forward's
+    launch on ``plan`` for CUDA inputs ``x``, ``w``, from the CUDA
+    occupancy calculator; launches nothing. One block an SM means no two
+    blocks of the grid share one."""
+    taps = _taps(w, taps)
+    n, h, w_, cin = x.shape
+    kh, kw, _, cout = w.shape
+    route = _route(x.dtype, w_, cin, cout, kw, taps)
+    if route == "fma":
+        raise ValueError("fwd_grid: the shape takes the FMA kernel")
+    grid = (ctypes.c_int * 2)()
+    with torch.cuda.device(x.device):
+        err = _lib().masked_conv_fwd_grid(
+            x.data_ptr(), w.data_ptr(), _c_taps(taps), len(taps), n, h, w_,
+            cin, cout, wgmma_width(cout), kh, kw, plan.tile_pixels,
+            _SMEM_LIMIT, int(route == "3xtf32"), grid)
+    _raise_on(err, "masked_conv2d grid")
+    return grid[0], grid[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -466,10 +595,11 @@ def _dgrad(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     if route == "wgmma":
         _launch_wgmma(lib.masked_conv_dgrad_wgmma, "masked_conv2d dgrad",
                       g.to(torch.bfloat16), dgrad_pack(w, taps), dx, mirrored,
-                      kh, kw)
+                      kh, kw, TILE)
     elif route == "3xtf32":
         _launch_wgmma(lib.masked_conv_dgrad_tf32, "masked_conv2d dgrad", g,
-                      dgrad_pack(w, taps, f32=True), dx, mirrored, kh, kw)
+                      dgrad_pack(w, taps, f32=True), dx, mirrored, kh, kw,
+                      TILE)
     else:
         _launch_conv(lib.masked_conv_dgrad, "masked_conv2d dgrad", g,
                      _live(w, taps).transpose(1, 2).contiguous(), dx,

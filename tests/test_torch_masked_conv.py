@@ -208,7 +208,7 @@ TRAIN_CASES = [(5, (32, 16, 16, 32), 160), (5, (32, 16, 16, 160), 160),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,shape,cout", CARD_CASES)
+@pytest.mark.parametrize("k,shape,cout", CARD_CASES + TRAIN_CASES[2:])
 def test_masked_conv_kernel_matches_twin_on_card(cuda, dtype, k, shape,
                                                  cout):
     """f32 (TF32 off) at 1e-5 of the output's max; bf16 at 2e-2 (the
@@ -258,6 +258,78 @@ def test_masked_conv_bwd_kernel_matches_twin_on_card(cuda, dtype, k, shape,
     for dy, dx in taps:
         live[dy, dx] = 1.0
     assert not (got[1].float() * (1 - live)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 2, 16, 32])
+@pytest.mark.parametrize("k,shape,cout", TRAIN_CASES)
+def test_masked_conv_fwd_plans_agree_bitwise_on_card(cuda, dtype, n, k,
+                                                     shape, cout):
+    """The forward on 64-pixel tiles (one warpgroup a block) gives the
+    128-pixel tiles' bits, at the three 5x5 AR convs and N = 1 to the
+    training step's batch 32, one launch a call; ``fwd_plan`` picks the
+    64-pixel tiles there, and both are within the twin's limit."""
+    from iaf_torch.ops import masked_conv as mc
+    shape = (n,) + shape[1:]
+    x, w, m = _inputs(k, shape, cout, seed=3)
+    tx, tw = _t(x).to(cuda, dtype), _t(w).to(cuda, dtype)
+    taps = mc._taps(tw, nonzero_taps(m))
+    _, h, w_, cin = shape
+    sms = mc._sm_count(tx.device)
+    assert mc.fwd_plan(dtype, n, h, w_, cin, cout, sms).tile_pixels == 64
+    outs = {}
+    for tile in (mc.TILE, mc.SMALL_TILE):
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            outs[tile] = mc._fwd(tx, tw, taps,
+                                 plan=mc.tile_plan(n, h, w_, tile, sms))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["masked_conv2d"] == 1
+    assert torch.equal(outs[mc.TILE], outs[mc.SMALL_TILE])
+    with torch.inference_mode():
+        assert torch.equal(ops.masked_conv2d(tx, tw, taps), outs[mc.TILE])
+        want = ops.masked_conv2d_ref(tx, tw, taps)
+    _close(outs[mc.SMALL_TILE].cpu().numpy(), want.cpu().numpy(),
+           1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,shape,cout", TRAIN_CASES)
+def test_masked_conv_fwd_grid_one_block_an_sm_on_card(cuda, dtype, k, shape,
+                                                      cout):
+    """At batch 32 the 64-pixel plan launches 128 blocks, one per tile,
+    and no two of them share an SM (the occupancy calculator keeps one
+    block an SM: each fills more than half of its shared memory)."""
+    from iaf_torch.ops import masked_conv as mc
+    x, w, m = _inputs(k, shape, cout)
+    tx, tw = _t(x).to(cuda, dtype), _t(w).to(cuda, dtype)
+    n, h, w_, cin = shape
+    plan = mc.fwd_plan(dtype, n, h, w_, cin, cout, mc._sm_count(tx.device))
+    assert plan == (64, 128)
+    assert mc.fwd_grid(tx, tw, nonzero_taps(m), plan) == (128, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,shape,cout", TRAIN_CASES + [(3, (1, 8, 16, 48),
+                                                         24)])
+def test_masked_conv_pack_kernel_matches_fwd_pack_on_card(cuda, dtype, k,
+                                                          shape, cout):
+    """The forward's weight pack kernel gives ``fwd_pack``'s bytes (its
+    twin: the live-tap gather and the packing copy), from contiguous
+    weights and from a copy of other strides, padded columns included."""
+    from iaf_torch.ops import masked_conv as mc
+    _, w, m = _inputs(k, shape, cout)
+    tw = _t(w).to(cuda, dtype)
+    taps = mc._taps(tw, nonzero_taps(m))
+    want = mc.fwd_pack(tw, taps, dtype == torch.float32)
+    strided = tw.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+    for v in (tw, strided):
+        got = mc.fwd_pack_kernel(v, taps)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 @pytest.mark.cuda
