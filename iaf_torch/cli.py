@@ -26,7 +26,11 @@ traces whichever mode runs with ``torch.profiler`` (host activity, and
 the card's kernels when it runs there) and writes the trace into D as
 ``*.pt.trace.json``, as the JAX package's CLI traces into its profile
 directory; the model's and the step's named ranges (``iaf_up``,
-``iaf_down``, ``ar_stack``, ``grads``, ``adamax_polyak``) are in it.
+``iaf_down``, ``ar_stack``, ``grads``, ``adamax_polyak``; in eager bodies
+and captures) and the host spans around each replay (``iaf.train.*``,
+``iaf.eval.*``) are in it. It also turns the device marks on
+(``utils/trace.py``), so on the card every replayed step and eval chunk
+shows its phases as ``iaf_mark_*`` kernels.
 
 Data parallelism, one process per GPU (``parallel/mesh.py``)::
 
@@ -48,14 +52,15 @@ from iaf_torch import train_lib
 from iaf_torch.core.config import resolve_config
 from iaf_torch.core.device import resolve_device
 from iaf_torch.parallel import mesh
+from iaf_torch.utils import trace
 
 
 @contextlib.contextmanager
 def _profiled(profile_dir: str, device: str):
     """A ``torch.profiler`` trace of the block into ``profile_dir`` (none
-    for ""): host activity always, the card's too when ``device`` is a
-    CUDA device; the trace is written when the block ends, by an
-    exception too."""
+    for ""), with the device marks on inside it: host activity always,
+    the card's too when ``device`` is a CUDA device; the trace is written
+    and the marks set back when the block ends, by an exception too."""
     if not profile_dir:
         yield
         return
@@ -67,11 +72,13 @@ def _profiled(profile_dir: str, device: str):
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities,
                    on_trace_ready=tensorboard_trace_handler(profile_dir))
+    marks = trace.set_marks(True)
     prof.start()
     try:
         yield
     finally:
         prof.stop()
+        trace.set_marks(marks)
         mesh.print0(f"[profile] trace written to {profile_dir}")
 
 

@@ -42,7 +42,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from iaf_torch import ops
@@ -54,6 +53,7 @@ from iaf_torch.distributions import DiagonalGaussian, compute_lowerbound
 from iaf_torch.nn.layers import (ARMultiConv2d, ARMultiDense, WNConv2d,
                                  WNDeconv2d, compute_dtype)
 from iaf_torch.parallel import mesh
+from iaf_torch.utils.trace import mark, span
 
 LOG2 = math.log(2.0)
 
@@ -145,9 +145,10 @@ def _conv(conv, x, dtype, init):
 def iaf_layer_up(cfg: Config, layer: IAFLayer, h: torch.Tensor, dtype=None,
                  init: bool = False):
     """Bottom-up pass of one stochastic layer (``IAFLayer.up``), in the
-    profiler's range ``iaf_up``."""
+    host span ``iaf_up``. A replayed graph runs no Python: there the up
+    passes are the device time before the mark ``up`` (``utils.trace``)."""
     zs, hs = cfg.z_size, cfg.h_size
-    with record_function("iaf_up"):
+    with span("iaf_up"):
         x = _conv(layer.up_conv1, F.elu(h), dtype, init)
         qz_mean, qz_logsd, up_context, hidden = _split(x, [zs, zs, hs, hs])
         hidden = _conv(layer.up_conv3, F.elu(hidden), dtype, init)
@@ -156,10 +157,10 @@ def iaf_layer_up(cfg: Config, layer: IAFLayer, h: torch.Tensor, dtype=None,
 
 def iaf_flow(cfg: Config, layer: IAFLayer, z, context, logqs, dtype=None,
              init: bool = False):
-    """One IAF step: masked AR net (the profiler's range ``ar_stack``) ->
-    (m, s) heads scaled by 0.1 -> invertible update, the log-det-Jacobian
-    folded into ``logqs``."""
-    with record_function("ar_stack"):
+    """One IAF step: masked AR net (the host span ``ar_stack``; in a
+    replay, inside the ``down`` phase) -> (m, s) heads scaled by 0.1 ->
+    invertible update, the log-det-Jacobian folded into ``logqs``."""
+    with span("ar_stack"):
         if init:
             m, s = layer.ar1.init_forward(z, context)
         else:
@@ -185,9 +186,10 @@ def iaf_layer_down(cfg: Config, layer: IAFLayer, h, stats: LayerStats,
     free-bits term, kl_cost per example): with ``kl_min`` > 0 the term
     is the per-channel KL summed over space and averaged over the batch,
     [1, zs], which ``free_bits`` clamps; else kl_obj per example. In the
-    profiler's range ``iaf_down``."""
+    host span ``iaf_down``; in a replay, the device time between the
+    marks ``up`` and ``down``."""
     zs, hs = cfg.z_size, cfg.h_size
-    with record_function("iaf_down"):
+    with span("iaf_down"):
         x = _conv(layer.down_conv1, F.elu(h), dtype, init)
         pz_mean, pz_logsd, rz_mean, rz_logsd, down_context, h_det = _split(
             x, [zs, zs, zs, zs, hs, hs])
@@ -283,7 +285,10 @@ def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
                  k: int | None = None,
                  noise: Mapping[str, torch.Tensor] | None = None) -> ModelOut:
     """Full forward pass. ``x`` holds images in [0, 256), NHWC; ``k``
-    importance samples repeat each image k times, interleaved."""
+    importance samples repeat each image k times, interleaved. Issues the
+    device marks ``up`` after the up passes, ``down`` after the down
+    passes and the KL stack, and ``out`` after the loss and the bound
+    (``utils.trace``; nothing where marks are off)."""
     if mode not in ("train", "eval"):
         raise ValueError(f"mode {mode!r} not in ('train', 'eval')")
     k = cfg.k if k is None else k
@@ -304,6 +309,7 @@ def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
     for layer in model.blocks:
         h, st = _layer_pass(remat, iaf_layer_up, cfg, layer, h, dtype)
         stats.append(st)
+    mark("up", device)
 
     dec_hw = cfg.image_size // 2
     h = model.h_top.expand(batch, dec_hw, dec_hw, cfg.h_size)
@@ -321,13 +327,14 @@ def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
     kl_objs, kl_costs = torch.stack(objs), torch.stack(costs)
     kl_obj_total = kl_objs.sum(0)
     kl_cost_total = kl_costs.sum(0)
+    mark("down", device)
 
     x_out = model.x_dec(F.elu(h), dtype)
     log_pxz = ops.disc_logistic_logp(x_out.contiguous(), model.dec_log_stdv,
                                      x.contiguous())
     loss = torch.mean(kl_obj_total - log_pxz)
     elbo_nats = compute_lowerbound(log_pxz, kl_cost_total, k)
-    return ModelOut(
+    out = ModelOut(
         loss=loss,
         elbo_nats=elbo_nats,
         bits_per_dim=torch.mean(elbo_nats) / (LOG2 * cfg.num_pixels),
@@ -338,6 +345,8 @@ def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
         x_out=x_out,
         kl_per_layer=torch.mean(kl_costs, dim=1),
     )
+    mark("out", device)
+    return out
 
 
 def apply_fn(cfg: Config, model: CVAE, rng: int, x, mode: str = "train",

@@ -43,6 +43,7 @@ from iaf_torch.nn.layers import (ARMultiDense, WNConv2d, WNDeconv2d,
                                  WNDense, compute_dtype)
 from iaf_torch.parallel import mesh
 from iaf_torch.utils.params import param_device
+from iaf_torch.utils.trace import mark
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -219,13 +220,16 @@ def apply_fn(cfg: Config, model: MnistVAE, rng: int, x, mode: str = "train",
     NHWC, already binarized by the feed; ``k`` importance samples repeat
     each image k times, interleaved. Train and eval modes compute the
     same, but that under a process group training takes free bits over
-    the global batch."""
+    the global batch. Issues the device mark ``out`` at its end, its one
+    mark (``utils.trace``)."""
     if mode not in ("train", "eval"):
         raise ValueError(f"mode {mode!r} not in ('train', 'eval')")
     k = cfg.k if k is None else k
-    return _forward(cfg, model, x, rng, k, compute_dtype(cfg.compute_dtype),
-                    noise, init=False,
-                    global_batch=mode == "train" and mesh.active())
+    out = _forward(cfg, model, x, rng, k, compute_dtype(cfg.compute_dtype),
+                   noise, init=False,
+                   global_batch=mode == "train" and mesh.active())
+    mark("out", param_device(model))
+    return out
 
 
 def pixels(out: MnistOut) -> torch.Tensor:

@@ -23,6 +23,15 @@ into its buffers (the family's ``draw_noise``, the bits the eager step
 draws). The graph reads the parameters where they
 live, so weights copied in place are seen by the next replay. On the CPU
 the same body runs eagerly. The batch-sharded path stays eager.
+
+A replay runs no Python, so the model's scope ranges show only in the
+eager chunk and at the capture. The host's work around the replays is in
+the spans ``iaf.eval.load`` (the batch in, the sums reset),
+``iaf.eval.draw`` (a chunk's noise), ``iaf.eval.replay`` (a chunk's
+graph; the eager chunk and the capture at the first two calls) and
+``iaf.eval.bound``. With marks on (``utils.trace``) the chunk's graph
+holds the device marks ``begin``, the model's ``up``, ``down`` and
+``out``, and ``end`` after the running update.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from iaf_torch.core.rng import fold
 from iaf_torch.models import get_model
 from iaf_torch.parallel import mesh
 from iaf_torch.utils.params import param_device
+from iaf_torch.utils.trace import mark, span
 
 
 def k_chunking(k: int, eval_k_chunk: int) -> tuple[int, int]:
@@ -185,7 +195,8 @@ class EvalStep:
 
     def _chunk(self) -> None:
         """One chunk's eval forward on the buffers, folded into the running
-        sums in place."""
+        sums in place, between the device marks ``begin`` and ``end``."""
+        mark("begin", self.device)
         out = self.family.apply_fn(self.cfg, self._model, 0, self._batch,
                                    mode="eval", k=self.k_chunk,
                                    noise=self._noise)
@@ -193,6 +204,7 @@ class EvalStep:
             self._m, self._s, out.log_w.reshape(-1, self.k_chunk))
         self._m.copy_(m_new)
         self._s.copy_(s_new)
+        mark("end", self.device)
 
     def __call__(self, model: torch.nn.Module, rng: int, batch,
                  noise: Sequence[Mapping[str, torch.Tensor]] | None = None
@@ -200,12 +212,16 @@ class EvalStep:
         rng_shard = fold(rng, mesh.rank())
         with torch.inference_mode():
             self._bind(model)
-            self._load(batch)
+            with span("iaf.eval.load"):
+                self._load(batch)
             for i in range(self.n_chunks):
-                self._draw(fold(rng_shard, i),
-                           None if noise is None else noise[i])
-                self._graph(self._chunk)
-            return _bound(self._m, self._s, self.k, self._group)
+                with span("iaf.eval.draw"):
+                    self._draw(fold(rng_shard, i),
+                               None if noise is None else noise[i])
+                with span("iaf.eval.replay"):
+                    self._graph(self._chunk)
+            with span("iaf.eval.bound"):
+                return _bound(self._m, self._s, self.k, self._group)
 
     def close(self) -> None:
         """Release the graph, its private memory pool and the buffers."""

@@ -21,6 +21,16 @@ step's noise into its buffers (the family's ``draw_noise``, the bits the
 eager step draws) and copies its batch in, so the trajectory is the
 eager loop's. On the CPU the same body runs eagerly at every step.
 
+A replay runs no Python, so the step's scope ranges (``grads``,
+``adamax_polyak``) show only in the eager step and at the capture. The
+host's work around a replay is in the spans ``iaf.train.load`` (the
+batch and noise into their buffers), ``iaf.train.replay`` and
+``iaf.train.stack`` (a chunk's metrics rows), and with marks on
+(``utils.trace``) the graph holds the device marks ``begin``, per
+micro-batch the model's ``up``, ``down``, ``out`` and ``bwd``, then
+``reduce`` under a group and ``opt``, so a device trace splits every
+replayed step into forward, backward and optimizer.
+
 Both model families take this path (``models.get_model``): the model,
 its noise sites and its metrics (``bits_per_dim`` and ``kl_per_layer``
 for CIFAR, ``nll_nats`` for MNIST) come from the family.
@@ -50,7 +60,6 @@ from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from iaf_torch import ops, optim
 from iaf_torch.core.config import Config
@@ -58,6 +67,7 @@ from iaf_torch.core.rng import fold, local_rows
 from iaf_torch.models import get_model
 from iaf_torch.parallel import mesh
 from iaf_torch.utils.params import param_device
+from iaf_torch.utils.trace import mark, span
 
 Noise = Mapping[str, torch.Tensor]
 
@@ -115,6 +125,7 @@ def _accumulate(cfg: Config, model: torch.nn.Module, rng: int, batch,
     if a_count == 1:
         loss, out = loss_fn(cfg, model, rng, batch, noise)
         loss.backward()
+        mark("bwd", batch.device)
         metrics = _out_metrics(loss, out)
     else:
         m_sum = None
@@ -122,6 +133,7 @@ def _accumulate(cfg: Config, model: torch.nn.Module, rng: int, batch,
             loss, out = loss_fn(cfg, model, fold(rng, a), rows,
                                 None if noise is None else noise[a])
             loss.backward()   # sums into .grad: g_0 + g_1 + ...
+            mark("bwd", batch.device)
             m = _out_metrics(loss, out)
             m_sum = m if m_sum is None else {k: m_sum[k] + m[k] for k in m}
         metrics = {k: v / a_count for k, v in m_sum.items()}
@@ -178,14 +190,17 @@ def _global_metrics(metrics: dict[str, torch.Tensor]
 
 
 def _apply_updates(cfg: Config, state: TrainState, grads) -> None:
-    """Adamax + Polyak over every parameter, in the profiler's range
-    ``adamax_polyak``."""
-    with record_function("adamax_polyak"):
+    """Adamax + Polyak over every parameter, in the host span
+    ``adamax_polyak``; then the device mark ``opt``. In a replay the
+    update is the device time between the marks ``bwd`` (or ``reduce``)
+    and ``opt``."""
+    with span("adamax_polyak"):
         optim.apply_updates(
             dict(state.params.named_parameters()), grads, state.opt,
             lr=cfg.learning_rate, beta1=cfg.beta1, beta2=cfg.beta2,
             eps=cfg.adamax_eps, polyak_decay=cfg.polyak_decay,
             bias_correction=cfg.bias_correction, grad_clip=cfg.grad_clip)
+    mark("opt", param_device(state.params))
 
 
 def train_step(cfg: Config, state: TrainState, rng: int, batch,
@@ -196,7 +211,8 @@ def train_step(cfg: Config, state: TrainState, rng: int, batch,
     the global draws, which each rank slices)."""
     model = state.params
     batch = _device_batch(batch, param_device(model))
-    with record_function("grads"), mesh.data_rows():
+    mark("begin", batch.device)
+    with span("grads"), mesh.data_rows():
         grads, metrics = _grads_and_metrics(cfg, model, rng, batch, noise)
     if mesh.active():
         live = [g for g in grads.values() if g is not None]
@@ -206,6 +222,7 @@ def train_step(cfg: Config, state: TrainState, rng: int, batch,
             g.copy_(flat[off:off + g.numel()].view_as(g))
             off += g.numel()
         metrics = _global_metrics(metrics)
+        mark("reduce", batch.device)
     _apply_updates(cfg, state, grads)
     return state, metrics
 
@@ -279,22 +296,25 @@ class TrainStep:
 
     def _forward_backward(self) -> dict[str, torch.Tensor]:
         """The step's forward and backward into the zeroed gradient
-        buffer; its metrics, this rank's (in the profiler's range
-        ``grads``)."""
+        buffer; its metrics, this rank's (in the host span ``grads``; in a
+        replay, the device time between the marks ``begin`` and the last
+        ``bwd``)."""
         self._grads.zero_()
         noise = self._noise[0] if len(self._noise) == 1 else self._noise
-        with record_function("grads"):
+        with span("grads"):
             return _accumulate(self.cfg, self.state.params, 0, self._batch,
                                noise)[1]
 
     def _reduce(self, metrics: dict[str, torch.Tensor]
                 ) -> dict[str, torch.Tensor]:
-        """The gradients and metrics as the ranks' means (a no-op with no
-        group)."""
+        """The gradients and metrics as the ranks' means, then the device
+        mark ``reduce`` (a no-op with no group)."""
         if not self._group:
             return metrics
         _mean_over_ranks(self._grads)
-        return _global_metrics(metrics)
+        metrics = _global_metrics(metrics)
+        mark("reduce", self.device)
+        return metrics
 
     def _update(self) -> None:
         _apply_updates(self.cfg, self.state,
@@ -302,6 +322,7 @@ class TrainStep:
                         self.state.params.named_parameters()})
 
     def _body(self) -> dict[str, torch.Tensor]:
+        mark("begin", self.device)
         metrics = self._reduce(self._forward_backward())
         self._update()
         return metrics
@@ -331,13 +352,15 @@ class TrainStep:
         if state is not self.state:
             raise ValueError("a TrainStep updates the state it was made "
                              "for")
-        self._load(key, batch, noise)
+        with span("iaf.train.load"):
+            self._load(key, batch, noise)
         if self.device.type != "cuda":
             return state, self._body()
         if self._graph is None:
             return state, self._warm_up_and_capture()
-        self._graph.replay()
-        ops.add_launch_counts(self._per_replay)
+        with span("iaf.train.replay"):
+            self._graph.replay()
+            ops.add_launch_counts(self._per_replay)
         return state, self._out
 
     def close(self) -> None:
@@ -376,11 +399,13 @@ class TrainChunk:
             state, metrics = self.step(state, fold(base_key, start_step + i),
                                        host[i],
                                        None if noise is None else noise[i])
-            for k, v in metrics.items():
-                if k not in stacked:
-                    stacked[k] = torch.empty((n,) + v.shape, dtype=v.dtype,
-                                             device=v.device)
-                stacked[k][i].copy_(v)
+            with span("iaf.train.stack"):
+                for k, v in metrics.items():
+                    if k not in stacked:
+                        stacked[k] = torch.empty((n,) + v.shape,
+                                                 dtype=v.dtype,
+                                                 device=v.device)
+                    stacked[k][i].copy_(v)
         return state, stacked
 
     def close(self) -> None:

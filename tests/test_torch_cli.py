@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from iaf_torch import cli
+from iaf_torch.utils import trace
 
 TINY = ("dataset=synthetic,image_size=8,z_size=4,h_size=8,depth=1,"
         "num_blocks=2,batch_size=4,eval_batch_size=4,eval_k=2,"
@@ -64,7 +65,9 @@ def test_profile_dir_is_written_when_the_mode_fails(tmp_path, monkeypatch):
 def test_profile_dir_trace_holds_the_named_ranges(tmp_path):
     """The JAX package's named scopes as ``record_function`` ranges in a
     1-step ``--mode train`` trace: the model's ``iaf_up``, ``iaf_down``
-    and ``ar_stack``, the step's ``grads`` and ``adamax_polyak``."""
+    and ``ar_stack``, the step's ``grads`` and ``adamax_polyak``; and the
+    port's host span around the step's loads, ``iaf.train.load``. The
+    device marks the run turned on are off again after it."""
     prof = tmp_path / "prof"
     cli.main(["--logdir", str(tmp_path / "log"), "--mode", "train",
               "--device", "cpu", "--profile_dir", str(prof), "--hpconfig",
@@ -74,8 +77,9 @@ def test_profile_dir_trace_holds_the_named_ranges(tmp_path):
         with open(os.path.join(prof, f)) as fh:
             names |= {e.get("name") for e in json.load(fh)["traceEvents"]}
     for scope in ("iaf_up", "iaf_down", "ar_stack", "grads",
-                  "adamax_polyak"):
+                  "adamax_polyak", "iaf.train.load"):
         assert scope in names, scope
+    assert trace.set_marks(False) is False
 
 
 MNIST = ("dataset=synthetic,likelihood=bernoulli,binarize=true,"
