@@ -14,6 +14,9 @@
                                             # convs at N = 1 to 1024, and
                                             # dgrad on both tiles
                                             # (``k2_plans_only``)
+    python3 chip_smoke.py --glue            # phases 3(b) and 3(c) alone,
+                                            # the paper and 5x5 configs
+                                            # (``glue_only``)
     python3 chip_smoke.py --ab DIR [CASE] [PAIRS]
                                             # one kernel of DIR's tree
                                             # against this one's, A B B A
@@ -82,7 +85,21 @@ Phases, any failure exits non-zero:
    and events with its blocks, the bound and cuDNN's three
    convs beside them, and where they differ the two A B B A (phase 6
    does the same in f32, phase 14 at N = 16 bf16 and N = 2 f32).
-   One chunk is then profiled (device time by kernel name).
+   (b) The fused inference passes (``iaf_torch.ops.glue``, ``glue_phase``)
+   on card tensors at the paper's widths (z 32, h 160, 16x16), N = 1024
+   (the eval chunk) and 16 (recon), with no border (the deconv's input),
+   the 3x3 convs' border and the 5x5 convs': each held to its twin run
+   on the card on the same inputs (``glue_check``: the residual h' and
+   K1's context bitwise, bf16 outputs within 1 bf16 step with their
+   border zero, z and log q within 4 ulp of f32 of their largest term,
+   the KL sums within their terms' tolerances), the same bits on two
+   calls, one launch a call; at the 3x3 border each timed by events and
+   device time beside its twin, with its bytes bound: one kernels row a
+   pass. (c) One chunk of the paper model eagerly through the fused
+   route and with ``cvae.fused_route`` forced off (``glue_route_phase``;
+   phase 11 the same for the 5x5 model): the bound within 4 ulp of f32,
+   the decoder's output bitwise. One chunk is then profiled (device time
+   by kernel name).
 4. Port vs plain on a small input: one f32 eval forward on the card
    (kernels) against the same forward on the CPU (twins), same noise.
 5. Eval main path: ``iaf_torch.train_lib.evaluate`` over 2 test batches
@@ -165,8 +182,10 @@ Phases, any failure exits non-zero:
    chunk for all three conv shapes, each of which must take the
    tensor-core forward kernel, held to the twin in bf16 at 2e-2 (and the
    same inputs upcast to f32 at 1e-5) of the output's max, timed beside
-   the twin, one cuDNN conv (with the ratio) and the bound, and one chunk
-   profiled; one f32 eval forward, card against CPU twins; ``evaluate``
+   the twin, one cuDNN conv (with the ratio) and the bound; one chunk
+   through the fused and the plain route (phase 3(c), the passes with
+   the 5x5 convs' border of 2), and one chunk profiled; one f32 eval
+   forward, card against CPU twins; ``evaluate``
    at k=256 with launches exactly K2 = 60, K3 = 20, K4 = 1 per chunk and
    K1 = 0; K2's backward on inputs captured from a real bf16 step at
    batch 32, each shape's dgrad and wgrad on the tensor cores, held to
@@ -381,8 +400,10 @@ K2's library calls) is the device time the profiler records for the same
 calls, host gaps left out, which ranks a kernel against its library
 call.
 
-The second-last line of standard output is the ``kernels`` JSON (the f32
-recipe's kernels rows of their own: K1's forward ``ar_stack_f32`` and
+The second-last line of standard output is the ``kernels`` JSON (the
+fused passes' rows ``elu_bf16``, ``residual_elu``, ``up_stats``,
+``posterior``, ``kl_join``, N = 16 under ``*_n16``, their launches those
+of phase 5's eval; the f32 recipe's kernels rows of their own: K1's forward ``ar_stack_f32`` and
 backward ``ar_stack_bwd_f32``, their launches those of phase 6's runs,
 and K2's ``masked_conv2d_f32`` and ``masked_conv2d_bwd_f32``, those of
 phase 12's; each with the 3xTF32 bound and the FP32 floor; and
@@ -914,6 +935,42 @@ def plans_only() -> int:
     return 0
 
 
+def glue_only() -> int:
+    """``--glue``: phase 3(b), the fused passes against their twins with
+    their kernels rows, and 3(c), an eval chunk through the fused and the
+    plain route, at the paper and the 5x5 configs (random weights from a
+    data-dependent init); about two minutes."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from iaf_torch import ops
+    from iaf_torch.core.config import Config
+    from iaf_torch.data.datasets import synthetic_dataset
+    from iaf_torch.models import cvae
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    out = {"kernels": glue_phase(ops, device)}
+    for label, hp in (("paper", PAPER), ("5x5", PAPER5)):
+        cfg = Config().parse(hp + ",dataset=synthetic")
+        ds = synthetic_dataset(cfg.image_size, cfg.channels)
+        model = cvae.init_params(cfg, ds.train_x[:32], rng=cfg.seed,
+                                 device=device)
+        out[label] = glue_route_phase(cfg, model, ds.test_x[:EVAL_BATCH],
+                                      EVAL_CHUNK, label)
+        del model
+    print(json.dumps({"glue": out}, default=str))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def k2_plans_only() -> int:
     """``--k2-plans``: K2's builds (forward, backward; K1's backward for
     its dgrad pack) with their ptxas lines, then on the three 5x5 AR convs
@@ -1210,6 +1267,243 @@ def k4_forward(ops, mean, logscale, sample, label: str) -> dict:
                 mbytes=moved / 1e6, splits=plan,
                 device_launches_per_call=per_call,
                 splits_device_ms=by_split)
+
+
+# the fused inference passes (``iaf_torch.ops.glue``), phase 3(b)
+GLUE_ZS, GLUE_HS, GLUE_HW = 32, 160, 16     # the paper's latents, 16x16
+GLUE_PADS = (0, 1, 2)   # the deconv's input, the 3x3 and the 5x5 convs'
+
+
+def _bf16_steps(a, b):
+    """Distance in representable bf16 values, elementwise."""
+    import torch
+
+    def key(t):
+        i = t.contiguous().view(torch.int16).long()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
+def _gauss_tol(x, mean, logvar, eps=None):
+    """4 ulp of f32 on the largest term of DiagonalGaussian.logps (and of
+    sample, given eps): exp's 2 ulp can cancel in the sums."""
+    import torch
+    glue = importlib.import_module("iaf_torch.ops.glue")
+    u = torch.finfo(torch.float32).eps
+    t = torch.square(x - mean) * torch.exp(-logvar)
+    lp = 4 * u * ((logvar + glue._LOG2PI).abs() + t.abs())
+    if eps is None:
+        return lp
+    return lp, 4 * u * (mean.abs() + (torch.exp(0.5 * logvar) * eps).abs())
+
+
+def glue_check(op: str, args, got, want) -> list[int]:
+    """One call of the fused pass ``op`` (a counter of
+    ``ops.glue.launches``) against its twin's outputs on the same inputs:
+    the residual h' and K1's context bitwise; every bf16 output within 1
+    bf16 step (ELU's 2 ulp of f32 before rounding) and its border zero; z
+    and log q within 4 ulp of f32 of their largest term; the KL sums
+    within their terms' tolerances and f32 summation in another order;
+    the h_det half of the join against ELU(h_det + b) from the raw output.
+    Returns, per output, how many elements differ from the twin's bits."""
+    import torch
+    import torch.nn.functional as F
+    glue = importlib.import_module("iaf_torch.ops.glue")
+    label = f"glue {op} {tuple(args[0].shape)}"
+    check(len(got) == len(want), f"{label}: {len(got)} outputs")
+    pad = args[-1] if op != "posterior" else 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{label} output {i}: {a.shape} {a.dtype}, twin {b.shape} "
+              f"{b.dtype}")
+        if a.dtype == torch.bfloat16:
+            check(int(_bf16_steps(a, b).max()) <= 1,
+                  f"{label} output {i}: beyond 1 bf16 step of the twin")
+        if a.dtype == torch.bfloat16 and pad:
+            inner = a.float().clone()
+            inner[:, pad:-pad, pad:-pad] = 0
+            check(not inner.any(), f"{label} output {i}: border not zero")
+    if op == "residual_elu":
+        check(torch.equal(got[0], want[0]), f"{label}: h' not bitwise")
+    if op == "posterior":
+        down, db, up, ub, eps = args
+        zs = eps.shape[-1]
+        u, d = up.float() + ub, down.float() + db
+        mean = u[..., :zs] + d[..., 2 * zs:3 * zs]
+        logvar = 2.0 * (u[..., zs:2 * zs] + d[..., 3 * zs:4 * zs])
+        lp_tol, z_tol = _gauss_tol(want[0], mean, logvar, eps)
+        check(bool(((got[0] - want[0]).abs() <= z_tol).all()),
+              f"{label}: z beyond 4 ulp of its largest term")
+        check(torch.equal(got[1], got[0].to(torch.bfloat16)),
+              f"{label}: bf16 z is not z rounded")
+        check(bool(((got[2] - want[2]).abs() <= lp_tol).all()),
+              f"{label}: log q beyond 4 ulp of its largest term")
+        check(torch.equal(got[3], want[3]), f"{label}: context not bitwise")
+    if op == "kl_join":
+        z, lq, down, db, pad = args
+        zs = z.shape[-1]
+        d = down.float() + db
+        lp_tol = _gauss_tol(z, d[..., :zs], 2.0 * d[..., zs:2 * zs])
+        kl = lq - glue.DiagonalGaussian(d[..., :zs],
+                                        2.0 * d[..., zs:2 * zs]).logps(z)
+        # each term within its tolerance, then f32 sums in another order
+        row_tol = lp_tol.sum((1, 2)) + 1e-5 * kl.abs().sum((1, 2))
+        check(bool(((got[0] - want[0]).abs() <= row_tol).all()),
+              f"{label}: KL sums beyond their tolerance")
+        check(bool(((got[1] - want[1]).abs() <= row_tol.sum(1)
+                    + 1e-5 * kl.abs().sum((1, 2, 3))).all()),
+              f"{label}: KL totals beyond their tolerance")
+        hs = (down.shape[-1] - 4 * zs) // 2
+        hdet = glue.padded(F.elu(d[..., 4 * zs + hs:]).to(torch.bfloat16),
+                           pad)
+        check(int(_bf16_steps(got[2][..., zs:], hdet).max()) <= 1,
+              f"{label}: the join's h_det half")
+    return [int((a != b).sum()) for a, b in zip(got, want)]
+
+
+def glue_cases(n: int, device, pad: int, seed: int):
+    """Per fused pass at n rows, the paper's widths and this conv border:
+    (op, args, twin, the bytes it must move). Raw conv outputs bf16 (2
+    bytes a channel), states f32; each channel a pass reads or writes
+    counted once, the biases once."""
+    import torch
+    glue = importlib.import_module("iaf_torch.ops.glue")
+    zs, hs, hw = GLUE_ZS, GLUE_HS, GLUE_HW
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=device)
+                * scale).to(dtype)
+    bf = torch.bfloat16
+    pix = (n, hw, hw)
+    p, pp = n * hw * hw, n * (hw + 2 * pad) ** 2
+    h, conv, b = r(*pix, hs), r(*pix, hs, dtype=bf), r(hs, scale=0.3)
+    up, ub = r(*pix, 2 * zs + 2 * hs, dtype=bf), r(2 * zs + 2 * hs,
+                                                   scale=0.3)
+    down = r(*pix, 4 * zs + 2 * hs, dtype=bf, scale=0.5)
+    db = r(4 * zs + 2 * hs, scale=0.3)
+    eps, z, lq = r(*pix, zs), r(*pix, zs), r(*pix, zs)
+    h_top = r(hs).expand(*pix, hs)
+    return {
+        "elu_bf16": (glue.elu_bf16_op, (h, pad), glue.elu_bf16_ref,
+                     p * 4 * hs + pp * 2 * hs),
+        "elu_bf16_h_top": (glue.elu_bf16_op, (h_top, pad),
+                           glue.elu_bf16_ref, 4 * hs + pp * 2 * hs),
+        "residual_elu": (glue.residual_elu_op, (h, conv, b, pad),
+                         glue.residual_elu_ref,
+                         p * (4 + 2 + 4) * hs + pp * 2 * hs + 4 * hs),
+        "residual_elu_h_top": (glue.residual_elu_op, (h_top, conv, b, pad),
+                               glue.residual_elu_ref,
+                               p * (2 + 4) * hs + pp * 2 * hs + 8 * hs),
+        "up_stats": (glue.up_stats_op, (up, ub, hs, pad), glue.up_stats_ref,
+                     p * 2 * hs + pp * 2 * hs + 4 * hs),
+        "posterior": (glue.posterior_op, (down, db, up, ub, eps),
+                      glue.posterior_ref,
+                      p * (2 * 2 * (2 * zs + hs) + 4 * zs
+                           + (4 + 2 + 4) * zs + 4 * hs)
+                      + 4 * (2 * zs + hs) * 2),
+        "kl_join": (glue.kl_join_op, (z, lq, down, db, pad),
+                    glue.kl_join_ref,
+                    p * (2 * 4 * zs + 2 * (2 * zs + hs))
+                    + pp * 2 * (zs + hs) + 4 * (2 * zs + hs)
+                    + n * (zs + 1) * 4)}
+
+
+def _flat(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+# the kernels rows of the fused passes: name (the counter), case at the
+# paper's border (pad 1), the Triton kernel
+GLUE_ROWS = (("elu_bf16", "elu_bf16_h_top", "glue_residual_elu_kernel"),
+             ("residual_elu", "residual_elu", "glue_residual_elu_kernel"),
+             ("up_stats", "up_stats", "glue_up_stats_kernel"),
+             ("posterior", "posterior", "glue_posterior_kernel"),
+             ("kl_join", "kl_join", "glue_kl_join_kernel"))
+
+
+def glue_phase(ops, device) -> list[dict]:
+    """Phase 3(b): each fused pass on card tensors at the eval chunk's N =
+    1024 rows and the serving N = 16, the paper's widths, with no border
+    (the deconv's input), the 3x3 convs' and the 5x5 convs': held to its
+    twin run on the card on the same inputs (``glue_check``), the same
+    bits on two calls, one launch a call. At the paper's border each is
+    timed by events and by device time beside its twin, with its bytes
+    bound at 3.35 TB/s; one kernels row a pass (N = 16 under ``*_n16``).
+    """
+    import torch
+    glue = importlib.import_module("iaf_torch.ops.glue")
+    timed: dict = {}
+    with torch.inference_mode():
+        for n in (1024, 16):
+            for pad in GLUE_PADS:
+                for case, (op, args, twin, moved) in glue_cases(
+                        n, device, pad, 7000 + 10 * n + pad).items():
+                    name = case.removesuffix("_h_top")
+                    ops.reset_launch_counts()
+                    got = _flat(op(*args))
+                    check(ops.launch_counts()[name] == 1,
+                          f"glue {case}: {ops.launch_counts()}")
+                    differ = glue_check(name, args, got, _flat(twin(*args)))
+                    check(all(torch.equal(a, b) for a, b in
+                              zip(_flat(op(*args)), got)),
+                          f"glue {case} n={n} pad={pad}: two calls differ")
+                    print(f"[glue] {case} n={n} pad={pad}: elements apart "
+                          f"from the twin's bits, per output {differ} of "
+                          f"{[a.numel() for a in got]}")
+                    if pad == 1:
+                        timed[case, n] = dict(
+                            ms=cuda_ms(lambda: op(*args)),
+                            device_ms=device_ms(lambda: op(*args)),
+                            plain_ms=cuda_ms(lambda: twin(*args)),
+                            bound_ms=bound_ms(0, "float32", moved)[0],
+                            mbytes=moved / 1e6, differ=differ)
+    rows = []
+    for name, case, kernel in GLUE_ROWS:
+        big, small = timed[case, 1024], timed[case, 16]
+        rows.append(dict(
+            name=name, route="triton", source="iaf_torch/ops/glue.py",
+            kernel=kernel, replaces=None, library_ms=None, bound_by="bytes",
+            **big, **{f"{k}_n16": v for k, v in small.items()}))
+        share = 100 * big["bound_ms"] / big["device_ms"]
+        print(f"[glue] {name} ({case}): device {big['device_ms']:.4f} ms, "
+              f"N = 16 {small['device_ms']:.4f} ms; bound "
+              f"{big['bound_ms']:.4f} ({share:.0f} % of it), "
+              f"{small['bound_ms']:.4f}; twin {big['plain_ms']:.4f}, "
+              f"{small['plain_ms']:.4f} ms")
+    return rows
+
+
+def glue_route_phase(cfg, model, x, k: int, label: str) -> dict:
+    """Phase 3(c) (11 for the 5x5 config): one bf16 eval chunk (the images
+    ``x``, k samples each) eagerly through the fused passes, and again
+    with ``cvae.fused_route`` forced off (the plain passes), same weights
+    and noise: per output of the forward, the elements apart and the
+    largest difference. The bound (``elbo_nats``) within 4 ulp of f32 of
+    the plain route's: the passes are their twins' arithmetic but for the
+    KL sums' order (an H100 read 1 ulp for 1 of 16 images, 6.1e-5 nats in
+    3 of 20 layers' mean KL); the decoder's output bitwise."""
+    import torch
+    from unittest import mock
+    from iaf_torch.models import cvae
+    with torch.inference_mode():
+        check(cvae.fused_route(model, torch.bfloat16),
+              f"{label}: the eval chunk does not take the fused route")
+        fused = cvae.apply_fn(cfg, model, 5, x, mode="eval", k=k)
+        with mock.patch.object(cvae, "fused_route",
+                               lambda model, dtype: False):
+            plain = cvae.apply_fn(cfg, model, 5, x, mode="eval", k=k)
+    out = {}
+    for field, a, b in zip(fused._fields, fused, plain):
+        out[field] = dict(apart=int((a != b).sum()), of=a.numel(),
+                          max_abs=float((a - b).abs().max()))
+    print(f"[glue] {label}: {x.shape[0]} images x {k}, fused route against "
+          f"the plain one: {out}")
+    ulp = torch.finfo(torch.float32).eps * plain.elbo_nats.abs()
+    check(bool(((fused.elbo_nats - plain.elbo_nats).abs() <= 4 * ulp).all()),
+          f"{label}: the fused route's bound is {out['elbo_nats']} apart")
+    check(out["x_out"]["apart"] == 0, f"{label}: the decoder's output")
+    return out
 
 
 def profile_phase(label: str, fn) -> dict:
@@ -1937,6 +2231,24 @@ def _train_images(cfg, n: int):
     return x
 
 
+def with_glue(per: dict, cfg, model=None) -> dict:
+    """``per`` (the launches of a forward of ``model`` without autograd;
+    by default a CIFAR model of ``cfg``) with those of the fused inference
+    passes (``iaf_torch.ops.glue``) where ``cvae.fused_route`` takes them
+    there: per IAF layer one ``up_stats``, ``posterior`` and ``kl_join``
+    and two ``residual_elu``, and two ``elu_bf16`` a forward."""
+    import torch
+    from iaf_torch.models import cvae
+    model = cvae.CVAE(cfg, device="meta") if model is None else model
+    with torch.no_grad():
+        if not (isinstance(model, cvae.CVAE) and cvae.fused_route(
+                model, cvae.compute_dtype(cfg.compute_dtype))):
+            return per
+    layers = len(model.blocks)
+    return {**per, "elu_bf16": 2, "residual_elu": 2 * layers,
+            "up_stats": layers, "posterior": layers, "kl_join": layers}
+
+
 def _expect(counts: dict, per: dict, times: int) -> dict:
     """Every counter zero but those of ``per``, which are ``times`` x."""
     want = dict.fromkeys(counts, 0)
@@ -2030,6 +2342,7 @@ def eval_phase(ops, device, cfg, model, ds, per_chunk: dict):
     from iaf_torch import train_lib
     from iaf_torch.parallel.eval_step import make_graphed_eval_step
     tag = _label(cfg)
+    per_chunk = with_glue(per_chunk, cfg, model)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3007,6 +3320,8 @@ def five_by_five_phases(ops, device, ds):
                           k=EVAL_CHUNK)
     rows = [k2_forward_phase(ops, capture_k2(ops, "masked_conv2d",
                                              one_chunk))]
+    glue = glue_route_phase(cfg, model, ds.test_x[:EVAL_BATCH], EVAL_CHUNK,
+                            "5x5")
     profile_phase(f"5x5: one eval chunk (16 images x {EVAL_CHUNK} samples)",
                   one_chunk)
     reference_phase(device, PAPER5)
@@ -3034,6 +3349,7 @@ def five_by_five_phases(ops, device, ds):
     summary["profile"] = profile_phase(
         f"5x5: one training step (batch {tcfg.batch_size})",
         lambda: ts.train_step(tcfg, tstate, 99, tbatch))
+    main["glue_route"] = glue
     return rows, eval_counts, counts, {"main": main, "train": summary}, f32
 
 
@@ -3070,8 +3386,8 @@ def serve_phase(ops, device, cfg) -> tuple[list[dict], dict, dict]:
     os.makedirs(out)
     summary: dict = {}
     layers = cfg.num_blocks * cfg.depth
-    per_chunk = {"ar_stack": layers, "iaf_update": layers,
-                 "disc_logistic_logp": 1}
+    per_chunk = with_glue({"ar_stack": layers, "iaf_update": layers,
+                           "disc_logistic_logp": 1}, cfg)
 
     def counted(label, fn, per: dict | None, times: int = 1):
         """``fn``'s result, seconds and launch counts; with ``per`` the
@@ -4349,7 +4665,11 @@ def multi_phase(ops, device, ref_logdir: str) -> dict:
 
 
 # phase 18: the launches of one artifact call on the paper config
-EXPORT_PER_CALL = {"ar_stack": 20, "iaf_update": 20, "disc_logistic_logp": 1}
+# the paper elbo artifact's launches a call, the fused passes
+# (``with_glue``) included
+EXPORT_PER_CALL = {"ar_stack": 20, "iaf_update": 20, "disc_logistic_logp": 1,
+                   "elu_bf16": 2, "residual_elu": 40, "up_stats": 20,
+                   "posterior": 20, "kl_join": 20}
 EXPORT_SEED = 4242
 # phase 5's steady seconds per paper eval batch and phase 3's events ms of
 # K1, K3 and K4 at N = 1024 when the wrappers launched the kernels directly,
@@ -4693,7 +5013,8 @@ def _export_rest(ops, device, cfg, paths, x, root, main, rows,
                                          batch_size=EVAL_BATCH)
     summary["5x5_export_s"] = time.perf_counter() - t0
     elbo = _load_timed(paths5["elbo"], loads, "5x5_elbo")
-    per5 = {"masked_conv2d": 60, "iaf_update": 20, "disc_logistic_logp": 1}
+    per5 = with_glue({"masked_conv2d": 60, "iaf_update": 20,
+                      "disc_logistic_logp": 1}, cfg5)
     nodes = _iaf_nodes(elbo)
     check(nodes == per5, f"the 5x5 elbo graph holds {nodes}")
     x16 = x[:EVAL_BATCH]
@@ -4988,6 +5309,7 @@ def _eval_cell(ops, device, cfg, model, batch, per_chunk: dict) -> dict:
     from iaf_torch.parallel.eval_step import (make_eval_step,
                                               make_graphed_eval_step)
     tag = _label(cfg)
+    per_chunk = with_glue(per_chunk, cfg, model)
     steps = {"eager": make_eval_step(cfg, device, k=EVAL_K),
              "graph": make_graphed_eval_step(cfg, device, k=EVAL_K)}
     chunks = steps["graph"].n_chunks
@@ -5192,8 +5514,8 @@ def _heartbeat_cell(ops, device) -> dict:
         counts = ops.launch_counts()
         want = _expect(counts, PER_STEP, HEARTBEAT_STEPS)
         beats = HEARTBEAT_STEPS // every if every else 0
-        for k, v in per_beat.items():
-            want[k] += v * beats
+        for k, v in with_glue(per_beat, cfg).items():
+            want[k] = want.get(k, 0) + v * beats
         check(counts == want, f"train eval_every={every}: launches {counts} "
               f"!= {want}")
         with open(os.path.join(logdir, "metrics.jsonl")) as f:
@@ -5306,6 +5628,9 @@ def run() -> dict:
             cvae.apply_fn(cfg, model, 1, ds.test_x[:EVAL_BATCH], mode="eval",
                           k=EVAL_CHUNK)
     rows = kernel_phase(ops, capture_inputs(ops, one_chunk), device)
+    rows += glue_phase(ops, device)
+    main_glue = glue_route_phase(cfg, model, ds.test_x[:EVAL_BATCH],
+                                 EVAL_CHUNK, "paper")
     profile_phase(f"one eval chunk (16 images x {EVAL_CHUNK} samples)",
                   one_chunk)
 
@@ -5413,6 +5738,7 @@ def run() -> dict:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
               f"{r['launches']}")
     main["init"] = init
+    main["glue_route"] = main_glue
     print(json.dumps({"main": main, "train": summary,
                       "main_f32": summary32["main"],
                       "train_f32": summary32["train"],
@@ -6169,6 +6495,8 @@ def main() -> int:
             return plans_only()
         if sys.argv[1:] == ["--k2-plans"]:
             return k2_plans_only()
+        if sys.argv[1:] == ["--glue"]:
+            return glue_only()
         if len(sys.argv) in (3, 4) and sys.argv[1] == "--invert-ab":
             return invert_plan_ab(int(sys.argv[2]), *sys.argv[3:])
         if sys.argv[1:] == ["--invert-ab"]:

@@ -19,7 +19,14 @@ data-dependent init runs plain convs, as JAX's init never reaches Pallas.
 With ``scan_blocks`` and ``remat`` a training forward under autograd
 checkpoints each layer's up and down pass (``torch.utils.checkpoint``):
 their activations are recomputed in the backward, so on CUDA every
-layer's forward kernels run twice a step.
+layer's forward kernels run twice a step. Where autograd does not record
+and the conv operands are bf16 (``fused_route``: the IW eval, the
+serving modes, export), the IAF layers run ``iaf_layer_up_fused`` and
+``iaf_layer_down_fused``: the trunk convs return their raw bf16 outputs
+from inputs that hold their zero border, ``ops.glue``'s passes do the
+rest of each layer's elementwise work, and each layer's up-pass
+statistics stay bf16 (``RawStats``); the arithmetic is the plain
+passes', which the training step and the f32 recipes keep.
 
 Noise: every layer's posterior draw comes from the site
 ``block_i/layer_j/z_post`` under the step key (``core.rng``), its prior
@@ -62,6 +69,14 @@ class LayerStats(NamedTuple):
     qz_mean: torch.Tensor
     qz_logsd: torch.Tensor
     up_context: torch.Tensor
+
+
+class RawStats(NamedTuple):
+    """A layer's up-pass statistics on the fused route: ``up_conv1``'s raw
+    bf16 output (NHWC; qz_mean, qz_logsd, up_context, hidden) and its
+    bias, which the down pass adds as it reads them."""
+    out: torch.Tensor
+    b: torch.Tensor
 
 
 class ModelOut(NamedTuple):
@@ -156,15 +171,16 @@ def iaf_layer_up(cfg: Config, layer: IAFLayer, h: torch.Tensor, dtype=None,
 
 
 def iaf_flow(cfg: Config, layer: IAFLayer, z, context, logqs, dtype=None,
-             init: bool = False):
+             init: bool = False, z_ar=None):
     """One IAF step: masked AR net (the host span ``ar_stack``; in a
     replay, inside the ``down`` phase) -> (m, s) heads scaled by 0.1 ->
-    invertible update, the log-det-Jacobian folded into ``logqs``."""
+    invertible update, the log-det-Jacobian folded into ``logqs``.
+    ``z_ar``, where given, is z already in ``dtype`` for the AR net."""
     with span("ar_stack"):
         if init:
             m, s = layer.ar1.init_forward(z, context)
         else:
-            m, s = layer.ar1(z, context, dtype)
+            m, s = layer.ar1(z if z_ar is None else z_ar, context, dtype)
     m = m * 0.1
     s = s * 0.1
     if cfg.flow_update == "division":
@@ -211,6 +227,54 @@ def iaf_layer_down(cfg: Config, layer: IAFLayer, h, stats: LayerStats,
         hidden = F.elu(torch.cat([z, h_det], dim=-1))
         hidden = _conv(layer.down_conv2, hidden, dtype, init)
         return h + 0.1 * hidden, kl_obj, kl_cost
+
+
+def fused_route(model: CVAE, dtype) -> bool:
+    """Whether a forward takes the fused inference passes (``ops.glue``):
+    the conv operands are bf16, the trunk convs run on a bordered input
+    (``WNConv2d.same_pad``) and autograd does not record (the test
+    ``ops.ar_stack`` makes). The training step, the f32 recipes and
+    everything under autograd keep the plain passes."""
+    return (dtype == torch.bfloat16
+            and model.blocks[0].up_conv1.same_pad is not None
+            and not (torch.is_grad_enabled()
+                     and any(p.requires_grad for p in model.parameters())))
+
+
+def iaf_layer_up_fused(cfg: Config, layer: IAFLayer, h, a):
+    """``iaf_layer_up`` on the fused route: ``a`` is bf16 ELU(h) with the
+    trunk convs' zero border, the convs run unpadded on such inputs and
+    return their raw bf16 outputs, and ``ops.glue``'s passes add the
+    biases. Returns (new h, its bf16 ELU with the border, ``RawStats``)."""
+    pad = layer.up_conv1.same_pad
+    with span("iaf_up"):
+        out = layer.up_conv1.raw(a)
+        hidden = ops.up_stats(out, layer.up_conv1.b, cfg.h_size, pad)
+        h, a = ops.residual_elu(h, layer.up_conv3.raw(hidden),
+                                layer.up_conv3.b, pad)
+        return h, a, RawStats(out, layer.up_conv1.b)
+
+
+def iaf_layer_down_fused(cfg: Config, layer: IAFLayer, h, a,
+                         stats: RawStats, eps: torch.Tensor, dtype,
+                         last: bool):
+    """``iaf_layer_down`` on the fused route (as ``iaf_layer_up_fused``;
+    the ``last`` layer's ELU(h) goes to the deconv, with no border):
+    returns (new h, its bf16 ELU, the free-bits term, kl_cost)."""
+    pad = layer.down_conv1.same_pad
+    with span("iaf_down"):
+        out, b = layer.down_conv1.raw(a), layer.down_conv1.b
+        z, z_ar, logqs, context = ops.posterior(out, b, stats.out, stats.b,
+                                                eps)
+        if cfg.flow == "iaf":
+            z, logqs = iaf_flow(cfg, layer, z, context, logqs, dtype,
+                                z_ar=z_ar)
+        kl_sums, kl_cost, joined = ops.kl_join(z, logqs, out, b, pad)
+        kl_obj = (torch.mean(kl_sums, dim=0, keepdim=True)
+                  if cfg.kl_min > 0 else kl_cost)
+        h, a = ops.residual_elu(h, layer.down_conv2.raw(joined),
+                                layer.down_conv2.b, 0 if last else pad)
+        return h, a, kl_obj, kl_cost
 
 
 def free_bits(cfg: Config, kl_aves, batch: int, global_batch: bool):
@@ -288,7 +352,9 @@ def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
     importance samples repeat each image k times, interleaved. Issues the
     device marks ``up`` after the up passes, ``down`` after the down
     passes and the KL stack, and ``out`` after the loss and the bound
-    (``utils.trace``; nothing where marks are off)."""
+    (``utils.trace``; nothing where marks are off). Where ``fused_route``
+    holds, the IAF layers run ``iaf_layer_up_fused`` and
+    ``iaf_layer_down_fused``, which carry h and its bf16 ELU."""
     if mode not in ("train", "eval"):
         raise ValueError(f"mode {mode!r} not in ('train', 'eval')")
     k = cfg.k if k is None else k
@@ -305,22 +371,33 @@ def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
     # scanned layer body, so only with scan_blocks); training only
     remat = (cfg.scan_blocks and cfg.remat and mode == "train"
              and torch.is_grad_enabled())
+    fused = fused_route(model, dtype)
+    pad = model.blocks[0].up_conv1.same_pad if fused else 0
+    a = ops.elu_bf16(h, pad) if fused else None
     stats = []
     for layer in model.blocks:
-        h, st = _layer_pass(remat, iaf_layer_up, cfg, layer, h, dtype)
+        if fused:
+            h, a, st = iaf_layer_up_fused(cfg, layer, h, a)
+        else:
+            h, st = _layer_pass(remat, iaf_layer_up, cfg, layer, h, dtype)
         stats.append(st)
     mark("up", device)
 
     dec_hw = cfg.image_size // 2
     h = model.h_top.expand(batch, dec_hw, dec_hw, cfg.h_size)
+    a = ops.elu_bf16(h, pad) if fused else None
     n = len(model.blocks)
     objs, costs = [None] * n, [None] * n
     zshape = (batch, dec_hw, dec_hw, cfg.z_size)
     for i in reversed(range(n)):
         eps = _eps(cfg, rng, i, zshape, device, noise)
-        h, objs[i], costs[i] = _layer_pass(remat, iaf_layer_down, cfg,
-                                           model.blocks[i], h, stats[i],
-                                           eps, dtype)
+        if fused:
+            h, a, objs[i], costs[i] = iaf_layer_down_fused(
+                cfg, model.blocks[i], h, a, stats[i], eps, dtype, i == 0)
+        else:
+            h, objs[i], costs[i] = _layer_pass(remat, iaf_layer_down, cfg,
+                                               model.blocks[i], h, stats[i],
+                                               eps, dtype)
     if cfg.kl_min > 0:
         objs = free_bits(cfg, objs, batch,
                          mode == "train" and mesh.active())
@@ -329,7 +406,7 @@ def cvae_forward(cfg: Config, model: CVAE, x, rng: int, mode: str = "train",
     kl_cost_total = kl_costs.sum(0)
     mark("down", device)
 
-    x_out = model.x_dec(F.elu(h), dtype)
+    x_out = model.x_dec(a if fused else F.elu(h), dtype)
     log_pxz = ops.disc_logistic_logp(x_out.contiguous(), model.dec_log_stdv,
                                      x.contiguous())
     loss = torch.mean(kl_obj_total - log_pxz)

@@ -141,6 +141,29 @@ class WNConv2d(nn.Module):
                 dtype: torch.dtype | None = None) -> torch.Tensor:
         return self._run(x, self.weight(), dtype) + self.b
 
+    def raw(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv, unpadded, on an NHWC-contiguous input ``x`` that holds
+        its SAME zero border already (``same_pad`` pixels a side): the raw
+        output in x's dtype, NHWC (a view of channels-last memory), bias
+        not added. The fused inference passes (``ops.glue``) write such
+        inputs and add the bias."""
+        if self.same_pad is None:
+            raise ValueError("raw: a stride-1 unmasked conv with an odd "
+                             "square kernel")
+        return F.conv2d(x.permute(0, 3, 1, 2),
+                        self.weight().to(x.dtype)).permute(0, 2, 3, 1)
+
+    @property
+    def same_pad(self) -> int | None:
+        """The zero border ``raw`` wants around its input, the same on
+        every side; None where there is none such (a stride, a mask, an
+        even or oblong kernel) and ``raw`` cannot run the conv."""
+        kh, kw = self.filter_size
+        if self.stride != (1, 1) or self.mask is not None or kh != kw \
+                or kh % 2 == 0:
+            return None
+        return kh // 2
+
     def init_forward(self, x: torch.Tensor) -> torch.Tensor:
         x_init = self._run(x, _wn_direction(self.V, (1, 2, 3), self.mask),
                            None)

@@ -27,6 +27,11 @@ kernels (``core/export.py``). Importing this package registers them.
   one launch), twin ``disc_logistic_bwd_ref``
 - K5 ``adamax_polyak`` (Triton, one launch over all leaves), twin
   ``adamax_polyak_ref``
+- the IAF layer's inference glue around the trunk convs (Triton,
+  ``glue.py``; torch ops ``iaf::elu_bf16``, ``iaf::residual_elu``,
+  ``iaf::up_stats``, ``iaf::posterior``, ``iaf::kl_join``), twins
+  ``elu_bf16_ref``, ``residual_elu_ref``, ``up_stats_ref``,
+  ``posterior_ref``, ``kl_join_ref``; no backward
 
 Each wrapper counts its launches (``launch_counts``). A replayed CUDA graph
 runs no Python, so the launches its capture saw (``launches_apart``) are
@@ -42,6 +47,7 @@ import torch
 from iaf_torch.ops import ar_stack as _ar_stack_mod
 from iaf_torch.ops import fused as _fused_mod
 from iaf_torch.ops import fused_adamax as _adamax_mod
+from iaf_torch.ops import glue as _glue_mod
 from iaf_torch.ops import masked_conv as _masked_conv_mod
 from iaf_torch.ops.ar_stack import (  # noqa: F401
     ar_stack,
@@ -67,6 +73,18 @@ from iaf_torch.ops.fused_adamax import (  # noqa: F401
     adamax_polyak,
     adamax_polyak_ref,
 )
+from iaf_torch.ops.glue import (  # noqa: F401
+    elu_bf16,
+    elu_bf16_ref,
+    kl_join,
+    kl_join_ref,
+    posterior,
+    posterior_ref,
+    residual_elu,
+    residual_elu_ref,
+    up_stats,
+    up_stats_ref,
+)
 from iaf_torch.ops.masked_conv import (  # noqa: F401
     masked_conv2d,
     masked_conv2d_bwd,
@@ -75,7 +93,7 @@ from iaf_torch.ops.masked_conv import (  # noqa: F401
 )
 
 _COUNTERS = (_ar_stack_mod.launches, _masked_conv_mod.launches,
-             _fused_mod.launches, _adamax_mod.launches)
+             _fused_mod.launches, _adamax_mod.launches, _glue_mod.launches)
 
 
 def launch_counts() -> dict[str, int]:
